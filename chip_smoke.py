@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``fedml_tpu_torch``) on one NVIDIA H100.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+
+1. device: require CUDA; print the card's name and power limit;
+2. build ``fedml_tpu_torch/ops/csrc/flash_fwd.cu`` with nvcc (timed);
+3. the flash-attention kernel against its plain version, f32 and bf16,
+   causal and full, at the main path's shape and at ragged, Tq != Tk and
+   D=8 shapes;
+4. the autograd function's gradients on the card against autograd through
+   the plain version;
+5. end-to-end check at a small size: a few FedAvg rounds of a small
+   TransformerLM on the card (kernel) against the same rounds on the CPU
+   (plain version);
+6. the main path: FedAvg rounds of the full-width TransformerLM (D=2048,
+   H=16, T=1024, V=32000, bf16 compute) with ``attn_impl="flash"``, counting
+   the kernel's launches;
+7. the kernel's times at the main path's shape beside its bound.
+
+It prints a ``{"kernels": [...]}`` line, then as its last line
+``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# f32 comparisons run with TF32 off (the default for matmuls; set explicitly)
+F32_ATOL = 1e-4
+# bf16: two bf16 ulps at unit scale (2 * 2^-7) plus one ulp relative to the
+# value, since a flip of the final rounding at |x| >= 2 is one ulp of x
+BF16_ATOL, BF16_RTOL = 2.0 ** -6, 2.0 ** -7
+# end-to-end, card (kernel) vs CPU (plain version), f32: a few SGD steps
+# through several layers of f32 arithmetic summed in different orders
+E2E_ATOL = 1e-4
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+KERNEL_SOURCE = "fedml_tpu_torch/ops/csrc/flash_fwd.cu"
+KERNEL_REPLACES = "fedml_tpu/ops/attention.py:59"
+
+BENCH = dict(b=8, h=16, t=1024, d=128)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    return smi
+
+
+def phase_build():
+    from fedml_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = _build.build("flash_fwd")
+    _build.load("flash_fwd")
+    log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
+    log_path = path.with_name(path.name + ".log")
+    if log_path.exists():
+        for line in log_path.read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {line.strip()}")
+
+
+def _qkv(torch, b, h, tq, tk, d, dtype, gen):
+    shape_q, shape_k = (b, h, tq, d), (b, h, tk, d)
+    return tuple(
+        torch.randn(s, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+        for s in (shape_q, shape_k, shape_k)
+    )
+
+
+def phase_kernel_vs_plain(torch):
+    from fedml_tpu_torch.ops import attention as attn
+
+    shapes = [
+        ("bench", BENCH["b"], BENCH["h"], BENCH["t"], BENCH["t"], BENCH["d"]),
+        ("ragged", 2, 4, 300, 300, 64),
+        ("tq>tk", 2, 4, 200, 72, 32),
+        ("tq<tk", 2, 4, 100, 260, 64),
+        ("d8", 2, 2, 130, 130, 8),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, b, h, tq, tk, d in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(torch, b, h, tq, tk, d, dtype, gen)
+            for causal in (True, False):
+                out = attn.flash_fwd_cuda(q, k, v, causal, d ** -0.5)
+                ref = attn.flash_attention_plain(q, k, v, causal, d ** -0.5)
+                torch.cuda.synchronize()
+                if not torch.isfinite(out).all():
+                    fail(f"kernel {name} {dtype} causal={causal}: non-finite output")
+                diff = (out.float() - ref.float()).abs()
+                err = float(diff.max())
+                if dtype == torch.float32:
+                    ok = err <= F32_ATOL
+                else:
+                    ok = bool((diff <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
+                if causal and tq > tk and not bool((out[:, :, : tq - tk] == 0).all()):
+                    fail(f"kernel {name} {dtype}: fully masked rows are not 0")
+                worst[dtype] = max(worst[dtype], err)
+                log(f"[kernel] {name:6s} B={b} H={h} Tq={tq} Tk={tk} D={d} "
+                    f"{str(dtype)[6:]:8s} causal={causal!s:5s} max_abs_err={err:.3e} "
+                    f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+                if not ok:
+                    fail(f"kernel {name} {dtype} causal={causal} disagrees with its plain version")
+    return worst[torch.float32], worst[torch.bfloat16]
+
+
+def phase_gradient(torch):
+    from fedml_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for tq, tk in ((96, 96), (80, 48)):
+        q, k, v = _qkv(torch, 2, 4, tq, tk, 64, torch.float32, gen)
+        cot = torch.randn(2, 4, tq, 64, generator=gen, device="cuda")
+        grads = []
+        for fn in (attn.flash_attention, attn.flash_attention_plain):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves, True, None, 32, 32)
+            (out * cot).sum().backward()
+            grads.append([out.detach()] + [t.grad for t in leaves])
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(*grads)]
+        log(f"[grad] Tq={tq} Tk={tk} f32 causal: out/dq/dk/dv max_abs_err "
+            + " ".join(f"{e:.3e}" for e in errs))
+        if max(errs) > F32_ATOL:
+            fail(f"gradient check Tq={tq} Tk={tk}: {errs} > {F32_ATOL}")
+
+
+def _time_ms(torch, fn, n=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def phase_kernel_times(torch):
+    """Times at the main path's shape (bf16, causal): the kernel, its plain
+    version and one library call computing the same function, plus the
+    bound from this call's bytes and its visible (query, key) pairs."""
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops import attention as attn
+
+    b, h, t, d = BENCH["b"], BENCH["h"], BENCH["t"], BENCH["d"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = _qkv(torch, b, h, t, t, d, torch.bfloat16, gen)
+    scale = d ** -0.5
+    kernel_ms = _time_ms(torch, lambda: attn.flash_fwd_cuda(q, k, v, True, scale))
+    plain_ms = _time_ms(torch, lambda: attn.flash_attention_plain(q, k, v, True, scale), n=5)
+    library_ms = _time_ms(
+        torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale))
+    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, o written once
+    pairs = int(np.clip(np.arange(t) + 1, 0, t).sum())  # visible causal pairs per head
+    flops = 4 * b * h * d * pairs                        # QK^T and PV, 2 flops per MAC
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    log(f"[time] flash_fwd bf16 causal B={b} H={h} T={t} D={d}: kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+        f"(bytes {nbytes} -> {bytes_ms:.4f} ms, flops {flops} -> {ops_ms:.4f} ms)")
+    return dict(
+        ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+
+
+def phase_small_end_to_end(torch):
+    """A few FedAvg rounds of a small f32 TransformerLM with the flash path:
+    on the card (the kernel) against the same rounds on the CPU (the plain
+    version), from the same variables and data."""
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    v, t, n_clients, per = 64, 96, 4, 12
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, v, (n_clients * per + 8, t)).astype(np.int32)
+    y = np.roll(x, -1, axis=1)
+    mask = np.ones_like(x, dtype=np.float32)
+    mask[::3, 80:] = 0.0
+    part = {c: np.arange(c * per, (c + 1) * per - c) for c in range(n_clients)}
+    n = n_clients * per
+    cfg = SimConfig(client_num_in_total=n_clients, client_num_per_round=2, batch_size=4,
+                    comm_round=2, epochs=1, frequency_of_the_test=1, eval_batch_size=4, seed=0)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = create_model("transformer", v, dtype=torch.float32, device=device, embed_dim=64,
+                             num_layers=2, num_heads=2, max_len=t, attn_impl="flash")
+        sim = FedSim(ClientTrainer(module=model, task="nwp", optimizer=sgd(0.1, 0.9)),
+                     FederatedArrays({"x": x[:n], "y": y[:n], "mask": mask[:n]}, part),
+                     {"x": x[n:], "y": y[n:], "mask": mask[n:]}, cfg, device=device)
+        if device == "cuda":
+            init = {k: t_.cpu() for k, t_ in sim.init_variables().items()}
+        variables, history = sim.run(variables={k: t_.to(device) for k, t_ in init.items()})
+        runs[device] = (variables, history)
+    (v_gpu, h_gpu), (v_cpu, h_cpu) = runs["cuda"], runs["cpu"]
+    err = max(float((v_gpu[k].cpu() - v_cpu[k]).abs().max()) for k in v_cpu)
+    for rec_g, rec_c in zip(h_gpu, h_cpu):
+        for key in ("Train/Loss", "Train/Acc", "Test/Acc", "Test/Loss"):
+            err = max(err, abs(rec_g[key] - rec_c[key]))
+    log(f"[e2e] small TransformerLM, 2 FedAvg rounds, card vs CPU (f32, flash): "
+        f"max_abs_err={err:.3e} (params, losses, eval); Test/Loss {h_gpu[-1]['Test/Loss']:.5f}")
+    if not err <= E2E_ATOL:
+        fail(f"small end-to-end run on the card disagrees with the CPU run: {err} > {E2E_ATOL}")
+
+
+MAIN = dict(vocab=32000, embed_dim=2048, num_layers=8, num_heads=16, seq=1024,
+            clients=2, batch=8, steps=4, rounds=2, held_out=16)
+
+
+def phase_main_path(torch):
+    """The main path: FedAvg rounds of the full-width TransformerLM in bf16
+    with the flash kernel, through the entry points a user calls. Synthetic
+    tokens from numpy.random.RandomState(0), as the JAX package's LM bench
+    makes them. Returns the kernel's launch count in this run."""
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.ops import attention as attn
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    c = MAIN
+    rng = np.random.RandomState(0)
+    n_per = c["steps"] * c["batch"]
+    n = c["clients"] * n_per
+    x = rng.randint(0, c["vocab"], (n + c["held_out"], c["seq"])).astype(np.int32)
+    y = rng.randint(0, c["vocab"], (n + c["held_out"], c["seq"])).astype(np.int32)
+    mask = np.ones((n + c["held_out"], c["seq"]), np.float32)
+    part = {i: np.arange(i * n_per, (i + 1) * n_per) for i in range(c["clients"])}
+    model = create_model("transformer", c["vocab"], dtype=torch.bfloat16,
+                         embed_dim=c["embed_dim"], num_layers=c["num_layers"],
+                         num_heads=c["num_heads"], max_len=c["seq"], attn_impl="flash")
+    trainer = ClientTrainer(module=model, task="nwp", optimizer=sgd(0.01, momentum=0.9),
+                            epochs=1)
+    cfg = SimConfig(client_num_in_total=c["clients"], client_num_per_round=c["clients"],
+                    batch_size=c["batch"], comm_round=c["rounds"], epochs=1,
+                    frequency_of_the_test=c["rounds"], eval_batch_size=c["batch"], seed=0,
+                    shuffle_each_round=False, train_eval_samples=c["held_out"])
+    sim = FedSim(trainer, FederatedArrays({"x": x[:n], "y": y[:n], "mask": mask[:n]}, part),
+                 {"x": x[n:], "y": y[n:], "mask": mask[n:]}, cfg)
+    variables = sim.init_variables()
+    n_params = sum(t.numel() for t in variables.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    attn.FLASH_FWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    variables, history = sim.run(variables=variables)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = attn.FLASH_FWD_LAUNCHES
+
+    train_steps = c["rounds"] * c["clients"] * c["steps"]
+    eval_batches = 2 * -(-c["held_out"] // c["batch"])  # pooled train eval + test eval
+    expected = c["num_layers"] * (train_steps + eval_batches)
+    tokens_per_round = c["clients"] * c["steps"] * c["batch"] * c["seq"]
+    for rec in history:
+        log(f"[main] round {rec['round']}: Train/Loss {rec['Train/Loss']:.5f} "
+            f"round_time {rec['round_time']:.3f} s "
+            f"({tokens_per_round / rec['round_time']:.0f} tokens/s)"
+            + (f" Test/Loss {rec['Test/Loss']:.5f} Test/Acc {rec['Test/Acc']:.6f}"
+               if "Test/Loss" in rec else ""))
+    log(f"[main] TransformerLM V={c['vocab']} D={c['embed_dim']} L={c['num_layers']} "
+        f"H={c['num_heads']} T={c['seq']} bf16 flash, {n_params} params; {c['clients']} clients "
+        f"x {c['steps']} steps x batch {c['batch']}, {c['rounds']} rounds in {wall:.3f} s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"flash_fwd launches {launches} (expected {expected})")
+    values = [rec["Train/Loss"] for rec in history] + [
+        history[-1][k] for k in ("Train/Acc", "Test/Acc", "Test/Loss")]
+    if not all(np.isfinite(values)):
+        fail(f"main path produced non-finite metrics: {history}")
+    ln_v = float(np.log(c["vocab"]))
+    if abs(history[0]["Train/Loss"] - ln_v) > 2.0:
+        fail(f"first-round loss {history[0]['Train/Loss']} is far from ln(V) = {ln_v:.3f} "
+             "for random labels")
+    if not all(torch.isfinite(t).all() for t in variables.values()):
+        fail("main path produced non-finite parameters")
+    if launches != expected:
+        fail(f"flash_fwd launched {launches} times on the main path, expected {expected}")
+    return launches
+
+
+def main() -> None:
+    import torch
+
+    from fedml_tpu_torch.ops import attention  # noqa: F401  (fails outside the repo)
+
+    phase_device(torch)
+    phase_build()
+    err_f32, err_bf16 = phase_kernel_vs_plain(torch)
+    phase_gradient(torch)
+    phase_small_end_to_end(torch)
+    launches = phase_main_path(torch)
+    times = phase_kernel_times(torch)
+    kernels = [{
+        "name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": launches,
+        "max_abs_err": max(err_f32, err_bf16),
+        "max_abs_err_f32": err_f32, "max_abs_err_bf16": err_bf16, **times,
+    }]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,67 @@
+"""State-dict arithmetic, the port of ``fedml_tpu/core/tree.py:74-113``.
+
+Model variables in the port are flat ``state_dict``-style dicts of tensors
+(name -> tensor) instead of JAX pytrees.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+
+StateDict = dict[str, torch.Tensor]
+
+
+def add(a: StateDict, b: StateDict) -> StateDict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def sub(a: StateDict, b: StateDict) -> StateDict:
+    """a - b, leafwise."""
+    return {k: a[k] - b[k] for k in a}
+
+
+def scale(tree: StateDict, s) -> StateDict:
+    return {k: v * s for k, v in tree.items()}
+
+
+def dot(a: StateDict, b: StateDict) -> torch.Tensor:
+    """Sum of the leafwise inner products, accumulated in f32."""
+    total = torch.zeros((), dtype=torch.float32, device=next(iter(a.values())).device)
+    for k in a:
+        total = total + torch.vdot(a[k].reshape(-1), b[k].reshape(-1)).float()
+    return total
+
+
+def norm(tree: StateDict) -> torch.Tensor:
+    """Global L2 norm over all leaves."""
+    return torch.sqrt(dot(tree, tree))
+
+
+def weighted_mean(trees: Iterable[StateDict], weights: torch.Tensor) -> StateDict:
+    """Weighted mean of a sequence of state dicts.
+
+    ``weights`` [C] need not be normalised (raw per-client sample counts);
+    they are normalised in f32. Leaves are accumulated in f32, one tree at a
+    time in sequence order, and the result is cast back to each leaf's dtype.
+    ``trees`` is consumed once, and each tree is folded in before the next is
+    drawn, so a lazily produced sequence holds one tree at a time.
+    """
+    w = weights.float()
+    w = w / torch.clamp(w.sum(), min=1e-12)
+    acc: StateDict = {}
+    dtypes: dict[str, torch.dtype] = {}
+    n = 0
+    for i, tree in enumerate(trees):
+        for k, leaf in tree.items():
+            term = leaf.float() * w[i]
+            if i == 0:
+                acc[k] = term
+                dtypes[k] = leaf.dtype
+            else:
+                acc[k] += term
+        n += 1
+    if n != len(w):
+        raise ValueError(f"weighted_mean: {n} trees for {len(w)} weights")
+    return {k: v.to(dtypes[k]) for k, v in acc.items()}

@@ -1,0 +1,242 @@
+"""Blockwise (flash) attention, the port of ``fedml_tpu/ops/attention.py``.
+
+Layout ``[B, H, T, D]``. :func:`flash_attention` is a
+``torch.autograd.Function``:
+
+- forward on CUDA tensors launches the hand-written kernel
+  ``csrc/flash_fwd.cu`` (:func:`flash_fwd_cuda`), which replaces the Pallas
+  kernel ``_flash_fwd_kernel``; on CPU tensors it runs
+  :func:`flash_attention_plain`, the same math in torch ops. Any other device
+  raises; a failed build or launch raises.
+- backward is :func:`_blockwise_bwd`, the torch port of the JAX package's
+  plain-XLA blockwise backward, on either device.
+
+The kernel picks its own Hopper tiles (64 queries x 64 keys); ``block_q`` and
+``block_k`` steer the plain version's blocking and the backward's key blocks,
+as they steer the Pallas kernel's grid and the JAX backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+NEG_INF = -1e30
+
+# Launches of the CUDA kernel, counted by flash_fwd_cuda and nowhere else.
+FLASH_FWD_LAUNCHES = 0
+
+
+def _pick_block(t: int, preferred: int) -> int:
+    b = min(preferred, t)
+    while t % b:
+        b -= 1
+    return b
+
+
+def attention_reference(q, k, v, causal: bool = False, sm_scale: float | None = None):
+    """Plain materialised attention, the numerical oracle (``attn_impl="xla"``).
+
+    Query i attends to keys j <= i + (t_k - t_q) under ``causal``. A fully
+    masked row softmaxes over a row of NEG_INF and so returns the mean of
+    ``v``; the flash kernel returns 0 there. ``p`` is cast to ``v``'s type
+    before the P.V product, as in the JAX oracle."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    if causal:
+        tq, tk = s.shape[-2], s.shape[-1]
+        mask = torch.ones(tq, tk, dtype=torch.bool, device=s.device).tril(tk - tq)
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def flash_attention_plain(q, k, v, causal: bool = False, sm_scale: float | None = None,
+                          block_q: int = 128, block_k: int = 128):
+    """The Pallas kernel's math in torch ops: per query block, a loop over the
+    key blocks it can see (causal blocks past its last query are skipped),
+    running ``m``/``l``/``o`` in f32, masked probabilities forced to 0, ``p``
+    kept in f32 for P.V, output ``o / max(l, 1e-20)`` in the input type. The
+    CPU path of :func:`flash_attention` and the reference the kernel is held
+    to on the card."""
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    bq = _pick_block(t_q, block_q)
+    bk = _pick_block(t_k, block_k)
+    off = t_k - t_q
+    dev = q.device
+    qf = q.float() * sm_scale
+    kf, vf = k.float(), v.float()
+    num_kb = t_k // bk
+    out = []
+    for iq in range(t_q // bq):
+        qb = qf[:, :, iq * bq:(iq + 1) * bq]
+        q_pos = off + iq * bq + torch.arange(bq, device=dev)[:, None]
+        o = torch.zeros(b, h, bq, d, dtype=torch.float32, device=dev)
+        l = torch.zeros(b, h, bq, 1, dtype=torch.float32, device=dev)
+        m = torch.full((b, h, bq, 1), NEG_INF, dtype=torch.float32, device=dev)
+        n_kb = num_kb
+        if causal:
+            last_q_pos = off + (iq + 1) * bq - 1
+            n_kb = min(max(last_q_pos // bk + 1, 0), num_kb)
+        for j in range(n_kb):
+            kb = kf[:, :, j * bk:(j + 1) * bk]
+            vb = vf[:, :, j * bk:(j + 1) * bk]
+            s = qb @ kb.transpose(-1, -2)
+            if causal:
+                k_pos = j * bk + torch.arange(bk, device=dev)[None, :]
+                s = torch.where(k_pos <= q_pos, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            if causal:
+                p = torch.where(s <= NEG_INF / 2, 0.0, p)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + p @ vb
+            m = m_new
+        out.append(o / torch.clamp(l, min=1e-20))
+    return torch.cat(out, dim=2).to(q.dtype)
+
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _kernel():
+    """``flash_fwd`` of the built library, with its C signature declared."""
+    from fedml_tpu_torch.ops import _build
+
+    fn = _build.load("flash_fwd").flash_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
+    """Launch ``csrc/flash_fwd.cu`` on the current stream: ``q [B,H,Tq,D]``,
+    ``k``/``v`` ``[B,H,Tk,D]``, contiguous CUDA tensors of one type (f32 or
+    bf16), D a multiple of 8 up to 128. Counts the launch in
+    ``FLASH_FWD_LAUNCHES``. Raises on anything the kernel does not take and
+    on a refused launch."""
+    global FLASH_FWD_LAUNCHES
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_fwd_cuda: {name} is on {t.device}, not a CUDA device")
+        if t.dtype not in _KERNEL_DTYPES or t.dtype != q.dtype:
+            raise ValueError(
+                f"flash_fwd_cuda: {name} is {t.dtype}; q, k, v must share one of "
+                "float32, bfloat16"
+            )
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"flash_fwd_cuda: {name} must be a contiguous [B, H, T, D] tensor")
+        if t.device != q.device:
+            raise ValueError("flash_fwd_cuda: q, k, v must be on one device")
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    if k.shape != (b, h, t_k, d) or v.shape != k.shape:
+        raise ValueError(f"flash_fwd_cuda: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"flash_fwd_cuda: head dim {d} must be a multiple of 8 up to 128")
+    if not 0 < b * h <= 65535 or t_q == 0 or t_k == 0:
+        raise ValueError(f"flash_fwd_cuda: B*H={b * h}, Tq={t_q}, Tk={t_k} out of range")
+    fn = _kernel()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t_q, t_k, d,
+             float(sm_scale), int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+    FLASH_FWD_LAUNCHES += 1
+    return out
+
+
+def _flash_fwd(q, k, v, causal, sm_scale, block_q, block_k):
+    if q.device.type == "cuda":
+        return flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal, sm_scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, sm_scale, block_q, block_k)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def _blockwise_bwd(q, k, v, out, g, causal, sm_scale, block_k):
+    """Port of the JAX package's ``_blockwise_bwd``: an LSE pass over key
+    blocks, ``delta = rowsum(dO * O)``, then dq/dk/dv per key block, with
+    masked (and fully masked) rows' probabilities forced to 0. O(T * block)
+    memory; the [T, T] score matrix is never formed whole."""
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    bk = _pick_block(t_k, block_k)
+    nkb = t_k // bk
+    dev = q.device
+    qf = q.float()
+    gf = g.float()
+    q_pos = (t_k - t_q) + torch.arange(t_q, device=dev)
+
+    def block(j):
+        k_blk = k[:, :, j * bk:(j + 1) * bk].float()
+        v_blk = v[:, :, j * bk:(j + 1) * bk].float()
+        s = (qf @ k_blk.transpose(-1, -2)) * sm_scale
+        if causal:
+            k_pos = j * bk + torch.arange(bk, device=dev)
+            s = torch.where(k_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+        return k_blk, v_blk, s
+
+    m = torch.full((b, h, t_q, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros(b, h, t_q, 1, dtype=torch.float32, device=dev)
+    for j in range(nkb):
+        _, _, s = block(j)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        # masked entries contribute 0, not exp(NEG_INF - NEG_INF) = 1
+        e = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m_new))
+        l = l * torch.exp(m - m_new) + e.sum(-1, keepdim=True)
+        m = m_new
+    lse = m + torch.log(torch.clamp(l, min=1e-20))
+    delta = (gf * out.float()).sum(-1, keepdim=True)
+
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for j in range(nkb):
+        k_blk, v_blk, s = block(j)
+        p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - lse))
+        dp = gf @ v_blk.transpose(-1, -2)
+        ds = p * (dp - delta) * sm_scale
+        dq = dq + ds @ k_blk
+        dks.append(ds.transpose(-1, -2) @ qf)
+        dvs.append(p.transpose(-1, -2) @ gf)
+    dk = torch.cat(dks, dim=2)
+    dv = torch.cat(dvs, dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, block_q, block_k):
+        out = _flash_fwd(q, k, v, causal, sm_scale, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.sm_scale, ctx.block_k = causal, sm_scale, block_k
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _blockwise_bwd(q, k, v, out, g, ctx.causal, ctx.sm_scale, ctx.block_k)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False, sm_scale: float | None = None,
+                    block_q: int = 128, block_k: int = 128):
+    """Blockwise fused attention for ``[B, H, T, D]`` inputs: the CUDA kernel
+    forward on the card, the plain version on CPU tensors, and the blockwise
+    torch backward on both."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be [B, H, T, D]")
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, block_q, block_k)
