@@ -8,10 +8,16 @@ Run from the repository root with no arguments::
 Phases, each of which exits non-zero on failure:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build ``fedml_tpu_torch/ops/csrc/flash_fwd.cu`` with nvcc (timed);
-3. the flash-attention kernel against its plain version, f32 and bf16,
-   causal and full, at the main path's shape and at ragged, Tq != Tk and
-   D=8 shapes;
+2. build both flash-attention forward kernels with nvcc, in parallel (timed):
+   ``csrc/flash_fwd_sm90.cu`` (bf16, wgmma + TMA) and ``csrc/flash_fwd.cu``
+   (f32, CUDA cores); print each one's ``-Xptxas -v`` report and, where
+   ``cuobjdump`` is found, the count of HGMMA and UTMALDG instructions in
+   the bf16 kernel's SASS;
+3. each kernel against its plain version (f32 inputs reach the f32 kernel,
+   bf16 the bf16 one), causal and full, at the main path's shape and at
+   ragged, Tq != Tk (D=128 too), D=8 and B*H > 65535 shapes, and the bf16
+   kernel on the main path's strided q/k/v views of one qkv projection,
+   bitwise equal to the same call on contiguous copies;
 4. the autograd function's gradients on the card against autograd through
    the plain version;
 5. end-to-end check at a small size: a few FedAvg rounds of a small
@@ -19,8 +25,11 @@ Phases, each of which exits non-zero on failure:
    (plain version);
 6. the main path: FedAvg rounds of the full-width TransformerLM (D=2048,
    H=16, T=1024, V=32000, bf16 compute) with ``attn_impl="flash"``, counting
-   the kernel's launches;
-7. the kernel's times at the main path's shape beside its bound.
+   each kernel's launches (the bf16 kernel on every layer's forward, the f32
+   kernel never);
+7. the kernels' times at the main path's shape beside their bounds, the
+   plain version's and one PyTorch call's; and the bf16 forward on the main
+   path's strided views against the same work on contiguous copies.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -32,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -45,8 +55,16 @@ BF16_ATOL, BF16_RTOL = 2.0 ** -6, 2.0 ** -7
 E2E_ATOL = 1e-4
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
-BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
-KERNEL_SOURCE = "fedml_tpu_torch/ops/csrc/flash_fwd.cu"
+FLOPS_PER_S = {"bfloat16": 989e12,  # H100 SXM dense bf16 tensor cores
+               "float32": 67e12}    # H100 SXM f32 on the CUDA cores (TF32 is off)
+# each kernel of the path: its source, the dtype it serves and its launch counter;
+# both replace the one TPU kernel, KERNEL_REPLACES
+KERNELS = {
+    "flash_fwd_sm90": dict(source="fedml_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
+                           dtype="bfloat16", counter="FLASH_FWD_BF16_LAUNCHES"),
+    "flash_fwd": dict(source="fedml_tpu_torch/ops/csrc/flash_fwd.cu",
+                      dtype="float32", counter="FLASH_FWD_F32_LAUNCHES"),
+}
 KERNEL_REPLACES = "fedml_tpu/ops/attention.py:59"
 
 BENCH = dict(b=8, h=16, t=1024, d=128)
@@ -77,17 +95,35 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Build every kernel of the path, one nvcc each, all at once."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
     from fedml_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.build("flash_fwd")
-    _build.load("flash_fwd")
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
-    log_path = path.with_name(path.name + ".log")
-    if log_path.exists():
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        paths = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    for name in KERNELS:
+        _build.load(name)
+    log(f"[build] {', '.join(p.name for p in paths.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, path in paths.items():
+        log_path = path.with_name(path.name + ".log")
         for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build] {line.strip()}")
+            if any(w in line for w in ("registers", "spill", "smem", "arning", "Performance")):
+                log(f"[build] {name}: {line.strip()}")
+    cuobjdump = shutil.which("cuobjdump") or shutil.which(
+        str(Path(_build.nvcc()).resolve().parent / "cuobjdump"))
+    if cuobjdump is None:
+        log("[build] flash_fwd_sm90 SASS: HGMMA and UTMALDG not checked (no cuobjdump)")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(paths["flash_fwd_sm90"])],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hgmma, utmaldg = sass.count("HGMMA"), sass.count("UTMALDG")
+    log(f"[build] flash_fwd_sm90 SASS: {hgmma} HGMMA, {utmaldg} UTMALDG instructions")
+    if not hgmma or not utmaldg:
+        fail("the bf16 kernel's SASS has no HGMMA or no UTMALDG: not a wgmma/TMA kernel")
 
 
 def _qkv(torch, b, h, tq, tk, d, dtype, gen):
@@ -98,7 +134,37 @@ def _qkv(torch, b, h, tq, tk, d, dtype, gen):
     )
 
 
+def _heads_of_qkv(torch, b, h, t, d, dtype, gen):
+    """q, k, v as the main path makes them: strided [B, H, T, D] views of one
+    [B, T, 3*H*D] projection output."""
+    qkv = torch.randn(b, t, 3 * h * d, generator=gen, device="cuda").to(dtype)
+    return [a.reshape(b, t, h, d).transpose(1, 2) for a in qkv.split(h * d, dim=-1)]
+
+
+def _check(torch, name, out, ref, dtype, causal, tq, tk):
+    """Worst error of out against its plain version; fails outside the
+    tolerance, on non-finite values and on fully masked rows that are not 0."""
+    if not torch.isfinite(out).all():
+        fail(f"kernel {name} {dtype} causal={causal}: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    if dtype == torch.float32:
+        ok = err <= F32_ATOL
+    else:
+        ok = bool((diff <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
+    if causal and tq > tk and not bool((out[:, :, : tq - tk] == 0).all()):
+        fail(f"kernel {name} {dtype}: fully masked rows are not 0")
+    b, h, _, d = out.shape
+    log(f"[kernel] {name:9s} B={b} H={h} Tq={tq} Tk={tk} D={d} "
+        f"{str(dtype)[6:]:8s} causal={causal!s:5s} max_abs_err={err:.3e} "
+        f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+    if not ok:
+        fail(f"kernel {name} {dtype} causal={causal} disagrees with its plain version")
+    return err
+
+
 def phase_kernel_vs_plain(torch):
+    """Returns the worst error of each kernel against its plain version."""
     from fedml_tpu_torch.ops import attention as attn
 
     shapes = [
@@ -107,33 +173,40 @@ def phase_kernel_vs_plain(torch):
         ("tq>tk", 2, 4, 200, 72, 32),
         ("tq<tk", 2, 4, 100, 260, 64),
         ("d8", 2, 2, 130, 130, 8),
+        ("d128<", 2, 4, 333, 517, 128),
+        ("d128>", 2, 4, 517, 333, 128),
+        ("bh>65535", 1040, 64, 16, 16, 8),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst = {name: 0.0 for name in KERNELS}
+    by_dtype = {getattr(torch, k["dtype"]): name for name, k in KERNELS.items()}
     for name, b, h, tq, tk, d in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, kernel in by_dtype.items():
             q, k, v = _qkv(torch, b, h, tq, tk, d, dtype, gen)
             for causal in (True, False):
                 out = attn.flash_fwd_cuda(q, k, v, causal, d ** -0.5)
                 ref = attn.flash_attention_plain(q, k, v, causal, d ** -0.5)
                 torch.cuda.synchronize()
-                if not torch.isfinite(out).all():
-                    fail(f"kernel {name} {dtype} causal={causal}: non-finite output")
-                diff = (out.float() - ref.float()).abs()
-                err = float(diff.max())
-                if dtype == torch.float32:
-                    ok = err <= F32_ATOL
-                else:
-                    ok = bool((diff <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
-                if causal and tq > tk and not bool((out[:, :, : tq - tk] == 0).all()):
-                    fail(f"kernel {name} {dtype}: fully masked rows are not 0")
-                worst[dtype] = max(worst[dtype], err)
-                log(f"[kernel] {name:6s} B={b} H={h} Tq={tq} Tk={tk} D={d} "
-                    f"{str(dtype)[6:]:8s} causal={causal!s:5s} max_abs_err={err:.3e} "
-                    f"{'ok' if ok else 'OUT OF TOLERANCE'}")
-                if not ok:
-                    fail(f"kernel {name} {dtype} causal={causal} disagrees with its plain version")
-    return worst[torch.float32], worst[torch.bfloat16]
+                worst[kernel] = max(worst[kernel],
+                                    _check(torch, name, out, ref, dtype, causal, tq, tk))
+    # the main path's strided views reach the bf16 kernel without a copy
+    b, h, t, d = BENCH["b"], BENCH["h"], BENCH["t"], BENCH["d"]
+    q, k, v = _heads_of_qkv(torch, b, h, t, d, torch.bfloat16, gen)
+    if not all(attn.tma_compatible(x) and not x.is_contiguous() for x in (q, k, v)):
+        fail("the main path's q/k/v views are contiguous or not TMA-compatible")
+    for causal in (True, False):
+        out = attn.flash_fwd_cuda(q, k, v, causal, d ** -0.5)
+        copies = attn.flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                                     d ** -0.5)
+        ref = attn.flash_attention_plain(q, k, v, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        worst["flash_fwd_sm90"] = max(worst["flash_fwd_sm90"], _check(
+            torch, "views", out, ref, torch.bfloat16, causal, t, t))
+        if not torch.equal(out, copies):
+            fail(f"bf16 kernel on strided views (causal={causal}) differs from the same "
+                 "call on contiguous copies")
+    log("[kernel] views: output on the strided qkv views is bitwise equal to contiguous copies")
+    return worst
 
 
 def phase_gradient(torch):
@@ -170,34 +243,63 @@ def _time_ms(torch, fn, n=20, warmup=3):
     return start.elapsed_time(end) / n
 
 
+def _bound(q, causal, dtype_name):
+    """Least time for the function on these inputs: q, k, v read once and o
+    written once over the memory rate, against the products of the visible
+    (query, key) pairs over the peak rate for the inputs' type."""
+    b, h, t, d = q.shape
+    nbytes = 4 * q.numel() * q.element_size()
+    pairs = int(np.arange(1, t + 1).sum()) if causal else t * t  # visible pairs per head
+    flops = 4 * b * h * d * pairs                                 # QK^T and PV, 2 per MAC
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FLOPS_PER_S[dtype_name] * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=flops)
+
+
 def phase_kernel_times(torch):
-    """Times at the main path's shape (bf16, causal): the kernel, its plain
-    version and one library call computing the same function, plus the
-    bound from this call's bytes and its visible (query, key) pairs."""
+    """Times at the main path's shape (causal) of each kernel, its plain
+    version and one library call computing the same function, beside the
+    bound; and the bf16 forward on the main path's strided views against the
+    same work on contiguous copies, in turns."""
     import torch.nn.functional as F
 
     from fedml_tpu_torch.ops import attention as attn
 
     b, h, t, d = BENCH["b"], BENCH["h"], BENCH["t"], BENCH["d"]
     gen = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v = _qkv(torch, b, h, t, t, d, torch.bfloat16, gen)
     scale = d ** -0.5
-    kernel_ms = _time_ms(torch, lambda: attn.flash_fwd_cuda(q, k, v, True, scale))
-    plain_ms = _time_ms(torch, lambda: attn.flash_attention_plain(q, k, v, True, scale), n=5)
-    library_ms = _time_ms(
-        torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale))
-    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, o written once
-    pairs = int(np.clip(np.arange(t) + 1, 0, t).sum())  # visible causal pairs per head
-    flops = 4 * b * h * d * pairs                        # QK^T and PV, 2 flops per MAC
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
-    log(f"[time] flash_fwd bf16 causal B={b} H={h} T={t} D={d}: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-        f"(bytes {nbytes} -> {bytes_ms:.4f} ms, flops {flops} -> {ops_ms:.4f} ms)")
-    return dict(
-        ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-    )
+    times = {}
+    for name, spec in KERNELS.items():
+        q, k, v = _qkv(torch, b, h, t, t, d, getattr(torch, spec["dtype"]), gen)
+        kernel_ms = _time_ms(torch, lambda: attn.flash_fwd_cuda(q, k, v, True, scale))
+        plain_ms = _time_ms(torch, lambda: attn.flash_attention_plain(q, k, v, True, scale), n=5)
+        library_ms = _time_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale))
+        bound = _bound(q, True, spec["dtype"])
+        log(f"[time] {name} {spec['dtype']} causal B={b} H={h} T={t} D={d}: kernel "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (bytes {bound['bytes']}, "
+            f"flops {bound['flops']})")
+        times[name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    q, k, v = _heads_of_qkv(torch, b, h, t, d, torch.bfloat16, gen)
+
+    def views():
+        return attn._flash_fwd(q, k, v, True, scale, 128, 128)
+
+    def copies():
+        return attn.flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), True, scale)
+
+    views_ms = [_time_ms(torch, views)]
+    copies_ms = [_time_ms(torch, copies), _time_ms(torch, copies)]
+    views_ms.append(_time_ms(torch, views))
+    log(f"[time] bf16 forward on the main path's strided qkv views: {views_ms[0]:.4f} / "
+        f"{views_ms[1]:.4f} ms; with three .contiguous() copies first: {copies_ms[0]:.4f} / "
+        f"{copies_ms[1]:.4f} ms")
+    times["flash_fwd_sm90"].update(views_ms=sum(views_ms) / 2, copies_ms=sum(copies_ms) / 2)
+    return times
 
 
 def phase_small_end_to_end(torch):
@@ -249,7 +351,7 @@ def phase_main_path(torch):
     """The main path: FedAvg rounds of the full-width TransformerLM in bf16
     with the flash kernel, through the entry points a user calls. Synthetic
     tokens from numpy.random.RandomState(0), as the JAX package's LM bench
-    makes them. Returns the kernel's launch count in this run."""
+    makes them. Returns each kernel's launch count in this run."""
     from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
     from fedml_tpu_torch.models.registry import create_model
     from fedml_tpu_torch.ops import attention as attn
@@ -280,12 +382,14 @@ def phase_main_path(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    for spec in KERNELS.values():
+        setattr(attn, spec["counter"], 0)
     attn.FLASH_FWD_LAUNCHES = 0
     t0 = time.perf_counter()
     variables, history = sim.run(variables=variables)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = attn.FLASH_FWD_LAUNCHES
+    launches = {name: getattr(attn, spec["counter"]) for name, spec in KERNELS.items()}
 
     train_steps = c["rounds"] * c["clients"] * c["steps"]
     eval_batches = 2 * -(-c["held_out"] // c["batch"])  # pooled train eval + test eval
@@ -301,7 +405,7 @@ def phase_main_path(torch):
         f"H={c['num_heads']} T={c['seq']} bf16 flash, {n_params} params; {c['clients']} clients "
         f"x {c['steps']} steps x batch {c['batch']}, {c['rounds']} rounds in {wall:.3f} s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"flash_fwd launches {launches} (expected {expected})")
+        f"launches {launches} (expected flash_fwd_sm90 {expected}, flash_fwd 0)")
     values = [rec["Train/Loss"] for rec in history] + [
         history[-1][k] for k in ("Train/Acc", "Test/Acc", "Test/Loss")]
     if not all(np.isfinite(values)):
@@ -312,8 +416,9 @@ def phase_main_path(torch):
              "for random labels")
     if not all(torch.isfinite(t).all() for t in variables.values()):
         fail("main path produced non-finite parameters")
-    if launches != expected:
-        fail(f"flash_fwd launched {launches} times on the main path, expected {expected}")
+    if launches != {"flash_fwd_sm90": expected, "flash_fwd": 0}:
+        fail(f"kernel launches on the main path {launches}: expected the bf16 kernel "
+             f"{expected} times and the f32 kernel 0 times")
     return launches
 
 
@@ -324,17 +429,16 @@ def main() -> None:
 
     phase_device(torch)
     phase_build()
-    err_f32, err_bf16 = phase_kernel_vs_plain(torch)
+    errors = phase_kernel_vs_plain(torch)
     phase_gradient(torch)
     phase_small_end_to_end(torch)
     launches = phase_main_path(torch)
     times = phase_kernel_times(torch)
     kernels = [{
-        "name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(err_f32, err_bf16),
-        "max_abs_err_f32": err_f32, "max_abs_err_bf16": err_bf16, **times,
-    }]
+        "name": name, "route": "cuda", "source": spec["source"], "replaces": KERNEL_REPLACES,
+        "dtype": spec["dtype"], "launches": launches[name], "max_abs_err": errors[name],
+        **times[name],
+    } for name, spec in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

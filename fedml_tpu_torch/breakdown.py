@@ -10,8 +10,9 @@ mean over a few repetitions after a warm-up:
 
 - one client train step, split into forward plus loss, backward, and the
   SGD-momentum update;
-- one layer's attention at the step's shape: the flash kernel forward and
-  the torch blockwise backward;
+- one layer's attention at the step's shape: the bf16 flash kernel forward
+  (``csrc/flash_fwd_sm90.cu``) on strided q/k/v views of one qkv projection,
+  as the model hands them over, and the torch blockwise backward;
 - the per-client work around the steps: loading the global variables into
   the module, copying the trained variables out, and folding one client into
   the weighted mean.
@@ -82,12 +83,16 @@ def main(reps: int = 5) -> dict:
     step_ms = sum(times.values())
 
     h, d = c["num_heads"], c["embed_dim"] // c["num_heads"]
-    q, k, v, g = (torch.randn(c["batch"], h, c["seq"], d, device="cuda", generator=gen,
-                              dtype=torch.float32).to(torch.bfloat16) for _ in range(4))
+    qkv = torch.randn(c["batch"], c["seq"], 3 * h * d, device="cuda", generator=gen,
+                      dtype=torch.float32).to(torch.bfloat16)
+    q, k, v = (a.reshape(c["batch"], c["seq"], h, d).transpose(1, 2)
+               for a in qkv.split(h * d, dim=-1))
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
     scale = d ** -0.5
-    out = attn.flash_fwd_cuda(q, k, v, True, scale)
     mha = model.blocks[0].attn
-    attn_fwd_ms = _events_ms(lambda: attn.flash_fwd_cuda(q, k, v, True, scale), reps)
+    out = attn._flash_fwd(q, k, v, True, scale, mha.block_q, mha.block_k)
+    attn_fwd_ms = _events_ms(
+        lambda: attn._flash_fwd(q, k, v, True, scale, mha.block_q, mha.block_k), reps)
     attn_bwd_ms = _events_ms(
         lambda: attn._blockwise_bwd(q, k, v, out, g, True, scale, mha.block_k), reps)
 

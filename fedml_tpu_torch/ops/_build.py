@@ -5,6 +5,12 @@ for ``sm_90a`` into a shared library under ``ops/_build/`` (listed in
 ``.gitignore``) at first use, keyed on a hash of the source and the flags, and
 loaded with ``ctypes``. Nothing here falls back: a missing ``nvcc`` or a
 failed compile raises.
+
+Every library links ``libcuda`` (``-lcuda``): ``flash_fwd_sm90`` encodes its
+TMA tensor maps with ``cuTensorMapEncodeTiled``, which only ``libcuda``
+exports. The link uses the toolkit's stub (``<toolkit>/lib64/stubs``); at
+run time the installed ``libcuda.so.1`` is loaded. No CUTLASS or other
+header beyond the toolkit's is used.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-lcuda",)  # after the source, so the linker keeps it
 
 
 def nvcc() -> str:
@@ -45,7 +52,7 @@ def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to; the name carries the hash of the
     source and the flags, so an edited source builds anew."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + LINK_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -58,7 +65,11 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    compiler = nvcc()
+    stubs = Path(compiler).resolve().parent.parent / "lib64" / "stubs"
+    link_dirs = ["-L", str(stubs)] if stubs.is_dir() else []
+    cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *link_dirs,
+           *LINK_FLAGS]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -3,17 +3,25 @@
 Layout ``[B, H, T, D]``. :func:`flash_attention` is a
 ``torch.autograd.Function``:
 
-- forward on CUDA tensors launches the hand-written kernel
-  ``csrc/flash_fwd.cu`` (:func:`flash_fwd_cuda`), which replaces the Pallas
-  kernel ``_flash_fwd_kernel``; on CPU tensors it runs
+- forward on CUDA tensors launches a hand-written kernel
+  (:func:`flash_fwd_cuda`) that replaces the Pallas kernel
+  ``_flash_fwd_kernel``, chosen by dtype alone: bf16 goes to
+  ``csrc/flash_fwd_sm90.cu`` (wgmma on the tensor cores, TMA-fed tiles), f32
+  to ``csrc/flash_fwd.cu`` (f32 FMAs on the CUDA cores, which hold the f32
+  parity a TF32 product would not). On CPU tensors it runs
   :func:`flash_attention_plain`, the same math in torch ops. Any other device
   raises; a failed build or launch raises.
+- bf16 q, k, v that a TMA tensor map can take as they are
+  (:func:`tma_compatible`), such as the heads of a fused qkv projection, reach
+  the kernel without a copy; other inputs are copied into fresh contiguous
+  tensors.
 - backward is :func:`_blockwise_bwd`, the torch port of the JAX package's
   plain-XLA blockwise backward, on either device.
 
-The kernel picks its own Hopper tiles (64 queries x 64 keys); ``block_q`` and
-``block_k`` steer the plain version's blocking and the backward's key blocks,
-as they steer the Pallas kernel's grid and the JAX backward.
+The kernels pick their own tiles (128 x 128 for bf16, 64 x 64 for f32);
+``block_q`` and ``block_k`` steer the plain version's blocking and the
+backward's key blocks, as they steer the Pallas kernel's grid and the JAX
+backward.
 """
 
 from __future__ import annotations
@@ -25,7 +33,10 @@ import torch
 
 NEG_INF = -1e30
 
-# Launches of the CUDA kernel, counted by flash_fwd_cuda and nowhere else.
+# Launches of each CUDA kernel, counted where it is launched and nowhere else,
+# and their sum.
+FLASH_FWD_BF16_LAUNCHES = 0  # csrc/flash_fwd_sm90.cu
+FLASH_FWD_F32_LAUNCHES = 0   # csrc/flash_fwd.cu
 FLASH_FWD_LAUNCHES = 0
 
 
@@ -103,38 +114,63 @@ def flash_attention_plain(q, k, v, causal: bool = False, sm_scale: float | None 
     return torch.cat(out, dim=2).to(q.dtype)
 
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
 @functools.cache
-def _kernel():
-    """``flash_fwd`` of the built library, with its C signature declared."""
+def _kernel(name: str):
+    """The C entry point ``name`` of the built library ``csrc/<name>.cu``,
+    with its signature declared."""
     from fedml_tpu_torch.ops import _build
 
-    fn = _build.load("flash_fwd").flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = getattr(_build.load(name), name)
+    if name == "flash_fwd_sm90":
+        # q, k, v, o, next_tile; b, h, tq, tk, d; (batch, head, token) strides of q, k, v
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    else:  # flash_fwd (f32): q, k, v, o; bh, tq, tk, d
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _is_cuda(t) -> bool:
+    return t.device.type == "cuda"
+
+
+def tma_compatible(t) -> bool:
+    """Whether a TMA tensor map can take the ``[B, H, T, D]`` view ``t`` as it
+    is: a 16-byte-aligned base, unit stride along D, and the other strides
+    positive multiples of 16 bytes."""
+    size = t.element_size()
+    return (t.dim() == 4 and t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st > 0 and st * size % 16 == 0 for st in t.stride()[:-1]))
+
+
 def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
-    """Launch ``csrc/flash_fwd.cu`` on the current stream: ``q [B,H,Tq,D]``,
-    ``k``/``v`` ``[B,H,Tk,D]``, contiguous CUDA tensors of one type (f32 or
-    bf16), D a multiple of 8 up to 128. Counts the launch in
-    ``FLASH_FWD_LAUNCHES``. Raises on anything the kernel does not take and
+    """Launch the forward kernel for q's dtype on the current stream:
+    ``q [B,H,Tq,D]``, ``k``/``v`` ``[B,H,Tk,D]`` CUDA tensors of one type, D a
+    multiple of 8 up to 128. bf16 goes to ``csrc/flash_fwd_sm90.cu`` and
+    takes any view that :func:`tma_compatible` accepts; f32 goes to
+    ``csrc/flash_fwd.cu`` and takes contiguous tensors. Returns a fresh
+    contiguous ``[B,H,Tq,D]``. Counts the launch in that kernel's counter and
+    in ``FLASH_FWD_LAUNCHES``. Raises on anything the kernel does not take and
     on a refused launch."""
-    global FLASH_FWD_LAUNCHES
+    global FLASH_FWD_BF16_LAUNCHES, FLASH_FWD_F32_LAUNCHES, FLASH_FWD_LAUNCHES
+    bf16 = q.dtype == torch.bfloat16
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
+        if not _is_cuda(t):
             raise ValueError(f"flash_fwd_cuda: {name} is on {t.device}, not a CUDA device")
-        if t.dtype not in _KERNEL_DTYPES or t.dtype != q.dtype:
+        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != q.dtype:
             raise ValueError(
                 f"flash_fwd_cuda: {name} is {t.dtype}; q, k, v must share one of "
                 "float32, bfloat16"
             )
-        if t.dim() != 4 or not t.is_contiguous():
-            raise ValueError(f"flash_fwd_cuda: {name} must be a contiguous [B, H, T, D] tensor")
+        if t.dim() != 4:
+            raise ValueError(f"flash_fwd_cuda: {name} must be a [B, H, T, D] tensor")
+        if bf16 and not tma_compatible(t):
+            raise ValueError(f"flash_fwd_cuda: bf16 {name} with strides {t.stride()} is not a "
+                             "view a TMA tensor map takes (see tma_compatible)")
+        if not bf16 and not t.is_contiguous():
+            raise ValueError(f"flash_fwd_cuda: f32 {name} must be contiguous")
         if t.device != q.device:
             raise ValueError("flash_fwd_cuda: q, k, v must be on one device")
     b, h, t_q, d = q.shape
@@ -144,22 +180,43 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
                          f"v {tuple(v.shape)} do not agree")
     if d % 8 or not 8 <= d <= 128:
         raise ValueError(f"flash_fwd_cuda: head dim {d} must be a multiple of 8 up to 128")
-    if not 0 < b * h <= 65535 or t_q == 0 or t_k == 0:
+    # bf16: one block per (head, 128 queries) on grid.x; f32: B*H on grid.x,
+    # 64-query tiles on grid.y
+    blocks_ok = (b * h * -(-t_q // 128) < 2 ** 31 if bf16
+                 else b * h < 2 ** 31 and -(-t_q // 64) <= 65535)
+    if b * h == 0 or t_q == 0 or t_k == 0 or not blocks_ok:
         raise ValueError(f"flash_fwd_cuda: B*H={b * h}, Tq={t_q}, Tk={t_k} out of range")
-    fn = _kernel()
-    out = torch.empty_like(q)
+    out = torch.empty((b, h, t_q, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t_q, t_k, d,
-             float(sm_scale), int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
+    if bf16:
+        strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+        next_tile = torch.zeros(1, dtype=torch.int32, device=q.device)  # the blocks' tile counter
+        err = _kernel("flash_fwd_sm90")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), next_tile.data_ptr(),
+            b, h, t_q, t_k, d, *strides, float(sm_scale), int(bool(causal)), stream)
+    else:
+        err = _kernel("flash_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t_q, t_k, d,
+            float(sm_scale), int(bool(causal)), stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_fwd kernel launch failed: error {err} (a cudaError_t; "
+                           "10000 + a CUresult where a TMA tensor map was refused)")
+    if bf16:
+        FLASH_FWD_BF16_LAUNCHES += 1
+    else:
+        FLASH_FWD_F32_LAUNCHES += 1
     FLASH_FWD_LAUNCHES += 1
     return out
 
 
 def _flash_fwd(q, k, v, causal, sm_scale, block_q, block_k):
-    if q.device.type == "cuda":
-        return flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal, sm_scale)
+    if _is_cuda(q):
+        if q.dtype == torch.bfloat16:  # a fresh copy also fixes a misaligned contiguous view
+            q, k, v = (t if tma_compatible(t) else t.clone(memory_format=torch.contiguous_format)
+                       for t in (q, k, v))
+        else:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        return flash_fwd_cuda(q, k, v, causal, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, sm_scale, block_q, block_k)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")

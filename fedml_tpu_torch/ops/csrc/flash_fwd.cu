@@ -1,30 +1,30 @@
-// Flash-attention forward for Hopper (sm_90a), f32 or bf16 in, f32 math inside.
+// Flash-attention forward for f32 inputs (sm_90a), on the CUDA cores.
 //
 // Replaces: fedml_tpu/ops/attention.py::_flash_fwd_kernel (lines 59-106), the
-// Pallas kernel launched by _flash_fwd (pallas_call at attention.py:124).
+// Pallas kernel launched by _flash_fwd (pallas_call at attention.py:124), for
+// f32 inputs; bf16 inputs go to the tensor-core kernel in flash_fwd_sm90.cu.
+// A TF32 product would not hold the f32 parity (1e-4) the f32 callers need,
+// so this kernel keeps full f32 FMAs. The main path (bf16) never launches it.
 // Same function: o = softmax(q k^T * sm_scale) v over [BH, T, D] rows, with
 // an online softmax (running max m, sum l, accumulator o, all f32), q scaled
 // by sm_scale in f32 before the product, the right-aligned causal mask (query
 // i sees key j iff j <= i + (t_k - t_q)), key tiles past a query tile's last
 // position skipped, masked probabilities forced to 0, p kept in f32 for the
-// P.V product, and o / max(l, 1e-20) cast to the input type. A fully masked
-// row (t_q > t_k, causal) therefore comes out as 0.
+// P.V product, and o / max(l, 1e-20). A fully masked row (t_q > t_k,
+// causal) therefore comes out as 0.
 //
-// What bounds it on the H100: at the main path's shape (B*H=128, T=1024,
-// D=128, bf16, causal) the function moves 134 MB (q, k, v read once, o
-// written once: ~40 us at 3.35 TB/s) and needs 34 GFLOP of products (~35 us
-// at the 989 TFLOP/s bf16 tensor-core peak), so the bound is the bytes, just
-// ahead of the operations. This kernel does not reach that bound: it runs
-// the products as f32 FMAs on the CUDA cores (67 TFLOP/s peak) and reads
-// its operands from shared memory, so it is bound by shared-memory loads and
-// FMA issue. Moving the products to wgmma with TMA-fed tiles is later work.
+// What bounds it on the H100: at B*H=128, T=1024, D=128, causal, f32, the
+// function moves 268 MB (~80 us at 3.35 TB/s) and needs 34 GFLOP of products
+// (~513 us at the 67 TFLOP/s f32 peak of the CUDA cores), so the bound is the
+// operations. The kernel reads its operands from shared memory one column at
+// a time, so it is bound by shared-memory loads and FMA issue.
 //
 // Design, simple first:
-// - grid (ceil(Tq/BQ), B*H); one block of 16x16 threads owns BQ=64 query
+// - grid (B*H, ceil(Tq/BQ)); one block of 16x16 threads owns BQ=64 query
 //   rows of one (batch, head) and walks the key tiles of BK=64 keys in order
 //   (the loop that takes the place of the TPU's sequential key-block loop);
 // - the Q tile (pre-scaled), one K tile, one V tile and the P tile live in
-//   dynamic shared memory as f32, rows of Q and K padded to D+1 floats so
+//   dynamic shared memory, rows of Q and K padded to D+1 floats so
 //   the threads of a half-warp read distinct banks;
 // - each thread holds a 4x4 block of S and a 4x8 block of O in registers,
 //   and the row max and row sum of S reduce over the 16 threads of a row
@@ -33,7 +33,6 @@
 // - rows and keys past Tq / Tk (the ragged edge) are masked, so any Tq, Tk
 //   works; D is any multiple of 8 up to 128.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -47,15 +46,6 @@ constexpr int RK = BK / TX;     // keys per thread
 constexpr int DMAX = 128;
 constexpr int RD = DMAX / TX;   // head-dim columns per thread
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
@@ -73,10 +63,10 @@ size_t smem_bytes(int d) {
   return sizeof(float) * (size_t)(BQ * (d + 1) + BK * (d + 1) + BK * d + BQ * (BK + 1));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(TX * TY)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int tq, int tk, int d, float sm_scale, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int tq, int tk, int d,
+                 float sm_scale, int causal) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* qs = smem;              // [BQ][d+1], q * sm_scale
@@ -86,17 +76,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * TX + tx;
-  const int q0 = blockIdx.x * BQ;
-  const size_t bh = blockIdx.y;
-  const T* qb = q + bh * (size_t)tq * d;
-  const T* kb = k + bh * (size_t)tk * d;
-  const T* vb = v + bh * (size_t)tk * d;
-  T* ob = o + bh * (size_t)tq * d;
+  const int q0 = blockIdx.y * BQ;
+  const size_t bh = blockIdx.x;
+  const float* qb = q + bh * (size_t)tq * d;
+  const float* kb = k + bh * (size_t)tk * d;
+  const float* vb = v + bh * (size_t)tk * d;
+  float* ob = o + bh * (size_t)tq * d;
   const int off = tk - tq;  // right-aligned causal offset
 
   for (int i = tid; i < BQ * d; i += TX * TY) {
     const int r = i / d, c = i - r * d;
-    const float x = (q0 + r < tq) ? to_f32(qb[(size_t)(q0 + r) * d + c]) : 0.f;
+    const float x = (q0 + r < tq) ? qb[(size_t)(q0 + r) * d + c] : 0.f;
     qs[r * dp + c] = x * sm_scale;
   }
 
@@ -123,8 +113,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int r = i / d, c = i - r * d;
       const bool in = k0 + r < tk;
       const size_t g = (size_t)(k0 + r) * d + c;
-      ks[r * dp + c] = in ? to_f32(kb[g]) : 0.f;
-      vs[r * d + c] = in ? to_f32(vb[g]) : 0.f;
+      ks[r * dp + c] = in ? kb[g] : 0.f;
+      vs[r * d + c] = in ? vb[g] : 0.f;
     }
     __syncthreads();
 
@@ -198,37 +188,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < RD; ++j) {
       const int col = tx + j * TX;
-      if (col < d) ob[(size_t)row * d + col] = from_f32<T>(acc[i][j] / den);
+      if (col < d) ob[(size_t)row * d + col] = acc[i][j] / den;
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int tq, int tk,
-                   int d, float sm_scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((tq + BQ - 1) / BQ, bh);
-  const dim3 block(TX, TY);
-  flash_fwd_kernel<T><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), tq, tk, d, sm_scale, causal);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// q [bh, tq, d], k/v [bh, tk, d], o [bh, tq, d], contiguous, all of one type:
-// float (is_bf16 = 0) or __nv_bfloat16 (is_bf16 = 1). Launches on `stream`
-// and returns cudaGetLastError() of the launch (0 on success).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh, int tq,
-                         int tk, int d, float sm_scale, int causal, int is_bf16, void* stream) {
-  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || d < 8 || d > DMAX || d % 8)
+// q [bh, tq, d], k/v [bh, tk, d], o [bh, tq, d], contiguous float. Launches on
+// `stream` and returns cudaGetLastError() of the launch (0 on success).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh,
+                         int tq, int tk, int d, float sm_scale, int causal, void* stream) {
+  if (bh <= 0 || tq <= 0 || tk <= 0 || (tq - 1) / BQ + 1 > 65535 || d < 8 || d > DMAX || d % 8)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, bh, tq, tk, d, sm_scale, causal, s)
-                            : launch<float>(q, k, v, o, bh, tq, tk, d, sm_scale, causal, s);
-  return (int)err;
+  const size_t smem = smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (tq - 1) / BQ + 1);
+  const dim3 block(TX, TY);
+  flash_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), tq, tk, d, sm_scale, causal);
+  return (int)cudaGetLastError();
 }
