@@ -5,23 +5,23 @@ Layout ``[B, H, T, D]``. :func:`flash_attention` is a
 
 - forward on CUDA tensors launches a hand-written kernel
   (:func:`flash_fwd_cuda`) that replaces the Pallas kernel
-  ``_flash_fwd_kernel``, chosen by dtype alone: bf16 goes to
-  ``csrc/flash_fwd_sm90.cu`` (wgmma on the tensor cores, TMA-fed tiles), f32
-  to ``csrc/flash_fwd.cu`` (f32 FMAs on the CUDA cores, which hold the f32
-  parity a TF32 product would not). On CPU tensors it runs
-  :func:`flash_attention_plain`, the same math in torch ops. Any other device
-  raises; a failed build or launch raises.
-- bf16 q, k, v that a TMA tensor map can take as they are
-  (:func:`tma_compatible`), such as the heads of a fused qkv projection, reach
-  the kernel without a copy; other inputs are copied into fresh contiguous
-  tensors.
+  ``_flash_fwd_kernel``, chosen by dtype alone, both on the tensor cores:
+  bf16 goes to ``csrc/flash_fwd_sm90.cu`` (wgmma, TMA-fed tiles), f32 to
+  ``csrc/flash_fwd_f32_sm90.cu`` (mma.sync TF32 in three passes, 3xTF32,
+  which holds the f32 parity a single TF32 product would not; cp.async-fed
+  tiles). On CPU tensors it runs :func:`flash_attention_plain`, the same
+  math in torch ops. Any other device raises; a failed build or launch
+  raises.
+- q, k, v that the kernels can take as they are (:func:`tma_compatible`),
+  such as the heads of a fused qkv projection, reach either kernel without a
+  copy; other inputs are copied into fresh contiguous tensors.
 - backward is :func:`_blockwise_bwd`, the torch port of the JAX package's
   plain-XLA blockwise backward, on either device.
 
-The kernels pick their own tiles (128 x 128 for bf16, 64 x 64 for f32);
-``block_q`` and ``block_k`` steer the plain version's blocking and the
-backward's key blocks, as they steer the Pallas kernel's grid and the JAX
-backward.
+The kernels pick their own tiles (128 queries x 128 keys for bf16, 128 x 64
+for f32); ``block_q`` and ``block_k`` steer the plain version's blocking and
+the backward's key blocks, as they steer the Pallas kernel's grid and the
+JAX backward.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ NEG_INF = -1e30
 # Launches of each CUDA kernel, counted where it is launched and nowhere else,
 # and their sum.
 FLASH_FWD_BF16_LAUNCHES = 0  # csrc/flash_fwd_sm90.cu
-FLASH_FWD_F32_LAUNCHES = 0   # csrc/flash_fwd.cu
+FLASH_FWD_F32_LAUNCHES = 0   # csrc/flash_fwd_f32_sm90.cu
 FLASH_FWD_LAUNCHES = 0
 
 
@@ -121,13 +121,11 @@ def _kernel(name: str):
     from fedml_tpu_torch.ops import _build
 
     fn = getattr(_build.load(name), name)
-    if name == "flash_fwd_sm90":
-        # q, k, v, o, next_tile; b, h, tq, tk, d; (batch, head, token) strides of q, k, v
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    else:  # flash_fwd (f32): q, k, v, o; bh, tq, tk, d
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    # q, k, v, o (and for bf16 next_tile); b, h, tq, tk, d; (batch, head, token)
+    # strides of q, k, v; sm_scale, causal, stream
+    pointers = 5 if name == "flash_fwd_sm90" else 4
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -137,9 +135,10 @@ def _is_cuda(t) -> bool:
 
 
 def tma_compatible(t) -> bool:
-    """Whether a TMA tensor map can take the ``[B, H, T, D]`` view ``t`` as it
-    is: a 16-byte-aligned base, unit stride along D, and the other strides
-    positive multiples of 16 bytes."""
+    """Whether a TMA tensor map (bf16) or 16-byte cp.async copies (f32) can
+    take the ``[B, H, T, D]`` view ``t`` as it is: a 16-byte-aligned base,
+    unit stride along D, and the other strides positive multiples of 16
+    bytes."""
     size = t.element_size()
     return (t.dim() == 4 and t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st > 0 and st * size % 16 == 0 for st in t.stride()[:-1]))
@@ -148,12 +147,13 @@ def tma_compatible(t) -> bool:
 def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     """Launch the forward kernel for q's dtype on the current stream:
     ``q [B,H,Tq,D]``, ``k``/``v`` ``[B,H,Tk,D]`` CUDA tensors of one type, D a
-    multiple of 8 up to 128. bf16 goes to ``csrc/flash_fwd_sm90.cu`` and
-    takes any view that :func:`tma_compatible` accepts; f32 goes to
-    ``csrc/flash_fwd.cu`` and takes contiguous tensors. Returns a fresh
-    contiguous ``[B,H,Tq,D]``. Counts the launch in that kernel's counter and
-    in ``FLASH_FWD_LAUNCHES``. Raises on anything the kernel does not take and
-    on a refused launch."""
+    multiple of 8 up to 128, each a view that :func:`tma_compatible`
+    accepts (strided views such as the heads of a fused qkv projection
+    included). bf16 goes to ``csrc/flash_fwd_sm90.cu`` (wgmma + TMA), f32 to
+    ``csrc/flash_fwd_f32_sm90.cu`` (3xTF32 mma.sync + cp.async). Returns a
+    fresh contiguous ``[B,H,Tq,D]``. Counts the launch in that kernel's
+    counter and in ``FLASH_FWD_LAUNCHES``. Raises on anything the kernel does
+    not take and on a refused launch."""
     global FLASH_FWD_BF16_LAUNCHES, FLASH_FWD_F32_LAUNCHES, FLASH_FWD_LAUNCHES
     bf16 = q.dtype == torch.bfloat16
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -166,11 +166,9 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
             )
         if t.dim() != 4:
             raise ValueError(f"flash_fwd_cuda: {name} must be a [B, H, T, D] tensor")
-        if bf16 and not tma_compatible(t):
-            raise ValueError(f"flash_fwd_cuda: bf16 {name} with strides {t.stride()} is not a "
-                             "view a TMA tensor map takes (see tma_compatible)")
-        if not bf16 and not t.is_contiguous():
-            raise ValueError(f"flash_fwd_cuda: f32 {name} must be contiguous")
+        if not tma_compatible(t):
+            raise ValueError(f"flash_fwd_cuda: {name} with strides {t.stride()} is not a "
+                             "view the kernel takes (see tma_compatible)")
         if t.device != q.device:
             raise ValueError("flash_fwd_cuda: q, k, v must be on one device")
     b, h, t_q, d = q.shape
@@ -180,24 +178,20 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
                          f"v {tuple(v.shape)} do not agree")
     if d % 8 or not 8 <= d <= 128:
         raise ValueError(f"flash_fwd_cuda: head dim {d} must be a multiple of 8 up to 128")
-    # bf16: one block per (head, 128 queries) on grid.x; f32: B*H on grid.x,
-    # 64-query tiles on grid.y
-    blocks_ok = (b * h * -(-t_q // 128) < 2 ** 31 if bf16
-                 else b * h < 2 ** 31 and -(-t_q // 64) <= 65535)
-    if b * h == 0 or t_q == 0 or t_k == 0 or not blocks_ok:
+    # both kernels number the (head, 128-query) tiles with one int on grid.x
+    if b * h == 0 or t_q == 0 or t_k == 0 or b * h * -(-t_q // 128) >= 2 ** 31:
         raise ValueError(f"flash_fwd_cuda: B*H={b * h}, Tq={t_q}, Tk={t_k} out of range")
     out = torch.empty((b, h, t_q, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+    tail = (b, h, t_q, t_k, d, *strides, float(sm_scale), int(bool(causal)), stream)
     if bf16:
-        strides = [st for t in (q, k, v) for st in t.stride()[:3]]
         next_tile = torch.zeros(1, dtype=torch.int32, device=q.device)  # the blocks' tile counter
         err = _kernel("flash_fwd_sm90")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), next_tile.data_ptr(),
-            b, h, t_q, t_k, d, *strides, float(sm_scale), int(bool(causal)), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), next_tile.data_ptr(), *tail)
     else:
-        err = _kernel("flash_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t_q, t_k, d,
-            float(sm_scale), int(bool(causal)), stream)
+        err = _kernel("flash_fwd_f32_sm90")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: error {err} (a cudaError_t; "
                            "10000 + a CUresult where a TMA tensor map was refused)")
@@ -211,11 +205,9 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
 
 def _flash_fwd(q, k, v, causal, sm_scale, block_q, block_k):
     if _is_cuda(q):
-        if q.dtype == torch.bfloat16:  # a fresh copy also fixes a misaligned contiguous view
-            q, k, v = (t if tma_compatible(t) else t.clone(memory_format=torch.contiguous_format)
-                       for t in (q, k, v))
-        else:
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        # a fresh copy also fixes a misaligned contiguous view
+        q, k, v = (t if tma_compatible(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
         return flash_fwd_cuda(q, k, v, causal, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, sm_scale, block_q, block_k)

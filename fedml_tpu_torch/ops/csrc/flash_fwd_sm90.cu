@@ -3,7 +3,7 @@
 //
 // Replaces: fedml_tpu/ops/attention.py::_flash_fwd_kernel (lines 59-106), the
 // Pallas kernel launched by _flash_fwd (pallas_call at attention.py:124), for
-// bf16 inputs; f32 inputs go to the SIMT kernel in flash_fwd.cu. Same
+// bf16 inputs; f32 inputs go to flash_fwd_f32_sm90.cu. Same
 // function: o = softmax(q k^T * sm_scale) v over [B, H, T, D], an online
 // softmax (running max m, sum l, accumulator o, all f32), the right-aligned
 // causal mask (query i sees key j iff j <= i + (t_k - t_q)), key tiles past a
