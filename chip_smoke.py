@@ -23,15 +23,31 @@ Phases, each of which exits non-zero on failure:
    autograd through the plain version;
 5. end-to-end check at a small size: a few FedAvg rounds of a small f32
    TransformerLM on the card (kernel) against the same rounds on the CPU
-   (plain version);
+   (plain version), the cohort trained client by client
+   (``cohort_execution="scan"``);
 6. the main path: FedAvg rounds of the full-width TransformerLM (D=2048,
-   H=16, T=1024, V=32000) with ``attn_impl="flash"``, counting each kernel's
-   launches: in bf16 compute (the bf16 kernel on every layer's forward, the
-   f32 kernel never), then one round in f32 compute, the JAX package's
-   default (the f32 kernel on every layer's forward, the bf16 kernel never);
+   H=16, T=1024, V=32000) with ``attn_impl="flash"`` in
+   ``cohort_execution="scan"`` (as the JAX LM bench runs it), counting each
+   kernel's launches: in bf16 compute (the bf16 kernel on every layer's
+   forward, the f32 kernel never), then one round in f32 compute, the JAX
+   package's default (the f32 kernel on every layer's forward, the bf16
+   kernel never);
 7. the kernels' times at the main path's shape beside their bounds, the
    plain version's and one PyTorch call's; and each forward on the main
-   path's strided views against the same work on contiguous copies.
+   path's strided views against the same work on contiguous copies;
+8. the vmapped cohort at a small size: phase 5's LM in
+   ``cohort_execution="vmap"``, card against CPU, where the kernel is
+   reached through the flash function's vmap rule (one launch per layer per
+   step for the whole cohort; the count is asserted); and a depth-8 ResNet
+   with BatchNorm, weight decay and augmentation, f32, 2 vmapped rounds on
+   the card against the CPU and against scan on the card;
+9. the cross-silo flagship at full width through
+   ``fedml_tpu_torch.exp.repro_cross_silo.run``: CIFAR-10 (the 50k/10k
+   offline fixture) + ResNet-56, hetero alpha=0.5, 10 clients x B=64, SGD
+   lr 0.001 wd 0.001, bf16, augmentation, vmapped cohort, cut to E=1 and 2
+   rounds; per round its seconds, images/s, FLOP/s from the shapes and peak
+   memory; then one round of the same run in scan. It runs no kernel of the
+   repo (the ResNet path has no TPU kernel: cuDNN convolutions).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -39,6 +55,7 @@ It prints a ``{"kernels": [...]}`` line, then as its last line
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -55,6 +72,9 @@ BF16_ATOL, BF16_RTOL = 2.0 ** -6, 2.0 ** -7
 # end-to-end, card (kernel) vs CPU (plain version), f32: a few SGD steps
 # through several layers of f32 arithmetic summed in different orders
 E2E_ATOL = 1e-4
+BF16_PEAK_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
+# where the cross-silo run keeps its data and metrics (gitignored)
+BUILD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 # H100 SXM dense peaks of the routes each input type has to products of its
@@ -328,16 +348,30 @@ def phase_kernel_times(torch):
     return times
 
 
-def phase_small_end_to_end(torch):
-    """A few FedAvg rounds of a small f32 TransformerLM with the flash path:
-    on the card (the kernel) against the same rounds on the CPU (the plain
-    version), from the same variables and data."""
+def _max_err(torch, runs):
+    """Worst difference of two runs' variables and per-round metrics."""
+    (v_a, h_a), (v_b, h_b) = runs
+    err = max(float((v_a[k].cpu() - v_b[k].cpu()).abs().max()) for k in v_b)
+    for rec_a, rec_b in zip(h_a, h_b):
+        for key in ("Train/Loss", "Train/Acc", "Test/Acc", "Test/Loss"):
+            err = max(err, abs(rec_a[key] - rec_b[key]))
+    return err
+
+
+def phase_small_end_to_end(torch, mode):
+    """A few FedAvg rounds of a small f32 TransformerLM with the flash path
+    in cohort mode ``mode``: on the card (the kernel) against the same
+    rounds on the CPU (the plain version), from the same variables and data.
+    Returns the f32 kernel's launches in the card run; in vmap they must be
+    one per layer per step (the cohort folded into one launch) and per eval
+    batch."""
     from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
     from fedml_tpu_torch.models.registry import create_model
-    from fedml_tpu_torch.sim.cohort import FederatedArrays
+    from fedml_tpu_torch.ops import attention as attn
+    from fedml_tpu_torch.sim.cohort import FederatedArrays, steps_per_epoch
     from fedml_tpu_torch.sim.engine import FedSim, SimConfig
 
-    v, t, n_clients, per = 64, 96, 4, 12
+    v, t, n_clients, per, layers = 64, 96, 4, 12, 2
     rng = np.random.RandomState(0)
     x = rng.randint(0, v, (n_clients * per + 8, t)).astype(np.int32)
     y = np.roll(x, -1, axis=1)
@@ -346,27 +380,84 @@ def phase_small_end_to_end(torch):
     part = {c: np.arange(c * per, (c + 1) * per - c) for c in range(n_clients)}
     n = n_clients * per
     cfg = SimConfig(client_num_in_total=n_clients, client_num_per_round=2, batch_size=4,
-                    comm_round=2, epochs=1, frequency_of_the_test=1, eval_batch_size=4, seed=0)
+                    comm_round=2, epochs=1, frequency_of_the_test=1, eval_batch_size=4, seed=0,
+                    cohort_execution=mode)
     runs = {}
     for device in ("cuda", "cpu"):
         model = create_model("transformer", v, dtype=torch.float32, device=device, embed_dim=64,
-                             num_layers=2, num_heads=2, max_len=t, attn_impl="flash")
+                             num_layers=layers, num_heads=2, max_len=t, attn_impl="flash")
         sim = FedSim(ClientTrainer(module=model, task="nwp", optimizer=sgd(0.1, 0.9)),
                      FederatedArrays({"x": x[:n], "y": y[:n], "mask": mask[:n]}, part),
                      {"x": x[n:], "y": y[n:], "mask": mask[n:]}, cfg, device=device)
         if device == "cuda":
             init = {k: t_.cpu() for k, t_ in sim.init_variables().items()}
+            attn.FLASH_FWD_F32_LAUNCHES = attn.FLASH_FWD_BF16_LAUNCHES = 0
         variables, history = sim.run(variables={k: t_.to(device) for k, t_ in init.items()})
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = (attn.FLASH_FWD_F32_LAUNCHES, attn.FLASH_FWD_BF16_LAUNCHES)
         runs[device] = (variables, history)
-    (v_gpu, h_gpu), (v_cpu, h_cpu) = runs["cuda"], runs["cpu"]
-    err = max(float((v_gpu[k].cpu() - v_cpu[k]).abs().max()) for k in v_cpu)
-    for rec_g, rec_c in zip(h_gpu, h_cpu):
-        for key in ("Train/Loss", "Train/Acc", "Test/Acc", "Test/Loss"):
-            err = max(err, abs(rec_g[key] - rec_c[key]))
-    log(f"[e2e] small TransformerLM, 2 FedAvg rounds, card vs CPU (f32, flash): "
-        f"max_abs_err={err:.3e} (params, losses, eval); Test/Loss {h_gpu[-1]['Test/Loss']:.5f}")
+    err = _max_err(torch, (runs["cuda"], runs["cpu"]))
+    h_gpu = runs["cuda"][1]
+    steps = steps_per_epoch(max(len(p) for p in part.values()), cfg.batch_size)
+    evals = steps_per_epoch(n, cfg.eval_batch_size) + steps_per_epoch(8, cfg.eval_batch_size)
+    expected = layers * (cfg.comm_round * cfg.epochs * steps + cfg.comm_round * evals)
+    log(f"[e2e {mode}] small TransformerLM, 2 FedAvg rounds, card vs CPU (f32, flash): "
+        f"max_abs_err={err:.3e} (params, losses, eval); Test/Loss "
+        f"{h_gpu[-1]['Test/Loss']:.5f}; f32 kernel launches {launches[0]}, bf16 {launches[1]}"
+        + (f" (expected {expected} = L x (rounds x E x S steps + eval batches))"
+           if mode == "vmap" else ""))
     if not err <= E2E_ATOL:
-        fail(f"small end-to-end run on the card disagrees with the CPU run: {err} > {E2E_ATOL}")
+        fail(f"small {mode} run on the card disagrees with the CPU run: {err} > {E2E_ATOL}")
+    if mode == "vmap" and launches != (expected, 0):
+        fail(f"vmapped small LM launched the kernels {launches} times, expected ({expected}, 0)")
+    return launches[0]
+
+
+def phase_small_resnet(torch):
+    """A depth-8 ResNet (BatchNorm, weight decay, momentum, augmentation),
+    f32, 2 vmapped FedAvg rounds on the card against the CPU, and against
+    scan on the card, from the same variables and data. Batch 16 and lr
+    0.005 keep the two rounds well-conditioned: with batch 8 (a batch of one
+    real image and seven zero rows normalised together) and lr 0.05, the
+    f32 rounding differences of round 0 (~1e-6) grow past 1e-1 by round 1
+    between vmap and scan on the CPU alone."""
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.models.resnet import CifarResNet
+    from fedml_tpu_torch.ops.augment import ImageAugment
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    rng = np.random.RandomState(1)
+    sizes = [40, 9, 25, 33, 17]
+    n = sum(sizes)
+    x = rng.randn(n + 32, 32, 32, 3).astype(np.float32)
+    y = rng.randint(0, 10, n + 32).astype(np.int32)
+    starts = np.cumsum([0] + sizes)
+    part = {c: np.arange(starts[c], starts[c + 1]) for c in range(len(sizes))}
+    runs = {}
+    for device, mode in (("cuda", "vmap"), ("cpu", "vmap"), ("cuda", "scan")):
+        trainer = ClientTrainer(module=CifarResNet(depth=8, num_classes=10, device=device),
+                                optimizer=sgd(0.005, 0.9, 1e-3), epochs=2,
+                                augment=ImageAugment())
+        cfg = SimConfig(client_num_in_total=5, client_num_per_round=4, batch_size=16,
+                        comm_round=2, epochs=2, frequency_of_the_test=1, eval_batch_size=32,
+                        seed=0, cohort_execution=mode)
+        sim = FedSim(trainer, FederatedArrays({"x": x[:n], "y": y[:n]}, part),
+                     {"x": x[n:], "y": y[n:]}, cfg, device=device)
+        if not runs:
+            init = {k: t_.cpu() for k, t_ in sim.init_variables().items()}
+        runs[(device, mode)] = sim.run(variables={k: t_.to(device) for k, t_ in init.items()})
+    card_cpu = _max_err(torch, (runs[("cuda", "vmap")], runs[("cpu", "vmap")]))
+    vmap_scan = _max_err(torch, (runs[("cuda", "vmap")], runs[("cuda", "scan")]))
+    log(f"[resnet] depth-8 ResNet f32, 2 vmapped FedAvg rounds (5 ragged clients, BN, wd, "
+        f"augmentation): card vs CPU max_abs_err={card_cpu:.3e}, vmap vs scan on the card "
+        f"max_abs_err={vmap_scan:.3e} (params, BN statistics, losses, eval); Test/Acc "
+        f"{runs[('cuda', 'vmap')][1][-1]['Test/Acc']:.4f}")
+    if not card_cpu <= E2E_ATOL:
+        fail(f"small ResNet on the card disagrees with the CPU run: {card_cpu} > {E2E_ATOL}")
+    if not vmap_scan <= E2E_ATOL:
+        fail(f"small ResNet vmap disagrees with scan on the card: {vmap_scan} > {E2E_ATOL}")
 
 
 MAIN = dict(vocab=32000, embed_dim=2048, num_layers=8, num_heads=16, seq=1024,
@@ -404,7 +495,8 @@ def phase_main_path(torch, c):
     cfg = SimConfig(client_num_in_total=c["clients"], client_num_per_round=c["clients"],
                     batch_size=c["batch"], comm_round=c["rounds"], epochs=1,
                     frequency_of_the_test=c["rounds"], eval_batch_size=c["batch"], seed=0,
-                    shuffle_each_round=False, train_eval_samples=c["held_out"])
+                    shuffle_each_round=False, train_eval_samples=c["held_out"],
+                    cohort_execution="scan")
     sim = FedSim(trainer, FederatedArrays({"x": x[:n], "y": y[:n], "mask": mask[:n]}, part),
                  {"x": x[n:], "y": y[n:], "mask": mask[n:]}, cfg)
     variables = sim.init_variables()
@@ -455,6 +547,112 @@ def phase_main_path(torch, c):
     return launches
 
 
+# the cross-silo flagship (repro_cross_silo.py's recipe), cut to E=1 and 2
+# rounds with one eval at the end; widths, depth, clients and batch as they are
+CROSS_SILO = dict(n_train=50_000, n_test=10_000, clients=10, batch=64, epochs=1, rounds=2)
+
+
+def _resnet_train_flops_per_image(torch, model, image=32):
+    """Training FLOPs of one image through ``model``, from its layers'
+    shapes: 2 per multiply-add of every conv and the head forward, three
+    times that for forward + backward (input and weight gradients)."""
+    from fedml_tpu_torch.models.resnet import Conv
+
+    flops = []
+
+    def hook(mod, args, out):
+        flops.append(2 * out[0].numel() * mod.weight[0].numel())
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, Conv)]
+    with torch.no_grad():
+        model(torch.zeros(1, image, image, 3, device=next(model.parameters()).device))
+    for h in handles:
+        h.remove()
+    return 3 * (sum(flops) + 2 * model.head.weight.numel())
+
+
+def phase_cross_silo(torch):
+    """The cross-silo flagship at full width through the entry point a user
+    calls, in the vmapped cohort (2 rounds), then one round of the same run
+    in scan. Fails on non-finite metrics or a first-round loss far from
+    ln 10: within [ln 10 - 1, ln 10 + 3], since at flax's initialisation
+    ResNet-56's logits have a standard deviation near 2 (the residual
+    stream grows over 27 blocks), which puts the loss of the first steps
+    near 3-4 in the JAX package and the port alike. Returns the vmap and
+    scan round times."""
+    from fedml_tpu_torch.core import partition
+    from fedml_tpu_torch.data import cv
+    from fedml_tpu_torch.exp import repro_cross_silo as repro
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.sim.cohort import steps_per_epoch
+
+    c = CROSS_SILO
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    data_dir = BUILD_DIR / "cifar10"
+    argv = ["--data_dir", str(data_dir), "--fixture_train_n", str(c["n_train"]),
+            "--fixture_test_n", str(c["n_test"]), "--fixture_signal", "0.045",
+            "--partition_method", "hetero", "--partition_alpha", "0.5",
+            "--client_num_in_total", str(c["clients"]), "--batch_size", str(c["batch"]),
+            "--lr", "0.001", "--wd", "0.001", "--epochs", str(c["epochs"]),
+            "--round_sleep", "0", "--device", "cuda"]
+    runs = {}
+    for mode, rounds in (("vmap", c["rounds"]), ("scan", 1)):
+        metrics = BUILD_DIR / f"cross_silo_{mode}.jsonl"
+        args = repro.add_args(argparse.ArgumentParser()).parse_args(
+            argv + ["--cohort_execution", mode, "--comm_round", str(rounds),
+                    "--frequency_of_the_test", str(rounds), "--metrics_out", str(metrics)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = repro.run(args)
+        wall = time.perf_counter() - t0
+        records = [json.loads(line) for line in metrics.read_text().splitlines()]
+        runs[mode] = (result, records, wall, torch.cuda.max_memory_allocated())
+        if len(records) != rounds:
+            fail(f"cross-silo {mode}: {len(records)} of {rounds} rounds completed")
+
+    (_, y), _, _ = cv._load_cifar10_raw(data_dir)
+    sizes = np.array([len(p) for p in partition.partition(
+        "hetero", y, c["clients"], 0.5, 0).values()])
+    steps = steps_per_epoch(int(sizes.max()), c["batch"])
+    executed = int(sum(steps_per_epoch(int(n), c["batch"]) for n in sizes)) * c["epochs"]
+    slots = c["clients"] * steps * c["epochs"]
+    model = create_model("resnet56", 10, dtype=torch.bfloat16)
+    per_image = _resnet_train_flops_per_image(torch, model)
+    round_flops = slots * c["batch"] * per_image  # vmap computes padded slots too
+    log(f"[cross-silo] CIFAR-10 fixture {c['n_train']}/{c['n_test']} + ResNet-56 bf16, hetero "
+        f"alpha=0.5, {c['clients']} clients x B={c['batch']}, E={c['epochs']}: client sizes "
+        f"{sizes.tolist()}; {steps} steps a client-epoch; executed client steps "
+        f"{executed} of {slots} step slots ({1 - executed / slots:.1%} padded steps, "
+        f"{1 - sizes.sum() / (slots * c['batch']):.1%} padded image slots); training FLOPs "
+        f"{per_image / 1e9:.4f} GFLOP an image slot, {round_flops / 1e12:.3f} TFLOP a round")
+    ln10 = float(np.log(10))
+    for mode, (result, records, wall, peak) in runs.items():
+        for rec in records:
+            t = rec["round_time"]
+            log(f"[cross-silo {mode}] round {rec['round']}: {t:.3f} s, Train/Loss "
+                f"{rec['Train/Loss']:.5f}, {executed * c['batch'] / t:.1f} images/s "
+                f"(executed steps x {c['batch']}), {round_flops / t / 1e12:.2f} TFLOP/s "
+                f"({round_flops / t / BF16_PEAK_FLOPS:.2%} of the bf16 peak)"
+                + (f"; Test/Acc {rec['Test/Acc']:.4f} Test/Loss {rec['Test/Loss']:.5f} "
+                   f"Train/Acc {rec['Train/Acc']:.4f}" if "Test/Acc" in rec else ""))
+        log(f"[cross-silo {mode}] run() in {wall:.2f} s (fixture, load, rounds, eval); peak "
+            f"device memory {peak / 2**30:.2f} GiB; result {json.dumps(result)}")
+        values = [v for rec in records for k, v in rec.items() if k != "round"]
+        if not all(np.isfinite(values)):
+            fail(f"cross-silo {mode} produced non-finite metrics: {records}")
+        if not ln10 - 1.0 <= records[0]["Train/Loss"] <= ln10 + 3.0:
+            fail(f"cross-silo {mode}: first-round loss {records[0]['Train/Loss']} is far from "
+                 f"ln 10 = {ln10:.4f} (band [ln 10 - 1, ln 10 + 3])")
+    vmap_t = runs["vmap"][1][-1]["round_time"]
+    scan_t = runs["scan"][1][0]["round_time"]
+    log(f"[cross-silo] round time vmap {vmap_t:.3f} s (round {runs['vmap'][1][-1]['round']}) "
+        f"against scan {scan_t:.3f} s (round 0): vmap/scan {vmap_t / scan_t:.3f}; round-0 "
+        f"Train/Loss vmap {runs['vmap'][1][0]['Train/Loss']:.5f}, scan "
+        f"{runs['scan'][1][0]['Train/Loss']:.5f}")
+    return vmap_t, scan_t
+
+
 def main() -> None:
     import torch
 
@@ -464,7 +662,7 @@ def main() -> None:
     phase_build()
     errors = phase_kernel_vs_plain(torch)
     phase_gradient(torch)
-    phase_small_end_to_end(torch)
+    phase_small_end_to_end(torch, "scan")
     launches = {}
     for config in (MAIN, MAIN_F32):
         run = phase_main_path(torch, config)
@@ -472,9 +670,13 @@ def main() -> None:
                          if KERNELS[name]["dtype"] == config["dtype"]})
         torch.cuda.empty_cache()
     times = phase_kernel_times(torch)
+    small_vmap_launches = phase_small_end_to_end(torch, "vmap")
+    phase_small_resnet(torch)
+    phase_cross_silo(torch)
     kernels = [{
         "name": name, "route": "cuda", "source": spec["source"], "replaces": KERNEL_REPLACES,
         "dtype": spec["dtype"], "launches": launches[name], "max_abs_err": errors[name],
+        "launches_small_vmap_lm": small_vmap_launches if spec["dtype"] == "float32" else 0,
         **times[name],
     } for name, spec in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

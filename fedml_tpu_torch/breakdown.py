@@ -5,7 +5,9 @@ Run on a machine with an NVIDIA card, from the repository root::
     python3 -m fedml_tpu_torch.breakdown
 
 It builds the main path's model (TransformerLM D=2048, L=8, H=16, T=1024,
-V=32000, bf16 compute, flash attention) and times with CUDA events, each the
+V=32000, bf16 compute, flash attention) and times the pieces of the
+``cohort_execution="scan"`` round, the mode the full-width LM runs in (as
+the JAX LM bench asks for it, ``bench.py:166``), with CUDA events, each the
 mean over a few repetitions after a warm-up:
 
 - one client train step, split into forward plus loss, backward, and the
@@ -18,6 +20,15 @@ mean over a few repetitions after a warm-up:
   the weighted mean.
 
 It prints the card's name and power limit, then one JSON object.
+
+``python3 -m fedml_tpu_torch.breakdown resnet56`` does the same for the
+cross-silo flagship's step (ResNet-56, bf16, 10 clients x B=64, weight-decay
+SGD, augmentation): one vmapped cohort step (``make_vmap_train``) and one
+client's step in scan (``make_local_train``), each timed with CUDA events
+over a few steps after a warm-up, and each traced once with
+``torch.profiler``: the device time its kernels took, against the step's
+time the share of it the device sat idle, its kernel count and its costliest
+kernels.
 """
 
 from __future__ import annotations
@@ -119,5 +130,86 @@ def main(reps: int = 5) -> dict:
     return result
 
 
+RESNET = dict(clients=10, batch=64, steps=4, warmup_steps=2)
+
+
+def _profile(fn):
+    """Run ``fn`` once under ``torch.profiler``: (wall ms, device ms of its
+    kernels, kernel launches, the five costliest kernels as (name, ms))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return (start.elapsed_time(end), sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels),
+            [(e.key[:80], e.self_device_time_total / 1e3) for e in top])
+
+
+def resnet_main(reps: int = 3) -> dict:
+    """The flagship's vmapped cohort step and scan client step, by parts."""
+    from fedml_tpu_torch.core.trainer import make_local_train, make_vmap_train
+    from fedml_tpu_torch.ops.augment import ImageAugment, round_generator
+
+    if not torch.cuda.is_available():
+        raise SystemExit("fedml_tpu_torch.breakdown needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0], flush=True)
+    c = RESNET
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = create_model("resnet56", 10, dtype=torch.bfloat16)
+    aug = ImageAugment()
+    trainer = ClientTrainer(module=model, optimizer=sgd(0.001, weight_decay=0.001),
+                            augment=aug)
+    variables = trainer.init(gen)
+    n, s, b = c["clients"], c["steps"], c["batch"]
+    data = {"x": torch.randn(n, s, b, 32, 32, 3, device="cuda", generator=gen),
+            "y": torch.randint(0, 10, (n, s, b), device="cuda", generator=gen),
+            "mask": torch.ones(n, s, b, device="cuda")}
+    draws = [aug.draw(round_generator(0, 0, i), (1, s, b), (32, 32)) for i in range(n)]
+    draws = {k: torch.stack([d[k] for d in draws]).cuda() for k in draws[0]}
+    budget = torch.full((n,), s, device="cuda")
+    vmap_train, local_train = make_vmap_train(trainer), make_local_train(trainer)
+
+    def vmap_round():
+        return vmap_train(variables, data, budget, draws)
+
+    def scan_client():
+        return local_train(variables, {k: v[0] for k, v in data.items()}, s,
+                           {k: v[0] for k, v in draws.items()})
+
+    result = {"config": c, "device": torch.cuda.get_device_name(0)}
+    for name, fn, images in (("vmap", vmap_round, n * b), ("scan", scan_client, b)):
+        for _ in range(c["warmup_steps"]):
+            fn()
+        step_ms = _events_ms(fn, reps) / s
+        wall, device, launches, top = _profile(fn)
+        # the profiler slows the host, not the kernels: the idle share is
+        # taken against the step's time without it
+        result[name] = {
+            "step_ms": step_ms, "images_per_step": images,
+            "profiled_wall_ms_per_step": wall / s, "device_ms_per_step": device / s,
+            "device_idle_share": 1 - device / s / step_ms,
+            "kernel_launches_per_step": launches / s,
+            "top_kernels_ms_per_step": [(k, ms / s) for k, ms in top],
+        }
+    result["vmap_over_scan_per_image"] = (result["vmap"]["step_ms"] / (n * b)) / (
+        result["scan"]["step_ms"] / b)
+    print(json.dumps(result), flush=True)
+    return result
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+
+    resnet_main() if sys.argv[1:] == ["resnet56"] else main()

@@ -1,12 +1,22 @@
 """Weights between the JAX package and the port.
 
-:func:`from_flax` turns the JAX package's TransformerLM variables (nested
-dicts of numpy arrays, with or without the ``"params"`` collection) into the
+:func:`from_flax` turns the JAX package's variables of a TransformerLM or a
+CIFAR ResNet (nested dicts of numpy arrays: ``{"params": ...}``, for the
+ResNet with ``"batch_stats"`` beside it, or a bare params tree) into the
 port's flat ``state_dict``; :func:`to_flax` is its inverse. Names map one
-path component at a time (``block_3`` <-> ``blocks.3``, ``LayerNorm_0`` <->
-``ln_0``, ...). Flax ``Dense`` kernels are ``[in, out]`` and the port's
-``Dense`` weights ``[out, in]``, so kernels are transposed; ``qkv`` stays one
-``[3D, D]`` weight, so the q|k|v split of its output is the same.
+path component at a time:
+
+- TransformerLM: ``block_3`` <-> ``blocks.3``, ``LayerNorm_0`` <-> ``ln_0``,
+  ``MultiHeadSelfAttention_0`` <-> ``attn``, a block's ``Dense_0`` <->
+  ``fc_0``;
+- ResNet: ``BasicBlock_3`` <-> ``blocks.3``, ``Conv_0`` <-> ``conv_0``,
+  ``BatchNorm_0`` <-> ``bn_0``, the top-level ``Dense_0`` <-> ``head``.
+
+Leaves: a Dense kernel ``[in, out]`` is the transpose of the port's weight
+(``qkv`` stays one ``[3D, D]`` weight, so the q|k|v split of its output is
+the same); a Conv kernel HWIO is the port's OIHW weight; LayerNorm and
+BatchNorm ``scale`` is ``weight``; BatchNorm's ``batch_stats`` ``mean`` and
+``var`` are the buffers ``running_mean`` and ``running_var``.
 """
 
 from __future__ import annotations
@@ -25,7 +35,9 @@ _COMPONENTS = {
     "Dense_1": "fc_1",
 }
 _INVERSE = {v: k for k, v in _COMPONENTS.items()}
-_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+           "mean": "running_mean", "var": "running_var"}
+_STATS = {"running_mean": "mean", "running_var": "var"}
 _LAYER_NORMS = ("ln_0", "ln_1", "ln_f")
 
 
@@ -39,53 +51,78 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, Any]:
     return out
 
 
+def _port_names(comp: str, top_level: bool) -> list[str]:
+    """One flax path component as the port's name components."""
+    m = re.fullmatch(r"(?:block|BasicBlock)_(\d+)", comp)
+    if m:
+        return ["blocks", m.group(1)]
+    m = re.fullmatch(r"(Conv|BatchNorm)_(\d+)", comp)
+    if m:
+        return [f"{'conv' if m.group(1) == 'Conv' else 'bn'}_{m.group(2)}"]
+    if comp == "Dense_0" and top_level:
+        return ["head"]
+    return [_COMPONENTS.get(comp, comp)]
+
+
 def from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX TransformerLM variables -> the port's state dict (CPU tensors in
-    the leaves' own dtype)."""
-    params = variables.get("params", variables)
+    """JAX TransformerLM or CifarResNet variables -> the port's state dict
+    (CPU tensors in the leaves' own dtype)."""
+    collections = (variables if "params" in variables or "batch_stats" in variables
+                   else {"params": variables})
     sd = {}
-    for path, leaf in _flatten(dict(params)).items():
-        arr = np.asarray(leaf)
-        names = []
-        for comp in path[:-1]:
-            m = re.fullmatch(r"block_(\d+)", comp)
-            names += ["blocks", m.group(1)] if m else [_COMPONENTS.get(comp, comp)]
-        last = path[-1]
-        if last == "kernel":
-            arr = arr.T
-        names.append(_LEAVES.get(last, last))
-        sd[".".join(names)] = torch.tensor(np.ascontiguousarray(arr))
+    for tree in collections.values():
+        for path, leaf in _flatten(dict(tree)).items():
+            arr = np.asarray(leaf)
+            names = []
+            for i, comp in enumerate(path[:-1]):
+                names += _port_names(comp, top_level=i == 0)
+            last = path[-1]
+            if last == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            names.append(_LEAVES.get(last, last))
+            sd[".".join(names)] = torch.tensor(np.ascontiguousarray(arr))
     return sd
 
 
 def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
-    """The port's state dict -> ``{"params": ...}`` nested dicts of numpy
-    arrays in the JAX package's layout."""
-    params: dict = {}
+    """The port's state dict -> ``{"params": ...}`` (and ``"batch_stats"``
+    for a ResNet) nested dicts of numpy arrays in the JAX package's layout."""
+    resnet = "conv_0.weight" in state_dict
+    out: dict = {"params": {}}
     for name, t in state_dict.items():
         arr = t.detach().cpu().numpy()
         parts = name.split(".")
         path = []
         i = 0
         while i < len(parts) - 1:
-            if parts[i] == "blocks":
-                path.append(f"block_{parts[i + 1]}")
+            comp = parts[i]
+            if comp == "blocks":
+                path.append(f"{'BasicBlock' if resnet else 'block'}_{parts[i + 1]}")
                 i += 2
+                continue
+            m = re.fullmatch(r"(conv|bn)_(\d+)", comp)
+            if m:
+                path.append(f"{'Conv' if m.group(1) == 'conv' else 'BatchNorm'}_{m.group(2)}")
+            elif comp == "head" and resnet:
+                path.append("Dense_0")
             else:
-                path.append(_INVERSE.get(parts[i], parts[i]))
-                i += 1
+                path.append(_INVERSE.get(comp, comp))
+            i += 1
         last = parts[-1]
         parent = parts[-2] if len(parts) > 1 else ""
-        if last == "weight":
-            if parent in _LAYER_NORMS:
+        collection = "params"
+        if last in _STATS:
+            collection, last = "batch_stats", _STATS[last]
+        elif last == "weight":
+            if parent in _LAYER_NORMS or parent.startswith("bn_"):
                 last = "scale"
             elif parent == "tok_embed":
                 last = "embedding"
             else:
-                last, arr = "kernel", arr.T
+                last, arr = "kernel", arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         path.append(last)
-        node = params
+        node = out.setdefault(collection, {})
         for comp in path[:-1]:
             node = node.setdefault(comp, {})
         node[path[-1]] = np.ascontiguousarray(arr)
-    return {"params": params}
+    return out

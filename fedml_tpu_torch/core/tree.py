@@ -1,4 +1,4 @@
-"""State-dict arithmetic, the port of ``fedml_tpu/core/tree.py:74-113``.
+"""State-dict arithmetic, the port of ``fedml_tpu/core/tree.py:74-120``.
 
 Model variables in the port are flat ``state_dict``-style dicts of tensors
 (name -> tensor) instead of JAX pytrees.
@@ -65,3 +65,27 @@ def weighted_mean(trees: Iterable[StateDict], weights: torch.Tensor) -> StateDic
     if n != len(w):
         raise ValueError(f"weighted_mean: {n} trees for {len(w)} weights")
     return {k: v.to(dtypes[k]) for k, v in acc.items()}
+
+
+def stacked_weighted_mean(stacked: StateDict, weights: torch.Tensor) -> StateDict:
+    """``tree_weighted_mean``: the weighted mean over a leading client axis
+    present on every leaf (``[C, ...]`` leaves, ``[C]`` weights). Weights
+    are normalised in f32, leaves summed in f32 and cast back to their dtype;
+    BN statistics are averaged like any other leaf."""
+    w = weights.float()
+    w = w / torch.clamp(w.sum(), min=1e-12)
+    return {
+        k: torch.sum(v.float() * w.reshape((-1,) + (1,) * (v.dim() - 1)), dim=0).to(v.dtype)
+        for k, v in stacked.items()
+    }
+
+
+def stack(trees: Iterable[StateDict]) -> StateDict:
+    """Stack identically keyed state dicts along a new leading axis."""
+    trees = list(trees)
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def unstack(stacked: StateDict, n: int) -> list[StateDict]:
+    """The ``n`` per-client views of a stacked state dict (no copies)."""
+    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]

@@ -1,7 +1,8 @@
 """Model registry, the port of ``fedml_tpu/models/registry.py``.
 
-Only the transformer is ported; every other model name of the JAX registry
-raises, naming the ROADMAP slice that ports it.
+Ported: ``transformer`` and the CIFAR ResNets with BatchNorm,
+``resnet56`` and ``resnet110``. Every other model name of the JAX registry
+raises, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from typing import Any
 
 import torch
 
+from fedml_tpu_torch.models.resnet import resnet56, resnet110
 from fedml_tpu_torch.models.transformer import TransformerLM
 
 # model names of the JAX registry that later slices port (ROADMAP.md §A)
@@ -18,9 +20,8 @@ _NOT_PORTED = {
     "cnn": "§A6 (FEMNIST + CNN)",
     "cnn_original": "§A6 (FEMNIST + CNN)",
     "lenet": "§A6 (FEMNIST + CNN)",
-    "resnet56": "§A7 (CIFAR-10 + ResNet-56)",
-    "resnet110": "§A7 (CIFAR-10 + ResNet-56)",
-    "resnet18_gn": "§A7 (CIFAR-10 + ResNet-56)",
+    "resnet18_gn": "§A7 (the rest: resnet18_gn)",
+    "mobilenet": "§A7 (the rest: MobileNet)",
     "rnn": "§A9 (RNN slices)",
 }
 
@@ -35,9 +36,9 @@ def create_model(model_name: str, output_dim: int, dataset: str = "",
     ``dtype`` (a torch dtype or "float32"/"bfloat16") is the compute dtype;
     parameters stay f32. ``model_kwargs`` set the model's other fields (for
     the transformer: ``embed_dim``, ``num_layers``, ``num_heads``,
-    ``max_len``, ``attn_impl``, ...). The model is built on ``device``,
-    which must be available."""
-    if model_name != "transformer":
+    ``max_len``, ``attn_impl``, ...; the ResNets take none). The model is
+    built on ``device``, which must be available."""
+    if model_name not in ("transformer", "resnet56", "resnet110"):
         slice_ = _NOT_PORTED.get(model_name, "§A13 (remaining families)")
         raise NotImplementedError(
             f"model {model_name!r} (dataset={dataset!r}) is not ported to "
@@ -47,5 +48,8 @@ def create_model(model_name: str, output_dim: int, dataset: str = "",
         if dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {dtype!r} (expected one of {sorted(_DTYPES)})")
         dtype = _DTYPES[dtype]
-    return TransformerLM(vocab_size=output_dim, dtype=dtype or torch.float32,
-                         device=device, **model_kwargs)
+    dtype = dtype or torch.float32
+    if model_name == "transformer":
+        return TransformerLM(vocab_size=output_dim, dtype=dtype, device=device, **model_kwargs)
+    factory = resnet56 if model_name == "resnet56" else resnet110
+    return factory(class_num=output_dim, dtype=dtype, device=device, **model_kwargs)

@@ -17,6 +17,9 @@ Layout ``[B, H, T, D]``. :func:`flash_attention` is a
   copy; other inputs are copied into fresh contiguous tensors.
 - backward is :func:`_blockwise_bwd`, the torch port of the JAX package's
   plain-XLA blockwise backward, on either device.
+- under ``torch.func.vmap`` (the engine's vmap mode) a vmap rule folds the
+  mapped axis into the batch axis: one launch serves every client, and
+  the launch counters count it once.
 
 The kernels pick their own tiles (128 queries x 128 keys for bf16, 128 x 64
 for f32); ``block_q`` and ``block_k`` steer the plain version's blocking and
@@ -265,18 +268,41 @@ def _blockwise_bwd(q, k, v, out, g, causal, sm_scale, block_k):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """The forward of :func:`_flash_fwd`, the backward of
+    :func:`_blockwise_bwd`, and a vmap rule, so that the function runs under
+    ``torch.func.vmap`` and ``torch.func.grad`` (the engine's vmap mode)."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, block_q, block_k):
-        out = _flash_fwd(q, k, v, causal, sm_scale, block_q, block_k)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(q, k, v, causal, sm_scale, block_q, block_k):
+        return _flash_fwd(q, k, v, causal, sm_scale, block_q, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, sm_scale, _, block_k = inputs
+        ctx.save_for_backward(q, k, v, output)
         ctx.causal, ctx.sm_scale, ctx.block_k = causal, sm_scale, block_k
-        return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = _blockwise_bwd(q, k, v, out, g, ctx.causal, ctx.sm_scale, ctx.block_k)
         return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, sm_scale, block_q, block_k):
+        """The mapped axis (the cohort's clients) folded into the batch axis:
+        one launch of the same kernel (or the plain version on CPU tensors)
+        for every client at once, as ``pallas_call`` under ``jax.vmap`` adds
+        a grid dimension. A view whose two leading axes merge stays a view."""
+        n = info.batch_size
+
+        def fold(t, dim):
+            t = t.unsqueeze(0).expand((n,) + t.shape) if dim is None else t.movedim(dim, 0)
+            return t.reshape((n * t.shape[1],) + t.shape[2:])
+
+        q, k, v = (fold(t, d) for t, d in zip((q, k, v), in_dims[:3]))
+        out = _FlashAttention.apply(q, k, v, causal, sm_scale, block_q, block_k)
+        return out.reshape((n, -1) + out.shape[1:]), 0
 
 
 def flash_attention(q, k, v, causal: bool = False, sm_scale: float | None = None,

@@ -1,12 +1,20 @@
 """The federated-simulation engine, the port of ``fedml_tpu/sim/engine.py``.
 
 One FedAvg round: sample the cohort with the reference's seeded numpy draw,
-stage its ``[C, S, B]`` index map, gather each client's batches on the
-device from the resident dataset (zero-fill and mask), train the clients one
-after another from the broadcast global model, and fold their models into
-the sample-weighted mean in f32 in cohort order. This is the JAX engine's
-``cohort_execution="scan"`` mode, the one its LM bench uses; ``"vmap"``
-(all clients at once) is not ported yet.
+stage its ``[C, S, B]`` index map, gather the cohort's batches on the
+device from the resident dataset (zero-fill and mask), train the clients from
+the broadcast global model, and fold their models (model state included) into
+the sample-weighted mean in f32 in cohort order. Both of the JAX engine's
+cohort modes are ported:
+
+- ``cohort_execution="vmap"`` (the default, as in the JAX engine): every
+  client at once, ``torch.func.vmap`` over the stacked ``[C, ...]``
+  variables (``fedml_tpu/sim/engine.py:905-908``);
+- ``"scan"``: one client after another, one client's transient state live at
+  a time (the mode the JAX LM bench asks for, ``bench.py:166``).
+
+Augmentation draws for a round come from a generator seeded from (seed,
+round, client slot), so both modes train on the same augmented batches.
 """
 
 from __future__ import annotations
@@ -21,16 +29,20 @@ import torch
 
 from fedml_tpu_torch.algorithms.base import Aggregator, EmptyRoundError, fedavg_aggregator
 from fedml_tpu_torch.core import rng as rnglib
-from fedml_tpu_torch.core.trainer import ClientTrainer, make_local_eval, make_local_train
+from fedml_tpu_torch.core import tree as treelib
+from fedml_tpu_torch.core.trainer import (ClientTrainer, make_local_eval, make_local_train,
+                                          make_vmap_train)
 from fedml_tpu_torch.device import resolve_device
+from fedml_tpu_torch.ops import augment as augmentlib
 from fedml_tpu_torch.sim import cohort as cohortlib
 
 StateDict = dict[str, torch.Tensor]
 
-# SimConfig fields of the JAX engine that the port does not implement yet:
-# the values the port accepts (the JAX default first) and the ROADMAP item
-# that ports the rest. stage_on_device=True, block_dispatch=False and
-# pipeline_depth=0 describe what the port does anyway.
+# SimConfig fields of the JAX engine that the port does not implement yet
+# (both cohort modes are ported; these are the rest): the values the port
+# accepts (the JAX default first) and the ROADMAP item that ports the rest.
+# stage_on_device=True, block_dispatch=False and pipeline_depth=0 describe
+# what the port does anyway.
 _NOT_PORTED = {
     "straggler_frac": ((0.0,), "§A10"),
     "population": ((None,), "§A10"),
@@ -58,9 +70,11 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass
 class SimConfig:
-    """Flag names follow the reference CLI (main_fedavg.py:46-130). The
-    fields after ``cohort_execution`` are the JAX engine's that the port does
-    not implement yet: a value the port does not implement raises."""
+    """Flag names follow the reference CLI (main_fedavg.py:46-130).
+    ``cohort_execution`` is ``"vmap"`` (every client at once, the default)
+    or ``"scan"`` (one after another). The fields after it are the JAX
+    engine's that the port does not implement yet: a value the port does not
+    implement raises."""
 
     client_num_in_total: int = 10
     client_num_per_round: int = 10
@@ -73,8 +87,8 @@ class SimConfig:
     shuffle_each_round: bool = True
     # cap the pooled train eval to the first N samples (None = all)
     train_eval_samples: int | None = None
-    # clients train one after another ("scan"); "vmap" is not ported yet
-    cohort_execution: str = "scan"
+    # "vmap": every client of the cohort at once; "scan": one after another
+    cohort_execution: str = "vmap"
     straggler_frac: float = 0.0
     population: str | None = None
     population_trace: str | None = None
@@ -98,12 +112,9 @@ class SimConfig:
     profile_dir: str | None = None
 
     def __post_init__(self):
-        if self.cohort_execution != "scan":
-            if self.cohort_execution == "vmap":
-                raise NotImplementedError(
-                    "cohort_execution='vmap' is not ported yet (ROADMAP §A4); "
-                    "the port trains the cohort sequentially ('scan')")
-            raise ValueError(f"unknown cohort_execution {self.cohort_execution!r}")
+        if self.cohort_execution not in ("vmap", "scan"):
+            raise ValueError(f"unknown cohort_execution {self.cohort_execution!r} "
+                             "(expected 'vmap' or 'scan')")
         for name, (accepted, item) in _NOT_PORTED.items():
             value = getattr(self, name)
             if value not in accepted:
@@ -113,12 +124,15 @@ class SimConfig:
 
 
 class FedSim:
-    """Federated simulator on one device.
+    """Federated simulator on one device, in either cohort mode
+    (``config.cohort_execution``: ``"vmap"`` trains the cohort at once,
+    ``"scan"`` one client after another; a model the vmap mode cannot run
+    raises, it is never trained in scan instead).
 
     Parameters
     ----------
-    trainer: ClientTrainer (module + task + optimizer factory + epochs);
-        its module must live on ``device``
+    trainer: ClientTrainer (module + task + optimizer + epochs +
+        augmentation); its module must live on ``device``
     train_data: FederatedArrays (client-partitioned train set)
     test_arrays: dict of [N, ...] arrays, the pooled global test set, or None
     config: SimConfig
@@ -134,7 +148,10 @@ class FedSim:
         self.train_data = train_data
         self.config = config
         self.aggregator = aggregator or fedavg_aggregator()
-        self._local_train = make_local_train(trainer)
+        if config.cohort_execution == "vmap":
+            self._vmap_train = make_vmap_train(trainer)
+        else:
+            self._local_train = make_local_train(trainer)
         self._local_eval = make_local_eval(trainer)
         # pin steps-per-epoch to the population max, as the JAX engine does
         self._steps = cohortlib.steps_per_epoch(train_data.max_client_size(), config.batch_size)
@@ -194,6 +211,20 @@ class FedSim:
         num_steps = np.full(len(cohort), cfg.epochs * self._steps, np.int32)
         return idx, weights, num_steps
 
+    def _round_draws(self, round_idx: int, n_clients: int):
+        """The round's augmentation draws, ``[C, E, S, B]`` tensors on the
+        device, client slot c's drawn on the CPU from
+        :func:`~fedml_tpu_torch.ops.augment.round_generator` (so the card and
+        the CPU draw the same); None when the trainer does not augment."""
+        aug = self.trainer.augment
+        if aug is None:
+            return None
+        shape = (self.trainer.epochs, self._steps, self.config.batch_size)
+        image = tuple(self._dataset["x"].shape[1:3])
+        per = [aug.draw(augmentlib.round_generator(self.config.seed, round_idx, c), shape, image)
+               for c in range(n_clients)]
+        return {k: torch.stack([d[k] for d in per]).to(self.device) for k in per[0]}
+
     def run_round(self, round_idx: int, global_variables: StateDict, server_state=()):
         """One round: returns ``(new_global, server_state, metrics)`` with
         ``metrics["Train/Loss"]`` the sample-weighted mean of the clients'
@@ -206,18 +237,30 @@ class FedSim:
         idx, weights, num_steps = self._host_cohort_indices(cohort, round_idx)
         idx = torch.as_tensor(idx, device=self.device)
         weights = torch.as_tensor(weights, device=self.device)
-        losses: list[torch.Tensor] = []
+        draws = self._round_draws(round_idx, len(cohort))
+        if cfg.cohort_execution == "vmap":
+            stacked, train_metrics = self._vmap_train(
+                global_variables, self._gather_batches(self._dataset, idx),
+                torch.as_tensor(num_steps, device=self.device), draws)
+            new_global, server_state, agg_metrics = self.aggregator.aggregate(
+                global_variables, iter(treelib.unstack(stacked, len(cohort))), weights,
+                server_state)
+            losses_t = train_metrics["train_loss"]
+        else:
+            losses: list[torch.Tensor] = []
 
-        def trained_clients():
-            for c in range(len(cohort)):
-                data = self._gather_batches(self._dataset, idx[c])
-                variables, metrics = self._local_train(global_variables, data, int(num_steps[c]))
-                losses.append(metrics["train_loss"])
-                yield variables
+            def trained_clients():
+                for c in range(len(cohort)):
+                    data = self._gather_batches(self._dataset, idx[c])
+                    variables, metrics = self._local_train(
+                        global_variables, data, int(num_steps[c]),
+                        None if draws is None else {k: d[c] for k, d in draws.items()})
+                    losses.append(metrics["train_loss"])
+                    yield variables
 
-        new_global, server_state, agg_metrics = self.aggregator.aggregate(
-            global_variables, trained_clients(), weights, server_state)
-        losses_t = torch.stack(losses)
+            new_global, server_state, agg_metrics = self.aggregator.aggregate(
+                global_variables, trained_clients(), weights, server_state)
+            losses_t = torch.stack(losses)
         metrics = {"Train/Loss": torch.sum(losses_t * weights / torch.sum(weights)),
                    **agg_metrics}
         return new_global, server_state, metrics

@@ -235,7 +235,7 @@ def test_fedsim_run_history(rng):
 
 def test_simconfig_rejects_unported_fields():
     with pytest.raises(NotImplementedError, match="ROADMAP §A4"):
-        SimConfig(cohort_execution="vmap")
+        SimConfig(eval_on_clients=True)
     with pytest.raises(NotImplementedError, match="straggler_frac"):
         SimConfig(straggler_frac=0.2)
     with pytest.raises(NotImplementedError, match="pipeline_depth"):
