@@ -1,16 +1,18 @@
 """Weights between the JAX package and the port.
 
-:func:`from_flax` turns the JAX package's variables of a TransformerLM or a
-CIFAR ResNet (nested dicts of numpy arrays: ``{"params": ...}``, for the
-ResNet with ``"batch_stats"`` beside it, or a bare params tree) into the
-port's flat ``state_dict``; :func:`to_flax` is its inverse. Names map one
-path component at a time:
+:func:`from_flax` turns the JAX package's variables of a TransformerLM, a
+CIFAR ResNet, a LogisticRegression or one of the CNNs (nested dicts of numpy
+arrays: ``{"params": ...}``, for the ResNet with ``"batch_stats"`` beside
+it, or a bare params tree) into the port's flat ``state_dict``;
+:func:`to_flax` is its inverse. Names map one path component at a time:
 
 - TransformerLM: ``block_3`` <-> ``blocks.3``, ``LayerNorm_0`` <-> ``ln_0``,
   ``MultiHeadSelfAttention_0`` <-> ``attn``, a block's ``Dense_0`` <->
   ``fc_0``;
 - ResNet: ``BasicBlock_3`` <-> ``blocks.3``, ``Conv_0`` <-> ``conv_0``,
-  ``BatchNorm_0`` <-> ``bn_0``, the top-level ``Dense_0`` <-> ``head``.
+  ``BatchNorm_0`` <-> ``bn_0``, the top-level ``Dense_0`` <-> ``head``;
+- LogisticRegression and the CNNs: ``Conv_i`` <-> ``conv_i``, the
+  top-level ``Dense_i`` <-> ``dense_i``.
 
 Leaves: a Dense kernel ``[in, out]`` is the transpose of the port's weight
 (``qkv`` stays one ``[3D, D]`` weight, so the q|k|v split of its output is
@@ -51,7 +53,7 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, Any]:
     return out
 
 
-def _port_names(comp: str, top_level: bool) -> list[str]:
+def _port_names(comp: str, top_level: bool, resnet: bool) -> list[str]:
     """One flax path component as the port's name components."""
     m = re.fullmatch(r"(?:block|BasicBlock)_(\d+)", comp)
     if m:
@@ -59,23 +61,25 @@ def _port_names(comp: str, top_level: bool) -> list[str]:
     m = re.fullmatch(r"(Conv|BatchNorm)_(\d+)", comp)
     if m:
         return [f"{'conv' if m.group(1) == 'Conv' else 'bn'}_{m.group(2)}"]
-    if comp == "Dense_0" and top_level:
-        return ["head"]
+    m = re.fullmatch(r"Dense_(\d+)", comp)
+    if m and top_level:
+        return ["head"] if resnet else [f"dense_{m.group(1)}"]
     return [_COMPONENTS.get(comp, comp)]
 
 
 def from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX TransformerLM or CifarResNet variables -> the port's state dict
-    (CPU tensors in the leaves' own dtype)."""
+    """JAX TransformerLM, CifarResNet, LogisticRegression or CNN variables
+    -> the port's state dict (CPU tensors in the leaves' own dtype)."""
     collections = (variables if "params" in variables or "batch_stats" in variables
                    else {"params": variables})
+    resnet = any(k.startswith("BasicBlock_") for k in collections.get("params", {}))
     sd = {}
     for tree in collections.values():
         for path, leaf in _flatten(dict(tree)).items():
             arr = np.asarray(leaf)
             names = []
             for i, comp in enumerate(path[:-1]):
-                names += _port_names(comp, top_level=i == 0)
+                names += _port_names(comp, top_level=i == 0, resnet=resnet)
             last = path[-1]
             if last == "kernel":
                 arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
@@ -87,7 +91,7 @@ def from_flax(variables: dict) -> dict[str, torch.Tensor]:
 def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
     """The port's state dict -> ``{"params": ...}`` (and ``"batch_stats"``
     for a ResNet) nested dicts of numpy arrays in the JAX package's layout."""
-    resnet = "conv_0.weight" in state_dict
+    resnet = "bn_0.running_mean" in state_dict
     out: dict = {"params": {}}
     for name, t in state_dict.items():
         arr = t.detach().cpu().numpy()
@@ -100,9 +104,10 @@ def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
                 path.append(f"{'BasicBlock' if resnet else 'block'}_{parts[i + 1]}")
                 i += 2
                 continue
-            m = re.fullmatch(r"(conv|bn)_(\d+)", comp)
+            m = re.fullmatch(r"(conv|bn|dense)_(\d+)", comp)
             if m:
-                path.append(f"{'Conv' if m.group(1) == 'conv' else 'BatchNorm'}_{m.group(2)}")
+                kind = {"conv": "Conv", "bn": "BatchNorm", "dense": "Dense"}[m.group(1)]
+                path.append(f"{kind}_{m.group(2)}")
             elif comp == "head" and resnet:
                 path.append("Dense_0")
             else:

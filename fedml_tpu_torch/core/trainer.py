@@ -11,12 +11,20 @@ updated by training and federated with the weights.
 A module with buffers takes ``train=True`` and then returns ``(logits,
 new_state)``, the new values of its buffers, instead of writing them in place
 (flax's ``mutable=["batch_stats"]``); called without it, it returns logits.
+A module with dropout names its sites in ``dropout_sites`` (site -> (one
+example's activation shape, rate)) and takes its keep masks in training as
+``module(x, train=True, dropout=masks)``: the masks are drawn outside the
+module by :class:`DropoutStream`, one draw per step for the whole cohort,
+so the vmapped and the client-by-client modes see the same masks.
+
+FedProx (``ClientTrainer.prox_mu``) adds ``0.5 * mu * ||params -
+global_params||^2`` over the parameters (not the model state) to the loss.
 
 Two local-training programs, one per cohort mode of the engine:
 
 - :func:`make_local_train` (``cohort_execution="scan"``): one client at a
   time, a Python loop over steps on the module's own parameters with a fresh
-  ``torch.optim.SGD``;
+  ``torch.optim`` optimizer;
 - :func:`make_vmap_train` (``"vmap"``): the whole cohort at once, a pure
   function of ``(params, model_state, opt_state)`` stacked ``[C, ...]``,
   stepped by ``torch.func.vmap`` of ``torch.func.grad_and_value`` over a
@@ -28,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Iterable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,6 +90,7 @@ def lm_metrics(logits: torch.Tensor, batch: Batch) -> dict[str, torch.Tensor]:
 TASKS: dict[str, tuple[Callable, Callable]] = {
     "classification": (classification_loss, classification_metrics),
     "nwp": (lm_loss, lm_metrics),
+    "char_lm": (lm_loss, lm_metrics),
 }
 
 
@@ -113,8 +123,9 @@ class SGD:
         return torch.optim.SGD(params, lr=self.lr, momentum=self.momentum, dampening=0.0,
                                weight_decay=self.weight_decay)
 
-    def init(self, params: StateDict) -> StateDict:
-        """The momentum trace, zero (empty without momentum)."""
+    def init(self, params: StateDict, lead: tuple[int, ...] = ()) -> StateDict:
+        """The momentum trace, zero (empty without momentum); ``lead`` (the
+        client axis, already on the parameters) is :class:`Adam`'s."""
         return {k: torch.zeros_like(v) for k, v in params.items()} if self.momentum else {}
 
     def update(self, grads: StateDict, state: StateDict,
@@ -136,6 +147,118 @@ def sgd(lr: float, momentum: float = 0.0, weight_decay: float = 0.0) -> SGD:
     return SGD(lr, momentum, weight_decay)
 
 
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """``optax.chain(optax.add_decayed_weights(weight_decay), optax.adam(lr))``
+    (``main_fedavg.py:335-341``): b1 0.9, b2 0.999, eps 1e-8 added outside
+    the square root, bias correction from the step count. The decay is added
+    to the gradient (L2, not AdamW). Two forms that agree, as :class:`SGD`'s:
+
+    - :meth:`init` and :meth:`update`, optax's arithmetic as a pure function
+      of state dicts whose tensors may carry a leading client axis. The state
+      is flat: ``mu/<name>``, ``nu/<name>`` and ``count``, the count shaped
+      ``lead`` (the client axis) so that ``torch.func.vmap`` maps it;
+    - called on parameters, a fresh ``torch.optim.Optimizer`` whose step is
+      :meth:`update` on each parameter. ``torch.optim.Adam`` is the same
+      algorithm in another arithmetic (``sqrt(nu) / sqrt(1 - b2^t)``, a
+      ``lerp`` for the first moment), ~1e-6 from optax after five steps
+      where :meth:`update` stays within 3e-8."""
+
+    lr: float
+    weight_decay: float = 0.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def __call__(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+        return _StepsOf(params, self)
+
+    def init(self, params: StateDict, lead: tuple[int, ...] = ()) -> StateDict:
+        state = {f"{m}/{k}": torch.zeros_like(v) for m in ("mu", "nu") for k, v in params.items()}
+        device = next(iter(params.values())).device
+        state["count"] = torch.zeros(lead, dtype=torch.int32, device=device)
+        return state
+
+    def update(self, grads: StateDict, state: StateDict,
+               params: StateDict) -> tuple[StateDict, StateDict]:
+        count = state["count"] + 1
+        c1 = 1 - self.b1 ** count
+        c2 = 1 - self.b2 ** count
+        new_params, new_state = {}, {"count": count}
+        for k, p in params.items():
+            g = grads[k]
+            if self.weight_decay:
+                g = g + self.weight_decay * p
+            mu = (1 - self.b1) * g + self.b1 * state[f"mu/{k}"]
+            nu = (1 - self.b2) * (g * g) + self.b2 * state[f"nu/{k}"]
+            new_state[f"mu/{k}"], new_state[f"nu/{k}"] = mu, nu
+            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            new_params[k] = p + u * (-self.lr)
+        return new_params, new_state
+
+
+def adam(lr: float, weight_decay: float = 0.0) -> Adam:
+    return Adam(lr, weight_decay)
+
+
+class _StepsOf(torch.optim.Optimizer):
+    """A ``torch.optim.Optimizer`` that steps each parameter with a
+    functional optimizer's ``init``/``update`` (its state per parameter)."""
+
+    def __init__(self, params, functional):
+        super().__init__(params, {})
+        self._functional = functional
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(self._functional.init({"p": p}))
+                new_p, new_state = self._functional.update({"p": p.grad}, state, {"p": p})
+                p.copy_(new_p["p"])
+                state.update(new_state)
+
+
+# ---------------------------------------------------------------------------
+# Dropout masks
+# ---------------------------------------------------------------------------
+
+
+def draw_dropout_masks(sites: dict, generator: torch.Generator,
+                       lead: tuple[int, ...]) -> dict[str, torch.Tensor]:
+    """Keep masks for ``sites`` (site -> (one example's shape, rate)):
+    ``lead + shape`` bools, each True with probability ``1 - rate`` (flax's
+    ``bernoulli(keep_prob)``: a uniform draw below ``keep_prob``), drawn in
+    site order from ``generator`` on its device."""
+    return {name: torch.rand(lead + tuple(shape), generator=generator,
+                             device=generator.device) < 1.0 - rate
+            for name, (shape, rate) in sites.items()}
+
+
+class DropoutStream:
+    """One round's dropout masks: step ``t`` (``e * S + s``) of the round
+    draws ``[C, B, ...]`` masks for the whole cohort from a generator on
+    ``device`` seeded from ``(seed, round_idx, t)``, so a step's masks are a
+    pure function of those three. The vmapped mode takes them whole, the
+    client-by-client mode takes client ``c``'s slice of the same draw."""
+
+    def __init__(self, sites: dict, seed: int, round_idx: int, cohort: int, batch: int,
+                 device: torch.device):
+        self.sites, self.seed, self.round_idx = sites, int(seed), int(round_idx)
+        self.lead = (int(cohort), int(batch))
+        self._generator = torch.Generator(device=device)
+
+    def masks(self, step: int) -> dict[str, torch.Tensor]:
+        mixed = np.random.SeedSequence(
+            [self.seed, self.round_idx, int(step), 0xD80]).generate_state(1, np.uint64)[0]
+        self._generator.manual_seed(int(mixed))
+        return draw_dropout_masks(self.sites, self._generator, self.lead)
+
+
 # ---------------------------------------------------------------------------
 # ClientTrainer
 # ---------------------------------------------------------------------------
@@ -144,16 +267,17 @@ def sgd(lr: float, momentum: float = 0.0, weight_decay: float = 0.0) -> SGD:
 @dataclasses.dataclass(frozen=True)
 class ClientTrainer:
     """A module (whose variables are the working copy of the client model),
-    a task, an optimizer (:class:`SGD`), the local epoch count and an
-    optional augmentation of training batches
+    a task, an optimizer (:class:`SGD` or :class:`Adam`), the local epoch
+    count, an optional augmentation of training batches
     (:class:`~fedml_tpu_torch.ops.augment.ImageAugment`; evaluation never
-    sees it)."""
+    sees it) and FedProx's proximal coefficient ``prox_mu``."""
 
     module: torch.nn.Module
     task: str = "classification"
-    optimizer: SGD = dataclasses.field(default_factory=lambda: sgd(0.03))
+    optimizer: Any = dataclasses.field(default_factory=lambda: sgd(0.03))
     epochs: int = 1
     augment: Any = None
+    prox_mu: float = 0.0
 
     def __post_init__(self):
         if self.task not in TASKS:
@@ -176,26 +300,49 @@ class ClientTrainer:
         self.module.reset_parameters(generator)
         return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
 
-    def forward_train(self, x: torch.Tensor) -> tuple[torch.Tensor, StateDict]:
-        """A training forward on the module's own variables: ``(logits,
-        new model state)``."""
-        if self.stateful:
-            return self.module(x, train=True)
-        return self.module(x), {}
+    @property
+    def dropout_sites(self) -> dict:
+        """The module's dropout sites with a rate above 0 (site -> (one
+        example's shape, rate)); empty for a module without dropout."""
+        return dict(getattr(self.module, "dropout_sites", {}))
 
-    def apply_train(self, params: StateDict, state: StateDict,
-                    x: torch.Tensor) -> tuple[torch.Tensor, StateDict]:
+    def _train_kwargs(self, masks) -> dict:
+        if self.stateful:
+            return {"train": True}
+        if self.dropout_sites:
+            return {"train": True, "dropout": masks}
+        return {}
+
+    def forward_train(self, x: torch.Tensor, masks=None) -> tuple[torch.Tensor, StateDict]:
+        """A training forward on the module's own variables: ``(logits,
+        new model state)``; ``masks`` are the step's dropout keep masks."""
+        out = self.module(x, **self._train_kwargs(masks))
+        return out if self.stateful else (out, {})
+
+    def apply_train(self, params: StateDict, state: StateDict, x: torch.Tensor,
+                    masks=None) -> tuple[torch.Tensor, StateDict]:
         """:meth:`forward_train` as a pure function of the variables."""
-        if state:
-            return torch.func.functional_call(self.module, {**params, **state}, (x,),
-                                              {"train": True})
-        return torch.func.functional_call(self.module, params, (x,)), {}
+        out = torch.func.functional_call(self.module, {**params, **state}, (x,),
+                                         self._train_kwargs(masks))
+        return out if self.stateful else (out, {})
+
+    def prox_term(self, params: StateDict, global_params: StateDict) -> torch.Tensor:
+        """FedProx's ``0.5 * mu * ||params - global_params||^2`` over the
+        parameters (``fedml_tpu/core/trainer.py:206-210``)."""
+        total = 0.0
+        for k, p in params.items():
+            d = p - global_params[k]
+            total = total + torch.sum(d * d)
+        return 0.5 * self.prox_mu * total
 
     def train_step(self, optimizer: torch.optim.Optimizer, batch: Batch,
-                   has_data: bool | None = None) -> torch.Tensor:
-        """One masked SGD step on the module's variables; returns the loss.
-        The model state takes the values the training forward returned. A
-        fully padded batch (mask all zero) is a no-op that leaves parameters,
+                   has_data: bool | None = None, global_params: StateDict | None = None,
+                   masks=None) -> torch.Tensor:
+        """One masked step on the module's variables; returns the loss (the
+        proximal term included when ``prox_mu`` > 0, taken against
+        ``global_params``). ``masks`` are the step's dropout keep masks. The
+        model state takes the values the training forward returned. A fully
+        padded batch (mask all zero) is a no-op that leaves parameters,
         optimizer state and model state untouched, and reports loss 0 (the
         masked mean of nothing). ``has_data`` may be passed when the caller
         already knows it, to spare a device-to-host read."""
@@ -205,9 +352,11 @@ class ClientTrainer:
             return torch.zeros((), dtype=torch.float32, device=batch["mask"].device)
         self.module.train()
         optimizer.zero_grad(set_to_none=True)
-        logits, new_state = self.forward_train(batch["x"])
+        logits, new_state = self.forward_train(batch["x"], masks)
         loss = self.loss_and_metrics[0](logits, batch)
         del logits  # backward keeps what it needs; the LM's [B, T, V] logits are ~1 GiB
+        if self.prox_mu > 0.0:
+            loss = loss + self.prox_term(dict(self.module.named_parameters()), global_params)
         loss.backward()
         optimizer.step()
         if new_state:
@@ -249,7 +398,8 @@ def _augmented(trainer: ClientTrainer, batch: Batch, draws, e: int, s: int) -> B
 
 def make_local_train(trainer: ClientTrainer):
     """Returns ``local_train(global_variables, data, num_steps=None,
-    draws=None) -> (variables, metrics)``, one client's training.
+    draws=None, dropout=None, slot=0) -> (variables, metrics)``, one client's
+    training.
 
     ``data`` holds one client's epoch of batches stacked on a leading steps
     axis: ``{"x": [S, B, ...], "y": [S, B, ...], "mask": [S, B, ...]}``. The
@@ -258,13 +408,21 @@ def make_local_train(trainer: ClientTrainer):
     Steps with global index ``e * S + s >= num_steps`` are masked no-ops (the
     straggler budget). ``draws`` are the client's augmentation draws for the
     round (``[E, S, B]`` tensors, :meth:`ImageAugment.draw`), needed when the
-    trainer augments. ``metrics["train_loss"]`` is the mean loss over the
-    executed steps of the last executed epoch. The returned variables are a
-    copy of the trained parameters and model state."""
+    trainer augments; ``dropout`` is the round's :class:`DropoutStream`, of
+    which the client takes cohort row ``slot``, needed when the module has
+    dropout. ``metrics["train_loss"]`` is the mean loss over the executed
+    steps of the last executed epoch. The returned variables are a copy of
+    the trained parameters and model state."""
 
-    def local_train(global_variables: StateDict, data: Batch, num_steps=None, draws=None):
+    def local_train(global_variables: StateDict, data: Batch, num_steps=None, draws=None,
+                    dropout: DropoutStream | None = None, slot: int = 0):
+        if trainer.dropout_sites and dropout is None:
+            raise ValueError("the module has dropout: local_train needs the round's "
+                             "DropoutStream")
         trainer.module.load_state_dict(global_variables)
         optimizer = trainer.optimizer(trainer.module.parameters())
+        global_params = ({k: global_variables[k] for k, _ in trainer.module.named_parameters()}
+                         if trainer.prox_mu > 0.0 else None)
         S = data["mask"].shape[0]
         has_data = (data["mask"].reshape(S, -1).sum(1) > 0).tolist()
         loss_sums, w_sums = [], []
@@ -275,7 +433,10 @@ def make_local_train(trainer: ClientTrainer):
                 if not has_data[s] or (num_steps is not None and e * S + s >= num_steps):
                     continue
                 batch = _augmented(trainer, {k: v[s] for k, v in data.items()}, draws, e, s)
-                total = total + trainer.train_step(optimizer, batch, has_data=True)
+                masks = (None if not trainer.dropout_sites else
+                         {k: m[slot] for k, m in dropout.masks(e * S + s).items()})
+                total = total + trainer.train_step(optimizer, batch, has_data=True,
+                                                   global_params=global_params, masks=masks)
                 w += 1
             loss_sums.append(total)
             w_sums.append(w)
@@ -294,8 +455,11 @@ def make_vmap_train(trainer: ClientTrainer):
 
     ``data`` is the cohort's ``[C, S, B, ...]`` batch stack, ``num_steps``
     the ``[C]`` per-client step budgets, ``draws`` the ``[C, E, S, B]``
-    augmentation draws. Every client starts from ``global_variables`` with a
-    fresh optimizer state; ``(params, model_state, opt_state)`` are carried
+    augmentation draws, ``dropout`` the round's :class:`DropoutStream` (each
+    step's ``[C, B, ...]`` masks enter the mapped step as batched inputs).
+    Every client starts from ``global_variables`` with a fresh optimizer
+    state; the proximal term takes ``global_variables``' parameters
+    unbatched; ``(params, model_state, opt_state)`` are carried
     stacked ``[C, ...]`` through E epochs x S steps, each step one
     ``torch.func.vmap`` of ``torch.func.grad_and_value`` over the functional
     apply of the module. A client's step is a no-op (``torch.where(has_data,
@@ -310,17 +474,21 @@ def make_vmap_train(trainer: ClientTrainer):
     if not (callable(getattr(opt, "init", None)) and callable(getattr(opt, "update", None))):
         raise TypeError(
             "cohort_execution='vmap' steps the optimizer's functional form (init/update, "
-            f"e.g. fedml_tpu_torch.core.trainer.sgd); {opt!r} has none")
+            f"e.g. fedml_tpu_torch.core.trainer.sgd or adam); {opt!r} has none")
     loss_of = trainer.loss_and_metrics[0]
     param_names = [k for k, _ in trainer.module.named_parameters()]
 
-    def loss_fn(params, state, batch):
-        logits, new_state = trainer.apply_train(params, state, batch["x"])
-        return loss_of(logits, batch), new_state
+    def loss_fn(params, state, batch, global_params):
+        logits, new_state = trainer.apply_train(params, state, batch["x"],
+                                                batch.get("dropout"))
+        loss = loss_of(logits, batch)
+        if trainer.prox_mu > 0.0:
+            loss = loss + trainer.prox_term(params, global_params)
+        return loss, new_state
 
-    def step(params, state, opt_state, batch):
+    def step(params, state, opt_state, batch, global_params):
         grads, (loss, new_state) = torch.func.grad_and_value(loss_fn, has_aux=True)(
-            params, state, batch)
+            params, state, batch, global_params)
         has_data = torch.sum(batch["mask"]) > 0
         new_params, new_opt_state = opt.update(grads, opt_state, params)
 
@@ -330,15 +498,20 @@ def make_vmap_train(trainer: ClientTrainer):
         return (keep(new_params, params), keep(new_state, state),
                 keep(new_opt_state, opt_state), loss, has_data.float())
 
-    vstep = torch.func.vmap(step)
+    vstep = torch.func.vmap(step, in_dims=(0, 0, 0, 0, None))
 
     def vmap_train(global_variables: StateDict, data: Batch, num_steps: torch.Tensor,
-                   draws=None):
+                   draws=None, dropout: DropoutStream | None = None):
+        if trainer.dropout_sites and dropout is None:
+            raise ValueError("the module has dropout: vmap_train needs the round's "
+                             "DropoutStream")
         C, S = data["mask"].shape[:2]
         stacked = {k: v.unsqueeze(0).expand((C,) + v.shape) for k, v in global_variables.items()}
         params = {k: stacked[k] for k in param_names}
         state = {k: v for k, v in stacked.items() if k not in params}
-        opt_state = opt.init(params)
+        global_params = ({k: global_variables[k] for k in param_names}
+                         if trainer.prox_mu > 0.0 else {})
+        opt_state = opt.init(params, (C,))
         loss_sums, w_sums = [], []
         for e in range(trainer.epochs):
             total = torch.zeros(C, dtype=torch.float32, device=data["mask"].device)
@@ -349,7 +522,10 @@ def make_vmap_train(trainer: ClientTrainer):
                 batch["mask"] = batch["mask"] * active.reshape(
                     (C,) + (1,) * (batch["mask"].dim() - 1))
                 batch = _augmented(trainer, batch, draws, e, s)
-                params, state, opt_state, loss, w_s = vstep(params, state, opt_state, batch)
+                if trainer.dropout_sites:
+                    batch["dropout"] = dropout.masks(e * S + s)
+                params, state, opt_state, loss, w_s = vstep(params, state, opt_state, batch,
+                                                            global_params)
                 total = total + loss * w_s
                 w = w + w_s
             loss_sums.append(total)

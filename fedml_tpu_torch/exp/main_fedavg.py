@@ -1,0 +1,456 @@
+"""The unified experiment entry point, the port of
+``fedml_tpu/exp/main_fedavg.py`` for ``--backend sim``.
+
+Every flag of the JAX CLI is here with the same name, dest and default
+(reference flag names, fedml_experiments/distributed/fedavg/main_fedavg.py:
+46-130), plus ``--device`` (default ``cuda``; ``--device cpu`` runs on the
+CPU). Ported: ``--algorithm fedavg`` and ``fedprox`` (with the straggler
+protocol) on the sim engine, every model and dataset the port's registries
+hold, ``--client_optimizer sgd|adam`` with ``--wd`` and ``--momentum``,
+``--augment``, ``--eval_on_clients``, ``--pipeline_depth``,
+``--profile_dir``, ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
+config; it needs PyYAML, imported only when ``--cf`` is given). The JAX
+CLI's own flag-combination errors are kept as they are; after them, a flag
+whose plane is not ported raises ``NotImplementedError`` naming its ROADMAP
+item when it is set away from its default.
+
+    python -m fedml_tpu_torch.exp.main_fedavg --model lr --dataset mnist \\
+        --client_num_in_total 1000 --client_num_per_round 10 --batch_size 10
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+
+def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    # canonical reference flag set (main_fedavg.py:46-130); the help of a
+    # flag whose plane is not ported names its ROADMAP item
+    parser.add_argument("--cf", "--config_file", dest="cf", type=str, default=None,
+                        help="YAML config file; keys are the flag names below "
+                             "(CLI flags override file values); needs PyYAML")
+    parser.add_argument("--model", type=str, default="lr")
+    parser.add_argument("--dataset", type=str, default="mnist")
+    parser.add_argument("--data_dir", type=str, default=None)
+    parser.add_argument("--partition_method", type=str, default="hetero")
+    parser.add_argument("--partition_alpha", type=float, default=0.5)
+    parser.add_argument("--dataidx_map_path", type=str, default=None,
+                        help="saved net_dataidx_map file for --partition_method hetero-fix")
+    parser.add_argument("--client_num_in_total", type=int, default=10)
+    parser.add_argument("--client_num_per_round", type=int, default=10)
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--client_optimizer", type=str, default="sgd",
+                        help="sgd, or adam (any other value is adam, as in the JAX CLI)")
+    parser.add_argument("--lr", type=float, default=0.03)
+    parser.add_argument("--wd", type=float, default=0.0,
+                        help="weight decay added to the gradient before the optimizer")
+    parser.add_argument("--momentum", type=float, default=0.0)
+    parser.add_argument("--epochs", type=int, default=1)
+    parser.add_argument("--comm_round", type=int, default=10)
+    parser.add_argument("--frequency_of_the_test", type=int, default=5)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--ci", type=int, default=0)
+    parser.add_argument("--is_mobile", type=int, default=0,
+                        help="JSON wire format (message-passing backends, ROADMAP §A11)")
+    parser.add_argument("--backend", type=str, default="sim",
+                        choices=["sim", "loopback", "shm", "grpc", "mqtt_s3"],
+                        help="sim = the single-device engine; the message-passing "
+                             "backends are ROADMAP §A11")
+    # message-passing transports (ROADMAP §A11)
+    parser.add_argument("--mqtt_host", type=str, default=None)
+    parser.add_argument("--mqtt_port", type=int, default=1883)
+    parser.add_argument("--object_store_dir", type=str, default=None)
+    parser.add_argument("--offload_threshold_bytes", type=int, default=1 << 14)
+    parser.add_argument("--grpc_send_timeout", type=float, default=600.0)
+    parser.add_argument("--grpc_send_workers", type=int, default=4)
+    # multi-tenant job plane and barrier-free server plane (ROADMAP §A11)
+    parser.add_argument("--jobs", type=str, default=None)
+    parser.add_argument("--server_mode", type=str, default="sync",
+                        choices=["sync", "async", "tree"])
+    parser.add_argument("--buffer_goal", type=int, default=0)
+    parser.add_argument("--staleness_weight", type=str, default="const")
+    parser.add_argument("--tree_fan_ins", type=str, default=None)
+    parser.add_argument("--tree_transport", type=str, default="loopback",
+                        choices=["loopback", "shm", "grpc"])
+    parser.add_argument("--tier_timeout", type=float, default=0.0)
+    parser.add_argument("--tier_compressor", type=str, default=None)
+    # algorithm switch (fedall) + algorithm-specific knobs
+    parser.add_argument("--algorithm", type=str, default="fedavg",
+                        choices=["fedavg", "fedopt", "fedprox", "fednova", "fedgan",
+                                 "hierarchical", "decentralized", "fedavg_robust"],
+                        help="fedavg and fedprox are ported; the rest are ROADMAP §A10")
+    parser.add_argument("--server_optimizer", type=str, default="adam")
+    parser.add_argument("--server_lr", type=float, default=1e-1)
+    parser.add_argument("--server_momentum", type=float, default=0.9)
+    parser.add_argument("--fedprox_mu", type=float, default=0.1)
+    parser.add_argument("--straggler_frac", type=float, default=0.0,
+                        help="fraction of each cohort running a reduced uniform 1..E-1 "
+                             "local-epoch budget (FedProx straggler protocol)")
+    parser.add_argument("--group_num", type=int, default=2)
+    parser.add_argument("--group_comm_round", type=int, default=2)
+    # robustness knobs (ROADMAP §A10)
+    parser.add_argument("--norm_bound", type=float, default=0.0)
+    parser.add_argument("--stddev", "--dp_stddev", dest="stddev", type=float, default=0.0)
+    parser.add_argument("--robust_rule", type=str, default="mean",
+                        choices=["mean", "median", "trimmed_mean", "krum"])
+    parser.add_argument("--reservoir_k", type=int, default=0)
+    parser.add_argument("--fault_spec", type=str, default=None)
+    # fault-tolerant wire runtime (ROADMAP §A11)
+    parser.add_argument("--send_retries", type=int, default=0)
+    parser.add_argument("--retry_base_delay", type=float, default=0.05)
+    parser.add_argument("--heartbeat_interval", type=float, default=0.0)
+    # heterogeneous population model (ROADMAP §A10)
+    parser.add_argument("--population", type=str, default=None)
+    parser.add_argument("--population_trace", type=str, default=None)
+    parser.add_argument("--population_seed", type=int, default=None)
+    # update compression (ROADMAP §A10) and downlink coding (§A11)
+    parser.add_argument("--compressor", type=str, default="none")
+    parser.add_argument("--topk-frac", "--topk_frac", dest="topk_frac", type=float,
+                        default=0.01)
+    parser.add_argument("--quantize_bits", type=int, default=8, choices=[4, 8])
+    parser.add_argument("--error_feedback", type=int, default=1)
+    parser.add_argument("--downlink_compressor", type=str, default="none")
+    parser.add_argument("--downlink_keyframe_every", type=int, default=8)
+    parser.add_argument("--downlink_retention", type=int, default=4)
+    parser.add_argument("--broadcast_generations", type=int, default=2)
+    # engine knobs
+    parser.add_argument("--model_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="compute dtype for models that support one; params stay float32")
+    parser.add_argument("--augment", type=int, default=0,
+                        help="on-device crop/flip/cutout train augmentation (CIFAR family)")
+    parser.add_argument("--eval_on_clients", type=int, default=0,
+                        help="also run the per-client server eval at test rounds "
+                             "(FedAVGAggregator test_on_server_for_all_clients)")
+    parser.add_argument("--stage_on_device", type=int, default=-1,
+                        help="-1 auto, 1 device-resident dataset (what the port does); "
+                             "0 host staging is ROADMAP §A4")
+    parser.add_argument("--pack_lanes", type=int, default=0)
+    parser.add_argument("--pack_capacity_factor", type=float, default=1.25)
+    parser.add_argument("--mesh_shape", type=str, default=None)
+    parser.add_argument("--shard_rules", type=str, default=None)
+    parser.add_argument("--pipeline_depth", type=int, default=-1,
+                        help="pipelined round driver: -1 auto (depth 1: staging on a "
+                             "background thread, metrics fetched a round behind), 0 serial "
+                             "driver, N>0 stage up to N rounds ahead; bit-identical results "
+                             "either way")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler Chrome trace of the round loop here")
+    # observability
+    parser.add_argument("--trace_dir", type=str, default=None)
+    parser.add_argument("--fleet_stats", type=str, default=None)
+    parser.add_argument("--run_dir", type=str, default=None)
+    parser.add_argument("--enable_wandb", type=int, default=0)
+    parser.add_argument("--checkpoint_dir", type=str, default=None)
+    parser.add_argument("--checkpoint_every", type=int, default=0)
+    parser.add_argument("--resume", type=int, default=0)
+    parser.add_argument("--init_from", type=str, default=None)
+    parser.add_argument("--save_params_to", type=str, default=None)
+    # the port's own
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (the default; raises without a card) or cpu")
+    return parser
+
+
+# flags whose plane the port does not implement yet: dest -> ROADMAP item.
+# Setting one away from its default raises (checked after the JAX CLI's own
+# flag-combination errors).
+_UNPORTED_FLAGS = {
+    "backend": "§A11 (message-passing backends)",
+    "mqtt_host": "§A11", "mqtt_port": "§A11", "object_store_dir": "§A11",
+    "offload_threshold_bytes": "§A11", "grpc_send_timeout": "§A11",
+    "grpc_send_workers": "§A11",
+    "jobs": "§A11 (multi-tenant job plane)",
+    "server_mode": "§A11", "buffer_goal": "§A11", "staleness_weight": "§A11",
+    "tree_fan_ins": "§A11", "tree_transport": "§A11", "tier_timeout": "§A11",
+    "tier_compressor": "§A11",
+    "server_optimizer": "§A10 (FedOpt)", "server_lr": "§A10 (FedOpt)",
+    "server_momentum": "§A10 (FedOpt)",
+    "group_num": "§A10 (hierarchical)", "group_comm_round": "§A10 (hierarchical)",
+    "norm_bound": "§A10 (robust aggregation)", "stddev": "§A10 (robust aggregation)",
+    "robust_rule": "§A10 (robust aggregation)", "reservoir_k": "§A10 (robust aggregation)",
+    "retry_base_delay": "§A11",
+    "population": "§A10 (population model)", "population_trace": "§A10 (population model)",
+    "population_seed": "§A10 (population model)",
+    "compressor": "§A10 (update compression)", "topk_frac": "§A10 (update compression)",
+    "quantize_bits": "§A10 (update compression)",
+    "error_feedback": "§A10 (update compression)",
+    "downlink_compressor": "§A11", "downlink_keyframe_every": "§A11",
+    "downlink_retention": "§A11",
+    "stage_on_device": "§A4 (host staging)",
+    "pack_lanes": "§A10 (packed lanes)", "pack_capacity_factor": "§A10 (packed lanes)",
+    "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
+    "trace_dir": "§A13 (obs/trace.py)",
+    "checkpoint_dir": "§A13 (obs/checkpoint.py)", "checkpoint_every": "§A13 (obs/checkpoint.py)",
+    "resume": "§A13 (obs/checkpoint.py)", "init_from": "§A13 (obs/checkpoint.py)",
+    "save_params_to": "§A13 (obs/checkpoint.py)",
+}
+# accepted values besides the default
+_ALSO_ACCEPTED = {"stage_on_device": (1,)}
+
+
+def build_trainer(args, model, dataset_name: str):
+    from fedml_tpu_torch.core.trainer import ClientTrainer, adam, sgd
+    from fedml_tpu_torch.models.registry import task_for_dataset
+
+    if args.client_optimizer == "sgd":
+        opt = sgd(args.lr, momentum=args.momentum, weight_decay=args.wd)
+    else:
+        opt = adam(args.lr, weight_decay=args.wd)
+    prox = args.fedprox_mu if args.algorithm == "fedprox" else 0.0
+    augment = None
+    if getattr(args, "augment", 0):
+        from fedml_tpu_torch.ops.augment import ImageAugment
+
+        if task_for_dataset(dataset_name) != "classification":
+            raise ValueError("--augment is for image classification datasets")
+        if dataset_name not in ("cifar10", "cifar100", "cinic10"):
+            raise ValueError(
+                "--augment currently implements the CIFAR-family pipeline "
+                "(pad-4 crop / flip / cutout-16, reference "
+                "cifar10/data_loader.py:58-76); compose "
+                "fedml_tpu_torch.ops.augment primitives directly for other shapes"
+            )
+        augment = ImageAugment()
+    return ClientTrainer(module=model, task=task_for_dataset(dataset_name), optimizer=opt,
+                         epochs=args.epochs, augment=augment, prox_mu=prox)
+
+
+def build_aggregator(args, train_data):
+    from fedml_tpu_torch.algorithms.base import fedavg_aggregator
+    from fedml_tpu_torch.algorithms.fedprox import fedprox_aggregator
+
+    if args.algorithm == "fedavg":
+        return fedavg_aggregator()
+    if args.algorithm == "fedprox":
+        return fedprox_aggregator()
+    raise NotImplementedError(
+        f"--algorithm {args.algorithm} is not ported to fedml_tpu_torch yet: ROADMAP §A10")
+
+
+def _check_flag_combinations(args) -> None:
+    """The JAX CLI's own flag-combination errors (``main_fedavg.py:991-
+    1169``), kept as they are."""
+    if getattr(args, "is_mobile", 0) and args.backend == "sim":
+        raise NotImplementedError(
+            "--is_mobile 1 selects the JSON wire format, which only exists "
+            "on the message-passing backends — pick --backend "
+            "loopback|shm|grpc|mqtt_s3"
+        )
+    if getattr(args, "fault_spec", None) and args.backend == "sim":
+        raise NotImplementedError(
+            "--fault_spec injects wire faults — there is no wire on "
+            "--backend sim; pick --backend loopback|shm|grpc|mqtt_s3"
+        )
+    if getattr(args, "population_trace", None) and args.backend != "sim":
+        raise NotImplementedError(
+            "--population_trace replays recorded sim cohorts/step budgets/"
+            "dropouts; the message-passing backends take the generative "
+            "--population spec (per-rank delay/drop adapter) — use "
+            "--backend sim"
+        )
+    if getattr(args, "population", None) and getattr(args, "fault_spec", None):
+        raise NotImplementedError(
+            "--population and --fault_spec both drive the seeded wire "
+            "fault injector — one schedule would silently shift the "
+            "other; pick one"
+        )
+    if getattr(args, "fleet_stats", None) and args.backend == "sim":
+        raise NotImplementedError(
+            "--fleet_stats records per-CLIENT wire/health telemetry — on "
+            "--backend sim there are no client processes or uploads to "
+            "observe; pick --backend loopback|shm|grpc|mqtt_s3 (the sim "
+            "engine's observability is --trace_dir, docs/OBSERVABILITY.md)"
+        )
+    server_mode = getattr(args, "server_mode", "sync")
+    if server_mode != "sync":
+        if args.backend == "sim":
+            raise NotImplementedError(
+                f"--server_mode {server_mode} selects a message-passing "
+                "server execution mode — there is no server process on "
+                "--backend sim; pick --backend loopback|shm|grpc|mqtt_s3"
+            )
+        if getattr(args, "is_mobile", 0):
+            raise NotImplementedError(
+                f"--server_mode {server_mode} and --is_mobile both redefine "
+                "the server protocol; pick one"
+            )
+    if server_mode not in ("async", "tree"):
+        misapplied = [
+            flag for flag, val in [
+                ("--buffer_goal", getattr(args, "buffer_goal", 0)),
+                ("--staleness_weight",
+                 getattr(args, "staleness_weight", "const") != "const"),
+            ] if val
+        ]
+        if misapplied:
+            raise NotImplementedError(
+                f"not valid with --server_mode {server_mode}: "
+                f"{', '.join(misapplied)} (buffered-async fold knobs) — "
+                "pick --server_mode async|tree"
+            )
+    if server_mode != "tree":
+        tree_only = [
+            flag for flag, val in [
+                ("--tree_fan_ins", getattr(args, "tree_fan_ins", None)),
+                ("--tree_transport",
+                 getattr(args, "tree_transport", "loopback") != "loopback"),
+                ("--tier_timeout", getattr(args, "tier_timeout", 0.0)),
+                ("--tier_compressor",
+                 getattr(args, "tier_compressor", None) is not None),
+            ] if val
+        ]
+        if tree_only:
+            raise NotImplementedError(
+                f"{', '.join(tree_only)} shape the hierarchical tier plane "
+                f"and are ignored under --server_mode {server_mode} — pick "
+                "--server_mode tree"
+            )
+    if (getattr(args, "send_retries", 0)
+            or getattr(args, "heartbeat_interval", 0.0)) and args.backend == "sim":
+        raise NotImplementedError(
+            "--send_retries/--heartbeat_interval configure the "
+            "message-passing send/liveness planes — there is no wire on "
+            "--backend sim; pick --backend loopback|shm|grpc|mqtt_s3"
+        )
+    if getattr(args, "downlink_compressor", "none") != "none" \
+            and getattr(args, "is_mobile", 0):
+        raise NotImplementedError(
+            "--downlink_compressor and --is_mobile both redefine the "
+            "downlink wire format; pick one"
+        )
+    if getattr(args, "broadcast_generations", 2) != 2 \
+            and args.backend != "mqtt_s3":
+        raise NotImplementedError(
+            "--broadcast_generations shapes the mqtt_s3 object-store "
+            "blob retention; the other backends keep no broadcast blobs "
+            "— pick --backend mqtt_s3"
+        )
+    if (getattr(args, "shard_rules", None)
+            or getattr(args, "mesh_shape", None)) and args.backend != "sim":
+        raise NotImplementedError(
+            "--shard_rules/--mesh_shape configure the sim engine's device "
+            "mesh and jitted round programs; the message-passing backends "
+            "train whole models per worker — use --backend sim"
+        )
+
+
+def _check_ported(args, defaults: dict) -> None:
+    """Raise for a flag of a plane the port does not implement yet, set away
+    from its default, naming its ROADMAP item."""
+    for dest, item in _UNPORTED_FLAGS.items():
+        value = getattr(args, dest)
+        if value != defaults[dest] and value not in _ALSO_ACCEPTED.get(dest, ()):
+            raise NotImplementedError(
+                f"--{dest}={value!r} is not ported to fedml_tpu_torch yet: ROADMAP {item}")
+
+
+def run(args) -> list[dict]:
+    """Run the experiment ``args`` describe; returns the round history."""
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.obs.metrics import MetricsLogger, logging_config
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    logging_config(0)
+    _check_flag_combinations(args)
+    _check_ported(args, vars(add_args(argparse.ArgumentParser()).parse_args([])))
+    ds = load_partition_data(
+        args.dataset, args.data_dir, args.partition_method, args.partition_alpha,
+        args.client_num_in_total, args.seed,
+        dataidx_map_path=getattr(args, "dataidx_map_path", None),
+    )
+    model = create_model(args.model, ds.class_num, args.dataset, dtype=args.model_dtype,
+                         device=args.device,
+                         input_shape=tuple(ds.train.arrays["x"].shape[1:]))
+    trainer = build_trainer(args, model, args.dataset)
+    aggregator = build_aggregator(args, ds.train)
+    cfg = SimConfig(
+        client_num_in_total=ds.train.num_clients,
+        client_num_per_round=min(args.client_num_per_round, ds.train.num_clients),
+        batch_size=args.batch_size,
+        comm_round=args.comm_round,
+        epochs=args.epochs,
+        frequency_of_the_test=args.frequency_of_the_test if not args.ci else args.comm_round,
+        seed=args.seed,
+        straggler_frac=args.straggler_frac,
+        eval_on_clients=bool(args.eval_on_clients),
+        stage_on_device=None if args.stage_on_device < 0 else bool(args.stage_on_device),
+        pipeline_depth=None if args.pipeline_depth < 0 else args.pipeline_depth,
+        profile_dir=args.profile_dir,
+    )
+    sim = FedSim(trainer, ds.train, ds.test_arrays, cfg, aggregator=aggregator,
+                 device=args.device)
+    with MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb)) as metrics:
+        variables = sim.init_round_variables()
+        _, history = sim.run(
+            callback=lambda rec: metrics.log(rec, round_idx=rec["round"]),
+            variables=variables, server_state=sim.aggregator.init_state(variables),
+        )
+    return history
+
+
+def parse_with_config(parser: argparse.ArgumentParser, argv=None):
+    """Parse argv, honoring ``--cf config.yaml``. File keys are flag names;
+    explicit CLI flags override file values; unknown keys fail loudly. The
+    file is read with PyYAML, imported only here."""
+    args = parser.parse_args(argv)
+    if not args.cf:
+        return args
+    try:
+        import yaml
+    except ImportError as e:
+        raise RuntimeError(f"--cf {args.cf}: reading a YAML config needs PyYAML, which is "
+                           "not installed; pass the flags on the command line") from e
+
+    with open(args.cf) as f:
+        conf = yaml.safe_load(f) or {}
+    if not isinstance(conf, dict):
+        raise ValueError(f"--cf {args.cf}: top level must be a mapping")
+    actions = {a.dest: a for a in parser._actions}
+    known = set(vars(args)) - {"cf"}  # no config chaining: cf-in-cf is an error
+    unknown = sorted(set(conf) - known)
+    if unknown:
+        raise ValueError(f"--cf {args.cf}: unknown keys {unknown}")
+    coerced = {}
+    for key, val in conf.items():
+        a = actions[key]
+        # apply the type coercion + choices validation the CLI path gets
+        # (YAML reads "1e-3" as a string, set_defaults alone would smuggle
+        # it past type=float)
+        if val is None:
+            if a.default is not None:
+                raise ValueError(
+                    f"--cf {args.cf}: key {key} has no value "
+                    f"(flag default is {a.default!r})"
+                )
+        elif a.type is not None:
+            if a.type is int and isinstance(val, float) and int(val) != val:
+                raise ValueError(
+                    f"--cf {args.cf}: key {key}: {val!r} is not an integer"
+                )
+            try:
+                val = a.type(val)
+            except (TypeError, ValueError) as e:
+                raise ValueError(f"--cf {args.cf}: key {key}: {e}") from None
+        if a.choices is not None and val not in a.choices:
+            raise ValueError(
+                f"--cf {args.cf}: key {key}: {val!r} not in {sorted(a.choices)}"
+            )
+        coerced[key] = val
+    parser.set_defaults(**coerced)
+    return parser.parse_args(argv)  # CLI flags still win over file values
+
+
+def main(argv=None):
+    parser = add_args(argparse.ArgumentParser("fedml_tpu_torch unified entry"))
+    args = parse_with_config(parser, argv)
+    history = run(args)
+    final = history[-1] if history else {}
+    logging.info("final: %s", final)
+    return final
+
+
+if __name__ == "__main__":
+    main()

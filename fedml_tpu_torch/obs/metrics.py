@@ -1,0 +1,84 @@
+"""Metrics and logging, the port of ``logging_config`` and ``MetricsLogger``
+from ``fedml_tpu/obs/metrics.py``: python logging with a per-process format
+(fedml_api/utils/logger.py:7), and one metric sink with the reference's
+wandb key names (Train/Acc, Train/Loss, Test/Acc, Test/Loss by round),
+writing JSONL locally and forwarding to wandb when asked and available.
+``CommBytesAccountant`` and ``RoundTimer`` (wire path and tracing) are not
+ported yet (ROADMAP §A11, §A13)."""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from pathlib import Path
+from typing import Any
+
+
+def logging_config(process_id: int = 0, level=logging.INFO) -> None:
+    """Per-process log format (fedml_api/utils/logger.py:7-32)."""
+    logging.basicConfig(
+        level=level,
+        format=f"%(asctime)s [{process_id}] %(filename)s[%(lineno)d] %(levelname)s: %(message)s",
+        force=True,
+    )
+
+
+class MetricsLogger:
+    """wandb-key-compatible metric sink (Train/Acc, Test/Acc, ... by round).
+
+    Usable as a context manager — the JSONL handle is closed even when the
+    run body raises. ``close()`` is idempotent; ``log()`` after close raises
+    instead of writing to a closed handle."""
+
+    def __init__(self, run_dir: str | Path | None = None, use_wandb: bool = False,
+                 wandb_kwargs: dict | None = None):
+        self.run_dir = Path(run_dir) if run_dir else None
+        self._fh = None
+        self._closed = False
+        if self.run_dir:
+            self.run_dir.mkdir(parents=True, exist_ok=True)
+            self._fh = open(self.run_dir / "metrics.jsonl", "a")
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                self._wandb = wandb
+                wandb.init(**(wandb_kwargs or {}))
+            except Exception as e:  # wandb optional, never fatal
+                logging.warning("wandb unavailable: %s", e)
+        self.history: list[dict[str, Any]] = []
+
+    def log(self, metrics: dict[str, Any], round_idx: int | None = None) -> None:
+        if self._closed:
+            raise RuntimeError(
+                "MetricsLogger.log() after close(): the JSONL sink is gone; "
+                "records logged here would be silently lost"
+            )
+        rec = dict(metrics)
+        if round_idx is not None:
+            rec["round"] = round_idx
+        rec["_ts"] = time.time()
+        self.history.append(rec)
+        if self._fh:
+            self._fh.write(json.dumps(rec) + "\n")
+            self._fh.flush()
+        if self._wandb:
+            self._wandb.log({k: v for k, v in rec.items() if not k.startswith("_")})
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+        if self._wandb:
+            self._wandb.finish()
+
+    def __enter__(self) -> "MetricsLogger":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -235,9 +235,10 @@ def test_fedsim_run_history(rng):
 
 def test_simconfig_rejects_unported_fields():
     with pytest.raises(NotImplementedError, match="ROADMAP §A4"):
-        SimConfig(eval_on_clients=True)
-    with pytest.raises(NotImplementedError, match="straggler_frac"):
-        SimConfig(straggler_frac=0.2)
-    with pytest.raises(NotImplementedError, match="pipeline_depth"):
-        SimConfig(pipeline_depth=2)
-    SimConfig(stage_on_device=True, block_dispatch=False, pipeline_depth=0)
+        SimConfig(block_dispatch=True)
+    with pytest.raises(NotImplementedError, match="population"):
+        SimConfig(population="speed=const:1")
+    with pytest.raises(NotImplementedError, match="pack_lanes"):
+        SimConfig(pack_lanes=2)
+    SimConfig(stage_on_device=True, block_dispatch=False, pipeline_depth=0,
+              eval_on_clients=True, straggler_frac=0.2, profile_dir="prof")

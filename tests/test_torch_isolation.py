@@ -1,7 +1,9 @@
 """The port stands alone: no module of fedml_tpu_torch/, and not
-chip_smoke.py, imports JAX, flax, optax or the JAX package (the machine with
-the card has no JAX). And chip_smoke.py fails, printing no result line,
-where there is no card or no checkout of the repo around it."""
+chip_smoke.py, imports JAX, flax, optax, the JAX package or scikit-learn
+(the machine with the card has none of them); the LEAF fixture's vendored
+digits are read without scikit-learn; the port's modules import without
+JAX and PyYAML. And chip_smoke.py fails, printing no result line, where
+there is no card or no checkout of the repo around it."""
 
 import ast
 import os
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-BANNED = ("jax", "jaxlib", "flax", "optax", "fedml_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "fedml_tpu", "sklearn")
 
 
 def _imported_modules(path: Path):
@@ -39,6 +41,45 @@ def test_port_imports_no_jax_nor_the_jax_package():
         if (mods := sorted({m for m in _imported_modules(f) if _banned(m)}))
     }
     assert offenders == {}
+
+
+# a process in which importing any of these fails
+_BLOCKER = (
+    "import sys\n"
+    "class _Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in {blocked!r}:\n"
+    "            raise ImportError('blocked: ' + name)\n"
+    "sys.meta_path.insert(0, _Block())\n"
+)
+
+
+def _run_blocked(code: str, blocked):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", _BLOCKER.format(blocked=set(blocked)) + code],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_every_port_module_imports_without_jax_sklearn_or_yaml():
+    modules = sorted(".".join(f.relative_to(ROOT).with_suffix("").parts)
+                     for f in (ROOT / "fedml_tpu_torch").rglob("*.py"))
+    assert "fedml_tpu_torch.exp.main_fedavg" in modules
+    assert "fedml_tpu_torch.data.leaf_fixture" in modules
+    code = "import importlib\n" + "".join(
+        f"importlib.import_module({m!r})\n" for m in modules if not m.endswith("__main__"))
+    proc = _run_blocked(code, BANNED + ("yaml",))
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_vendored_digits_read_without_sklearn(tmp_path):
+    code = ("from fedml_tpu_torch.data.leaf_fixture import load_digits, "
+            "write_leaf_mnist_fixture\n"
+            "images, target = load_digits()\n"
+            "assert images.shape == (1797, 8, 8) and target.shape == (1797,)\n"
+            f"write_leaf_mnist_fixture({str(tmp_path)!r}, n_clients=3, seed=0)\n")
+    proc = _run_blocked(code, ("sklearn", "jax", "fedml_tpu"))
+    assert proc.returncode == 0, proc.stderr
+    assert any((tmp_path / "train").glob("*.json"))
 
 
 def test_banned_matches_whole_module_names():
