@@ -47,7 +47,27 @@ Phases, each of which exits non-zero on failure:
    lr 0.001 wd 0.001, bf16, augmentation, vmapped cohort, cut to E=1 and 2
    rounds; per round its seconds, images/s, FLOP/s from the shapes and peak
    memory; then one round of the same run in scan. It runs no kernel of the
-   repo (the ResNet path has no TPU kernel: cuDNN convolutions).
+   repo (the ResNet path has no TPU kernel: cuDNN convolutions);
+10. BASELINE row 1 (LEAF-format MNIST fixture of 1000 clients, written and
+    timed here; LogisticRegression, 10 a round, B=10, SGD 0.03, E=1, 20
+    rounds, eval every 10) through ``exp/repro_mnist_lr.main``, then through
+    the CLI ``exp/main_fedavg`` four times in turns (pipelined, serial,
+    serial, pipelined; the first with every round dispatched under
+    ``torch.cuda.set_sync_debug_mode("error")`` between eval rounds, the
+    last with round 1 under ``torch.profiler``); all five histories bitwise
+    equal, ``round_time`` aside; then FedProx (mu 0.1) with stragglers
+    (frac 0.5, E=2), 5 rounds, with each round's executed client steps. The
+    row's JSON is loaded once for its six runs;
+11. FEMNIST + CNNDropOut through the CLI (3400 clients, 10 a round, B=20,
+    SGD 0.1, E=1, the registry's synthetic fallback), 5 rounds with the
+    per-client eval of all 3400 clients at rounds 3 and 4: images/s of
+    rounds 0-3, peak memory, and the last round under ``torch.profiler``;
+12. card against CPU at a small size in f32: LR FedProx with stragglers
+    (scan and vmap) free-running, the CNNs round by round from the same
+    variables, CNNDropOut's eval forward and masks; the pipelined against
+    the serial driver on the card, bitwise; the CLI's transformer
+    (``attn_impl="xla"``: no flash launch) under ``--profile_dir``, whose
+    Chrome trace must hold kernel events.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -733,25 +753,138 @@ def _strip_times(history):
     return [{k: v for k, v in rec.items() if k != "round_time"} for rec in history]
 
 
-def phase_mnist_lr(torch):
+@contextlib.contextmanager
+def _loaded_once(loads):
+    """Keep each dataset ``data.registry.load_partition_data`` loads for the
+    block, so runs of one row read its files once; ``loads`` gets each real
+    load's seconds."""
+    import inspect
+
+    from fedml_tpu_torch.data import registry
+
+    original, kept = registry.load_partition_data, {}
+    signature = inspect.signature(original)
+
+    def load_partition_data(*args, **kwargs):
+        bound = signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        key = repr(sorted(bound.arguments.items()))
+        if key not in kept:
+            t0 = time.perf_counter()
+            kept[key] = original(*args, **kwargs)
+            loads.append(time.perf_counter() - t0)
+        return kept[key]
+
+    registry.load_partition_data = load_partition_data
+    try:
+        yield
+    finally:
+        registry.load_partition_data = original
+
+
+def _profile_round(torch, round_idx, got):
+    """A ``FedSim.run_staged_round`` wrapper that runs round ``round_idx``
+    under ``torch.profiler`` (device activity only), between two
+    synchronisations, and puts into ``got`` its device kernels and copies,
+    their busy time, the round's wall time and its vmapped steps."""
+    def make(original):
+        def run_staged_round(self, staged, *args, **kwargs):
+            if staged.round_idx != round_idx:
+                return original(self, staged, *args, **kwargs)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = original(self, staged, *args, **kwargs)
+                torch.cuda.synchronize()
+                got["wall"] = time.perf_counter() - t0
+            device = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            got["kernels"] = len(device)
+            got["busy_us"] = sum(e.time_range.elapsed_us() for e in device)
+            got["steps"] = self._steps * self.trainer.epochs
+            return out
+        return run_staged_round
+    return make
+
+
+def _log_profile(name, round_idx, got):
+    log(f"[profile] {name}: round {round_idx} under torch.profiler: {got['kernels']} device "
+        f"kernels and copies over {got['steps']} vmapped steps, "
+        f"{got['kernels'] / got['steps']:.1f} a step; device busy {got['busy_us'] / 1e3:.3f} "
+        f"ms of {got['wall'] * 1e3:.3f} ms wall ({1 - got['busy_us'] / 1e6 / got['wall']:.1%} "
+        f"idle, profiler on)")
+
+
+def phase_repro_mnist_lr(torch):
+    """BASELINE row 1 through its own entry point,
+    ``exp/repro_mnist_lr.main``, at full width on the card (1000 clients, 10
+    a round, B=10, SGD 0.03, E=1), 20 rounds with an eval every 10. It
+    writes the LEAF-format fixture (timed) that the CLI phases then read.
+    Returns the flash kernels' launches, the fixture directory and the
+    run's round records."""
+    from fedml_tpu_torch.data import leaf_fixture
+    from fedml_tpu_torch.exp import repro_mnist_lr
+
+    c = MNIST
+    data_dir, metrics = BUILD_DIR / "mnist", BUILD_DIR / "repro_mnist_lr.jsonl"
+    written = []
+
+    def timed(original):
+        def write_leaf_mnist_fixture(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = original(*args, **kwargs)
+            written.append(time.perf_counter() - t0)
+            return out
+        return write_leaf_mnist_fixture
+
+    _zero_flash_counters()
+    t0 = time.perf_counter()
+    with _wrapped(leaf_fixture, "write_leaf_mnist_fixture", timed):
+        result = repro_mnist_lr.main([
+            "--data_dir", str(data_dir), "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--comm_round", str(c["rounds"]),
+            "--frequency_of_the_test", str(c["freq"]), "--metrics_out", str(metrics),
+            "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _flash_launches()
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    evals = [r for r in records if "Test/Acc" in r]
+    if len(written) != 1 or result["clients"] != c["clients"]:
+        fail(f"repro_mnist_lr: fixture writes {written}, result {result}")
+    if len(records) != c["rounds"] or len(evals) != c["rounds"] // c["freq"] \
+            or not all(np.isfinite([v for r in records for v in r.values()])):
+        fail(f"repro_mnist_lr: bad records {records}")
+    times = [r["round_time"] for r in records]
+    log(f"[repro_mnist_lr] LEAF-format fixture, {c['clients']} clients, written in "
+        f"{written[0]:.2f} s; {result['samples']} training samples")
+    log(f"[repro_mnist_lr] exp/repro_mnist_lr.main, {c['rounds']} rounds x {c['per_round']} "
+        f"clients x B={c['batch']}, SGD {c['lr']}, eval every {c['freq']}: {result['rounds_per_sec']} "
+        f"rounds/s (its own figure: rounds over the run's wall time, evals included); mean "
+        f"round time {np.mean(times) * 1e3:.3f} ms, steady state (rounds {c['freq']}-"
+        f"{c['rounds'] - 1}) {np.mean(times[c['freq']:]) * 1e3:.3f} ms a round; best Test/Acc "
+        f"{result['best_test_acc']}, final {result['final']}; main() {wall:.2f} s (fixture and "
+        f"load included); flash launches {launches}")
+    return launches, data_dir, records
+
+
+def phase_mnist_lr(torch, data_dir, repro_records):
     """BASELINE row 1 through the port's CLI at full width, four times in
     turns: the default driver (pipelined, depth 1), ``--pipeline_depth 0``
     twice, the default again. Every round's dispatch of the first run runs
     under ``torch.cuda.set_sync_debug_mode("error")``, lifted only from each
     sync point (the metrics drain's flush, at eval rounds) to the next
     dispatch, so a synchronisation between eval rounds fails the run. All
-    four histories must be bitwise equal, ``round_time`` aside. Returns the
-    flash kernels' launches in the first run and the fixture directory."""
-    from fedml_tpu_torch.data.leaf_fixture import write_leaf_mnist_fixture
+    four histories, and ``repro_mnist_lr``'s records of the same row, must
+    be bitwise equal, ``round_time`` aside. The last run profiles round 1
+    (outside the steady-state rounds). Returns the flash kernels' launches
+    in the first run."""
     from fedml_tpu_torch.sim.engine import FedSim
     from fedml_tpu_torch.sim.prefetch import MetricsDrain
 
     c = MNIST
-    data_dir = BUILD_DIR / "mnist"
-    t0 = time.perf_counter()
-    write_leaf_mnist_fixture(data_dir, n_clients=c["clients"], seed=0)
-    log(f"[mnist] LEAF-format fixture, {c['clients']} clients, written in "
-        f"{time.perf_counter() - t0:.2f} s")
     argv = ["--dataset", "mnist", "--model", "lr", "--data_dir", str(data_dir),
             "--client_num_in_total", str(c["clients"]),
             "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
@@ -783,12 +916,16 @@ def phase_mnist_lr(torch):
     launches = _flash_launches()
     if guarded != list(range(c["rounds"])):
         fail(f"mnist: the sync guard saw rounds {guarded}")
-    # then serial, serial, pipelined (unguarded): the two drivers in turns
+    # then serial, serial, pipelined (unguarded, round 1 profiled): the two
+    # drivers in turns
     runs = [("pipelined, guarded", pipelined, wall_p)]
     for name, extra in (("serial", ["--pipeline_depth", "0"]),
-                        ("serial", ["--pipeline_depth", "0"]), ("pipelined", [])):
+                        ("serial", ["--pipeline_depth", "0"])):
         runs.append((name,) + _cli(torch, argv + extra))
-    for name, history, _ in runs[1:]:
+    profile = {}
+    with _wrapped(FedSim, "run_staged_round", _profile_round(torch, 1, profile)):
+        runs.append(("pipelined, round 1 profiled",) + _cli(torch, argv))
+    for name, history, _ in runs[1:] + [("repro_mnist_lr", repro_records, None)]:
         if _strip_times(history) != _strip_times(pipelined):
             fail(f"mnist: the {name} history differs from the first pipelined run's")
     values = [v for rec in pipelined for v in rec.values()]
@@ -798,8 +935,8 @@ def phase_mnist_lr(torch):
     log(f"[mnist] {c['rounds']} rounds x {c['per_round']} clients x B={c['batch']}, "
         f"{steps} steps a client-epoch (the population max), vmap, SGD {c['lr']}; the "
         f"pipelined run dispatched all {len(guarded)} rounds under sync_debug_mode('error'); "
-        f"4 runs in turns (pipelined, serial, serial, pipelined), histories bitwise equal "
-        f"(round_time aside); flash launches {launches}")
+        f"4 runs in turns (pipelined, serial, serial, pipelined) and repro_mnist_lr's run: "
+        f"histories bitwise equal (round_time aside); flash launches {launches}")
     half = c["freq"]
     for name, history, wall in runs:
         times = [rec["round_time"] for rec in history]
@@ -807,27 +944,32 @@ def phase_mnist_lr(torch):
         log(f"[mnist {name}] mean round time {np.mean(times) * 1e3:.3f} ms over "
             f"{len(times)} rounds; steady state (rounds {half}-{len(times) - 1}) "
             f"{steady / (len(times) - half) * 1e3:.3f} ms a round, "
-            f"{(len(times) - half) / steady:.2f} rounds/s; run {wall:.2f} s (data load and "
-            f"evals included); rounds 0-{half - 1} {np.mean(times[:half]) * 1e3:.3f} ms a "
-            f"round; Test/Acc {history[half - 1]['Test/Acc']:.4f} (round {half - 1}), "
+            f"{(len(times) - half) / steady:.2f} rounds/s; run {wall:.2f} s (evals included, "
+            f"data loaded once for the row); rounds 0-{half - 1} "
+            f"{np.mean(times[:half]) * 1e3:.3f} ms a round; Test/Acc "
+            f"{history[half - 1]['Test/Acc']:.4f} (round {half - 1}), "
             f"{history[-1]['Test/Acc']:.4f} (round {len(times) - 1})")
+    _log_profile("mnist_lr", 1, profile)
     if not pipelined[-1]["Test/Acc"] > 0.3:
         fail(f"mnist: Test/Acc {pipelined[-1]['Test/Acc']} after {c['rounds']} rounds")
-    return launches, data_dir
+    return launches
 
 
 def phase_femnist_cnn(torch):
     """The FEMNIST recipe with CNNDropOut through the port's CLI at full
-    width: 5 rounds, the last an eval round with the per-client eval over all
-    3400 clients. Returns the flash kernels' launches."""
+    width: 5 rounds with the per-client eval over all 3400 clients at each
+    eval round (rounds 3 and 4), so rounds 0-3 make one timed window and the
+    last round runs alone under ``torch.profiler``. Returns the flash
+    kernels' launches."""
     from fedml_tpu_torch.sim.engine import FedSim
 
     c = FEMNIST
+    timed_rounds = c["rounds"] - 1
     argv = ["--dataset", "femnist", "--model", "cnn", "--data_dir", str(BUILD_DIR / "femnist"),
             "--client_num_in_total", str(c["clients"]),
             "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
             "--lr", str(c["lr"]), "--epochs", str(c["epochs"]), "--comm_round", str(c["rounds"]),
-            "--frequency_of_the_test", str(c["rounds"]), "--eval_on_clients", "1"]
+            "--frequency_of_the_test", str(timed_rounds), "--eval_on_clients", "1"]
     eval_s = []
 
     def timed(original):
@@ -841,9 +983,11 @@ def phase_femnist_cnn(torch):
         return evaluate_per_client
 
     staged, recording = _staging_recorder()
+    profile = {}
     _zero_flash_counters()
     torch.cuda.reset_peak_memory_stats()
-    with recording, _wrapped(FedSim, "evaluate_per_client", timed):
+    with recording, _wrapped(FedSim, "evaluate_per_client", timed), \
+            _wrapped(FedSim, "run_staged_round", _profile_round(torch, timed_rounds, profile)):
         history, wall = _cli(torch, argv)
     launches = _flash_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -855,19 +999,22 @@ def phase_femnist_cnn(torch):
     if abs(history[0]["Train/Loss"] - np.log(62)) > 1.5:
         fail(f"femnist: first-round loss {history[0]['Train/Loss']} far from ln 62")
     idx, _, steps, _ = staged[0]
-    window = sum(rec["round_time"] for rec in history[:-1])
+    window = sum(rec["round_time"] for rec in history[:timed_rounds])
     images = [int((staged[r][0] >= 0).sum()) for r in range(c["rounds"])]
     for rec, n in zip(history, images):
-        log(f"[femnist] round {rec['round']}: {rec['round_time']:.4f} s (the sync window's "
-            f"per-round mean), {n} images, {n / rec['round_time']:.1f} images/s, Train/Loss "
-            f"{rec['Train/Loss']:.5f}")
+        note = ("under the profiler" if rec["round"] == timed_rounds
+                else "the sync window's per-round mean")
+        log(f"[femnist] round {rec['round']}: {rec['round_time']:.4f} s ({note}), {n} images, "
+            f"{n / rec['round_time']:.1f} images/s, Train/Loss {rec['Train/Loss']:.5f}")
     log(f"[femnist] CNNDropOut f32, {c['clients']} clients (synthetic_leaf_mnist fallback), "
         f"{c['per_round']} x B={c['batch']}, {steps} steps a client-epoch (the population max), "
-        f"vmap: rounds 0-{c['rounds'] - 2} {sum(images[:-1]) / window:.1f} images/s, "
-        f"{window / (c['rounds'] - 1):.4f} s a round; per-client eval over {c['clients']} "
-        f"clients {eval_s[0]:.2f} s; Train/AccOnClients {history[-1]['Train/AccOnClients']:.4f} "
-        f"Test/Acc {history[-1]['Test/Acc']:.4f}; run {wall:.2f} s; peak device memory "
-        f"{peak / 2**30:.2f} GiB; flash launches {launches}")
+        f"vmap: rounds 0-{timed_rounds - 1} {sum(images[:timed_rounds]) / window:.1f} "
+        f"images/s, {window / timed_rounds:.4f} s a round; per-client eval over "
+        f"{c['clients']} clients {' and '.join(f'{t:.2f}' for t in eval_s)} s (rounds "
+        f"{timed_rounds - 1} and {timed_rounds}); Train/AccOnClients "
+        f"{history[-1]['Train/AccOnClients']:.4f} Test/Acc {history[-1]['Test/Acc']:.4f}; run "
+        f"{wall:.2f} s; peak device memory {peak / 2**30:.2f} GiB; flash launches {launches}")
+    _log_profile("femnist_cnn", timed_rounds, profile)
     return launches
 
 
@@ -965,10 +1112,12 @@ def phase_small_card_vs_cpu(torch):
                 fail(f"small {name}: the card disagrees with the CPU: {err} > {E2E_ATOL}")
             continue
         # A max-pool CNN: a window whose two largest inputs lie within rounding
-        # routes its gradient to either, so two f32 implementations part by
-        # ~5e-5 at such a step, and the parted runs then part further. So each
-        # round runs on both devices from the CPU run's variables, its gap held
-        # to E2E_ATOL; the free-running gap above is reported.
+        # (or tie) routes its gradient to either input, so the card and the
+        # CPU part at such a step (one window moved a gradient by 2.4e-3; python3
+        # -m fedml_tpu_torch.cnn_numerics finds such windows step by step), and
+        # parted runs meet more of them. So each round runs on both devices from
+        # the CPU run's variables, its gap held to E2E_ATOL; the free-running
+        # gap above is reported.
         sims = {d: _small_sim(torch, d, **kw) for d in ("cuda", "cpu")}
         v = dict(init)
         gaps = []
@@ -1036,79 +1185,30 @@ def phase_small_card_vs_cpu(torch):
         f"{spread:.3e}")
     if not same:
         fail("the pipelined and serial drivers differ on the card")
-    # the CLI's transformer builds attn_impl="xla": no flash launch
+    # the CLI's transformer builds attn_impl="xla": no flash launch; its one
+    # round runs under --profile_dir, which must write a Chrome trace
+    prof_dir = BUILD_DIR / "profile_cli_transformer"
     _zero_flash_counters()
     history, _ = _cli(torch, ["--dataset", "shakespeare", "--model", "transformer",
                               "--data_dir", str(BUILD_DIR / "shakespeare"),
                               "--client_num_in_total", "4", "--client_num_per_round", "2",
-                              "--batch_size", "8", "--comm_round", "1"])
+                              "--batch_size", "8", "--comm_round", "1",
+                              "--profile_dir", str(prof_dir)])
     launches = _flash_launches()
     log(f"[small] CLI --model transformer --dataset shakespeare, 1 round: Train/Loss "
         f"{history[-1]['Train/Loss']:.5f}, flash launches {launches}")
     if any(launches.values()):
         fail(f"the CLI transformer launched the flash kernels: {launches}")
-    return launches
-
-
-def phase_profile(torch, data_dir):
-    """The kernels a vmapped step launches, from ``torch.profiler`` around
-    round 1's dispatch (gather, aggregation and the metrics included, eval
-    not) of 2-round runs of MNIST + LR and of FEMNIST + CNNDropOut at full
-    width, with the round's device busy time against its wall time; then
-    ``--profile_dir``: a 2-round MNIST run must write a non-empty Chrome
-    trace. Returns the kernels a step per row."""
-    from fedml_tpu_torch.sim.engine import FedSim
-
-    per_step = {}
-    rows = (("mnist_lr", ["--dataset", "mnist", "--model", "lr", "--data_dir", str(data_dir),
-                          "--client_num_in_total", str(MNIST["clients"]), "--batch_size",
-                          str(MNIST["batch"]), "--lr", str(MNIST["lr"])]),
-            ("femnist_cnn", ["--dataset", "femnist", "--model", "cnn", "--data_dir",
-                             str(BUILD_DIR / "femnist"), "--client_num_in_total",
-                             str(FEMNIST["clients"]), "--batch_size", str(FEMNIST["batch"]),
-                             "--lr", str(FEMNIST["lr"])]))
-    two_rounds = ["--client_num_per_round", "10", "--comm_round", "2",
-                  "--frequency_of_the_test", "2"]
-    for name, argv in rows:
-        got = {}
-
-        def profiled(original):
-            def run_staged_round(self, staged, *args, **kwargs):
-                if staged.round_idx != 1:
-                    return original(self, staged, *args, **kwargs)
-                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-                torch.cuda.synchronize()
-                with torch.profiler.profile(activities=acts) as prof:
-                    t0 = time.perf_counter()
-                    out = original(self, staged, *args, **kwargs)
-                    torch.cuda.synchronize()
-                    got["wall"] = time.perf_counter() - t0
-                device = [e for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA]
-                got["kernels"] = len(device)
-                got["busy_us"] = sum(e.time_range.elapsed_us() for e in device)
-                got["steps"] = self._steps * self.trainer.epochs
-                return out
-            return run_staged_round
-
-        with _wrapped(FedSim, "run_staged_round", profiled):
-            _cli(torch, argv + two_rounds)
-        per_step[name] = got["kernels"] / got["steps"]
-        log(f"[profile] {name}: round 1 under torch.profiler: {got['kernels']} device "
-            f"kernels and copies over {got['steps']} vmapped steps, {per_step[name]:.1f} a "
-            f"step; device busy {got['busy_us'] / 1e3:.3f} ms of {got['wall'] * 1e3:.3f} ms "
-            f"wall ({1 - got['busy_us'] / 1e6 / got['wall']:.1%} idle, profiler overhead "
-            f"included)")
-    prof_dir = BUILD_DIR / "profile_mnist_lr"
-    _cli(torch, rows[0][1] + two_rounds + ["--profile_dir", str(prof_dir)])
     traces = [p for p in prof_dir.glob("*.json") if p.stat().st_size > 0]
     if not traces:
         fail(f"--profile_dir wrote no trace under {prof_dir}")
     events = json.loads(traces[0].read_text()).get("traceEvents", [])
-    log(f"[profile] --profile_dir: {traces[0].name}, {traces[0].stat().st_size} bytes, "
-        f"{sum(1 for e in events if e.get('cat') == 'kernel')} kernel events (round 1 and "
-        f"its eval)")
-    return per_step
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[profile] --profile_dir on that run: {traces[0].name}, {traces[0].stat().st_size} "
+        f"bytes, {kernels} kernel events (its one round and its eval)")
+    if not kernels:
+        fail("the --profile_dir trace holds no kernel event")
+    return launches
 
 
 def main() -> None:
@@ -1131,12 +1231,15 @@ def main() -> None:
     small_vmap_launches = phase_small_end_to_end(torch, "vmap")
     phase_small_resnet(torch)
     phase_cross_silo(torch)
-    cli_launches = {}
-    cli_launches["mnist_lr"], mnist_dir = phase_mnist_lr(torch)
+    cli_launches, loads = {}, []
+    with _loaded_once(loads):
+        cli_launches["repro_mnist_lr"], mnist_dir, records = phase_repro_mnist_lr(torch)
+        cli_launches["mnist_lr"] = phase_mnist_lr(torch, mnist_dir, records)
+        cli_launches["fedprox_lr"] = phase_fedprox_stragglers(torch, mnist_dir)
+    log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
+        f"six runs (repro, four CLI, FedProx)")
     cli_launches["femnist_cnn"] = phase_femnist_cnn(torch)
-    cli_launches["fedprox_lr"] = phase_fedprox_stragglers(torch, mnist_dir)
     cli_launches["cli_transformer"] = phase_small_card_vs_cpu(torch)
-    phase_profile(torch, mnist_dir)
     kernels = [{
         "name": name, "route": "cuda", "source": spec["source"], "replaces": KERNEL_REPLACES,
         "dtype": spec["dtype"], "launches": launches[name], "max_abs_err": errors[name],

@@ -10,12 +10,6 @@ kept where they differ from torch's:
   so its kernel's rows run over (h, w, c). The port permutes its NCHW
   activations to NHWC before the flatten, so a converted kernel applies
   unchanged (``tests/test_torch_cnn.py`` checks this on asymmetric weights).
-- *One-channel convs* (every model's first) train as im2col (``F.unfold``)
-  and a GEMM; without gradients (eval) they stay cuDNN convolutions. On the
-  H100, cuDNN's weight gradient of a 5x5 conv with one input channel is off
-  by 4e-4 to 8.5e-4 relative to float64 in f32, with TF32 off,
-  deterministic or benchmark mode alike (3e-7 at 32 input channels, 1e-6
-  on the CPU); the GEMM's is an f32 sum of k*k products.
 - *Padding.* ``"SAME"`` on a 5x5 stride-1 conv is torch's ``padding=2``;
   ``"VALID"`` is ``padding=0`` (``CNNDropOut``: 28 -> 26 -> 24, a 2x2 pool to
   12).
@@ -60,13 +54,7 @@ class Conv(nn.Module):
 
     def forward(self, x):
         x, weight, bias = x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype)
-        if weight.shape[1] > 1 or not torch.is_grad_enabled():
-            return F.conv2d(x, weight, bias, padding=self.padding)
-        k = weight.shape[-1]
-        h, w = (n + 2 * self.padding - k + 1 for n in x.shape[-2:])
-        cols = F.unfold(x, k, padding=self.padding)  # [N, k*k, H*W]
-        out = weight.reshape(weight.shape[0], -1) @ cols + bias[:, None]
-        return out.reshape(x.shape[0], weight.shape[0], h, w)
+        return F.conv2d(x, weight, bias, padding=self.padding)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         # flax lecun_normal over fan_in = k * k * in; zero bias

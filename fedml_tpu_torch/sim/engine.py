@@ -21,7 +21,7 @@ step), so both modes train on the same augmented batches and masks.
 :meth:`FedSim.run` is the JAX engine's driver (``engine.py:2069-2183``):
 with ``pipeline_depth`` >= 1 (the default, depth 1) a background thread
 stages the next rounds (``sim/prefetch.py``) into pinned host memory and
-copies them on a side stream, and round metrics are fetched a round behind,
+copies them non-blocking, and round metrics are fetched a round behind,
 so the host synchronises with the device only at eval rounds and at the end;
 ``pipeline_depth=0`` is the serial driver. Both give bitwise-equal
 histories: staging is a pure function of (seed, round). At eval rounds it
@@ -32,7 +32,6 @@ eval (:meth:`FedSim.evaluate_per_client`). ``profile_dir`` records a
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import time
@@ -142,9 +141,8 @@ class SimConfig:
 class Staged:
     """One round's staged payload (:meth:`FedSim.stage_round`): the cohort,
     its ``[C, S, B]`` index map, ``[C]`` weights and step budgets on the
-    device (the budgets also on the host, for the scan mode), the
-    augmentation draws, and the event after which the device copies are
-    complete (None on the CPU)."""
+    device (the budgets also on the host, for the scan mode), and the
+    augmentation draws."""
 
     round_idx: int
     cohort: np.ndarray
@@ -153,7 +151,6 @@ class Staged:
     num_steps: torch.Tensor
     num_steps_host: np.ndarray
     draws: dict | None
-    ready: Any = None
 
 
 class FedSim:
@@ -201,9 +198,6 @@ class FedSim:
         eidx = np.full(cohortlib.steps_per_epoch(n_eval, bs) * bs, -1, np.int32)
         eidx[:n_eval] = np.arange(n_eval, dtype=np.int32)
         self._train_eval_idx = torch.as_tensor(eidx.reshape(-1, bs), device=self.device)
-        # staging copies run on their own stream, so they overlap the rounds
-        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
-                             else None)
 
     @property
     def pipeline_depth(self) -> int:
@@ -217,7 +211,9 @@ class FedSim:
 
     def _stage_put(self, value):
         """A host array or CPU tensor on the device, through pinned memory
-        and a non-blocking copy on the card (call under the copy stream)."""
+        and a non-blocking copy on the card. The copy joins the device's
+        stream in issue order, ahead of the round that reads it, and the
+        pinned block is kept until the copy is done."""
         t = value if isinstance(value, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(value))
         if self.device.type != "cuda":
@@ -316,30 +312,10 @@ class FedSim:
             raise EmptyRoundError(f"round {round_idx}: the cohort is empty")
         idx, weights, num_steps = self._host_cohort_indices(cohort, round_idx)
         draws = self._round_draws(round_idx, len(cohort))
-        stream = (torch.cuda.stream(self._copy_stream) if self._copy_stream is not None
-                  else contextlib.nullcontext())
-        with stream:
-            staged = Staged(
-                round_idx, cohort, self._stage_put(idx), self._stage_put(weights),
-                self._stage_put(num_steps), num_steps,
-                None if draws is None else {k: self._stage_put(d) for k, d in draws.items()})
-            if self._copy_stream is not None:
-                ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
-                staged = dataclasses.replace(staged, ready=ready)
-        return staged
-
-    def _await(self, staged: Staged) -> None:
-        """Order the compute stream after the staged copies, and keep their
-        memory from reuse until the compute stream is done with it."""
-        if staged.ready is None:
-            return
-        current = torch.cuda.current_stream(self.device)
-        current.wait_event(staged.ready)
-        tensors = [staged.idx, staged.weights, staged.num_steps,
-                   *(staged.draws.values() if staged.draws else ())]
-        for t in tensors:
-            t.record_stream(current)
+        return Staged(
+            round_idx, cohort, self._stage_put(idx), self._stage_put(weights),
+            self._stage_put(num_steps), num_steps,
+            None if draws is None else {k: self._stage_put(d) for k, d in draws.items()})
 
     def run_staged_round(self, staged: Staged, global_variables: StateDict,
                          server_state=()):
@@ -348,7 +324,6 @@ class FedSim:
         the sample-weighted mean of the clients' train losses (a device
         tensor: nothing here waits for the device)."""
         cfg = self.config
-        self._await(staged)
         n = len(staged.cohort)
         weights, draws = staged.weights, staged.draws
         dropout = (DropoutStream(self.trainer.dropout_sites, cfg.seed, staged.round_idx, n,

@@ -17,8 +17,9 @@ overlaps them:
   are copied to pinned host memory with ``non_blocking=True`` and an event
   marks the copy. The driver reads them only after :meth:`MetricsDrain.flush`,
   which waits for every copy in flight, so it synchronises with the device
-  only at eval rounds and at the end of the run (JAX's drain blocks on the
-  round that falls off instead; CUDA's queue lets the port defer even that).
+  only at eval rounds and at the end of the run. JAX's drain blocks on the
+  round that falls off; here that would be a host wait between eval rounds,
+  so the port defers it to the flush.
 
 Knob: ``SimConfig.pipeline_depth`` (0 = serial, None = auto depth 1).
 """
