@@ -67,7 +67,20 @@ Phases, each of which exits non-zero on failure:
     variables, CNNDropOut's eval forward and masks; the pipelined against
     the serial driver on the card, bitwise; the CLI's transformer
     (``attn_impl="xla"``: no flash launch) under ``--profile_dir``, whose
-    Chrome trace must hold kernel events.
+    Chrome trace must hold kernel events;
+13. the recurrent family (no flash launch on any of its paths): both RNNs
+    at a small width in f32, one vmapped cohort step on the card with every
+    warning an error, then 2 vmapped FedAvg rounds card against CPU from the
+    same variables (``[rnn small]``); BASELINE row 4 through
+    ``exp/repro_shakespeare.main`` at full width (715-client Markov fixture,
+    10 a round, B=4, SGD 1.0, E=1, seq 80; 20 rounds, eval every 10, round 1
+    under ``torch.profiler``), with the fixture's build time, s/round, best
+    accuracy against the fixture's Bayes ceiling and peak memory
+    (``[repro_shakespeare]``); StackOverflow NWP through the CLI at full
+    width on the fallback of 100 clients (50 a round, B=16, SGD 10^-0.5,
+    seq 20; 4 rounds, the last profiled; ``[so_nwp]``); the tag task
+    through the CLI on ``stackoverflow_lr``, 2 rounds card against CPU from
+    the same variables (``[so_lr]``).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -696,6 +709,23 @@ def _wrapped(cls, name, make):
         setattr(cls, name, original)
 
 
+def _timing(into, sync=None):
+    """A ``_wrapped`` maker that appends each call's seconds to ``into``,
+    between two calls of ``sync`` when given."""
+    def make(original):
+        def timed(*args, **kwargs):
+            if sync is not None:
+                sync()
+            t0 = time.perf_counter()
+            out = original(*args, **kwargs)
+            if sync is not None:
+                sync()
+            into.append(time.perf_counter() - t0)
+            return out
+        return timed
+    return make
+
+
 def _cli(torch, argv):
     """The port's CLI (``exp/main_fedavg``) on the card: (history, seconds)."""
     from fedml_tpu_torch.exp import main_fedavg as cli
@@ -803,17 +833,23 @@ def _profile_round(torch, round_idx, got):
             got["kernels"] = len(device)
             got["busy_us"] = sum(e.time_range.elapsed_us() for e in device)
             got["steps"] = self._steps * self.trainer.epochs
+            by_name: dict[str, float] = {}
+            for e in device:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            got["top"] = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
             return out
         return run_staged_round
     return make
 
 
 def _log_profile(name, round_idx, got):
+    top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms ({us / max(got['busy_us'], 1e-9):.1%})"
+                    for k, us in got.get("top", []))
     log(f"[profile] {name}: round {round_idx} under torch.profiler: {got['kernels']} device "
         f"kernels and copies over {got['steps']} vmapped steps, "
         f"{got['kernels'] / got['steps']:.1f} a step; device busy {got['busy_us'] / 1e3:.3f} "
         f"ms of {got['wall'] * 1e3:.3f} ms wall ({1 - got['busy_us'] / 1e6 / got['wall']:.1%} "
-        f"idle, profiler on)")
+        f"idle, profiler on); most device time: {top}")
 
 
 def phase_repro_mnist_lr(torch):
@@ -829,18 +865,9 @@ def phase_repro_mnist_lr(torch):
     c = MNIST
     data_dir, metrics = BUILD_DIR / "mnist", BUILD_DIR / "repro_mnist_lr.jsonl"
     written = []
-
-    def timed(original):
-        def write_leaf_mnist_fixture(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = original(*args, **kwargs)
-            written.append(time.perf_counter() - t0)
-            return out
-        return write_leaf_mnist_fixture
-
     _zero_flash_counters()
     t0 = time.perf_counter()
-    with _wrapped(leaf_fixture, "write_leaf_mnist_fixture", timed):
+    with _wrapped(leaf_fixture, "write_leaf_mnist_fixture", _timing(written)):
         result = repro_mnist_lr.main([
             "--data_dir", str(data_dir), "--client_num_in_total", str(c["clients"]),
             "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
@@ -971,22 +998,12 @@ def phase_femnist_cnn(torch):
             "--lr", str(c["lr"]), "--epochs", str(c["epochs"]), "--comm_round", str(c["rounds"]),
             "--frequency_of_the_test", str(timed_rounds), "--eval_on_clients", "1"]
     eval_s = []
-
-    def timed(original):
-        def evaluate_per_client(self, *args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = original(self, *args, **kwargs)
-            torch.cuda.synchronize()
-            eval_s.append(time.perf_counter() - t0)
-            return out
-        return evaluate_per_client
-
     staged, recording = _staging_recorder()
     profile = {}
     _zero_flash_counters()
     torch.cuda.reset_peak_memory_stats()
-    with recording, _wrapped(FedSim, "evaluate_per_client", timed), \
+    with recording, \
+            _wrapped(FedSim, "evaluate_per_client", _timing(eval_s, torch.cuda.synchronize)), \
             _wrapped(FedSim, "run_staged_round", _profile_round(torch, timed_rounds, profile)):
         history, wall = _cli(torch, argv)
     launches = _flash_launches()
@@ -1211,12 +1228,242 @@ def phase_small_card_vs_cpu(torch):
     return launches
 
 
+# the recurrent family: small widths for the card-vs-CPU check; BASELINE row 4
+# at its recipe (fedml_tpu/exp/repro_shakespeare.py:3-8), 1200 rounds cut to
+# 20; the StackOverflow NWP recipe (fedml_tpu/exp/repro_stackoverflow_nwp.py:
+# 3-6) on the registry's fallback, 342,477 clients cut to 100 and ~1500 rounds
+# to 4: the fallback draws a 10004 x 10004 float64 transition matrix (~0.8 GB
+# on the host) and one rng.choice per token, so its set-up grows with the
+# population; the tag task on the stackoverflow_lr fallback, 2 rounds
+RNN_SMALL = {"original": dict(dataset="shakespeare", vocab_size=90, embedding_dim=8,
+                              hidden_size=32, seq=16),
+             "stackoverflow": dict(dataset="stackoverflow_nwp", vocab_size=512,
+                                   embedding_dim=16, hidden_size=48, seq=8)}
+SHAKESPEARE = dict(clients=715, per_round=10, batch=4, lr=1.0, seq=80, samples=16,
+                   rounds=20, freq=10, profiled=1)
+SO_NWP = dict(clients=100, per_round=50, batch=16, lr=10 ** -0.5, rounds=4, freq=3)
+SO_LR = dict(clients=10, per_round=10, batch=10, lr=0.1, rounds=2)
+
+
+def phase_rnn_small(torch):
+    """Both RNNs at a small width, f32: one vmapped cohort step on the card
+    with every warning an error (a per-client fallback of ``torch.func.vmap``
+    warns), then 2 vmapped FedAvg rounds on the card against the same rounds
+    on the CPU from the same variables. Returns the flash launches of the
+    card runs."""
+    import warnings
+
+    from fedml_tpu_torch.core.trainer import ClientTrainer, make_vmap_train, sgd
+    from fedml_tpu_torch.data.registry import synthetic_char_lm
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    _zero_flash_counters()
+    for name, c in RNN_SMALL.items():
+        train, test, _ = synthetic_char_lm(n_clients=6, vocab=c["vocab_size"],
+                                           seq_len=c["seq"], samples=10, seed=0)
+        widths = {k: c[k] for k in ("vocab_size", "embedding_dim", "hidden_size")}
+        cfg = SimConfig(client_num_in_total=6, client_num_per_round=4, batch_size=4,
+                        comm_round=2, epochs=1, frequency_of_the_test=1, eval_batch_size=16,
+                        seed=0, cohort_execution="vmap")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            trainer = ClientTrainer(module=create_model("rnn", 0, c["dataset"], device=device,
+                                                        **widths),
+                                    task="nwp", optimizer=sgd(0.5))
+            sim = FedSim(trainer, train, test, cfg, device=device)
+            if device == "cuda":
+                init = {k: t.cpu() for k, t in sim.init_variables().items()}
+                idx = torch.arange(16, device=sim.device).reshape(4, 1, 4)
+                batches = FedSim._gather_batches(sim._dataset, idx)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("error")
+                    make_vmap_train(trainer)({k: t.to(sim.device) for k, t in init.items()},
+                                             batches, torch.ones(4, dtype=torch.int64,
+                                                                 device=sim.device))
+                    torch.cuda.synchronize()
+            runs[device] = sim.run(variables={k: t.to(device) for k, t in init.items()})
+        err = _max_err(torch, (runs["cuda"], runs["cpu"]))
+        log(f"[rnn small] {type(trainer.module).__name__} {widths} T={c['seq']} f32: one "
+            f"vmapped cohort step on the card with warnings as errors: no warning; 2 vmapped "
+            f"FedAvg rounds, card vs CPU from the same variables: max_abs_err={err:.3e} "
+            f"(variables, losses, eval); Test/Acc {runs['cuda'][1][-1]['Test/Acc']:.4f}")
+        if not err <= E2E_ATOL:
+            fail(f"small {name} RNN on the card disagrees with the CPU run: {err} > {E2E_ATOL}")
+    return _flash_launches()
+
+
+def phase_repro_shakespeare(torch, smi):
+    """BASELINE row 4 through its own entry point,
+    ``exp/repro_shakespeare.main``, at full width on the card: the Markov
+    char-LM fixture of 715 clients (16 windows of 80 characters each, written
+    and timed here), ``RNNOriginalFedAvg``, 10 a round, B=4, SGD 1.0, E=1,
+    vmapped; 20 rounds with an eval every 10, round 1 under
+    ``torch.profiler``. Report and metrics go to a temporary directory.
+    Returns the flash kernels' launches."""
+    import tempfile
+
+    from fedml_tpu_torch.data import registry
+    from fedml_tpu_torch.exp import repro_shakespeare
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    c = SHAKESPEARE
+    made, profile = [], {}
+    _zero_flash_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, \
+            _wrapped(registry, "synthetic_char_lm", _timing(made)), \
+            _wrapped(FedSim, "run_staged_round", _profile_round(torch, c["profiled"], profile)):
+        t0 = time.perf_counter()
+        result = repro_shakespeare.main([
+            "--data_dir", str(Path(tmp) / "none"), "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--seq_len", str(c["seq"]),
+            "--samples_per_client", str(c["samples"]), "--comm_round", str(c["rounds"]),
+            "--frequency_of_the_test", str(c["freq"]),
+            "--metrics_out", str(Path(tmp) / "metrics.jsonl"),
+            "--out", str(Path(tmp) / "REPORT.md"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        records = [json.loads(line) for line in
+                   (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+        reported = "shakespeare_rnn_torch" in (Path(tmp) / "REPORT.md").read_text()
+    peak = torch.cuda.max_memory_allocated()
+    launches = _flash_launches()
+    evals = [r for r in records if "Test/Acc" in r]
+    if len(made) != 1 or result["clients"] != c["clients"] or not reported:
+        fail(f"repro_shakespeare: fixture builds {made}, result {result}, report {reported}")
+    if len(records) != c["rounds"] or len(evals) != c["rounds"] // c["freq"] \
+            or not all(np.isfinite([v for r in records for v in r.values()])):
+        fail(f"repro_shakespeare: bad records {records}")
+    if abs(records[0]["Train/Loss"] - np.log(90)) > 1.0:
+        fail(f"repro_shakespeare: first-round loss {records[0]['Train/Loss']} far from ln 90")
+    steady = [r["round_time"] for r in records if r["round"] > c["profiled"]]
+    log(f"[repro_shakespeare] {smi}: Markov char-LM fixture, {c['clients']} clients x "
+        f"{c['samples']} windows of {c['seq']}, built in {made[0]:.2f} s; "
+        f"{result['samples']} training windows")
+    log(f"[repro_shakespeare] exp/repro_shakespeare.main, RNNOriginalFedAvg (2 x LSTM 256), "
+        f"{c['rounds']} rounds (of the recipe's 1200) x {c['per_round']} clients x "
+        f"B={c['batch']}, SGD {c['lr']}, E=1, vmap, eval every {c['freq']}: steady rounds "
+        f"({c['profiled'] + 1}-{c['rounds'] - 1}) {np.mean(steady):.4f} s a round, "
+        f"{1 / np.mean(steady):.3f} rounds/s ({result['rounds_per_sec']} by its own count, "
+        f"evals and round 0 included); round 0 {records[0]['round_time']:.4f} s; best "
+        f"Test/Acc {result['best_test_acc']}, the fixture's Bayes ceiling "
+        f"{result['fixture_bayes_ceiling']} ({result['pct_of_ceiling']}% of it); final "
+        f"{result['final']}; main() {wall:.2f} s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"flash launches {launches}")
+    _log_profile("repro_shakespeare", c["profiled"], profile)
+    return launches
+
+
+def phase_so_nwp(torch, smi):
+    """The StackOverflow NWP recipe with ``RNNStackOverflow`` through the
+    port's CLI at full width (vocab 10004, embed 96, LSTM 670, seq 20; 50
+    clients a round, B=16, SGD 10^-0.5, E=1) on the registry's fallback of
+    100 clients: 4 rounds on the serial driver (each round its own time),
+    the last under ``torch.profiler``. Returns the flash kernels' launches."""
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    c = SO_NWP
+    argv = ["--dataset", "stackoverflow_nwp", "--model", "rnn",
+            "--data_dir", str(BUILD_DIR / "stackoverflow_nwp"),
+            "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--epochs", "1", "--comm_round", str(c["rounds"]),
+            "--frequency_of_the_test", str(c["freq"]), "--pipeline_depth", "0"]
+    loads = []
+    profile = {}
+    _zero_flash_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with _loaded_once(loads), _wrapped(FedSim, "run_staged_round", _profile_round(
+            torch, c["rounds"] - 1, profile)):
+        history, wall = _cli(torch, argv)
+    launches = _flash_launches()
+    peak = torch.cuda.max_memory_allocated()
+    values = [v for rec in history for v in rec.values()]
+    if not all(np.isfinite(values)) or len(history) != c["rounds"]:
+        fail(f"so_nwp: bad history {history}")
+    if abs(history[0]["Train/Loss"] - np.log(10004)) > 1.5:
+        fail(f"so_nwp: first-round loss {history[0]['Train/Loss']} far from ln 10004")
+    for rec in history:
+        log(f"[so_nwp] round {rec['round']}: {rec['round_time']:.4f} s"
+            + (" (under the profiler)" if rec["round"] == c["rounds"] - 1 else "")
+            + f", Train/Loss {rec['Train/Loss']:.5f}"
+            + (f", Test/Acc {rec['Test/Acc']:.4f}" if "Test/Acc" in rec else ""))
+    steady = [rec["round_time"] for rec in history[1:-1]]
+    log(f"[so_nwp] {smi}: RNNStackOverflow (vocab 10004, embed 96, LSTM 670) through the "
+        f"CLI, fallback fixture of {c['clients']} clients (30 windows of 20 each) built in "
+        f"{loads[0]:.2f} s; "
+        f"{c['per_round']} clients a round x B={c['batch']}, SGD {c['lr']:.4f}, E=1, vmap, "
+        f"serial driver: rounds 1-{c['rounds'] - 2} {np.mean(steady):.4f} s a round, round 0 "
+        f"{history[0]['round_time']:.4f} s; run {wall:.2f} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; flash launches {launches}")
+    _log_profile("so_nwp", c["rounds"] - 1, profile)
+    return launches
+
+
+def phase_so_lr(torch):
+    """The tag task: ``--model lr --dataset stackoverflow_lr`` through the
+    CLI on the registry's fallback, 2 rounds on the card, then on the CPU
+    from the card run's initial variables; variables and every record's
+    values held to 1e-4. Returns the card run's flash launches."""
+    from fedml_tpu_torch.exp import main_fedavg as cli
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    c = SO_LR
+    argv = ["--dataset", "stackoverflow_lr", "--model", "lr",
+            "--data_dir", str(BUILD_DIR / "stackoverflow_lr"),
+            "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--comm_round", str(c["rounds"]),
+            "--frequency_of_the_test", "1"]
+    inits, finals = [], []
+
+    def recorded(original):
+        def init_variables(self):  # the card run draws them, the CPU run takes them
+            if inits:
+                return {k: t.to(self.device) for k, t in inits[0].items()}
+            inits.append({k: t.cpu() for k, t in original(self).items()})
+            return {k: t.to(self.device) for k, t in inits[0].items()}
+        return init_variables
+
+    def keep_final(original):
+        def run(self, *args, **kwargs):
+            out = original(self, *args, **kwargs)
+            finals.append({k: t.cpu() for k, t in out[0].items()})
+            return out
+        return run
+
+    _zero_flash_counters()
+    with _wrapped(FedSim, "init_variables", recorded), _wrapped(FedSim, "run", keep_final):
+        card, wall = _cli(torch, argv)
+        launches = _flash_launches()
+        cpu = cli.run(cli.parse_with_config(cli.add_args(argparse.ArgumentParser()),
+                                            argv + ["--device", "cpu"]))
+    err = max(float((finals[0][k] - finals[1][k]).abs().max()) for k in finals[1])
+    for a, b in zip(card, cpu):
+        if set(a) != set(b):
+            fail(f"so_lr: the card's and the CPU's records differ in keys: {a} {b}")
+        err = max([err] + [abs(a[k] - b[k]) for k in a if k not in ("round", "round_time")])
+    log(f"[so_lr] LogisticRegression (1000 -> 500 tags), tag task, {c['clients']} clients "
+        f"(synthetic_tag_prediction fallback) x B={c['batch']}, SGD {c['lr']}, "
+        f"{c['rounds']} rounds: card vs CPU from the same variables max_abs_err={err:.3e} "
+        f"(variables, losses, eval); Test/Acc (tag precision) {card[-1]['Test/Acc']:.4f} "
+        f"Test/Loss {card[-1]['Test/Loss']:.4f}; run {wall:.2f} s; flash launches {launches}")
+    if len(card) != c["rounds"] or not all(np.isfinite([v for r in card for v in r.values()])):
+        fail(f"so_lr: bad history {card}")
+    if not err <= E2E_ATOL:
+        fail(f"so_lr: the card disagrees with the CPU: {err} > {E2E_ATOL}")
+    return launches
+
+
 def main() -> None:
     import torch
 
     from fedml_tpu_torch.ops import attention  # noqa: F401  (fails outside the repo)
 
-    phase_device(torch)
+    smi = phase_device(torch)
     phase_build()
     errors = phase_kernel_vs_plain(torch)
     phase_gradient(torch)
@@ -1240,6 +1487,13 @@ def main() -> None:
         f"six runs (repro, four CLI, FedProx)")
     cli_launches["femnist_cnn"] = phase_femnist_cnn(torch)
     cli_launches["cli_transformer"] = phase_small_card_vs_cpu(torch)
+    cli_launches["rnn_small"] = phase_rnn_small(torch)
+    cli_launches["repro_shakespeare"] = phase_repro_shakespeare(torch, smi)
+    cli_launches["so_nwp"] = phase_so_nwp(torch, smi)
+    cli_launches["so_lr"] = phase_so_lr(torch)
+    for path in ("rnn_small", "repro_shakespeare", "so_nwp", "so_lr"):
+        if any(cli_launches[path].values()):
+            fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{
         "name": name, "route": "cuda", "source": spec["source"], "replaces": KERNEL_REPLACES,
         "dtype": spec["dtype"], "launches": launches[name], "max_abs_err": errors[name],

@@ -1,9 +1,10 @@
 """Weights between the JAX package and the port.
 
 :func:`from_flax` turns the JAX package's variables of a TransformerLM, a
-CIFAR ResNet, a LogisticRegression or one of the CNNs (nested dicts of numpy
-arrays: ``{"params": ...}``, for the ResNet with ``"batch_stats"`` beside
-it, or a bare params tree) into the port's flat ``state_dict``;
+CIFAR ResNet, a LogisticRegression, one of the CNNs or one of the RNNs
+(nested dicts of numpy arrays: ``{"params": ...}``, for the ResNet with
+``"batch_stats"`` beside it, or a bare params tree) into the port's flat
+``state_dict``;
 :func:`to_flax` is its inverse. Names map one path component at a time:
 
 - TransformerLM: ``block_3`` <-> ``blocks.3``, ``LayerNorm_0`` <-> ``ln_0``,
@@ -12,7 +13,13 @@ it, or a bare params tree) into the port's flat ``state_dict``;
 - ResNet: ``BasicBlock_3`` <-> ``blocks.3``, ``Conv_0`` <-> ``conv_0``,
   ``BatchNorm_0`` <-> ``bn_0``, the top-level ``Dense_0`` <-> ``head``;
 - LogisticRegression and the CNNs: ``Conv_i`` <-> ``conv_i``, the
-  top-level ``Dense_i`` <-> ``dense_i``.
+  top-level ``Dense_i`` <-> ``dense_i``;
+- the RNNs: ``Embed_0/embedding`` <-> ``embed.weight``, the top-level
+  ``Dense_i`` <-> ``dense_i``, and ``OptimizedLSTMCell_n`` <-> ``lstm_n``,
+  whose eight per-gate Dense leaves become three stacked tensors: the
+  kernels ``ii, if, ig, io`` (``[in, H]``, no bias) transposed and stacked in
+  that order are ``weight_ih [4H, in]``, the kernels ``hi, hf, hg, ho``
+  (``[H, H]``) ``weight_hh [4H, H]`` and their biases ``bias_hh [4H]``.
 
 Leaves: a Dense kernel ``[in, out]`` is the transpose of the port's weight
 (``qkv`` stays one ``[3D, D]`` weight, so the q|k|v split of its output is
@@ -35,12 +42,14 @@ _COMPONENTS = {
     "MultiHeadSelfAttention_0": "attn",
     "Dense_0": "fc_0",
     "Dense_1": "fc_1",
+    "Embed_0": "embed",
 }
 _INVERSE = {v: k for k, v in _COMPONENTS.items()}
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "mean": "running_mean", "var": "running_var"}
 _STATS = {"running_mean": "mean", "running_var": "var"}
 _LAYER_NORMS = ("ln_0", "ln_1", "ln_f")
+_GATES = "ifgo"  # flax OptimizedLSTMCell's gate order
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, Any]:
@@ -68,14 +77,18 @@ def _port_names(comp: str, top_level: bool, resnet: bool) -> list[str]:
 
 
 def from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX TransformerLM, CifarResNet, LogisticRegression or CNN variables
-    -> the port's state dict (CPU tensors in the leaves' own dtype)."""
+    """JAX TransformerLM, CifarResNet, LogisticRegression, CNN or RNN
+    variables -> the port's state dict (CPU tensors in the leaves' own
+    dtype)."""
     collections = (variables if "params" in variables or "batch_stats" in variables
                    else {"params": variables})
     resnet = any(k.startswith("BasicBlock_") for k in collections.get("params", {}))
     sd = {}
     for tree in collections.values():
-        for path, leaf in _flatten(dict(tree)).items():
+        tree = dict(tree)
+        for comp in [c for c in tree if re.fullmatch(r"OptimizedLSTMCell_\d+", c)]:
+            sd.update(_lstm_from_flax(f"lstm_{comp.rsplit('_', 1)[1]}", tree.pop(comp)))
+        for path, leaf in _flatten(tree).items():
             arr = np.asarray(leaf)
             names = []
             for i, comp in enumerate(path[:-1]):
@@ -88,14 +101,41 @@ def from_flax(variables: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _lstm_from_flax(name: str, cell: dict) -> dict[str, torch.Tensor]:
+    """One ``OptimizedLSTMCell``'s per-gate leaves -> ``lstm_n``'s three
+    stacked tensors."""
+    def stacked(prefix, leaf):
+        arrs = [np.asarray(cell[prefix + g][leaf]) for g in _GATES]
+        return torch.tensor(np.concatenate([a.T if a.ndim == 2 else a for a in arrs]))
+
+    return {f"{name}.weight_ih": stacked("i", "kernel"),
+            f"{name}.weight_hh": stacked("h", "kernel"),
+            f"{name}.bias_hh": stacked("h", "bias")}
+
+
+def _lstm_to_flax(leaf_name: str, t: torch.Tensor) -> dict:
+    """One of ``lstm_n``'s stacked tensors -> its per-gate flax leaves."""
+    arr = t.detach().cpu().numpy()
+    prefix, leaf = {"weight_ih": ("i", "kernel"), "weight_hh": ("h", "kernel"),
+                    "bias_hh": ("h", "bias")}[leaf_name]
+    return {prefix + g: {leaf: np.ascontiguousarray(a.T if a.ndim == 2 else a)}
+            for g, a in zip(_GATES, np.split(arr, 4))}
+
+
 def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
     """The port's state dict -> ``{"params": ...}`` (and ``"batch_stats"``
     for a ResNet) nested dicts of numpy arrays in the JAX package's layout."""
     resnet = "bn_0.running_mean" in state_dict
     out: dict = {"params": {}}
     for name, t in state_dict.items():
-        arr = t.detach().cpu().numpy()
         parts = name.split(".")
+        m = re.fullmatch(r"lstm_(\d+)", parts[0])
+        if m:
+            cell = out["params"].setdefault(f"OptimizedLSTMCell_{m.group(1)}", {})
+            for gate, leaves in _lstm_to_flax(parts[1], t).items():
+                cell.setdefault(gate, {}).update(leaves)
+            continue
+        arr = t.detach().cpu().numpy()
         path = []
         i = 0
         while i < len(parts) - 1:
@@ -121,7 +161,7 @@ def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
         elif last == "weight":
             if parent in _LAYER_NORMS or parent.startswith("bn_"):
                 last = "scale"
-            elif parent == "tok_embed":
+            elif parent in ("tok_embed", "embed"):
                 last = "embedding"
             else:
                 last, arr = "kernel", arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T

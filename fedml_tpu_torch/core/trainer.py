@@ -87,10 +87,45 @@ def lm_metrics(logits: torch.Tensor, batch: Batch) -> dict[str, torch.Tensor]:
     return classification_metrics(logits, batch)
 
 
+def _sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """optax.sigmoid_binary_cross_entropy: ``-y * log_sigmoid(x) - (1 - y) *
+    log_sigmoid(-x)`` per element."""
+    labels = labels.to(logits.dtype)
+    return -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
+
+
+def tag_loss(logits: torch.Tensor, batch: Batch) -> torch.Tensor:
+    """Multi-label (tag prediction, stackoverflow_lr): sigmoid BCE against a
+    multi-hot target, summed over tags (reference
+    my_model_trainer_tag_prediction.py)."""
+    return _masked_mean(_sigmoid_bce(logits, batch["y"]).sum(-1), batch["mask"])
+
+
+def tag_metrics(logits: torch.Tensor, batch: Batch) -> dict[str, torch.Tensor]:
+    """Precision-style counts, as the reference reports them: a predicted
+    tag is a logit above 0, ``test_correct`` the true positives and
+    ``test_total`` the predicted tags (at least 1); ``test_precision`` and
+    ``test_recall`` are this batch's ratios."""
+    bce = _sigmoid_bce(logits, batch["y"]).sum(-1)
+    pred = (logits > 0.0).float()
+    y = batch["y"]
+    m = batch["mask"][:, None]
+    tp = torch.sum(pred * y * m)
+    predicted = torch.clamp(torch.sum(pred * m), min=1.0)
+    return {
+        "test_correct": tp,
+        "test_loss": torch.sum(bce * batch["mask"]),
+        "test_total": predicted,
+        "test_precision": tp / predicted,
+        "test_recall": tp / torch.clamp(torch.sum(y * m), min=1.0),
+    }
+
+
 TASKS: dict[str, tuple[Callable, Callable]] = {
     "classification": (classification_loss, classification_metrics),
     "nwp": (lm_loss, lm_metrics),
     "char_lm": (lm_loss, lm_metrics),
+    "tag": (tag_loss, tag_metrics),
 }
 
 

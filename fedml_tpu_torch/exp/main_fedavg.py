@@ -6,7 +6,11 @@ Every flag of the JAX CLI is here with the same name, dest and default
 46-130), plus ``--device`` (default ``cuda``; ``--device cpu`` runs on the
 CPU). Ported: ``--algorithm fedavg`` and ``fedprox`` (with the straggler
 protocol) on the sim engine, every model and dataset the port's registries
-hold, ``--client_optimizer sgd|adam`` with ``--wd`` and ``--momentum``,
+hold (among them ``--model lr`` on ``mnist``, ``synthetic_*`` and
+``stackoverflow_lr``, the ``tag`` task; ``--model cnn`` on ``femnist``;
+``--model rnn`` on ``shakespeare``, ``fed_shakespeare`` and
+``stackoverflow_nwp``; the datasets without their files on the registry's
+fixtures), ``--client_optimizer sgd|adam`` with ``--wd`` and ``--momentum``,
 ``--augment``, ``--eval_on_clients``, ``--pipeline_depth``,
 ``--profile_dir``, ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
 config; it needs PyYAML, imported only when ``--cf`` is given). The JAX

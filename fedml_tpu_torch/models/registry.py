@@ -2,10 +2,11 @@
 
 Ported: ``lr`` (LogisticRegression), the FedAvg-paper CNNs ``cnn``
 (``CNNDropOut``, the FEMNIST model) and ``cnn_original``, ``lenet``,
-``transformer`` and the CIFAR ResNets with BatchNorm, ``resnet56`` and
-``resnet110``. Every other model name of the JAX registry raises, naming
-the ROADMAP item that ports it. ``TASK_BY_DATASET`` and
-:func:`task_for_dataset` are the JAX registry's.
+``transformer``, the CIFAR ResNets with BatchNorm, ``resnet56`` and
+``resnet110``, and ``rnn`` (``RNNStackOverflow`` on ``stackoverflow_nwp``,
+``RNNOriginalFedAvg`` on any other dataset). Every other model name of the
+JAX registry raises, naming the ROADMAP item that ports it.
+``TASK_BY_DATASET`` and :func:`task_for_dataset` are the JAX registry's.
 """
 
 from __future__ import annotations
@@ -18,13 +19,13 @@ import torch
 from fedml_tpu_torch.models.cnn import CNNDropOut, CNNOriginalFedAvg, LeNet
 from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.models.resnet import resnet56, resnet110
+from fedml_tpu_torch.models.rnn import RNNOriginalFedAvg, RNNStackOverflow
 from fedml_tpu_torch.models.transformer import TransformerLM
 
 # model names of the JAX registry that later slices port (ROADMAP.md §A)
 _NOT_PORTED = {
     "resnet18_gn": "§A7 (the rest: resnet18_gn)",
     "mobilenet": "§A7 (the rest: MobileNet)",
-    "rnn": "§A9 (RNN slices)",
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -43,15 +44,18 @@ def create_model(model_name: str, output_dim: int, dataset: str = "",
     ``dtype`` (a torch dtype or "float32"/"bfloat16") is the compute dtype
     for the models that take one (the CNNs, the ResNets, the transformer);
     parameters stay f32. As in the JAX registry, a dtype other than f32 for
-    a model without one (``lr``) raises. ``input_shape`` is one example's
-    shape (e.g. ``(28, 28)``), which sizes ``lr``'s and the CNNs' first
-    Dense; it defaults to the dataset's (28 x 28 for ``mnist`` and
-    ``femnist``). ``model_kwargs`` set the model's other fields (for the
-    transformer: ``embed_dim``, ``num_layers``, ``num_heads``, ``max_len``,
-    ``attn_impl``, ...; for ``cnn``: ``dropout_rates``). The model is built on
-    ``device``, which must be available."""
+    a model without one (``lr``, ``rnn``) raises; ``rnn`` ignores
+    ``output_dim`` (its vocabulary is the model's), as there.
+    ``input_shape`` is one example's shape (e.g. ``(28, 28)``), which sizes
+    ``lr``'s and the CNNs' first Dense; it defaults to the dataset's (28 x
+    28 for ``mnist`` and ``femnist``). ``model_kwargs`` set the model's
+    other fields (for the transformer: ``embed_dim``, ``num_layers``,
+    ``num_heads``, ``max_len``, ``attn_impl``, ...; for ``cnn``:
+    ``dropout_rates``; for ``rnn``: ``vocab_size``, ``embedding_dim``,
+    ``hidden_size``). The model is built on ``device``, which must be
+    available."""
     if model_name not in ("lr", "cnn", "cnn_original", "lenet", "transformer", "resnet56",
-                          "resnet110"):
+                          "resnet110", "rnn"):
         slice_ = _NOT_PORTED.get(model_name, "§A13 (remaining families)")
         raise NotImplementedError(
             f"model {model_name!r} (dataset={dataset!r}) is not ported to "
@@ -61,9 +65,12 @@ def create_model(model_name: str, output_dim: int, dataset: str = "",
         if dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {dtype!r} (expected one of {sorted(_DTYPES)})")
         dtype = _DTYPES[dtype]
+    if model_name in ("lr", "rnn") and dtype not in (None, torch.float32):
+        raise ValueError(f"model {model_name!r} does not take a compute dtype")
+    if model_name == "rnn":
+        factory = RNNStackOverflow if dataset == "stackoverflow_nwp" else RNNOriginalFedAvg
+        return factory(device=device, **model_kwargs)
     if model_name == "lr":
-        if dtype not in (None, torch.float32):
-            raise ValueError(f"model {model_name!r} does not take a compute dtype")
         shape = input_shape or _INPUT_SHAPES.get(dataset)
         if shape is None:
             raise ValueError(f"model 'lr' on dataset {dataset!r} needs input_shape")

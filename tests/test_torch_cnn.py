@@ -172,7 +172,7 @@ def test_registry_names_and_tasks():
     m = create_model("cnn_original", 62, "femnist", dtype="bfloat16", device="cpu")
     assert all(p.dtype == torch.float32 for p in m.parameters())
     assert m(torch.zeros(2, 28, 28)).dtype == torch.float32
-    for name, item in (("rnn", "§A9"), ("mobilenet", "§A7"), ("vgg16", "§A13")):
+    for name, item in (("resnet18_gn", "§A7"), ("mobilenet", "§A7"), ("vgg16", "§A13")):
         with pytest.raises(NotImplementedError, match=item):
             create_model(name, 10, device="cpu")
     assert task_for_dataset("stackoverflow_nwp") == "nwp"
