@@ -80,7 +80,19 @@ Phases, each of which exits non-zero on failure:
     width on the fallback of 100 clients (50 a round, B=16, SGD 10^-0.5,
     seq 20; 4 rounds, the last profiled; ``[so_nwp]``); the tag task
     through the CLI on ``stackoverflow_lr``, 2 rounds card against CPU from
-    the same variables (``[so_lr]``).
+    the same variables (``[so_lr]``);
+14. FedNAS (no flash launch on any of its paths): the DARTS network at a
+    small width (4 channels, 3 cells, 2 steps, 8x8, B=4), f32, card against
+    CPU from the same variables: its forward in evaluation and training,
+    one first-order, one unrolled and one gdas search step, the gdas noise
+    drawn from one CPU generator seed (``[fednas small]``);
+    ``exp/main_fednas.run`` at the DARTS search width (16 channels, 8
+    cells, 4 steps, B=64, SGD 0.025, Adam 3e-4 for α, first order) on the
+    CIFAR-10 fallback of 2,000 images over 4 clients, 2 rounds, with
+    s/round, search steps/s, images/s, peak memory and one search step
+    under ``torch.profiler`` (``[fednas]``); and one unrolled search step
+    at that width beside a first-order one, timed, with peak memory
+    (``[fednas unrolled]``).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -812,32 +824,37 @@ def _loaded_once(loads):
         registry.load_partition_data = original
 
 
+def _profiled(torch, got, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under ``torch.profiler`` (device activity
+    only), between two synchronisations; puts into ``got`` its device
+    kernels and copies, their busy time, the call's wall time and the three
+    kernels with the most device time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        got["wall"] = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    got["kernels"] = len(device)
+    got["busy_us"] = sum(e.time_range.elapsed_us() for e in device)
+    by_name: dict[str, float] = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    got["top"] = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return out
+
+
 def _profile_round(torch, round_idx, got):
     """A ``FedSim.run_staged_round`` wrapper that runs round ``round_idx``
-    under ``torch.profiler`` (device activity only), between two
-    synchronisations, and puts into ``got`` its device kernels and copies,
-    their busy time, the round's wall time and its vmapped steps."""
+    under ``torch.profiler`` (``_profiled``) and adds to ``got`` the round's
+    vmapped steps."""
     def make(original):
         def run_staged_round(self, staged, *args, **kwargs):
             if staged.round_idx != round_idx:
                 return original(self, staged, *args, **kwargs)
-            torch.cuda.synchronize()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                out = original(self, staged, *args, **kwargs)
-                torch.cuda.synchronize()
-                got["wall"] = time.perf_counter() - t0
-            device = [e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            got["kernels"] = len(device)
-            got["busy_us"] = sum(e.time_range.elapsed_us() for e in device)
             got["steps"] = self._steps * self.trainer.epochs
-            by_name: dict[str, float] = {}
-            for e in device:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            got["top"] = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-            return out
+            return _profiled(torch, got, original, self, staged, *args, **kwargs)
         return run_staged_round
     return make
 
@@ -1458,6 +1475,235 @@ def phase_so_lr(torch):
     return launches
 
 
+FEDNAS_SMALL = dict(num_classes=4, channels=4, layers=3, steps=2, hw=8, batch=4)
+# the DARTS search network (Liu et al., ICLR 2019, sec. 3.1) on the CIFAR-10
+# fallback (2,000 images), first order; cut to 4 clients and 2 rounds
+FEDNAS = dict(dataset="cifar10", channels=16, layers=8, steps=4, batch=64, lr=0.025,
+              arch_lr=3e-4, clients=4, rounds=2, profiled_step=5)
+
+
+def _fednas_err(torch, a, b):
+    """Worst difference of two FedNAS outputs: variables dicts, tensors and
+    numbers, nested in tuples and dicts alike."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            fail(f"fednas: outputs differ in keys: {sorted(set(a) ^ set(b))}")
+        return max([0.0] + [_fednas_err(torch, a[k], b[k]) for k in a])
+    if isinstance(a, (tuple, list)):
+        return max([0.0] + [_fednas_err(torch, x, y) for x, y in zip(a, b)])
+    if isinstance(a, torch.Tensor):
+        return float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
+    return abs(float(a) - float(b))
+
+
+def phase_fednas_small(torch):
+    """FedNAS at a small width (4 channels, 3 cells, 2 steps, 8x8, B=4, S=2
+    with one padding row), f32, card against CPU, each check from the same
+    variables: the network forward in evaluation and in training (logits
+    and new BN statistics); one first-order ``search_step``; one unrolled
+    (second-order) ``search_step`` from a fresh momentum-SGD state; one gdas
+    ``search_step`` whose Gumbel noise both devices draw from one CPU
+    generator seed. Returns the flash launches of the card runs."""
+    from fedml_tpu_torch.algorithms.fednas import FedNASTrainer
+    from fedml_tpu_torch.core.trainer import adam, sgd
+    from fedml_tpu_torch.models.darts import DARTSNetwork
+
+    c = FEDNAS_SMALL
+    widths = {k: c[k] for k in ("num_classes", "channels", "layers", "steps")}
+    rng = np.random.RandomState(0)
+    batches = {"x": rng.rand(2, c["batch"], c["hw"], c["hw"], 3).astype(np.float32),
+               "y": rng.randint(0, c["num_classes"], (2, c["batch"])).astype(np.int64),
+               "mask": np.ones((2, c["batch"]), np.float32)}
+    batches["x"][1, -1] = 0.0
+    batches["mask"][1, -1] = 0.0
+
+    def on(device):
+        return {k: torch.from_numpy(v).to(device) for k, v in batches.items()}
+
+    def forward(device, init, mode):
+        net = DARTSNetwork(search_mode=mode, device=device, **widths)
+        net.load_state_dict({k: t.to(device) for k, t in init.items()})
+        b = on(device)
+        noise = net.gumbel_noise(torch.Generator().manual_seed(5))
+        with torch.no_grad():
+            return net(b["x"][0]), net(b["x"][0], train=True, noise=noise)
+
+    def step(device, init, mode, unrolled):
+        net = DARTSNetwork(search_mode=mode, device=device, **widths)
+        tr = FedNASTrainer(net, sgd(0.05, momentum=0.9 if unrolled else 0.0), adam(3e-3),
+                           unrolled=unrolled, unrolled_eta=0.05)
+        variables = {k: t.to(device) for k, t in init.items()}
+        params, arch, _ = tr.split(variables)
+        b = on(device)
+        out, opt, m = tr.search_step(
+            variables, (tr.w_opt.init(params), tr.arch_opt.init(arch)),
+            {k: v[0] for k, v in b.items()}, {k: v[1] for k, v in b.items()},
+            torch.Generator().manual_seed(7))
+        return out, opt, m
+
+    checks = {"forward darts": lambda d, i: forward(d, i, "darts"),
+              "forward gdas": lambda d, i: forward(d, i, "gdas"),
+              "search_step first order": lambda d, i: step(d, i, "darts", False),
+              "search_step unrolled": lambda d, i: step(d, i, "darts", True),
+              "search_step gdas": lambda d, i: step(d, i, "gdas", False)}
+    init = {k: t.cpu() for k, t in DARTSNetwork(device="cuda", **widths).state_dict().items()}
+    _zero_flash_counters()
+    errs = {}
+    for name, check in checks.items():
+        card = check("cuda", init)
+        torch.cuda.synchronize()
+        errs[name] = _fednas_err(torch, card, check("cpu", init))
+    launches = _flash_launches()
+    log(f"[fednas small] DARTSNetwork {widths} 8x8, B={c['batch']}, f32, card vs CPU from "
+        f"the same variables, max_abs_err (variables, optimizer states, losses): "
+        + "; ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f"; flash launches {launches}")
+    for name, err in errs.items():
+        if not err <= E2E_ATOL:
+            fail(f"fednas small {name}: the card disagrees with the CPU: {err} > {E2E_ATOL}")
+    return launches
+
+
+def _profile_call(torch, call_idx, got):
+    """A wrapper maker that runs call ``call_idx`` (0-based) of the wrapped
+    function under ``torch.profiler`` (``_profiled``)."""
+    calls = []
+
+    def make(original):
+        def profiled(*args, **kwargs):
+            calls.append(None)
+            if len(calls) - 1 != call_idx:
+                return original(*args, **kwargs)
+            return _profiled(torch, got, original, *args, **kwargs)
+        return profiled
+    return make
+
+
+def phase_fednas(torch, smi):
+    """The FedNAS path at the DARTS search width through its entry point,
+    ``exp/main_fednas.run``: CIFAR-10 (the registry's fallback of 2,000
+    32x32 images, hetero alpha 0.5) over 4 clients, channels 16, 8 cells, 4
+    steps, B=64, SGD 0.025 for the weights, Adam 3e-4 for α, first order, 2
+    rounds; one search step of round 0 under ``torch.profiler``. Then one
+    unrolled (second-order) ``search_step`` at the same width, timed after a
+    warm-up call beside a first-order one, with its peak memory. Returns the
+    flash launches of the two parts."""
+    from fedml_tpu_torch.algorithms import fednas
+    from fedml_tpu_torch.core.trainer import adam, sgd
+    from fedml_tpu_torch.exp import main_fednas
+    from fedml_tpu_torch.models.darts import DARTSNetwork
+
+    c = FEDNAS
+    argv = ["--dataset", c["dataset"], "--data_dir", str(BUILD_DIR / "fednas_cifar10"),
+            "--client_number", str(c["clients"]), "--comm_round", str(c["rounds"]),
+            "--batch_size", str(c["batch"]), "--lr", str(c["lr"]), "--arch_lr",
+            str(c["arch_lr"]), "--channels", str(c["channels"]), "--layers", str(c["layers"]),
+            "--steps", str(c["steps"]), "--device", "cuda"]
+    args = main_fednas.add_args(argparse.ArgumentParser()).parse_args(argv)
+    losses, genotypes, round_ends, steps, profile = [], [], [], [], {}
+
+    def record_losses(original):
+        def local_search(self, *a, **k):
+            out = original(self, *a, **k)
+            losses.append(float(out[1]["train_loss"]))
+            steps.append(int(a[1]["mask"].shape[0]) * self.epochs)
+            return out
+        return local_search
+
+    def record_genotype(original):
+        def global_genotype(variables):
+            genotypes.append(original(variables))
+            round_ends.append(time.perf_counter())
+            return genotypes[-1]
+        return global_genotype
+
+    loads = []
+    with _loaded_once(loads):
+        train, _ = main_fednas._load(args)
+        images = int(train.num_samples)
+        sizes = [len(train.partition[i]) for i in range(c["clients"])]
+        _zero_flash_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _wrapped(fednas.FedNASTrainer, "local_search", record_losses), \
+                _wrapped(fednas, "global_genotype", record_genotype), \
+                _wrapped(fednas.FedNASTrainer, "search_step",
+                         _profile_call(torch, c["profiled_step"], profile)):
+            t0 = time.perf_counter()
+            last = main_fednas.run(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches_run = _flash_launches()
+    per_round = np.diff([t0] + round_ends)
+    steps_round = sum(steps[:c["clients"]])
+    round_losses = [float(np.mean(losses[r * c["clients"]:(r + 1) * c["clients"]]))
+                    for r in range(c["rounds"])]
+    if len(losses) != c["clients"] * c["rounds"] or not np.all(np.isfinite(losses)) \
+            or not np.isfinite(last["Train/Loss"]):
+        fail(f"fednas: bad losses {losses} / {last}")
+    for g in genotypes:
+        if len(g.normal) != 2 * c["steps"] or len(g.reduce) != 2 * c["steps"]:
+            fail(f"fednas: genotype does not decode to 2 x {c['steps']} genes: {g}")
+    if str(genotypes[-1].normal) != last["genotype_normal"]:
+        fail("fednas: the returned genotype is not the last round's")
+    log(f"[fednas] {smi}: main_fednas --dataset cifar10 (fallback, {images} images of 32x32x3, "
+        f"hetero 0.5 over {c['clients']} clients: {sizes}) --channels {c['channels']} "
+        f"--layers {c['layers']} --steps {c['steps']} --batch_size {c['batch']} --lr {c['lr']} "
+        f"--arch_lr {c['arch_lr']}, first order, {c['rounds']} rounds; fixture loaded in "
+        f"{loads[0]:.2f} s; {steps_round} search "
+        f"steps a round; round 0 {per_round[0]:.3f} s (one step under the profiler), round 1 "
+        f"{per_round[1]:.3f} s: {steps_round / per_round[1]:.3f} search steps/s, "
+        f"{images / per_round[1]:.1f} images/s (each image once in a training and once in a "
+        f"validation batch); Train/Loss by round {round_losses}; genotype_normal {last['genotype_normal']}; run {wall:.2f} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; flash launches {launches_run}")
+    top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms ({us / max(profile['busy_us'], 1e-9):.1%})"
+                    for k, us in profile["top"])
+    log(f"[profile] fednas: search step {c['profiled_step']} of round 0 under torch.profiler: "
+        f"{profile['kernels']} device kernels and copies; device busy "
+        f"{profile['busy_us'] / 1e3:.3f} ms of {profile['wall'] * 1e3:.3f} ms wall "
+        f"({1 - profile['busy_us'] / 1e6 / profile['wall']:.1%} idle, profiler on); most device "
+        f"time: {top}")
+
+    # (c) one unrolled search_step at full width, beside a first-order one
+    rng = np.random.RandomState(0)
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in (
+        ("x", rng.rand(2, c["batch"], 32, 32, 3).astype(np.float32)),
+        ("y", rng.randint(0, 10, (2, c["batch"]))), ("mask", np.ones((2, c["batch"]), np.float32)))}
+    _zero_flash_counters()
+    times = {}
+    for unrolled in (False, True):
+        net = DARTSNetwork(num_classes=10, channels=c["channels"], layers=c["layers"],
+                           steps=c["steps"], device="cuda")
+        tr = fednas.FedNASTrainer(net, sgd(c["lr"]), adam(c["arch_lr"]), unrolled=unrolled,
+                                  unrolled_eta=c["lr"])
+        variables = tr.init(torch.Generator(device=net.alphas_normal.device).manual_seed(0))
+        params, arch, _ = tr.split(variables)
+        opt = (tr.w_opt.init(params), tr.arch_opt.init(arch))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out, _, m = tr.search_step(variables, opt, {k: v[0] for k, v in b.items()},
+                                       {k: v[1] for k, v in b.items()})
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t1)
+        if not all(bool(torch.isfinite(v).all()) for v in out.values()) \
+                or not np.isfinite(float(m["train_loss"])):
+            fail(f"fednas unrolled={unrolled}: non-finite step output")
+        times[unrolled] = (runs, torch.cuda.max_memory_allocated())
+    launches_unrolled = _flash_launches()
+    (fo, fo_peak), (so, so_peak) = times[False], times[True]
+    log(f"[fednas unrolled] one search_step at the search width (B={c['batch']}, 32x32), "
+        f"2 calls each (the first warms up): first order {fo[0]:.4f}, {fo[1]:.4f} s (peak "
+        f"{fo_peak / 2**30:.2f} GiB); second order (unrolled, exact Hessian-vector term) "
+        f"{so[0]:.4f}, {so[1]:.4f} s (peak {so_peak / 2**30:.2f} GiB); second call's ratio "
+        f"{so[1] / fo[1]:.2f}; flash launches "
+        f"{launches_unrolled}")
+    return launches_run, launches_unrolled
+
+
 def main() -> None:
     import torch
 
@@ -1491,7 +1737,10 @@ def main() -> None:
     cli_launches["repro_shakespeare"] = phase_repro_shakespeare(torch, smi)
     cli_launches["so_nwp"] = phase_so_nwp(torch, smi)
     cli_launches["so_lr"] = phase_so_lr(torch)
-    for path in ("rnn_small", "repro_shakespeare", "so_nwp", "so_lr"):
+    cli_launches["fednas_small"] = phase_fednas_small(torch)
+    cli_launches["fednas"], cli_launches["fednas_unrolled"] = phase_fednas(torch, smi)
+    for path in ("rnn_small", "repro_shakespeare", "so_nwp", "so_lr", "fednas_small", "fednas",
+                 "fednas_unrolled"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

@@ -1,10 +1,11 @@
 """Weights between the JAX package and the port.
 
 :func:`from_flax` turns the JAX package's variables of a TransformerLM, a
-CIFAR ResNet, a LogisticRegression, one of the CNNs or one of the RNNs
-(nested dicts of numpy arrays: ``{"params": ...}``, for the ResNet with
-``"batch_stats"`` beside it, or a bare params tree) into the port's flat
-``state_dict``;
+CIFAR ResNet, a LogisticRegression, one of the CNNs, one of the RNNs or the
+DARTS search network (nested dicts of numpy arrays: ``{"params": ...}``,
+for the ResNet with ``"batch_stats"`` beside it, for DARTS with
+``"batch_stats"`` and ``"arch"``, or a bare params tree) into the port's
+flat ``state_dict``;
 :func:`to_flax` is its inverse. Names map one path component at a time:
 
 - TransformerLM: ``block_3`` <-> ``blocks.3``, ``LayerNorm_0`` <-> ``ln_0``,
@@ -14,6 +15,10 @@ CIFAR ResNet, a LogisticRegression, one of the CNNs or one of the RNNs
   ``BatchNorm_0`` <-> ``bn_0``, the top-level ``Dense_0`` <-> ``head``;
 - LogisticRegression and the CNNs: ``Conv_i`` <-> ``conv_i``, the
   top-level ``Dense_i`` <-> ``dense_i``;
+- the DARTS search network: ``Cell_3`` <-> ``cells.3``, ``MixedOp_5`` <->
+  ``edges.5``, ``_Op_2`` <-> ``ops.2``, ``Conv_i``/``BatchNorm_i`` as in the
+  ResNet, the top-level ``Dense_0`` <-> ``dense_0``, and the ``arch``
+  collection's ``alphas_normal`` and ``alphas_reduce`` keep their names;
 - the RNNs: ``Embed_0/embedding`` <-> ``embed.weight``, the top-level
   ``Dense_i`` <-> ``dense_i``, and ``OptimizedLSTMCell_n`` <-> ``lstm_n``,
   whose eight per-gate Dense leaves become three stacked tensors: the
@@ -48,6 +53,7 @@ _INVERSE = {v: k for k, v in _COMPONENTS.items()}
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "mean": "running_mean", "var": "running_var"}
 _STATS = {"running_mean": "mean", "running_var": "var"}
+_ARCH = ("alphas_normal", "alphas_reduce")  # DARTS's "arch" collection
 _LAYER_NORMS = ("ln_0", "ln_1", "ln_f")
 _GATES = "ifgo"  # flax OptimizedLSTMCell's gate order
 
@@ -62,11 +68,19 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, Any]:
     return out
 
 
+# a flax component "<prefix>_<n>" is the port's "<list>.<n>"
+_LISTS = {"Cell": "cells", "MixedOp": "edges", "_Op": "ops"}
+_LIST_INVERSE = {v: k for k, v in _LISTS.items()}
+
+
 def _port_names(comp: str, top_level: bool, resnet: bool) -> list[str]:
     """One flax path component as the port's name components."""
     m = re.fullmatch(r"(?:block|BasicBlock)_(\d+)", comp)
     if m:
         return ["blocks", m.group(1)]
+    m = re.fullmatch(r"(Cell|MixedOp|_Op)_(\d+)", comp)
+    if m:
+        return [_LISTS[m.group(1)], m.group(2)]
     m = re.fullmatch(r"(Conv|BatchNorm)_(\d+)", comp)
     if m:
         return [f"{'conv' if m.group(1) == 'Conv' else 'bn'}_{m.group(2)}"]
@@ -77,7 +91,7 @@ def _port_names(comp: str, top_level: bool, resnet: bool) -> list[str]:
 
 
 def from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX TransformerLM, CifarResNet, LogisticRegression, CNN or RNN
+    """JAX TransformerLM, CifarResNet, LogisticRegression, CNN, RNN or DARTS
     variables -> the port's state dict (CPU tensors in the leaves' own
     dtype)."""
     collections = (variables if "params" in variables or "batch_stats" in variables
@@ -124,7 +138,8 @@ def _lstm_to_flax(leaf_name: str, t: torch.Tensor) -> dict:
 
 def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
     """The port's state dict -> ``{"params": ...}`` (and ``"batch_stats"``
-    for a ResNet) nested dicts of numpy arrays in the JAX package's layout."""
+    for a ResNet, ``"batch_stats"`` and ``"arch"`` for DARTS) nested dicts of
+    numpy arrays in the JAX package's layout."""
     resnet = "bn_0.running_mean" in state_dict
     out: dict = {"params": {}}
     for name, t in state_dict.items():
@@ -144,6 +159,10 @@ def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
                 path.append(f"{'BasicBlock' if resnet else 'block'}_{parts[i + 1]}")
                 i += 2
                 continue
+            if comp in _LIST_INVERSE:
+                path.append(f"{_LIST_INVERSE[comp]}_{parts[i + 1]}")
+                i += 2
+                continue
             m = re.fullmatch(r"(conv|bn|dense)_(\d+)", comp)
             if m:
                 kind = {"conv": "Conv", "bn": "BatchNorm", "dense": "Dense"}[m.group(1)]
@@ -158,6 +177,8 @@ def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
         collection = "params"
         if last in _STATS:
             collection, last = "batch_stats", _STATS[last]
+        elif last in _ARCH:
+            collection = "arch"
         elif last == "weight":
             if parent in _LAYER_NORMS or parent.startswith("bn_"):
                 last = "scale"

@@ -17,7 +17,7 @@ Flax's semantics are kept where they differ from torch's:
   and the head run in f32.
 - BatchNorm is flax's (``flax/linen/normalization.py``), written
   functionally: in training it reduces its statistics in f32 (even in bf16
-  compute) with the biased fast variance ``max(E[x^2] - E[x]^2, 0)``, which
+  compute; in f64 for f64 input, as flax promotes) with the biased fast variance ``max(E[x^2] - E[x]^2, 0)``, which
   both normalises the batch and enters the running average ``0.9 * ra + 0.1
   * batch``; eps 1e-5; output in the compute dtype. It receives no mask, so
   the zero-filled padding rows of a partly filled batch count in its batch
@@ -51,15 +51,16 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 class Conv(nn.Module):
     """Flax ``Conv(features, (k, k), strides, padding="SAME", use_bias=False,
-    dtype)`` on NCHW input: ``weight [out, in, k, k]`` (flax's HWIO kernel
-    as OIHW), cast with the input to the compute dtype."""
+    feature_group_count=groups, dtype)`` on NCHW input: ``weight [out, in /
+    groups, k, k]`` (flax's HWIO kernel as OIHW), cast with the input to the
+    compute dtype."""
 
     def __init__(self, in_channels, out_channels, kernel, stride=1, dtype=torch.float32,
-                 device=None):
+                 device=None, groups=1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel, kernel,
-                                               device=device))
-        self.kernel, self.stride, self.dtype = kernel, stride, dtype
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kernel,
+                                               kernel, device=device))
+        self.kernel, self.stride, self.dtype, self.groups = kernel, stride, dtype, groups
 
     def forward(self, x):
         (top, bottom), (left, right) = (same_padding(n, self.kernel, self.stride)
@@ -67,7 +68,8 @@ class Conv(nn.Module):
         x = x.to(self.dtype)
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight.to(self.dtype), stride=self.stride)
+        return F.conv2d(x, self.weight.to(self.dtype), stride=self.stride,
+                        groups=self.groups)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         # flax lecun_normal: truncated normal, variance 1 / (k * k * in)
@@ -91,7 +93,7 @@ class BatchNorm(nn.Module):
         self.dtype, self.momentum, self.eps = dtype, momentum, eps
 
     def forward(self, x, train: bool = False):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             mean = xf.mean((0, 2, 3))
             var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
