@@ -24,14 +24,20 @@ Phases, each of which exits non-zero on failure:
 5. end-to-end check at a small size: a few FedAvg rounds of a small f32
    TransformerLM on the card (kernel) against the same rounds on the CPU
    (plain version), the cohort trained client by client
-   (``cohort_execution="scan"``);
+   (``cohort_execution="scan"``). On the card every path below that runs
+   eval-aligned blocks of rounds (block dispatch, the default there) replays
+   one CUDA graph of the round per round (``sim/graphs.py``), the flash
+   kernel inside it; a launch inside a graph counts once per replay;
 6. the main path: FedAvg rounds of the full-width TransformerLM (D=2048,
    H=16, T=1024, V=32000) with ``attn_impl="flash"`` in
    ``cohort_execution="scan"`` (as the JAX LM bench runs it), counting each
    kernel's launches: in bf16 compute (the bf16 kernel on every layer's
-   forward, the f32 kernel never), then one round in f32 compute, the JAX
-   package's default (the f32 kernel on every layer's forward, the bf16
-   kernel never);
+   forward, the f32 kernel never), then 2 rounds of 2 x 1 steps in f32
+   compute, the JAX package's default (the f32 kernel on every layer's
+   forward, the bf16 kernel never); each run one block, its round captured
+   (timed) before the counters are set to 0; then the same rounds
+   dispatched one at a time (``block_dispatch=False``) in the same process,
+   both timed;
 7. the kernels' times at the main path's shape beside their bounds, the
    plain version's and one PyTorch call's; and each forward on the main
    path's strided views against the same work on contiguous copies;
@@ -40,7 +46,8 @@ Phases, each of which exits non-zero on failure:
    reached through the flash function's vmap rule (one launch per layer per
    step for the whole cohort; the count is asserted); and a depth-8 ResNet
    with BatchNorm, weight decay and augmentation, f32, 2 vmapped rounds on
-   the card against the CPU and against scan on the card;
+   the card against the CPU and against scan on the card (an eval each
+   round, each compared);
 9. the cross-silo flagship at full width through
    ``fedml_tpu_torch.exp.repro_cross_silo.run``: CIFAR-10 (the 50k/10k
    offline fixture) + ResNet-56, hetero alpha=0.5, 10 clients x B=64, SGD
@@ -52,8 +59,9 @@ Phases, each of which exits non-zero on failure:
     timed here; LogisticRegression, 10 a round, B=10, SGD 0.03, E=1, 20
     rounds, eval every 10) through ``exp/repro_mnist_lr.main``, then through
     the CLI ``exp/main_fedavg`` four times in turns (pipelined, serial,
-    serial, pipelined; the first with every round dispatched under
-    ``torch.cuda.set_sync_debug_mode("error")`` between eval rounds, the
+    serial, pipelined; two blocks of 10 each; the first with every block
+    dispatched under ``torch.cuda.set_sync_debug_mode("error")`` between
+    eval rounds, the capture before them, the
     last with round 1 under ``torch.profiler``); all five histories bitwise
     equal, ``round_time`` aside; then FedProx (mu 0.1) with stragglers
     (frac 0.5, E=2), 5 rounds, with each round's executed client steps. The
@@ -62,26 +70,39 @@ Phases, each of which exits non-zero on failure:
     SGD 0.1, E=1, the registry's synthetic fallback), 5 rounds with the
     per-client eval of all 3400 clients at rounds 3 and 4: images/s of
     rounds 0-3, peak memory, and the last round under ``torch.profiler``;
+    then 3 rounds as one block (a graph of 318 steps) against the same
+    rounds dispatched one at a time, both under cuDNN's deterministic
+    algorithms, rtol 1e-6 / atol 1e-7, and two per-round runs with the
+    default algorithms, their gap printed (``[femnist blocks]``);
 12. card against CPU at a small size in f32: LR FedProx with stragglers
     (scan and vmap) free-running, the CNNs round by round from the same
     variables, CNNDropOut's eval forward and masks; the pipelined against
     the serial driver on the card, bitwise; the CLI's transformer
     (``attn_impl="xla"``: no flash launch) under ``--profile_dir``, whose
     Chrome trace must hold kernel events;
-13. the recurrent family (no flash launch on any of its paths): both RNNs
+13. blocks against per-round dispatch on the card, f32, deterministic
+    cuDNN, rtol 1e-6 / atol 1e-7 (``[blocks]``): LR FedProx with stragglers
+    (scan, vmap), CNNDropOut (its masks), the small RNN, a ResNet-8 with
+    augmentation (vmap, scan);
+14. the recurrent family (no flash launch on any of its paths): both RNNs
     at a small width in f32, one vmapped cohort step on the card with every
-    warning an error, then 2 vmapped FedAvg rounds card against CPU from the
-    same variables (``[rnn small]``); BASELINE row 4 through
-    ``exp/repro_shakespeare.main`` at full width (715-client Markov fixture,
-    10 a round, B=4, SGD 1.0, E=1, seq 80; 20 rounds, eval every 10, round 1
-    under ``torch.profiler``), with the fixture's build time, s/round, best
-    accuracy against the fixture's Bayes ceiling and peak memory
-    (``[repro_shakespeare]``); StackOverflow NWP through the CLI at full
-    width on the fallback of 100 clients (50 a round, B=16, SGD 10^-0.5,
-    seq 20; 4 rounds, the last profiled; ``[so_nwp]``); the tag task
+    warning an error, then 4 vmapped FedAvg rounds card against CPU from the
+    same variables, an eval every 2 (``[rnn small]``); BASELINE row 4's recipe through the
+    CLI (``[shakespeare cli]``: blocks against per-round dispatch in turns,
+    round 1 of each profiled with the host's CUDA calls, the capture timed);
+    BASELINE row 4 through ``exp/repro_shakespeare.main`` at full width
+    (715-client Markov fixture, 10 a round, B=4, SGD 1.0, E=1, seq 80; 20
+    rounds, eval every 10), its pipelined loop against the serial one
+    (bitwise; round 1 of the serial run under ``torch.profiler``), with the
+    fixture's build time, s/round, best accuracy against the fixture's
+    Bayes ceiling and peak memory (``[repro_shakespeare]``); StackOverflow
+    NWP through the CLI at full width on the fallback of 100 clients (50 a
+    round, B=16, SGD 10^-0.5, seq 20; 4 rounds, the last profiled), with the
+    dataset on the device and with ``--stage_on_device 0``, bitwise, bytes
+    staged a round (``[so_nwp]``); the tag task
     through the CLI on ``stackoverflow_lr``, 2 rounds card against CPU from
     the same variables (``[so_lr]``);
-14. FedNAS (no flash launch on any of its paths): the DARTS network at a
+15. FedNAS (no flash launch on any of its paths): the DARTS network at a
     small width (4 channels, 3 cells, 2 steps, 8x8, B=4), f32, card against
     CPU from the same variables: its forward in evaluation and training,
     one first-order, one unrolled and one gdas search step, the gdas noise
@@ -94,7 +115,8 @@ Phases, each of which exits non-zero on failure:
     at that width beside a first-order one, timed, with peak memory
     (``[fednas unrolled]``).
 
-It prints a ``{"kernels": [...]}`` line, then as its last line
+Each phase prints its seconds (``[phase]``). It prints a
+``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
@@ -102,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -399,16 +422,30 @@ def _max_err(torch, runs):
     (v_a, h_a), (v_b, h_b) = runs
     err = max(float((v_a[k].cpu() - v_b[k].cpu()).abs().max()) for k in v_b)
     for rec_a, rec_b in zip(h_a, h_b):
+        if set(rec_a) != set(rec_b):
+            fail(f"two runs' records differ in keys: {rec_a} {rec_b}")
         for key in ("Train/Loss", "Train/Acc", "Test/Acc", "Test/Loss"):
-            err = max(err, abs(rec_a[key] - rec_b[key]))
+            if key in rec_b:
+                err = max(err, abs(rec_a[key] - rec_b[key]))
     return err
+
+
+def _capture(sim, variables, tag):
+    """Capture ``sim``'s round graph before a run (its warm-up round and the
+    capture stay out of the run and of the launch counts taken over it);
+    returns the seconds."""
+    seconds = sim.capture_round_graph(variables=variables)
+    log(f"{tag} round captured as a CUDA graph in {seconds:.3f} s (one warm-up round on "
+        f"scratch copies, then the capture)")
+    return seconds
 
 
 def phase_small_end_to_end(torch, mode):
     """A few FedAvg rounds of a small f32 TransformerLM with the flash path
     in cohort mode ``mode``: on the card (the kernel) against the same
-    rounds on the CPU (the plain version), from the same variables and data.
-    Returns the f32 kernel's launches in the card run; in vmap they must be
+    rounds on the CPU (the plain version), from the same variables and data,
+    with an eval every round, each held to the CPU's. Returns the f32
+    kernel's launches in the card run; in vmap they must be
     one per layer per step (the cohort folded into one launch) and per eval
     batch."""
     from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
@@ -425,6 +462,8 @@ def phase_small_end_to_end(torch, mode):
     mask[::3, 80:] = 0.0
     part = {c: np.arange(c * per, (c + 1) * per - c) for c in range(n_clients)}
     n = n_clients * per
+    # an eval every round, each held to the CPU's: each round is a block of
+    # one, a replay of the round's graph on the card
     cfg = SimConfig(client_num_in_total=n_clients, client_num_per_round=2, batch_size=4,
                     comm_round=2, epochs=1, frequency_of_the_test=1, eval_batch_size=4, seed=0,
                     cohort_execution=mode)
@@ -437,6 +476,7 @@ def phase_small_end_to_end(torch, mode):
                      {"x": x[n:], "y": y[n:], "mask": mask[n:]}, cfg, device=device)
         if device == "cuda":
             init = {k: t_.cpu() for k, t_ in sim.init_variables().items()}
+            _capture(sim, {k: t_.to(device) for k, t_ in init.items()}, f"[e2e {mode}]")
             attn.FLASH_FWD_F32_LAUNCHES = attn.FLASH_FWD_BF16_LAUNCHES = 0
         variables, history = sim.run(variables={k: t_.to(device) for k, t_ in init.items()})
         if device == "cuda":
@@ -446,10 +486,12 @@ def phase_small_end_to_end(torch, mode):
     err = _max_err(torch, (runs["cuda"], runs["cpu"]))
     h_gpu = runs["cuda"][1]
     steps = steps_per_epoch(max(len(p) for p in part.values()), cfg.batch_size)
-    evals = steps_per_epoch(n, cfg.eval_batch_size) + steps_per_epoch(8, cfg.eval_batch_size)
-    expected = layers * (cfg.comm_round * cfg.epochs * steps + cfg.comm_round * evals)
-    log(f"[e2e {mode}] small TransformerLM, 2 FedAvg rounds, card vs CPU (f32, flash): "
-        f"max_abs_err={err:.3e} (params, losses, eval); Test/Loss "
+    evals = sum("Test/Loss" in rec for rec in h_gpu) * (
+        steps_per_epoch(n, cfg.eval_batch_size) + steps_per_epoch(8, cfg.eval_batch_size))
+    expected = layers * (cfg.comm_round * cfg.epochs * steps + evals)
+    log(f"[e2e {mode}] small TransformerLM, 2 FedAvg rounds with an eval each, two blocks "
+        f"of one (replays of the round's CUDA graph on the card), card vs CPU (f32, flash): "
+        f"max_abs_err={err:.3e} (params, losses, both evals); Test/Loss "
         f"{h_gpu[-1]['Test/Loss']:.5f}; f32 kernel launches {launches[0]}, bf16 {launches[1]}"
         + (f" (expected {expected} = L x (rounds x E x S steps + eval batches))"
            if mode == "vmap" else ""))
@@ -463,7 +505,8 @@ def phase_small_end_to_end(torch, mode):
 def phase_small_resnet(torch):
     """A depth-8 ResNet (BatchNorm, weight decay, momentum, augmentation),
     f32, 2 vmapped FedAvg rounds on the card against the CPU, and against
-    scan on the card, from the same variables and data. Batch 16 and lr
+    scan on the card, from the same variables and data, with an eval every
+    round, each compared. Batch 16 and lr
     0.005 keep the two rounds well-conditioned: with batch 8 (a batch of one
     real image and seven zero rows normalised together) and lr 0.05, the
     f32 rounding differences of round 0 (~1e-6) grow past 1e-1 by round 1
@@ -496,7 +539,8 @@ def phase_small_resnet(torch):
         runs[(device, mode)] = sim.run(variables={k: t_.to(device) for k, t_ in init.items()})
     card_cpu = _max_err(torch, (runs[("cuda", "vmap")], runs[("cpu", "vmap")]))
     vmap_scan = _max_err(torch, (runs[("cuda", "vmap")], runs[("cuda", "scan")]))
-    log(f"[resnet] depth-8 ResNet f32, 2 vmapped FedAvg rounds (5 ragged clients, BN, wd, "
+    log(f"[resnet] depth-8 ResNet f32, 2 vmapped FedAvg rounds with an eval each (blocks of "
+        f"one, graph replays on the card; 5 ragged clients, BN, wd, "
         f"augmentation): card vs CPU max_abs_err={card_cpu:.3e}, vmap vs scan on the card "
         f"max_abs_err={vmap_scan:.3e} (params, BN statistics, losses, eval); Test/Acc "
         f"{runs[('cuda', 'vmap')][1][-1]['Test/Acc']:.4f}")
@@ -508,9 +552,10 @@ def phase_small_resnet(torch):
 
 MAIN = dict(vocab=32000, embed_dim=2048, num_layers=8, num_heads=16, seq=1024,
             clients=2, batch=8, steps=4, rounds=2, held_out=16, dtype="bfloat16")
-# the same LM in f32 compute, the JAX package's default; one round of 2 x 2
-# steps keeps the script inside its time limit
-MAIN_F32 = dict(MAIN, steps=2, rounds=1, dtype="float32")
+# the same LM in f32 compute, the JAX package's default; 2 rounds of 2 clients
+# x 1 step (one block: the round's graph replayed twice) keep the script
+# inside its time limit
+MAIN_F32 = dict(MAIN, steps=1, rounds=2, dtype="float32")
 
 
 def phase_main_path(torch, c):
@@ -519,8 +564,12 @@ def phase_main_path(torch, c):
     user calls. Synthetic tokens from numpy.random.RandomState(0), as the JAX
     package's LM bench makes them. Fails unless the kernel of that dtype ran
     on every layer's forward and the other never. Returns each kernel's
-    launch count in this run. The serial driver (``pipeline_depth=0``) keeps
-    each round's own time, as in the earlier slices' runs of this phase."""
+    launch count in this run, counted per launch on the device. The rounds
+    make one eval-aligned block (block dispatch, on by default on the card):
+    the round is captured as a CUDA graph first (timed; its warm-up round
+    stays out of the counts) and the run replays it once a round, the flash
+    kernel inside it. The serial driver (``pipeline_depth=0``) synchronises
+    at the block's end."""
     from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
     from fedml_tpu_torch.models.registry import create_model
     from fedml_tpu_torch.ops import attention as attn
@@ -547,8 +596,14 @@ def phase_main_path(torch, c):
     sim = FedSim(trainer, FederatedArrays({"x": x[:n], "y": y[:n], "mask": mask[:n]}, part),
                  {"x": x[n:], "y": y[n:], "mask": mask[n:]}, cfg)
     variables = sim.init_variables()
+    initial = {k: t.clone() for k, t in variables.items()}
     n_params = sum(t.numel() for t in variables.values())
+    tag = f"[main {c['dtype']}]"
+    if sim._dispatch_plan(0) != [(0, c["rounds"])]:
+        fail(f"{tag} the rounds do not make one block: {sim._dispatch_plan(0)}")
+    capture_s = _capture(sim, variables, tag)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
     for spec in KERNELS.values():
@@ -566,7 +621,6 @@ def phase_main_path(torch, c):
                        if spec["dtype"] == c["dtype"] else 0)
                 for name, spec in KERNELS.items()}
     tokens_per_round = c["clients"] * c["steps"] * c["batch"] * c["seq"]
-    tag = f"[main {c['dtype']}]"
     for rec in history:
         log(f"{tag} round {rec['round']}: Train/Loss {rec['Train/Loss']:.5f} "
             f"round_time {rec['round_time']:.3f} s "
@@ -576,7 +630,8 @@ def phase_main_path(torch, c):
     log(f"{tag} TransformerLM V={c['vocab']} D={c['embed_dim']} L={c['num_layers']} "
         f"H={c['num_heads']} T={c['seq']} {c['dtype']} flash, {n_params} params; "
         f"{c['clients']} clients x {c['steps']} steps x batch {c['batch']}, {c['rounds']} "
-        f"rounds in {wall:.3f} s; peak device memory "
+        f"rounds in {wall:.3f} s (one block, graph replays; capture {capture_s:.3f} s before "
+        f"it); device memory held after the capture {held / 2**30:.2f} GiB, peak in the run "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches} "
         f"(expected {expected})")
     values = [rec["Train/Loss"] for rec in history] + [
@@ -591,6 +646,25 @@ def phase_main_path(torch, c):
         fail(f"{c['dtype']} main path produced non-finite parameters")
     if launches != expected:
         fail(f"kernel launches on the {c['dtype']} main path {launches}: expected {expected}")
+
+    # the same rounds dispatched one at a time (eager rounds, every kernel
+    # launched from the host, as before blocks), from the same variables and
+    # in the same process: what the block costs or saves on this path
+    eager = FedSim(trainer, FederatedArrays({"x": x[:n], "y": y[:n], "mask": mask[:n]}, part),
+                   {"x": x[n:], "y": y[n:], "mask": mask[n:]},
+                   dataclasses.replace(cfg, block_dispatch=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, eager_history = eager.run(variables=initial)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    gap = max(abs(a[k] - b[k]) for a, b in zip(history, eager_history)
+              for k in ("Train/Loss", "Test/Loss") if k in b)
+    rounds = [", ".join(f"{rec['round_time']:.4f}" for rec in h) for h in (history, eager_history)]
+    log(f"{tag} blocks against per-round dispatch in one process: "
+        f"{wall / c['rounds']:.4f} s a round in one block (round_time {rounds[0]}) against "
+        f"{eager_wall / c['rounds']:.4f} s a round eager (round_time {rounds[1]}); largest "
+        f"loss difference {gap:.3e}")
     return launches
 
 
@@ -824,13 +898,18 @@ def _loaded_once(loads):
         registry.load_partition_data = original
 
 
-def _profiled(torch, got, fn, *args, **kwargs):
+def _profiled(torch, got, fn, *args, host=False, **kwargs):
     """``fn(*args, **kwargs)`` under ``torch.profiler`` (device activity
-    only), between two synchronisations; puts into ``got`` its device
-    kernels and copies, their busy time, the call's wall time and the three
-    kernels with the most device time."""
+    only, or with ``host`` the host's too), between two synchronisations;
+    puts into ``got`` its device kernels and copies, their busy time, the
+    call's wall time, the three kernels with the most device time and the
+    count of each CUDA runtime call the host made (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, ...)."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         torch.cuda.synchronize()
@@ -842,31 +921,54 @@ def _profiled(torch, got, fn, *args, **kwargs):
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     got["top"] = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    api: dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA and e.name.startswith("cuda"):
+            api[e.name] = api.get(e.name, 0) + 1
+    got["api"] = api
     return out
 
 
-def _profile_round(torch, round_idx, got):
-    """A ``FedSim.run_staged_round`` wrapper that runs round ``round_idx``
-    under ``torch.profiler`` (``_profiled``) and adds to ``got`` the round's
-    vmapped steps."""
-    def make(original):
+@contextlib.contextmanager
+def _profile_round(torch, round_idx, got, host=False):
+    """Run round ``round_idx`` under ``torch.profiler`` (``_profiled``),
+    whether it is dispatched alone (``FedSim.run_staged_round``) or replayed
+    in a block (``RoundGraph.replay_round``), and add to ``got`` the round's
+    local steps and its dispatch."""
+    from fedml_tpu_torch.sim.engine import FedSim
+    from fedml_tpu_torch.sim.graphs import RoundGraph
+
+    def eager(original):
         def run_staged_round(self, staged, *args, **kwargs):
             if staged.round_idx != round_idx:
                 return original(self, staged, *args, **kwargs)
-            got["steps"] = self._steps * self.trainer.epochs
-            return _profiled(torch, got, original, self, staged, *args, **kwargs)
+            got["steps"], got["dispatch"] = self._steps * self.trainer.epochs, "eager round"
+            return _profiled(torch, got, original, self, staged, *args, host=host, **kwargs)
         return run_staged_round
-    return make
+
+    def replayed(original):
+        def replay_round(self, sim, block, j):
+            if block.round_idx + j != round_idx:
+                return original(self, sim, block, j)
+            got["steps"], got["dispatch"] = sim._steps * sim.trainer.epochs, "graph replay"
+            return _profiled(torch, got, original, self, sim, block, j, host=host)
+        return replay_round
+
+    with _wrapped(FedSim, "run_staged_round", eager), \
+            _wrapped(RoundGraph, "replay_round", replayed):
+        yield
 
 
 def _log_profile(name, round_idx, got):
     top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms ({us / max(got['busy_us'], 1e-9):.1%})"
                     for k, us in got.get("top", []))
-    log(f"[profile] {name}: round {round_idx} under torch.profiler: {got['kernels']} device "
-        f"kernels and copies over {got['steps']} vmapped steps, "
+    api = ", ".join(f"{k} {n}" for k, n in sorted(got["api"].items()) if n)
+    log(f"[profile] {name}: round {round_idx} ({got['dispatch']}) under torch.profiler: "
+        f"{got['kernels']} device kernels and copies over {got['steps']} local steps, "
         f"{got['kernels'] / got['steps']:.1f} a step; device busy {got['busy_us'] / 1e3:.3f} "
         f"ms of {got['wall'] * 1e3:.3f} ms wall ({1 - got['busy_us'] / 1e6 / got['wall']:.1%} "
-        f"idle, profiler on); most device time: {top}")
+        f"idle, profiler on); host CUDA calls: {api or 'none recorded'}; most device time: "
+        f"{top}")
 
 
 def phase_repro_mnist_lr(torch):
@@ -917,10 +1019,13 @@ def phase_repro_mnist_lr(torch):
 def phase_mnist_lr(torch, data_dir, repro_records):
     """BASELINE row 1 through the port's CLI at full width, four times in
     turns: the default driver (pipelined, depth 1), ``--pipeline_depth 0``
-    twice, the default again. Every round's dispatch of the first run runs
-    under ``torch.cuda.set_sync_debug_mode("error")``, lifted only from each
-    sync point (the metrics drain's flush, at eval rounds) to the next
-    dispatch, so a synchronisation between eval rounds fails the run. All
+    twice, the default again. The rounds run in two eval-aligned blocks of
+    10, each replaying the round's CUDA graph. Every block's dispatch in the
+    first run runs under ``torch.cuda.set_sync_debug_mode("error")``, lifted
+    only from each sync point (the metrics drain's flush, at eval rounds) to
+    the next dispatch, so a synchronisation between eval rounds fails the
+    run; the capture (its warm-up round synchronises) comes before the first
+    block, outside that window. All
     four histories, and ``repro_mnist_lr``'s records of the same row, must
     be bitwise equal, ``round_time`` aside. The last run profiles round 1
     (outside the steady-state rounds). Returns the flash kernels' launches
@@ -937,11 +1042,11 @@ def phase_mnist_lr(torch, data_dir, repro_records):
     guarded = []
 
     def guard_dispatch(original):
-        def run_staged_round(self, staged, *args, **kwargs):
+        def run_block(self, start_round, n_rounds, *args, **kwargs):
             torch.cuda.set_sync_debug_mode("error")
-            guarded.append(staged.round_idx)
-            return original(self, staged, *args, **kwargs)
-        return run_staged_round
+            guarded.append((start_round, n_rounds))
+            return original(self, start_round, n_rounds, *args, **kwargs)
+        return run_block
 
     def lift_at_sync(original):
         def flush(self):
@@ -952,14 +1057,15 @@ def phase_mnist_lr(torch, data_dir, repro_records):
     staged, recording = _staging_recorder()
     _zero_flash_counters()
     try:
-        with _wrapped(FedSim, "run_staged_round", guard_dispatch), \
+        with _wrapped(FedSim, "run_block", guard_dispatch), \
                 _wrapped(MetricsDrain, "flush", lift_at_sync), recording:
             pipelined, wall_p = _cli(torch, argv)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     launches = _flash_launches()
-    if guarded != list(range(c["rounds"])):
-        fail(f"mnist: the sync guard saw rounds {guarded}")
+    blocks = [(r, c["freq"]) for r in range(0, c["rounds"], c["freq"])]
+    if guarded != blocks:
+        fail(f"mnist: the sync guard saw blocks {guarded}, expected {blocks}")
     # then serial, serial, pipelined (unguarded, round 1 profiled): the two
     # drivers in turns
     runs = [("pipelined, guarded", pipelined, wall_p)]
@@ -967,7 +1073,7 @@ def phase_mnist_lr(torch, data_dir, repro_records):
                         ("serial", ["--pipeline_depth", "0"])):
         runs.append((name,) + _cli(torch, argv + extra))
     profile = {}
-    with _wrapped(FedSim, "run_staged_round", _profile_round(torch, 1, profile)):
+    with _profile_round(torch, 1, profile):
         runs.append(("pipelined, round 1 profiled",) + _cli(torch, argv))
     for name, history, _ in runs[1:] + [("repro_mnist_lr", repro_records, None)]:
         if _strip_times(history) != _strip_times(pipelined):
@@ -978,7 +1084,8 @@ def phase_mnist_lr(torch, data_dir, repro_records):
     idx, _, steps, _ = staged[0]
     log(f"[mnist] {c['rounds']} rounds x {c['per_round']} clients x B={c['batch']}, "
         f"{steps} steps a client-epoch (the population max), vmap, SGD {c['lr']}; the "
-        f"pipelined run dispatched all {len(guarded)} rounds under sync_debug_mode('error'); "
+        f"pipelined run dispatched its blocks {guarded} (first round, rounds) under "
+        f"sync_debug_mode('error'), the capture before them; "
         f"4 runs in turns (pipelined, serial, serial, pipelined) and repro_mnist_lr's run: "
         f"histories bitwise equal (round_time aside); flash launches {launches}")
     half = c["freq"]
@@ -1021,7 +1128,7 @@ def phase_femnist_cnn(torch):
     torch.cuda.reset_peak_memory_stats()
     with recording, \
             _wrapped(FedSim, "evaluate_per_client", _timing(eval_s, torch.cuda.synchronize)), \
-            _wrapped(FedSim, "run_staged_round", _profile_round(torch, timed_rounds, profile)):
+            _profile_round(torch, timed_rounds, profile):
         history, wall = _cli(torch, argv)
     launches = _flash_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -1050,6 +1157,72 @@ def phase_femnist_cnn(torch):
         f"{wall:.2f} s; peak device memory {peak / 2**30:.2f} GiB; flash launches {launches}")
     _log_profile("femnist_cnn", timed_rounds, profile)
     return launches
+
+
+def phase_femnist_blocks(torch):
+    """FEMNIST + CNNDropOut through the CLI at ``[femnist]``'s recipe, cut
+    to 3 rounds with the eval at the last and no per-client eval: one block
+    of 3 replays of the round's CUDA graph (318 steps a client-epoch, ~62,600
+    kernels, the largest round graph of the script) against the same rounds
+    dispatched one at a time (``block_dispatch=False``, set here), both
+    under cuDNN's deterministic algorithms, held to rtol 1e-6 / atol 1e-7;
+    then two per-round runs with the default algorithms, whose gap is
+    printed: what the default algorithms alone move, with no graph. Returns
+    the flash launches."""
+    import functools
+
+    from fedml_tpu_torch.sim import engine
+
+    c = dict(FEMNIST, rounds=3)
+    argv = ["--dataset", "femnist", "--model", "cnn", "--data_dir", str(BUILD_DIR / "femnist"),
+            "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--epochs", str(c["epochs"]), "--comm_round", str(c["rounds"]),
+            "--frequency_of_the_test", str(c["rounds"])]
+
+    def per_round(original):
+        return functools.partial(original, block_dispatch=False)
+
+    def counted(original):
+        def capture_round_graph(self, *args, **kwargs):
+            seconds = original(self, *args, **kwargs)
+            captures[-1] += bool(seconds)
+            return seconds
+        return capture_round_graph
+
+    runs, captures = {}, []
+    _zero_flash_counters()
+    for name, block, deterministic in (("blocks", True, True), ("per round", False, True),
+                                       ("per round default 1", False, False),
+                                       ("per round default 2", False, False)):
+        captures.append(0)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_wrapped(engine.FedSim, "capture_round_graph", counted))
+            if not block:
+                stack.enter_context(_wrapped(engine, "SimConfig", per_round))
+            torch.backends.cudnn.deterministic = deterministic
+            try:
+                runs[name] = _cli(torch, argv)
+            finally:
+                torch.backends.cudnn.deterministic = False
+    if captures != [1, 0, 0, 0]:
+        fail(f"femnist blocks: round graphs captured per run {captures}, expected [1, 0, 0, 0]")
+    for name, (history, wall) in runs.items():
+        losses = ", ".join(f"{rec['Train/Loss']:.6f}" for rec in history)
+        log(f"[femnist blocks] {name}: run {wall:.2f} s, Train/Loss {losses}, Test/Acc "
+            f"{history[-1]['Test/Acc']:.6f}")
+    det = [({}, runs[k][0]) for k in ("blocks", "per round")]
+    (over, beyond), (diff, where) = _block_gap(torch, det)
+    (_, _), (spread, spread_where) = _block_gap(
+        torch, [({}, runs[k][0]) for k in ("per round default 1", "per round default 2")])
+    log(f"[femnist blocks] deterministic cuDNN, one block of {c['rounds']} graph replays vs "
+        f"per-round dispatch: largest difference {diff:.3e} ({where}), bitwise equal "
+        f"{diff == 0.0}; default algorithms, two per-round runs: largest difference "
+        f"{spread:.3e} ({spread_where})")
+    if over > 0:
+        fail(f"femnist blocks: {beyond} differs beyond rtol {BLOCK_RTOL} / atol {BLOCK_ATOL} "
+             f"(by {over:.3e} over)")
+    return _flash_launches()
 
 
 def phase_fedprox_stragglers(torch, data_dir):
@@ -1090,7 +1263,10 @@ def phase_fedprox_stragglers(torch, data_dir):
 
 
 def _small_sim(torch, device, model, mode, prox=0.0, straggler=0.0, epochs=1, depth=None,
-               rates=None):
+               rates=None, rounds=2, freq=2, block=None):
+    """A small FedSim on the synthetic LEAF MNIST clients; by default its
+    rounds make one eval-aligned block (on the card, replays of the round's
+    CUDA graph)."""
     from fedml_tpu_torch.algorithms.fedprox import fedprox_trainer
     from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
     from fedml_tpu_torch.data.leaf import synthetic_leaf_mnist
@@ -1104,16 +1280,16 @@ def _small_sim(torch, device, model, mode, prox=0.0, straggler=0.0, epochs=1, de
     trainer = fedprox_trainer(ClientTrainer(module=module, optimizer=sgd(0.05), epochs=epochs),
                               prox)
     cfg = SimConfig(client_num_in_total=8, client_num_per_round=4, batch_size=16,
-                    comm_round=2, epochs=epochs, frequency_of_the_test=1, eval_batch_size=64,
-                    seed=0, cohort_execution=mode, straggler_frac=straggler,
-                    pipeline_depth=depth)
+                    comm_round=rounds, epochs=epochs, frequency_of_the_test=freq,
+                    eval_batch_size=64, seed=0, cohort_execution=mode, straggler_frac=straggler,
+                    pipeline_depth=depth, block_dispatch=block)
     return FedSim(trainer, train, test, cfg, device=device)
 
 
 def phase_small_card_vs_cpu(torch):
     """The new paths at a small size in f32, the card against the CPU from
     the same variables: LR FedProx with stragglers (scan and vmap), 2 rounds
-    free-running; cnn_original FedAvg and CNNDropOut at dropout rate 0
+    free-running (one block on the card); cnn_original FedAvg and CNNDropOut at dropout rate 0
     (vmap), each of 2 rounds from the same variables, and CNNDropOut's eval
     forward at its rates; the pipelined against the serial driver on
     the card, bitwise; the dropout masks on the card (same seed, same masks;
@@ -1137,8 +1313,8 @@ def phase_small_card_vs_cpu(torch):
         (v_a, h_a), (v_b, h_b) = runs["cuda"], runs["cpu"]
         err = max(float((v_a[k].cpu() - v_b[k].cpu()).abs().max()) for k in v_b)
         for rec_a, rec_b in zip(h_a, h_b):
-            err = max([err] + [abs(rec_a[k] - rec_b[k]) for k in
-                               ("Train/Loss", "Test/Loss", "Train/Acc", "Test/Acc")])
+            err = max([err] + [abs(rec_a[k] - rec_b[k]) for k in rec_b
+                               if k not in ("round", "round_time")])
         if kw["model"] == "lr":
             log(f"[small] {name}, 2 rounds, card vs CPU (f32): max_abs_err={err:.3e} "
                 f"(variables, losses, eval); Test/Acc {h_a[-1]['Test/Acc']:.4f}")
@@ -1245,6 +1421,143 @@ def phase_small_card_vs_cpu(torch):
     return launches
 
 
+# blocks against per-round dispatch on the card: the JAX package's tolerance
+# for its block test (tests/test_device_staging.py:57)
+BLOCK_RTOL, BLOCK_ATOL = 1e-6, 1e-7
+
+
+def _block_gap(torch, runs):
+    """Two runs' variables and history values held to rtol/atol: ``(excess,
+    name)`` of the value furthest beyond the tolerance (excess <= 0 when all
+    agree) and ``(diff, name)`` of the largest absolute difference."""
+    (v_a, h_a), (v_b, h_b) = runs
+    seen = [(-BLOCK_ATOL, 0.0, "none")]  # (excess over the tolerance, |diff|, where)
+    for k in v_b:
+        a, b = v_a[k].double().cpu(), v_b[k].double().cpu()
+        d = (a - b).abs()
+        seen.append((float((d - BLOCK_ATOL - BLOCK_RTOL * b.abs()).max()), float(d.max()),
+                     f"variable {k}"))
+    for rec_a, rec_b in zip(h_a, h_b):
+        if set(rec_a) != set(rec_b):
+            fail(f"blocks: the records differ in keys: {rec_a} {rec_b}")
+        for k in rec_b:
+            if k not in ("round", "round_time"):
+                d = abs(rec_a[k] - rec_b[k])
+                seen.append((d - BLOCK_ATOL - BLOCK_RTOL * abs(rec_b[k]), d,
+                             f"round {rec_b['round']} {k}"))
+    over = max(seen)
+    largest = max(seen, key=lambda e: e[1])
+    return (over[0], over[2]), (largest[1], largest[2])
+
+
+def phase_blocks_small(torch):
+    """Block dispatch against per-round dispatch on the card at a small size,
+    f32, from the same variables: 4 rounds with an eval every 2, so two
+    blocks of 2 replays of the round's CUDA graph, against the same rounds
+    dispatched one at a time (``block_dispatch=False``): LR FedProx with
+    stragglers (scan and vmap), CNNDropOut (its dropout masks drawn into the
+    graph's buffers before each replay: the last round's are held against a
+    fresh draw), the small RNN and a depth-8 ResNet with augmentation (vmap
+    and scan). The histories and variables agree to rtol 1e-6 / atol 1e-7;
+    the largest difference is printed with the variable or metric it is
+    in. The runs use cuDNN's deterministic algorithms: its default ones may
+    sum in a run-dependent order, and the BatchNorm ResNet carries such a
+    last-bit difference past 1e-4 in 4 rounds (two per-round runs with the
+    default algorithms are compared too, and their gap printed)."""
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.data.registry import synthetic_char_lm
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.models.resnet import CifarResNet
+    from fedml_tpu_torch.ops.augment import ImageAugment
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    def rnn_sim(block):
+        c = RNN_SMALL["original"]
+        train, test, _ = synthetic_char_lm(n_clients=6, vocab=c["vocab_size"],
+                                           seq_len=c["seq"], samples=10, seed=0)
+        widths = {k: c[k] for k in ("vocab_size", "embedding_dim", "hidden_size")}
+        trainer = ClientTrainer(module=create_model("rnn", 0, c["dataset"], device="cuda",
+                                                    **widths), task="nwp", optimizer=sgd(0.5))
+        cfg = SimConfig(client_num_in_total=6, client_num_per_round=4, batch_size=4,
+                        comm_round=4, epochs=1, frequency_of_the_test=2, eval_batch_size=16,
+                        seed=0, block_dispatch=block)
+        return FedSim(trainer, train, test, cfg, device="cuda")
+
+    rng = np.random.RandomState(1)
+    sizes = [40, 9, 25, 33, 17]
+    n = sum(sizes)
+    images = rng.randn(n + 32, 32, 32, 3).astype(np.float32)
+    labels = rng.randint(0, 10, n + 32).astype(np.int32)
+    starts = np.cumsum([0] + sizes)
+    part = {c: np.arange(starts[c], starts[c + 1]) for c in range(len(sizes))}
+
+    def resnet_sim(block, mode):
+        trainer = ClientTrainer(module=CifarResNet(depth=8, num_classes=10, device="cuda"),
+                                optimizer=sgd(0.005, 0.9, 1e-3), epochs=2,
+                                augment=ImageAugment())
+        cfg = SimConfig(client_num_in_total=5, client_num_per_round=4, batch_size=16,
+                        comm_round=4, epochs=2, frequency_of_the_test=2, eval_batch_size=32,
+                        seed=0, cohort_execution=mode, block_dispatch=block)
+        return FedSim(trainer, FederatedArrays({"x": images[:n], "y": labels[:n]}, part),
+                      {"x": images[n:], "y": labels[n:]}, cfg, device="cuda")
+
+    _zero_flash_counters()
+    small = dict(rounds=4, freq=2)
+    cases = [
+        ("LR FedProx stragglers scan", lambda b: _small_sim(
+            torch, "cuda", "lr", "scan", prox=0.1, straggler=0.5, epochs=2, block=b, **small)),
+        ("LR FedProx stragglers vmap", lambda b: _small_sim(
+            torch, "cuda", "lr", "vmap", prox=0.1, straggler=0.5, epochs=2, block=b, **small)),
+        ("CNNDropOut vmap", lambda b: _small_sim(torch, "cuda", "cnn", "vmap", block=b,
+                                                 **small)),
+        ("RNNOriginalFedAvg small vmap", rnn_sim),
+        ("ResNet-8 augmentation vmap", lambda b: resnet_sim(b, "vmap")),
+        ("ResNet-8 augmentation scan", lambda b: resnet_sim(b, "scan")),
+    ]
+    t0 = time.perf_counter()
+    init = {k: t.clone() for k, t in resnet_sim(False, "vmap").init_variables().items()}
+    spread = [resnet_sim(False, "vmap").run(variables={k: t.clone() for k, t in init.items()})
+              for _ in range(2)]
+    log(f"[blocks] two per-round runs of the ResNet-8 case with cuDNN's default algorithms: "
+        f"largest difference {_block_gap(torch, spread)[1][0]:.3e}")
+    for name, make in cases:
+        runs, sims = [], []
+        for block in (None, False):
+            sim = make(block)
+            if not runs:
+                init = {k: t.clone() for k, t in sim.init_variables().items()}
+            torch.backends.cudnn.deterministic = True
+            try:
+                runs.append(sim.run(variables={k: t.clone() for k, t in init.items()}))
+            finally:
+                torch.backends.cudnn.deterministic = False
+            sims.append(sim)
+        plan = sims[0]._dispatch_plan(0)
+        if plan != [(0, 2), (2, 2)] or not sims[0]._graphs or sims[1]._graphs:
+            fail(f"blocks {name}: plan {plan}, graphs {len(sims[0]._graphs)} and "
+                 f"{len(sims[1]._graphs)}")
+        (over, beyond), (diff, where) = _block_gap(torch, runs)
+        note = ""
+        if sims[0].trainer.dropout_sites:
+            (graph,) = sims[0]._graphs.values()
+            last = sims[0]._dropout(3, sims[0].config.client_num_per_round)
+            same = all(torch.equal(graph.dropout.masks(t)[k], m)
+                       for t in range(graph.dropout.steps)
+                       for k, m in last.masks(t).items())
+            note = f"; the graph's dropout masks of round 3 equal a fresh draw: {same}"
+            if not same:
+                fail(f"blocks {name}: the replayed round's dropout masks differ")
+        log(f"[blocks] {name}: 4 rounds as 2 blocks of 2 graph replays vs per-round "
+            f"dispatch, card: largest difference {diff:.3e} ({where}); bitwise equal "
+            f"{diff == 0.0}{note}")
+        if over > 0:
+            fail(f"blocks {name}: {beyond} differs beyond rtol {BLOCK_RTOL} / atol "
+                 f"{BLOCK_ATOL} (by {over:.3e} over)")
+    log(f"[blocks] {len(cases)} cases in {time.perf_counter() - t0:.2f} s")
+    return _flash_launches()
+
+
 # the recurrent family: small widths for the card-vs-CPU check; BASELINE row 4
 # at its recipe (fedml_tpu/exp/repro_shakespeare.py:3-8), 1200 rounds cut to
 # 20; the StackOverflow NWP recipe (fedml_tpu/exp/repro_stackoverflow_nwp.py:
@@ -1265,8 +1578,9 @@ SO_LR = dict(clients=10, per_round=10, batch=10, lr=0.1, rounds=2)
 def phase_rnn_small(torch):
     """Both RNNs at a small width, f32: one vmapped cohort step on the card
     with every warning an error (a per-client fallback of ``torch.func.vmap``
-    warns), then 2 vmapped FedAvg rounds on the card against the same rounds
-    on the CPU from the same variables. Returns the flash launches of the
+    warns), then 4 vmapped FedAvg rounds with an eval every 2 (two blocks of
+    2 on the card) against the same rounds on the CPU from the same
+    variables, each eval compared. Returns the flash launches of the
     card runs."""
     import warnings
 
@@ -1281,7 +1595,7 @@ def phase_rnn_small(torch):
                                            seq_len=c["seq"], samples=10, seed=0)
         widths = {k: c[k] for k in ("vocab_size", "embedding_dim", "hidden_size")}
         cfg = SimConfig(client_num_in_total=6, client_num_per_round=4, batch_size=4,
-                        comm_round=2, epochs=1, frequency_of_the_test=1, eval_batch_size=16,
+                        comm_round=4, epochs=1, frequency_of_the_test=2, eval_batch_size=16,
                         seed=0, cohort_execution="vmap")
         runs = {}
         for device in ("cuda", "cpu"):
@@ -1302,9 +1616,10 @@ def phase_rnn_small(torch):
             runs[device] = sim.run(variables={k: t.to(device) for k, t in init.items()})
         err = _max_err(torch, (runs["cuda"], runs["cpu"]))
         log(f"[rnn small] {type(trainer.module).__name__} {widths} T={c['seq']} f32: one "
-            f"vmapped cohort step on the card with warnings as errors: no warning; 2 vmapped "
-            f"FedAvg rounds, card vs CPU from the same variables: max_abs_err={err:.3e} "
-            f"(variables, losses, eval); Test/Acc {runs['cuda'][1][-1]['Test/Acc']:.4f}")
+            f"vmapped cohort step on the card with warnings as errors: no warning; 4 vmapped "
+            f"FedAvg rounds, an eval every 2 (two blocks of 2 on the card), card vs CPU from "
+            f"the same variables: max_abs_err={err:.3e} "
+            f"(variables, losses, both evals); Test/Acc {runs['cuda'][1][-1]['Test/Acc']:.4f}")
         if not err <= E2E_ATOL:
             fail(f"small {name} RNN on the card disagrees with the CPU run: {err} > {E2E_ATOL}")
     return _flash_launches()
@@ -1313,11 +1628,13 @@ def phase_rnn_small(torch):
 def phase_repro_shakespeare(torch, smi):
     """BASELINE row 4 through its own entry point,
     ``exp/repro_shakespeare.main``, at full width on the card: the Markov
-    char-LM fixture of 715 clients (16 windows of 80 characters each, written
-    and timed here), ``RNNOriginalFedAvg``, 10 a round, B=4, SGD 1.0, E=1,
-    vmapped; 20 rounds with an eval every 10, round 1 under
-    ``torch.profiler``. Report and metrics go to a temporary directory.
-    Returns the flash kernels' launches."""
+    char-LM fixture of 715 clients (16 windows of 80 characters each, built
+    once and timed here), ``RNNOriginalFedAvg``, 10 a round, B=4, SGD 1.0,
+    E=1, vmapped; 20 rounds with an eval every 10, dispatched one at a time
+    by ``exp/_loop.run_rounds``: pipelined (the default), then serial
+    (``pipeline_depth`` 0, round 1 under ``torch.profiler``). The two runs'
+    records are bitwise equal, ``round_time`` aside. Report and metrics go to
+    a temporary directory. Returns the flash kernels' launches."""
     import tempfile
 
     from fedml_tpu_torch.data import registry
@@ -1325,29 +1642,52 @@ def phase_repro_shakespeare(torch, smi):
     from fedml_tpu_torch.sim.engine import FedSim
 
     c = SHAKESPEARE
-    made, profile = [], {}
+    made, profile, kept = [], {}, {}
+
+    def built_once(original):
+        timed = _timing(made)(original)
+
+        def synthetic_char_lm(*args, **kwargs):
+            key = repr((args, sorted(kwargs.items())))
+            if key not in kept:
+                kept[key] = timed(*args, **kwargs)
+            return kept[key]
+        return synthetic_char_lm
+
+    def serial(original):
+        return property(lambda self: 0)
+
+    def run(depth):
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.ExitStack() as stack:
+            if depth == 0:
+                stack.enter_context(_wrapped(FedSim, "pipeline_depth", serial))
+                stack.enter_context(_profile_round(torch, c["profiled"], profile))
+            t0 = time.perf_counter()
+            result = repro_shakespeare.main([
+                "--data_dir", str(Path(tmp) / "none"),
+                "--client_num_in_total", str(c["clients"]),
+                "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+                "--lr", str(c["lr"]), "--seq_len", str(c["seq"]),
+                "--samples_per_client", str(c["samples"]), "--comm_round", str(c["rounds"]),
+                "--frequency_of_the_test", str(c["freq"]),
+                "--metrics_out", str(Path(tmp) / "metrics.jsonl"),
+                "--out", str(Path(tmp) / "REPORT.md"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            records = [json.loads(line) for line in
+                       (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+            reported = "shakespeare_rnn_torch" in (Path(tmp) / "REPORT.md").read_text()
+        return result, records, wall, reported
+
     _zero_flash_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as tmp, \
-            _wrapped(registry, "synthetic_char_lm", _timing(made)), \
-            _wrapped(FedSim, "run_staged_round", _profile_round(torch, c["profiled"], profile)):
-        t0 = time.perf_counter()
-        result = repro_shakespeare.main([
-            "--data_dir", str(Path(tmp) / "none"), "--client_num_in_total", str(c["clients"]),
-            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
-            "--lr", str(c["lr"]), "--seq_len", str(c["seq"]),
-            "--samples_per_client", str(c["samples"]), "--comm_round", str(c["rounds"]),
-            "--frequency_of_the_test", str(c["freq"]),
-            "--metrics_out", str(Path(tmp) / "metrics.jsonl"),
-            "--out", str(Path(tmp) / "REPORT.md"), "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        records = [json.loads(line) for line in
-                   (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
-        reported = "shakespeare_rnn_torch" in (Path(tmp) / "REPORT.md").read_text()
+    with _wrapped(registry, "synthetic_char_lm", built_once):
+        result, records, wall, reported = run(None)
+        launches = _flash_launches()
+        _, serial_records, serial_wall, _ = run(0)
     peak = torch.cuda.max_memory_allocated()
-    launches = _flash_launches()
     evals = [r for r in records if "Test/Acc" in r]
     if len(made) != 1 or result["clients"] != c["clients"] or not reported:
         fail(f"repro_shakespeare: fixture builds {made}, result {result}, report {reported}")
@@ -1356,32 +1696,159 @@ def phase_repro_shakespeare(torch, smi):
         fail(f"repro_shakespeare: bad records {records}")
     if abs(records[0]["Train/Loss"] - np.log(90)) > 1.0:
         fail(f"repro_shakespeare: first-round loss {records[0]['Train/Loss']} far from ln 90")
-    steady = [r["round_time"] for r in records if r["round"] > c["profiled"]]
+    if _strip_times(serial_records) != _strip_times(records):
+        fail("repro_shakespeare: the serial loop's records differ from the pipelined loop's")
+    steady = [r["round_time"] for r in serial_records if r["round"] > c["profiled"]]
+    windows = [r["round_time"] for r in records if "Test/Acc" in r]
     log(f"[repro_shakespeare] {smi}: Markov char-LM fixture, {c['clients']} clients x "
         f"{c['samples']} windows of {c['seq']}, built in {made[0]:.2f} s; "
         f"{result['samples']} training windows")
     log(f"[repro_shakespeare] exp/repro_shakespeare.main, RNNOriginalFedAvg (2 x LSTM 256), "
         f"{c['rounds']} rounds (of the recipe's 1200) x {c['per_round']} clients x "
-        f"B={c['batch']}, SGD {c['lr']}, E=1, vmap, eval every {c['freq']}: steady rounds "
-        f"({c['profiled'] + 1}-{c['rounds'] - 1}) {np.mean(steady):.4f} s a round, "
-        f"{1 / np.mean(steady):.3f} rounds/s ({result['rounds_per_sec']} by its own count, "
-        f"evals and round 0 included); round 0 {records[0]['round_time']:.4f} s; best "
+        f"B={c['batch']}, SGD {c['lr']}, E=1, vmap, eval every {c['freq']}, one round a "
+        f"dispatch: pipelined loop {' and '.join(f'{t:.4f}' for t in windows)} s a round "
+        f"(its two eval windows, round 0 in the first), {result['rounds_per_sec']} rounds/s "
+        f"by its own count (evals included), main() {wall:.2f} s; serial loop, records "
+        f"bitwise equal: steady rounds ({c['profiled'] + 1}-{c['rounds'] - 1}) "
+        f"{np.mean(steady):.4f} s a round, round 0 {serial_records[0]['round_time']:.4f} s, "
+        f"main() {serial_wall:.2f} s; best "
         f"Test/Acc {result['best_test_acc']}, the fixture's Bayes ceiling "
         f"{result['fixture_bayes_ceiling']} ({result['pct_of_ceiling']}% of it); final "
-        f"{result['final']}; main() {wall:.2f} s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"{result['final']}; peak device memory {peak / 2**30:.2f} GiB; "
         f"flash launches {launches}")
     _log_profile("repro_shakespeare", c["profiled"], profile)
     return launches
+
+
+def phase_shakespeare_cli(torch, smi):
+    """BASELINE row 4 through the CLI, ``main_fedavg --dataset shakespeare
+    --model rnn``, at row 4's recipe (``fedml_tpu/exp/repro_shakespeare.py:
+    3-8``: 2 x LSTM 256, 10 clients a round, B=4, SGD 1.0, E=1) on the
+    registry's Markov fixture, which the CLI builds without files (715
+    clients of 30 windows of 20 characters, so 8 steps a round; the repro's
+    are 16 windows of 80), 20 rounds with an eval every 10: two blocks of 10 replays of the round's CUDA graph (the default on
+    the card) against the same rounds dispatched one at a time
+    (``block_dispatch=False``, set here: the CLI has no such flag, as in the
+    JAX package), four runs in turns (blocks, per round, per round, blocks),
+    each pipelined. The first two profile round 1 with the host's activity:
+    the host's ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls, the
+    device kernels, the idle share; the block round must launch graphs and
+    fewer than 1% of the eager round's kernels. Prints s/round (the second
+    eval window's per-round mean), peak memory and the capture's seconds;
+    the histories agree to rtol 1e-6 / atol 1e-7. Returns the flash
+    launches."""
+    import functools
+
+    from fedml_tpu_torch.sim import engine
+
+    c = SHAKESPEARE
+    argv = ["--dataset", "shakespeare", "--model", "rnn",
+            "--data_dir", str(BUILD_DIR / "shakespeare_cli"),
+            "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--epochs", "1", "--comm_round", str(c["rounds"]),
+            "--frequency_of_the_test", str(c["freq"])]
+    captures = []
+
+    def timed_capture(original):
+        def capture_round_graph(self, *args, **kwargs):
+            seconds = original(self, *args, **kwargs)
+            if seconds:
+                captures.append(seconds)
+            return seconds
+        return capture_round_graph
+
+    def per_round(original):
+        return functools.partial(original, block_dispatch=False)
+
+    runs, profiles, loads = [], {}, []
+    _zero_flash_counters()
+    with _loaded_once(loads), _wrapped(engine.FedSim, "capture_round_graph", timed_capture):
+        for i, name in enumerate(("blocks", "per round", "per round", "blocks")):
+            with contextlib.ExitStack() as stack:
+                if name == "per round":
+                    stack.enter_context(_wrapped(engine, "SimConfig", per_round))
+                if i < 2:
+                    profiles[name] = {}
+                    stack.enter_context(_profile_round(torch, 1, profiles[name], host=True))
+                torch.cuda.reset_peak_memory_stats()
+                history, wall = _cli(torch, argv)
+                runs.append((name, history, wall, torch.cuda.max_memory_allocated()))
+    launches = _flash_launches()
+    base = runs[1][1]
+    if len(base) != c["rounds"] or not all(np.isfinite([v for r in base for v in r.values()])):
+        fail(f"shakespeare cli: bad history {base}")
+    for name, history, wall, peak in runs:
+        (over, beyond), (diff, where) = _block_gap(torch, (({}, history), ({}, base)))
+        steady = history[-1]["round_time"]
+        log(f"[shakespeare cli {name}] {smi}: rounds {c['freq']}-{c['rounds'] - 1} "
+            f"{steady:.5f} s a round ({1 / steady:.2f} rounds/s), rounds 0-{c['freq'] - 1} "
+            f"{history[0]['round_time']:.5f} s a round; run {wall:.2f} s; peak device memory "
+            f"{peak / 2**30:.3f} GiB; history against the first per-round run: largest "
+            f"difference {diff:.3e} ({where}); Test/Acc {history[-1]['Test/Acc']:.4f}")
+        if over > 0:
+            fail(f"shakespeare cli: the {name} run's {beyond} differs beyond rtol "
+                 f"{BLOCK_RTOL} / atol {BLOCK_ATOL}")
+    for name, got in profiles.items():
+        _log_profile(f"shakespeare cli {name}", 1, got)
+    graph_launch = profiles["blocks"]["api"].get("cudaGraphLaunch", 0)
+    kernels_block = profiles["blocks"]["api"].get("cudaLaunchKernel", 0)
+    kernels_eager = profiles["per round"]["api"].get("cudaLaunchKernel", 0)
+    log(f"[shakespeare cli] a block round: {graph_launch} cudaGraphLaunch, {kernels_block} "
+        f"cudaLaunchKernel against the eager round's {kernels_eager} "
+        f"({kernels_block / max(kernels_eager, 1):.3%}); captures {captures} s (one per "
+        f"blocks run, before its first block); the row's data loaded once in "
+        f"{loads[0]:.2f} s; flash launches {launches}")
+    if not graph_launch or kernels_eager == 0 or kernels_block >= 0.01 * kernels_eager:
+        fail("shakespeare cli: the block round did not replace the eager round's launches "
+             "with graph launches")
+    return launches
+
+
+def _staged_bytes():
+    """Wrap ``FedSim.stage_round`` and ``FedSim.stage_block`` to add up the
+    bytes of the tensors each payload copies to the device: (totals by
+    round count, context manager)."""
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    totals = {"bytes": 0, "rounds": 0}
+
+    def nbytes(payload):
+        out = 0
+        for value in vars(payload).values():
+            for t in (value.values() if isinstance(value, dict) else [value]):
+                if hasattr(t, "is_cuda") and t.is_cuda:
+                    out += t.numel() * t.element_size()
+        return out
+
+    def counted(rounds_of):
+        def make(original):
+            def stage(self, *args):
+                payload = original(self, *args)
+                totals["bytes"] += nbytes(payload)
+                totals["rounds"] += rounds_of(args)
+                return payload
+            return stage
+        return make
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(_wrapped(FedSim, "stage_round", counted(lambda a: 1)))
+    stack.enter_context(_wrapped(FedSim, "stage_block", counted(lambda a: a[1])))
+    return totals, stack
 
 
 def phase_so_nwp(torch, smi):
     """The StackOverflow NWP recipe with ``RNNStackOverflow`` through the
     port's CLI at full width (vocab 10004, embed 96, LSTM 670, seq 20; 50
     clients a round, B=16, SGD 10^-0.5, E=1) on the registry's fallback of
-    100 clients: 4 rounds on the serial driver (each round its own time),
-    the last under ``torch.profiler``. Returns the flash kernels' launches."""
-    from fedml_tpu_torch.sim.engine import FedSim
-
+    100 clients, 4 rounds with an eval at rounds 2 and 3 on the serial
+    driver, twice: the default (the dataset on the device; rounds 0-2 one
+    block of graph replays, round 3 alone, under ``torch.profiler``), then
+    ``--stage_on_device 0`` (each round's batch stack built on the host and
+    copied; rounds dispatched one at a time). The two histories are bitwise
+    equal, ``round_time`` aside. Prints each run's s/round and the bytes its
+    staging copied to the device a round. Returns the flash kernels'
+    launches."""
     c = SO_NWP
     argv = ["--dataset", "stackoverflow_nwp", "--model", "rnn",
             "--data_dir", str(BUILD_DIR / "stackoverflow_nwp"),
@@ -1391,32 +1858,48 @@ def phase_so_nwp(torch, smi):
             "--frequency_of_the_test", str(c["freq"]), "--pipeline_depth", "0"]
     loads = []
     profile = {}
+    runs = {}
     _zero_flash_counters()
-    torch.cuda.reset_peak_memory_stats()
-    with _loaded_once(loads), _wrapped(FedSim, "run_staged_round", _profile_round(
-            torch, c["rounds"] - 1, profile)):
-        history, wall = _cli(torch, argv)
+    with _loaded_once(loads):
+        for name, extra in (("on device", []), ("host-staged", ["--stage_on_device", "0"])):
+            totals, counting = _staged_bytes()
+            torch.cuda.reset_peak_memory_stats()
+            with counting, (_profile_round(torch, c["rounds"] - 1, profile) if not extra
+                            else contextlib.nullcontext()):
+                history, wall = _cli(torch, argv + extra)
+            runs[name] = (history, wall, totals["bytes"] / max(totals["rounds"], 1),
+                          torch.cuda.max_memory_allocated())
+            if not runs[name][0]:
+                fail(f"so_nwp {name}: empty history")
     launches = _flash_launches()
-    peak = torch.cuda.max_memory_allocated()
+    history = runs["on device"][0]
     values = [v for rec in history for v in rec.values()]
     if not all(np.isfinite(values)) or len(history) != c["rounds"]:
         fail(f"so_nwp: bad history {history}")
     if abs(history[0]["Train/Loss"] - np.log(10004)) > 1.5:
         fail(f"so_nwp: first-round loss {history[0]['Train/Loss']} far from ln 10004")
-    for rec in history:
-        log(f"[so_nwp] round {rec['round']}: {rec['round_time']:.4f} s"
-            + (" (under the profiler)" if rec["round"] == c["rounds"] - 1 else "")
-            + f", Train/Loss {rec['Train/Loss']:.5f}"
-            + (f", Test/Acc {rec['Test/Acc']:.4f}" if "Test/Acc" in rec else ""))
-    steady = [rec["round_time"] for rec in history[1:-1]]
-    log(f"[so_nwp] {smi}: RNNStackOverflow (vocab 10004, embed 96, LSTM 670) through the "
-        f"CLI, fallback fixture of {c['clients']} clients (30 windows of 20 each) built in "
-        f"{loads[0]:.2f} s; "
-        f"{c['per_round']} clients a round x B={c['batch']}, SGD {c['lr']:.4f}, E=1, vmap, "
-        f"serial driver: rounds 1-{c['rounds'] - 2} {np.mean(steady):.4f} s a round, round 0 "
-        f"{history[0]['round_time']:.4f} s; run {wall:.2f} s; peak device memory "
-        f"{peak / 2**30:.2f} GiB; flash launches {launches}")
+    same = _strip_times(runs["host-staged"][0]) == _strip_times(history)
+    for name, (hist, wall, per_round_bytes, peak) in runs.items():
+        for rec in hist:
+            log(f"[so_nwp {name}] round {rec['round']}: {rec['round_time']:.4f} s"
+                + (" (under the profiler)" if rec["round"] == c["rounds"] - 1
+                   and name == "on device" else "")
+                + f", Train/Loss {rec['Train/Loss']:.5f}"
+                + (f", Test/Acc {rec['Test/Acc']:.4f}" if "Test/Acc" in rec else ""))
+        log(f"[so_nwp {name}] {smi}: rounds 0-{c['rounds'] - 2} "
+            f"{hist[0]['round_time']:.4f} s a round"
+            + (" (one block: the window's mean)" if name == "on device" else
+               f" (each its own: {', '.join(f'{r['round_time']:.4f}' for r in hist[:-1])})")
+            + f"; {per_round_bytes / 2**20:.3f} MiB copied to the device a round by staging; "
+            f"run {wall:.2f} s; peak device memory {peak / 2**30:.2f} GiB")
+    log(f"[so_nwp] RNNStackOverflow (vocab 10004, embed 96, LSTM 670) through the CLI, "
+        f"fallback fixture of {c['clients']} clients (30 windows of 20 each) built in "
+        f"{loads[0]:.2f} s; {c['per_round']} clients a round x B={c['batch']}, SGD "
+        f"{c['lr']:.4f}, E=1, vmap, serial driver; --stage_on_device 0 against the default: "
+        f"histories bitwise equal {same}; flash launches {launches}")
     _log_profile("so_nwp", c["rounds"] - 1, profile)
+    if not same:
+        fail("so_nwp: the host-staged history differs from the on-device one")
     return launches
 
 
@@ -1704,42 +2187,61 @@ def phase_fednas(torch, smi):
     return launches_run, launches_unrolled
 
 
+def _timed(name, fn, *args):
+    """``fn(*args)``, its seconds printed under the phase's name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {name}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> None:
     import torch
 
     from fedml_tpu_torch.ops import attention  # noqa: F401  (fails outside the repo)
 
+    t_start = time.perf_counter()
     smi = phase_device(torch)
-    phase_build()
-    errors = phase_kernel_vs_plain(torch)
-    phase_gradient(torch)
-    phase_small_end_to_end(torch, "scan")
+    _timed("build", phase_build)
+    errors = _timed("kernel_vs_plain", phase_kernel_vs_plain, torch)
+    _timed("gradient", phase_gradient, torch)
+    _timed("e2e scan", phase_small_end_to_end, torch, "scan")
     launches = {}
     for config in (MAIN, MAIN_F32):
-        run = phase_main_path(torch, config)
+        run = _timed(f"main {config['dtype']}", phase_main_path, torch, config)
         launches.update({name: n for name, n in run.items()
                          if KERNELS[name]["dtype"] == config["dtype"]})
         torch.cuda.empty_cache()
-    times = phase_kernel_times(torch)
-    small_vmap_launches = phase_small_end_to_end(torch, "vmap")
-    phase_small_resnet(torch)
-    phase_cross_silo(torch)
+    times = _timed("kernel_times", phase_kernel_times, torch)
+    small_vmap_launches = _timed("e2e vmap", phase_small_end_to_end, torch, "vmap")
+    _timed("resnet small", phase_small_resnet, torch)
+    _timed("cross_silo", phase_cross_silo, torch)
     cli_launches, loads = {}, []
     with _loaded_once(loads):
-        cli_launches["repro_mnist_lr"], mnist_dir, records = phase_repro_mnist_lr(torch)
-        cli_launches["mnist_lr"] = phase_mnist_lr(torch, mnist_dir, records)
-        cli_launches["fedprox_lr"] = phase_fedprox_stragglers(torch, mnist_dir)
+        cli_launches["repro_mnist_lr"], mnist_dir, records = _timed(
+            "repro_mnist_lr", phase_repro_mnist_lr, torch)
+        cli_launches["mnist_lr"] = _timed("mnist_lr", phase_mnist_lr, torch, mnist_dir, records)
+        cli_launches["fedprox_lr"] = _timed("fedprox", phase_fedprox_stragglers, torch,
+                                            mnist_dir)
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
         f"six runs (repro, four CLI, FedProx)")
-    cli_launches["femnist_cnn"] = phase_femnist_cnn(torch)
-    cli_launches["cli_transformer"] = phase_small_card_vs_cpu(torch)
-    cli_launches["rnn_small"] = phase_rnn_small(torch)
-    cli_launches["repro_shakespeare"] = phase_repro_shakespeare(torch, smi)
-    cli_launches["so_nwp"] = phase_so_nwp(torch, smi)
-    cli_launches["so_lr"] = phase_so_lr(torch)
-    cli_launches["fednas_small"] = phase_fednas_small(torch)
-    cli_launches["fednas"], cli_launches["fednas_unrolled"] = phase_fednas(torch, smi)
-    for path in ("rnn_small", "repro_shakespeare", "so_nwp", "so_lr", "fednas_small", "fednas",
+    cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
+    cli_launches["femnist_blocks"] = _timed("femnist blocks", phase_femnist_blocks, torch)
+    cli_launches["cli_transformer"] = _timed("small card vs cpu", phase_small_card_vs_cpu,
+                                             torch)
+    cli_launches["blocks_small"] = _timed("blocks small", phase_blocks_small, torch)
+    cli_launches["rnn_small"] = _timed("rnn small", phase_rnn_small, torch)
+    cli_launches["shakespeare_cli"] = _timed("shakespeare cli", phase_shakespeare_cli, torch,
+                                             smi)
+    cli_launches["repro_shakespeare"] = _timed("repro_shakespeare", phase_repro_shakespeare,
+                                               torch, smi)
+    cli_launches["so_nwp"] = _timed("so_nwp", phase_so_nwp, torch, smi)
+    cli_launches["so_lr"] = _timed("so_lr", phase_so_lr, torch)
+    cli_launches["fednas_small"] = _timed("fednas small", phase_fednas_small, torch)
+    cli_launches["fednas"], cli_launches["fednas_unrolled"] = _timed("fednas", phase_fednas,
+                                                                     torch, smi)
+    for path in ("femnist_blocks", "blocks_small", "rnn_small", "shakespeare_cli",
+                 "repro_shakespeare", "so_nwp", "so_lr", "fednas_small", "fednas",
                  "fednas_unrolled"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
@@ -1750,6 +2252,7 @@ def main() -> None:
         "launches_cli_paths": {path: counts[name] for path, counts in cli_launches.items()},
         **times[name],
     } for name, spec in KERNELS.items()]
+    log(f"[phase] all: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,9 @@ Two local-training programs, one per cohort mode of the engine:
 
 - :func:`make_local_train` (``cohort_execution="scan"``): one client at a
   time, a Python loop over steps on the module's own parameters with a fresh
-  ``torch.optim`` optimizer;
+  ``torch.optim`` optimizer; an empty or over-budget step is skipped on the
+  host, or, given the budget as a device tensor, is a masked no-op decided
+  on the device (a round that a CUDA graph captures);
 - :func:`make_vmap_train` (``"vmap"``): the whole cohort at once, a pure
   function of ``(params, model_state, opt_state)`` stacked ``[C, ...]``,
   stepped by ``torch.func.vmap`` of ``torch.func.grad_and_value`` over a
@@ -155,8 +157,16 @@ class SGD:
     weight_decay: float = 0.0
 
     def __call__(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        return torch.optim.SGD(params, lr=self.lr, momentum=self.momentum, dampening=0.0,
-                               weight_decay=self.weight_decay)
+        params = list(params)
+        optimizer = _SGD(params, lr=self.lr, momentum=self.momentum, dampening=0.0,
+                         weight_decay=self.weight_decay)
+        if self.momentum:
+            # optax's trace from zero, made up front: torch's first step would
+            # clone the gradient, 0 * momentum + g is the same value, and a
+            # masked step (_SGD.step_where) then has a buffer to keep
+            for p in params:
+                optimizer.state[p]["momentum_buffer"] = torch.zeros_like(p)
+        return optimizer
 
     def init(self, params: StateDict, lead: tuple[int, ...] = ()) -> StateDict:
         """The momentum trace, zero (empty without momentum); ``lead`` (the
@@ -180,6 +190,47 @@ class SGD:
 
 def sgd(lr: float, momentum: float = 0.0, weight_decay: float = 0.0) -> SGD:
     return SGD(lr, momentum, weight_decay)
+
+
+def _write(active: torch.Tensor | None, new: torch.Tensor, old: torch.Tensor) -> None:
+    """``old = new``, in place; given ``active`` (a bool tensor on the
+    device), only where it holds."""
+    if active is None:
+        old.copy_(new)
+    else:
+        torch.where(active, new, old, out=old)
+
+
+class _SGD(torch.optim.SGD):
+    """``torch.optim.SGD`` with :meth:`step_where`, a step a CUDA graph can
+    hold as a no-op on the device."""
+
+    @torch.no_grad()
+    def step_where(self, active: torch.Tensor) -> None:
+        """:meth:`step`, written only where ``active`` (a bool tensor on the
+        device, never read on the host) holds: torch's multi-tensor
+        arithmetic (per device and dtype, the momentum buffers made up
+        front), each new parameter and buffer computed aside and written
+        under ``torch.where``."""
+        for group in self.param_groups:
+            lr, momentum, decay = group["lr"], group["momentum"], group["weight_decay"]
+            kinds: dict = {}
+            for p in group["params"]:
+                if p.grad is not None:
+                    kinds.setdefault((p.device, p.dtype), []).append(p)
+            for params in kinds.values():
+                grads = [p.grad for p in params]
+                if decay:
+                    grads = torch._foreach_add(grads, params, alpha=decay)
+                if momentum:
+                    bufs = [self.state[p]["momentum_buffer"] for p in params]
+                    new_bufs = torch._foreach_mul(bufs, momentum)
+                    torch._foreach_add_(new_bufs, grads, alpha=1.0)
+                    for new, old in zip(new_bufs, bufs):
+                        _write(active, new, old)
+                    grads = new_bufs
+                for new, old in zip(torch._foreach_add(params, grads, alpha=-lr), params):
+                    _write(active, new, old)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,24 +289,33 @@ def adam(lr: float, weight_decay: float = 0.0) -> Adam:
 
 class _StepsOf(torch.optim.Optimizer):
     """A ``torch.optim.Optimizer`` that steps each parameter with a
-    functional optimizer's ``init``/``update`` (its state per parameter)."""
+    functional optimizer's ``init``/``update`` (its state per parameter,
+    made up front)."""
 
     def __init__(self, params, functional):
         super().__init__(params, {})
         self._functional = functional
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p].update(functional.init({"p": p}))
 
     @torch.no_grad()
     def step(self, closure=None):
+        self.step_where(None)
+
+    @torch.no_grad()
+    def step_where(self, active: torch.Tensor | None) -> None:
+        """:meth:`step`, written only where ``active`` (a bool tensor on the
+        device, never read on the host) holds; ``None``: everywhere."""
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is None:
                     continue
                 state = self.state[p]
-                if not state:
-                    state.update(self._functional.init({"p": p}))
                 new_p, new_state = self._functional.update({"p": p.grad}, state, {"p": p})
-                p.copy_(new_p["p"])
-                state.update(new_state)
+                _write(active, new_p["p"], p)
+                for k, v in new_state.items():
+                    _write(active, v, state[k])
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +339,10 @@ class DropoutStream:
     draws ``[C, B, ...]`` masks for the whole cohort from a generator on
     ``device`` seeded from ``(seed, round_idx, t)``, so a step's masks are a
     pure function of those three. The vmapped mode takes them whole, the
-    client-by-client mode takes client ``c``'s slice of the same draw."""
+    client-by-client mode takes client ``c``'s slice of the same draw. The
+    draw reseeds the generator, which a CUDA graph cannot capture: a round
+    replayed from a graph reads the same masks from buffers filled before
+    the replay (``sim/graphs.py``)."""
 
     def __init__(self, sites: dict, seed: int, round_idx: int, cohort: int, batch: int,
                  device: torch.device):
@@ -372,7 +435,7 @@ class ClientTrainer:
 
     def train_step(self, optimizer: torch.optim.Optimizer, batch: Batch,
                    has_data: bool | None = None, global_params: StateDict | None = None,
-                   masks=None) -> torch.Tensor:
+                   masks=None, active: torch.Tensor | None = None) -> torch.Tensor:
         """One masked step on the module's variables; returns the loss (the
         proximal term included when ``prox_mu`` > 0, taken against
         ``global_params``). ``masks`` are the step's dropout keep masks. The
@@ -380,7 +443,17 @@ class ClientTrainer:
         padded batch (mask all zero) is a no-op that leaves parameters,
         optimizer state and model state untouched, and reports loss 0 (the
         masked mean of nothing). ``has_data`` may be passed when the caller
-        already knows it, to spare a device-to-host read."""
+        already knows it, to spare a device-to-host read. Given ``active`` (a
+        bool tensor on the device), the step is computed and written only
+        where it holds, with no host read: the parameters and the optimizer
+        state through the optimizer's ``step_where`` (the port's
+        :func:`sgd` and :func:`adam` have one), the model state under
+        ``torch.where``."""
+        if active is not None:
+            if not hasattr(optimizer, "step_where"):
+                raise TypeError(f"a step masked on the device needs an optimizer with "
+                                f"step_where (the port's sgd or adam), not {type(optimizer)}")
+            has_data = True
         if has_data is None:
             has_data = bool(torch.sum(batch["mask"]) > 0)
         if not has_data:
@@ -393,12 +466,15 @@ class ClientTrainer:
         if self.prox_mu > 0.0:
             loss = loss + self.prox_term(dict(self.module.named_parameters()), global_params)
         loss.backward()
-        optimizer.step()
+        if active is None:
+            optimizer.step()
+        else:
+            optimizer.step_where(active)
         if new_state:
             buffers = dict(self.module.named_buffers())
             with torch.no_grad():
                 for k, v in new_state.items():
-                    buffers[k].copy_(v)
+                    buffers[k].copy_(v if active is None else torch.where(active, v, buffers[k]))
         return loss.detach()
 
     @torch.no_grad()
@@ -440,9 +516,17 @@ def make_local_train(trainer: ClientTrainer):
     axis: ``{"x": [S, B, ...], "y": [S, B, ...], "mask": [S, B, ...]}``. The
     module is loaded with ``global_variables`` and trained for
     ``trainer.epochs`` passes over the S batches with a fresh optimizer.
-    Steps with global index ``e * S + s >= num_steps`` are masked no-ops (the
-    straggler budget). ``draws`` are the client's augmentation draws for the
-    round (``[E, S, B]`` tensors, :meth:`ImageAugment.draw`), needed when the
+    A step whose batch is fully padded, or whose global index ``e * S + s``
+    is not below ``num_steps`` (the straggler budget), trains nothing. With
+    ``num_steps`` an int (or None) the host skips such steps, reading which
+    steps hold data from the device once; with ``num_steps`` a tensor on the
+    device every step runs and such a step is a masked no-op
+    (:meth:`ClientTrainer.train_step` given ``active``), decided on the device as the
+    vmapped step and the JAX scan mode decide it: nothing waits for the
+    device, so a CUDA graph can capture the round (``sim/graphs.py``). The
+    two give bitwise-equal results; skipping does not compute the steps it
+    skips. ``draws`` are the client's augmentation draws for the round
+    (``[E, S, B]`` tensors, :meth:`ImageAugment.draw`), needed when the
     trainer augments; ``dropout`` is the round's :class:`DropoutStream`, of
     which the client takes cohort row ``slot``, needed when the module has
     dropout. ``metrics["train_loss"]`` is the mean loss over the executed
@@ -458,27 +542,47 @@ def make_local_train(trainer: ClientTrainer):
         optimizer = trainer.optimizer(trainer.module.parameters())
         global_params = ({k: global_variables[k] for k, _ in trainer.module.named_parameters()}
                          if trainer.prox_mu > 0.0 else None)
-        S = data["mask"].shape[0]
-        has_data = (data["mask"].reshape(S, -1).sum(1) > 0).tolist()
+        S, E = data["mask"].shape[0], trainer.epochs
+        device = data["mask"].device
+        has_data = data["mask"].reshape(S, -1).sum(1) > 0
+        masked = isinstance(num_steps, torch.Tensor)
+        if masked:
+            active = has_data & (torch.arange(E * S, device=device).reshape(E, S) < num_steps)
+        else:
+            has_data = has_data.tolist()
         loss_sums, w_sums = [], []
-        for e in range(trainer.epochs):
-            total = torch.zeros((), dtype=torch.float32, device=data["mask"].device)
-            w = 0
+        for e in range(E):
+            total = torch.zeros((), dtype=torch.float32, device=device)
+            w = torch.zeros((), dtype=torch.float32, device=device)
             for s in range(S):
-                if not has_data[s] or (num_steps is not None and e * S + s >= num_steps):
+                if not masked and (not has_data[s]
+                                   or (num_steps is not None and e * S + s >= num_steps)):
                     continue
                 batch = _augmented(trainer, {k: v[s] for k, v in data.items()}, draws, e, s)
                 masks = (None if not trainer.dropout_sites else
                          {k: m[slot] for k, m in dropout.masks(e * S + s).items()})
-                total = total + trainer.train_step(optimizer, batch, has_data=True,
-                                                   global_params=global_params, masks=masks)
-                w += 1
+                if masked:
+                    loss = trainer.train_step(optimizer, batch, global_params=global_params,
+                                              masks=masks, active=active[e, s])
+                    total = total + torch.where(active[e, s], loss, 0.0)
+                    w = w + active[e, s].float()
+                else:
+                    total = total + trainer.train_step(optimizer, batch, has_data=True,
+                                                       global_params=global_params,
+                                                       masks=masks)
+                    w = w + 1.0
             loss_sums.append(total)
             w_sums.append(w)
-        last = _last_epoch(num_steps, S, trainer.epochs)
+        last = _last_epoch(num_steps, S, E)
         trainer.module.zero_grad(set_to_none=True)
         variables = {k: v.detach().clone() for k, v in trainer.module.state_dict().items()}
-        return variables, {"train_loss": loss_sums[last] / max(w_sums[last], 1)}
+        sums, counts = torch.stack(loss_sums), torch.stack(w_sums)
+        if masked:  # the last epoch is a device index, read on the device
+            last = last.long()
+            sums, counts = torch.take(sums, last), torch.take(counts, last)
+        else:
+            sums, counts = sums[last], counts[last]
+        return variables, {"train_loss": sums / torch.clamp(counts, min=1.0)}
 
     return local_train
 

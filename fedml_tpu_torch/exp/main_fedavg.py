@@ -11,8 +11,8 @@ hold (among them ``--model lr`` on ``mnist``, ``synthetic_*`` and
 ``--model rnn`` on ``shakespeare``, ``fed_shakespeare`` and
 ``stackoverflow_nwp``; the datasets without their files on the registry's
 fixtures), ``--client_optimizer sgd|adam`` with ``--wd`` and ``--momentum``,
-``--augment``, ``--eval_on_clients``, ``--pipeline_depth``,
-``--profile_dir``, ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
+``--augment``, ``--eval_on_clients``, ``--stage_on_device`` (0: host
+staging), ``--pipeline_depth``, ``--profile_dir``, ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
 config; it needs PyYAML, imported only when ``--cf`` is given). The JAX
 CLI's own flag-combination errors are kept as they are; after them, a flag
 whose plane is not ported raises ``NotImplementedError`` naming its ROADMAP
@@ -128,8 +128,8 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="also run the per-client server eval at test rounds "
                              "(FedAVGAggregator test_on_server_for_all_clients)")
     parser.add_argument("--stage_on_device", type=int, default=-1,
-                        help="-1 auto, 1 device-resident dataset (what the port does); "
-                             "0 host staging is ROADMAP §A4")
+                        help="-1 auto (on the device up to 2 GiB of training arrays), "
+                             "0 host staging, 1 device-resident dataset + on-device gather")
     parser.add_argument("--pack_lanes", type=int, default=0)
     parser.add_argument("--pack_capacity_factor", type=float, default=1.25)
     parser.add_argument("--mesh_shape", type=str, default=None)
@@ -182,7 +182,6 @@ _UNPORTED_FLAGS = {
     "error_feedback": "§A10 (update compression)",
     "downlink_compressor": "§A11", "downlink_keyframe_every": "§A11",
     "downlink_retention": "§A11",
-    "stage_on_device": "§A4 (host staging)",
     "pack_lanes": "§A10 (packed lanes)", "pack_capacity_factor": "§A10 (packed lanes)",
     "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
     "trace_dir": "§A13 (obs/trace.py)",
@@ -190,8 +189,6 @@ _UNPORTED_FLAGS = {
     "resume": "§A13 (obs/checkpoint.py)", "init_from": "§A13 (obs/checkpoint.py)",
     "save_params_to": "§A13 (obs/checkpoint.py)",
 }
-# accepted values besides the default
-_ALSO_ACCEPTED = {"stage_on_device": (1,)}
 
 
 def build_trainer(args, model, dataset_name: str):
@@ -345,7 +342,7 @@ def _check_ported(args, defaults: dict) -> None:
     from its default, naming its ROADMAP item."""
     for dest, item in _UNPORTED_FLAGS.items():
         value = getattr(args, dest)
-        if value != defaults[dest] and value not in _ALSO_ACCEPTED.get(dest, ()):
+        if value != defaults[dest]:
             raise NotImplementedError(
                 f"--{dest}={value!r} is not ported to fedml_tpu_torch yet: ROADMAP {item}")
 

@@ -157,6 +157,9 @@ def run(args) -> dict:
         epochs=args.epochs,
         frequency_of_the_test=args.frequency_of_the_test,
         seed=args.seed,
+        # per-round dispatch, as the JAX recipe sets it (run_rounds dispatches
+        # one round at a time whatever this says)
+        block_dispatch=False,
         cohort_execution=args.cohort_execution,
     )
     sim = FedSim(trainer, train, test, cfg, device=device)

@@ -36,11 +36,29 @@ import torch
 
 NEG_INF = -1e30
 
-# Launches of each CUDA kernel, counted where it is launched and nowhere else,
-# and their sum.
+# Launches of each CUDA kernel on the device, and their sum: counted where it
+# is launched and, for a launch recorded into a CUDA graph, at each replay of
+# the graph (count_replay) instead of at the capture, which launches nothing.
 FLASH_FWD_BF16_LAUNCHES = 0  # csrc/flash_fwd_sm90.cu
 FLASH_FWD_F32_LAUNCHES = 0   # csrc/flash_fwd_f32_sm90.cu
 FLASH_FWD_LAUNCHES = 0
+# launches recorded into CUDA graphs while they were captured, by dtype
+_CAPTURED = {"bfloat16": 0, "float32": 0}
+
+
+def captured_launches() -> dict[str, int]:
+    """The launches recorded into CUDA graphs so far, by dtype: a graph's
+    own are the difference across its capture."""
+    return dict(_CAPTURED)
+
+
+def count_replay(launches: dict[str, int]) -> None:
+    """Count one replay of a CUDA graph that recorded ``launches`` (by
+    dtype, as :func:`captured_launches` gives them)."""
+    global FLASH_FWD_BF16_LAUNCHES, FLASH_FWD_F32_LAUNCHES, FLASH_FWD_LAUNCHES
+    FLASH_FWD_BF16_LAUNCHES += launches["bfloat16"]
+    FLASH_FWD_F32_LAUNCHES += launches["float32"]
+    FLASH_FWD_LAUNCHES += launches["bfloat16"] + launches["float32"]
 
 
 def _pick_block(t: int, preferred: int) -> int:
@@ -155,8 +173,12 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     included). bf16 goes to ``csrc/flash_fwd_sm90.cu`` (wgmma + TMA), f32 to
     ``csrc/flash_fwd_f32_sm90.cu`` (3xTF32 mma.sync + cp.async). Returns a
     fresh contiguous ``[B,H,Tq,D]``. Counts the launch in that kernel's
-    counter and in ``FLASH_FWD_LAUNCHES``. Raises on anything the kernel does
-    not take and on a refused launch."""
+    counter and in ``FLASH_FWD_LAUNCHES``, or, while a CUDA graph is captured
+    on the current stream, in the tally each replay counts
+    (:func:`count_replay`). Runs under a capture: the tile counter is a
+    tensor of the graph's pool, zeroed by a captured memset at each replay,
+    and the TMA maps carry the pool's fixed addresses. Raises on anything
+    the kernel does not take and on a refused launch."""
     global FLASH_FWD_BF16_LAUNCHES, FLASH_FWD_F32_LAUNCHES, FLASH_FWD_LAUNCHES
     bf16 = q.dtype == torch.bfloat16
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -198,11 +220,14 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: error {err} (a cudaError_t; "
                            "10000 + a CUresult where a TMA tensor map was refused)")
-    if bf16:
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        _CAPTURED["bfloat16" if bf16 else "float32"] += 1  # each replay counts it
+    elif bf16:
         FLASH_FWD_BF16_LAUNCHES += 1
+        FLASH_FWD_LAUNCHES += 1
     else:
         FLASH_FWD_F32_LAUNCHES += 1
-    FLASH_FWD_LAUNCHES += 1
+        FLASH_FWD_LAUNCHES += 1
     return out
 
 

@@ -18,16 +18,27 @@ Augmentation draws for a round come from a generator seeded from (seed,
 round, client slot), and dropout masks from one seeded from (seed, round,
 step), so both modes train on the same augmented batches and masks.
 
+Staging and dispatch follow the JAX engine's rule (:func:`resolve_dispatch`,
+``engine.py:681-691``): the training arrays live on the device when they
+take at most 2 GiB (``stage_on_device``), else each round's ``[C, S, B,
+...]`` batch stack is built on the host and copied through pinned memory;
+with the dataset on the device and a card, rounds run in eval-aligned blocks
+(``block_dispatch``): each block's rounds are staged together and replayed
+from one CUDA graph of the round (``sim/graphs.py``), captured once per
+FedSim, so a block's host work does not grow with the kernels of a step. On
+the CPU a block runs its rounds one after another, with the same staging
+and stacked metrics.
+
 :meth:`FedSim.run` is the JAX engine's driver (``engine.py:2069-2183``):
 with ``pipeline_depth`` >= 1 (the default, depth 1) a background thread
-stages the next rounds (``sim/prefetch.py``) into pinned host memory and
-copies them non-blocking, and round metrics are fetched a round behind,
-so the host synchronises with the device only at eval rounds and at the end;
-``pipeline_depth=0`` is the serial driver. Both give bitwise-equal
-histories: staging is a pure function of (seed, round). At eval rounds it
-runs the pooled eval and, with ``eval_on_clients``, the per-client server
-eval (:meth:`FedSim.evaluate_per_client`). ``profile_dir`` records a
-``torch.profiler`` Chrome trace of the rounds after the first.
+stages the next segments (a round or a block, ``sim/prefetch.py``) into
+pinned host memory and copies them non-blocking, and round metrics are
+fetched a segment behind, so the host synchronises with the device only at
+eval rounds and at the end; ``pipeline_depth=0`` is the serial driver. Both
+give bitwise-equal histories: staging is a pure function of (seed, round).
+At eval rounds it runs the pooled eval and, with ``eval_on_clients``, the
+per-client server eval (:meth:`FedSim.evaluate_per_client`). ``profile_dir``
+records a ``torch.profiler`` Chrome trace of the rounds after the first.
 """
 
 from __future__ import annotations
@@ -50,20 +61,18 @@ from fedml_tpu_torch.core.trainer import (ClientTrainer, DropoutStream, make_loc
 from fedml_tpu_torch.device import resolve_device
 from fedml_tpu_torch.ops import augment as augmentlib
 from fedml_tpu_torch.sim import cohort as cohortlib
+from fedml_tpu_torch.sim.graphs import RoundGraph
 from fedml_tpu_torch.sim.prefetch import MetricsDrain, Prefetcher
 
 StateDict = dict[str, torch.Tensor]
 
 # SimConfig fields of the JAX engine that the port does not implement yet:
 # the values the port accepts (the JAX default first) and the ROADMAP item
-# that ports the rest. stage_on_device=True and block_dispatch=False
-# describe what the port does anyway.
+# that ports the rest.
 _NOT_PORTED = {
     "population": ((None,), "§A10"),
     "population_trace": ((None,), "§A10"),
     "population_seed": ((None,), "§A10"),
-    "stage_on_device": ((None, True), "§A4: the port keeps the dataset on the device"),
-    "block_dispatch": ((None, False), "§A4: whole-round blocks in one program"),
     "pack_lanes": ((0,), "§A10"),
     "pack_capacity_factor": ((1.25,), "§A10"),
     "compressor": (("none",), "§A10"),
@@ -86,6 +95,9 @@ class SimConfig:
     or ``"scan"`` (one after another). ``straggler_frac`` gives that share of
     each cohort a uniform 1..E-1 local-epoch budget (FedProx's protocol);
     ``eval_on_clients`` adds the per-client server eval at eval rounds;
+    ``stage_on_device`` and ``block_dispatch`` (None = the JAX engine's
+    defaults, :func:`resolve_dispatch`) keep the dataset on the device and
+    run eval-aligned blocks of rounds;
     ``pipeline_depth`` is the driver's staging depth (None = 1, 0 = serial);
     ``profile_dir`` records a ``torch.profiler`` trace. A value of the JAX
     engine's other fields that the port does not implement raises."""
@@ -137,20 +149,64 @@ class SimConfig:
                     f"(ROADMAP {item}); leave it at {accepted[0]!r}")
 
 
+def resolve_dispatch(config: SimConfig, nbytes: int, platform: str) -> tuple[bool, bool]:
+    """``(on_device, block_dispatch)`` for training arrays of ``nbytes`` on a
+    device of type ``platform`` (``"cuda"``, ``"cpu"``): the JAX engine's rule
+    (``fedml_tpu/sim/engine.py:681-691``). The dataset stays on the device as
+    ``config.stage_on_device`` says, by default when it takes at most 2 GiB;
+    rounds run in blocks as ``config.block_dispatch`` says, by default with
+    the dataset on the device and a device that is not the CPU, and never
+    with the dataset on the host. The JAX rule also turns blocks off under
+    packed lanes (``pack_lanes`` > 0) and sharded rounds (``shard_rules``),
+    which ``SimConfig`` still refuses in the port (§A10, §A12)."""
+    on_device = (config.stage_on_device if config.stage_on_device is not None
+                 else nbytes <= 2 << 30)
+    block = (config.block_dispatch if config.block_dispatch is not None
+             else on_device and platform != "cpu")
+    return on_device, bool(block and on_device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Staged:
-    """One round's staged payload (:meth:`FedSim.stage_round`): the cohort,
-    its ``[C, S, B]`` index map, ``[C]`` weights and step budgets on the
-    device (the budgets also on the host, for the scan mode), and the
-    augmentation draws."""
+    """One round's staged payload (:meth:`FedSim.stage_round`) on the
+    device: the cohort, its ``[C, S, B]`` index map into the resident
+    dataset (on-device staging) or its ``[C, S, B, ...]`` batch stack
+    (host staging), ``[C]`` weights and step budgets, and the augmentation
+    draws. The budgets are also on the host (the scan mode skips there),
+    except in a captured round (None: the scan mode masks on the device)."""
 
     round_idx: int
     cohort: np.ndarray
+    idx: torch.Tensor | None
+    batches: dict[str, torch.Tensor] | None
+    weights: torch.Tensor
+    num_steps: torch.Tensor
+    num_steps_host: np.ndarray | None
+    draws: dict | None
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockStaged:
+    """``n_rounds`` consecutive rounds staged together
+    (:meth:`FedSim.stage_block`, the JAX ``_stage_block``): the cohorts, the
+    stacked ``[R, C, S, B]`` index maps, ``[R, C]`` weights and budgets
+    (the budgets also on the host) and ``[R, C, E, S, B]`` augmentation
+    draws on the device."""
+
+    round_idx: int
+    n_rounds: int
+    cohorts: list
     idx: torch.Tensor
     weights: torch.Tensor
     num_steps: torch.Tensor
     num_steps_host: np.ndarray
     draws: dict | None
+
+    def round(self, j: int) -> Staged:
+        """Round ``round_idx + j`` of the block, as views."""
+        return Staged(self.round_idx + j, self.cohorts[j], self.idx[j], None, self.weights[j],
+                      self.num_steps[j], self.num_steps_host[j],
+                      None if self.draws is None else {k: d[j] for k, d in self.draws.items()})
 
 
 class FedSim:
@@ -167,7 +223,8 @@ class FedSim:
     test_arrays: dict of [N, ...] arrays, the pooled global test set, or None
     config: SimConfig
     aggregator: server rule; defaults to the FedAvg weighted mean
-    device: where the dataset, the model and the round run
+    device: where the model and the round run, and the dataset with
+        on-device staging
     """
 
     def __init__(self, trainer: ClientTrainer, train_data: cohortlib.FederatedArrays,
@@ -185,19 +242,31 @@ class FedSim:
         self._local_eval = make_local_eval(trainer)
         # pin steps-per-epoch to the population max, as the JAX engine does
         self._steps = cohortlib.steps_per_epoch(train_data.max_client_size(), config.batch_size)
-        # the training arrays live on the device; each round gathers from them
-        self._dataset = self._put(train_data.arrays)
-        self._test_batches = (
-            self._put(cohortlib.batch_array(test_arrays, config.eval_batch_size))
-            if test_arrays is not None else None
-        )
+        nbytes = sum(np.asarray(a).nbytes for a in train_data.arrays.values())
+        self._on_device, self._block_dispatch = resolve_dispatch(config, nbytes,
+                                                                 self.device.type)
+        # on-device staging: the training arrays live on the device and each
+        # round (and the pooled train eval) gathers from them through an
+        # index map; host staging keeps them on the host and copies each
+        # round's batch stack and each eval's batches
+        self._dataset = self._put(train_data.arrays) if self._on_device else None
+        test_batches = (cohortlib.batch_array(test_arrays, config.eval_batch_size)
+                        if test_arrays is not None else None)
+        self._test_batches = (self._put(test_batches)
+                              if self._on_device and test_batches is not None else test_batches)
         n_eval = train_data.num_samples
         if config.train_eval_samples is not None:
             n_eval = min(n_eval, config.train_eval_samples)
         bs = config.eval_batch_size
-        eidx = np.full(cohortlib.steps_per_epoch(n_eval, bs) * bs, -1, np.int32)
-        eidx[:n_eval] = np.arange(n_eval, dtype=np.int32)
-        self._train_eval_idx = torch.as_tensor(eidx.reshape(-1, bs), device=self.device)
+        if self._on_device:
+            eidx = np.full(cohortlib.steps_per_epoch(n_eval, bs) * bs, -1, np.int32)
+            eidx[:n_eval] = np.arange(n_eval, dtype=np.int32)
+            self._train_eval = torch.as_tensor(eidx.reshape(-1, bs), device=self.device)
+        else:
+            self._train_eval = cohortlib.batch_array(
+                {k: v[:n_eval] for k, v in train_data.arrays.items()}, bs)
+        # block dispatch on the card: one captured round per staged shape
+        self._graphs: dict[tuple, RoundGraph] = {}
 
     @property
     def pipeline_depth(self) -> int:
@@ -295,44 +364,98 @@ class FedSim:
         if aug is None:
             return None
         shape = (self.trainer.epochs, self._steps, self.config.batch_size)
-        image = tuple(self._dataset["x"].shape[1:3])
+        image = tuple(self.train_data.arrays["x"].shape[1:3])
         per = [aug.draw(augmentlib.round_generator(self.config.seed, round_idx, c), shape, image)
                for c in range(n_clients)]
         return {k: torch.stack([d[k] for d in per]) for k in per[0]}
 
-    def stage_round(self, round_idx: int) -> Staged:
-        """All host work for one round: cohort sampling, the index map,
-        weights, step budgets and augmentation draws, copied to the device.
-        Pure in (config, round_idx), so staging it ahead of the dispatch
-        loop (``sim/prefetch.py``) cannot change cohorts or metrics."""
+    def _sample_cohort(self, round_idx: int) -> np.ndarray:
         cfg = self.config
         cohort = rnglib.sample_clients(round_idx, cfg.client_num_in_total,
                                        cfg.client_num_per_round)
         if len(cohort) == 0:
             raise EmptyRoundError(f"round {round_idx}: the cohort is empty")
+        return cohort
+
+    def stage_round(self, round_idx: int) -> Staged:
+        """All host work for one round: cohort sampling, the index map (or,
+        with host staging, the batch stack gathered through it: the JAX
+        ``stage_cohort``), weights, step budgets and augmentation draws,
+        copied to the device. Pure in (config, round_idx), so staging it
+        ahead of the dispatch loop (``sim/prefetch.py``) cannot change
+        cohorts or metrics."""
+        cohort = self._sample_cohort(round_idx)
         idx, weights, num_steps = self._host_cohort_indices(cohort, round_idx)
         draws = self._round_draws(round_idx, len(cohort))
+        if self._on_device:
+            idx_t, batches = self._stage_put(idx), None
+        else:
+            idx_t = None
+            batches = {k: self._stage_put(v) for k, v in
+                       cohortlib.gather_index_stack(self.train_data.arrays, idx).items()}
         return Staged(
-            round_idx, cohort, self._stage_put(idx), self._stage_put(weights),
+            round_idx, cohort, idx_t, batches, self._stage_put(weights),
             self._stage_put(num_steps), num_steps,
             None if draws is None else {k: self._stage_put(d) for k, d in draws.items()})
+
+    def stage_block(self, start_round: int, n_rounds: int) -> BlockStaged:
+        """Host staging for an ``n_rounds`` block (``engine.py:1308-1333``):
+        each round's index map, weights and budgets stacked ``[R, ...]``,
+        and the rounds' augmentation draws, copied to the device. Pure in
+        (config, rounds), so the prefetch thread can stage the next block
+        while the current one runs."""
+        rounds = range(start_round, start_round + n_rounds)
+        cohorts = [self._sample_cohort(r) for r in rounds]
+        per = [self._host_cohort_indices(c, r) for c, r in zip(cohorts, rounds)]
+        draws = [self._round_draws(r, len(c)) for c, r in zip(cohorts, rounds)]
+        budgets = np.stack([p[2] for p in per])
+        return BlockStaged(
+            start_round, n_rounds, cohorts,
+            *(self._stage_put(np.stack([p[i] for p in per])) for i in range(2)),
+            self._stage_put(budgets), budgets,
+            None if draws[0] is None else
+            {k: self._stage_put(torch.stack([d[k] for d in draws])) for k in draws[0]})
+
+    def _stage_segment(self, segment: tuple[int, int]):
+        r, n = segment
+        return self.stage_round(r) if n == 1 else self.stage_block(r, n)
+
+    def _dropout(self, round_idx: int, n_clients: int) -> DropoutStream | None:
+        cfg = self.config
+        return (DropoutStream(self.trainer.dropout_sites, cfg.seed, round_idx, n_clients,
+                              cfg.batch_size, self.device)
+                if self.trainer.dropout_sites else None)
 
     def run_staged_round(self, staged: Staged, global_variables: StateDict,
                          server_state=()):
         """One round from a :meth:`stage_round` payload: returns
         ``(new_global, server_state, metrics)`` with ``metrics["Train/Loss"]``
         the sample-weighted mean of the clients' train losses (a device
-        tensor: nothing here waits for the device)."""
+        tensor: nothing here waits for the device). It trains on the staged
+        batch stack (host staging) or gathers from the resident dataset
+        (``engine.py:1779-1828``)."""
+        return self.round_step(staged, global_variables, server_state,
+                               self._dropout(staged.round_idx, len(staged.cohort)))
+
+    def round_step(self, staged: Staged, global_variables: StateDict, server_state,
+                   dropout: DropoutStream | None):
+        """The round's device work, a function of its tensors alone (what a
+        CUDA graph of the round captures, ``sim/graphs.py``): ``dropout``
+        serves each step's masks."""
         cfg = self.config
         n = len(staged.cohort)
         weights, draws = staged.weights, staged.draws
-        dropout = (DropoutStream(self.trainer.dropout_sites, cfg.seed, staged.round_idx, n,
-                                 cfg.batch_size, self.device)
-                   if self.trainer.dropout_sites else None)
+
+        def client_batches(c=None):
+            if staged.batches is not None:
+                return (staged.batches if c is None
+                        else {k: v[c] for k, v in staged.batches.items()})
+            return self._gather_batches(self._dataset,
+                                        staged.idx if c is None else staged.idx[c])
+
         if cfg.cohort_execution == "vmap":
             stacked, train_metrics = self._vmap_train(
-                global_variables, self._gather_batches(self._dataset, staged.idx),
-                staged.num_steps, draws, dropout)
+                global_variables, client_batches(), staged.num_steps, draws, dropout)
             new_global, server_state, agg_metrics = self.aggregator.aggregate(
                 global_variables, iter(treelib.unstack(stacked, n)), weights, server_state)
             losses_t = train_metrics["train_loss"]
@@ -341,9 +464,10 @@ class FedSim:
 
             def trained_clients():
                 for c in range(n):
-                    data = self._gather_batches(self._dataset, staged.idx[c])
                     variables, metrics = self._local_train(
-                        global_variables, data, int(staged.num_steps_host[c]),
+                        global_variables, client_batches(c),
+                        (staged.num_steps[c] if staged.num_steps_host is None
+                         else int(staged.num_steps_host[c])),
                         None if draws is None else {k: d[c] for k, d in draws.items()},
                         dropout, c)
                     losses.append(metrics["train_loss"])
@@ -361,6 +485,68 @@ class FedSim:
         return self.run_staged_round(self.stage_round(round_idx), global_variables,
                                      server_state)
 
+    @staticmethod
+    def _graph_key(staged: Staged) -> tuple:
+        draws = staged.draws or {}
+        return tuple(staged.idx.shape), tuple((k, tuple(d.shape)) for k, d in sorted(draws.items()))
+
+    def capture_round_graph(self, round_idx: int = 0, staged: BlockStaged | None = None,
+                            variables: StateDict | None = None, server_state=None) -> float:
+        """Capture the round as a CUDA graph for block dispatch on the card
+        (``sim/graphs.py``), warmed up on round ``round_idx`` (or on block
+        ``staged``'s first round) and on ``variables`` (default: fresh
+        ones); returns the seconds the warm-up and the capture took, 0 if
+        this FedSim already holds the graph. :meth:`run` calls it before its
+        first block and before its prefetch thread starts; a caller who
+        calls it first keeps the capture out of the rounds it times."""
+        if self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
+        if not self._on_device:
+            raise ValueError("block dispatch needs the on-device dataset (stage_on_device): "
+                             "a block's rounds gather from it")
+        first = (staged if staged is not None else self.stage_block(round_idx, 1)).round(0)
+        key = self._graph_key(first)
+        if key in self._graphs:
+            return 0.0
+        t0 = time.perf_counter()
+        if variables is None:
+            variables = self.init_round_variables()
+        if server_state is None:
+            server_state = self.aggregator.init_state(variables)
+        self._graphs[key] = RoundGraph(self, first, variables, server_state)
+        return time.perf_counter() - t0
+
+    def run_block(self, start_round: int, n_rounds: int, global_variables: StateDict,
+                  server_state=(), staged: BlockStaged | None = None):
+        """Run ``n_rounds`` consecutive rounds as one dispatch
+        (``engine.py:1335-1365``; on-device dataset only). Returns
+        ``(variables, server_state, metrics)``, each metric stacked with a
+        leading ``[n_rounds]`` axis. On the card each round replays the
+        FedSim's CUDA graph of the round (captured at the first block), the
+        global model and server state carried on the device; a failed
+        capture or replay raises. On the CPU the rounds run one after
+        another. ``staged`` passes a :meth:`stage_block` payload (the
+        pipelined driver's prefetch thread); by default it is staged here."""
+        if not self._on_device:
+            raise ValueError("run_block requires the on-device dataset path "
+                             "(stage_on_device): host-staged rounds dispatch one at a time")
+        block = staged if staged is not None else self.stage_block(start_round, n_rounds)
+        if (block.round_idx, block.n_rounds) != (start_round, n_rounds):
+            raise ValueError(f"run_block({start_round}, {n_rounds}) got the block staged for "
+                             f"({block.round_idx}, {block.n_rounds})")
+        if self.device.type != "cuda":
+            per_round = []
+            for j in range(n_rounds):
+                global_variables, server_state, metrics = self.run_staged_round(
+                    block.round(j), global_variables, server_state)
+                per_round.append(metrics)
+            return global_variables, server_state, {
+                k: torch.stack([m[k] for m in per_round]) for k in per_round[0]}
+        self.capture_round_graph(staged=block, variables=global_variables,
+                                 server_state=server_state)
+        graph = self._graphs[self._graph_key(block.round(0))]
+        return graph.run_block(self, block, global_variables, server_state)
+
     def _eval(self, variables: StateDict, batches: dict[str, torch.Tensor]):
         summed = self._local_eval(variables, batches)
         total = torch.clamp(summed["test_total"], min=1.0)
@@ -369,15 +555,21 @@ class FedSim:
     def evaluate(self, variables: StateDict) -> dict[str, float]:
         """Pooled eval: ``Train/Acc``/``Train/Loss`` over the (capped) train
         pool, ``Test/Acc``/``Test/Loss`` over the test set, each normalised
-        by its masked token or example count."""
-        train_m = self._eval(variables,
-                             self._gather_batches(self._dataset, self._train_eval_idx))
-        out = {"Train/Acc": float(train_m["Acc"]), "Train/Loss": float(train_m["Loss"])}
+        by its masked token or example count. Both evals are queued before
+        anything is read, and the four values come back in one copy
+        (``engine.py:2013-2039``)."""
+        if self._on_device:
+            train_batches = self._gather_batches(self._dataset, self._train_eval)
+        else:
+            train_batches = {k: self._stage_put(v) for k, v in self._train_eval.items()}
+        queued = [("Train", self._eval(variables, train_batches))]
         if self._test_batches is not None:
-            test_m = self._eval(variables, self._test_batches)
-            out["Test/Acc"] = float(test_m["Acc"])
-            out["Test/Loss"] = float(test_m["Loss"])
-        return out
+            test_batches = (self._test_batches if self._on_device else
+                            {k: self._stage_put(v) for k, v in self._test_batches.items()})
+            queued.append(("Test", self._eval(variables, test_batches)))
+        names = [f"{split}/{m}" for split, _ in queued for m in ("Acc", "Loss")]
+        values = torch.stack([out[m].float() for _, out in queued for m in ("Acc", "Loss")])
+        return dict(zip(names, values.tolist()))
 
     @torch.no_grad()
     def _client_eval(self, variables: StateDict, batches: dict[str, torch.Tensor]):
@@ -409,9 +601,10 @@ class FedSim:
         with a leading [num_clients] axis. Clients go in chunks of ``min(chunk,
         len(ids))``; the last chunk is padded with fully masked rows, and each
         chunk's steps are sized by its largest client. ``data`` defaults to
-        the resident train set."""
+        the train set: gathered from the resident dataset with on-device
+        staging, else each chunk's stack built on the host and copied."""
         cfg = self.config
-        resident = data is None
+        resident = data is None and self._on_device
         data = data if data is not None else self.train_data
         ids = np.asarray(client_ids if client_ids is not None else np.arange(data.num_clients))
         if len(ids) == 0:
@@ -432,7 +625,8 @@ class FedSim:
                 batches = self._gather_batches(self._dataset,
                                                torch.as_tensor(idx, device=self.device))
             else:
-                batches = self._put(cohortlib.gather_index_stack(data.arrays, idx))
+                batches = {k: self._stage_put(v) for k, v in
+                           cohortlib.gather_index_stack(data.arrays, idx).items()}
             m = self._client_eval(variables, batches)
             outs.append({k: v[:len(sel)].cpu().numpy() for k, v in m.items()})
         return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
@@ -460,10 +654,24 @@ class FedSim:
         return out
 
     def _dispatch_plan(self, start_round: int) -> list[tuple[int, int]]:
-        """The run's dispatch segments ``[(first_round, n_rounds), ...]``:
-        single rounds (block dispatch is not ported). Deterministic up
-        front, so staging can be prefetched ahead of the dispatch loop."""
-        return [(r, 1) for r in range(start_round, self.config.comm_round)]
+        """The run's dispatch segments ``[(first_round, n_rounds), ...]``
+        (``engine.py:2041-2061``): eval-aligned blocks when block dispatch
+        is on (every eval falls at a block's end, so accuracy is attributed
+        to the right round), single rounds otherwise. Under ``profile_dir``
+        the first segment runs alone, so the trace skips it. Deterministic
+        up front, so staging can be prefetched ahead of the dispatch loop."""
+        cfg = self.config
+        freq = max(cfg.frequency_of_the_test, 1)
+        plan = []
+        r = start_round
+        while r < cfg.comm_round:
+            next_eval = ((r // freq) + 1) * freq
+            n = min(cfg.comm_round, next_eval) - r if self._block_dispatch else 1
+            if cfg.profile_dir and r == start_round:
+                n = 1
+            plan.append((r, n))
+            r += n
+        return plan
 
     def _synchronize(self) -> None:
         if self.device.type == "cuda":
@@ -492,9 +700,13 @@ class FedSim:
         ``variables``/``server_state``/``start_round`` resume a run; the
         defaults start fresh.
 
-        With ``pipeline_depth`` > 0 (the default) the driver is pipelined: a
-        background thread stages upcoming rounds while the device runs the
-        current one, and round metrics drain a round behind — the host
+        Rounds are dispatched in the segments of :meth:`_dispatch_plan`: a
+        single round through :meth:`run_staged_round`, a block through
+        :meth:`run_block`. On the card the round's CUDA graph is captured
+        before the first block, ahead of the prefetch thread. With
+        ``pipeline_depth`` > 0 (the default) the driver is pipelined: a
+        background thread stages upcoming segments while the device runs the
+        current one, and metrics drain a segment behind — the host
         synchronises with the device only at eval rounds and at the end.
         Bit-identical to the serial driver (``pipeline_depth=0``); records
         reach ``callback`` and the history in round order, delivered at each
@@ -514,8 +726,12 @@ class FedSim:
         freq = max(cfg.frequency_of_the_test, 1)
         plan = self._dispatch_plan(start_round)
         depth = self.pipeline_depth
-        prefetch = (Prefetcher(plan, lambda segment: self.stage_round(segment[0]), depth)
-                    if depth and plan else None)
+        blocks = [segment for segment in plan if segment[1] > 1]
+        if blocks and self.device.type == "cuda":
+            # a capture may not overlap the prefetch thread's pinned copies
+            self.capture_round_graph(blocks[0][0], variables=variables,
+                                     server_state=server_state)
+        prefetch = Prefetcher(plan, self._stage_segment, depth) if depth and plan else None
         drain = MetricsDrain(depth)
         profiler = None
 
@@ -523,15 +739,17 @@ class FedSim:
             return (rr + 1) % freq == 0 or rr == cfg.comm_round - 1
 
         def emit(segment, host_metrics, per_round_time, eval_rec=None):
-            rec: dict[str, Any] = {"round": segment[0], "round_time": per_round_time}
-            rec.update({k: float(v) for k, v in host_metrics.items()})
-            if eval_rec:
-                rec.update(eval_rec)
-            history.append(rec)
-            if callback:
-                callback(rec)
-            logging.info("round %d: %s", segment[0],
-                         {k: v for k, v in rec.items() if k != "round"})
+            r0, n = segment
+            for j in range(n):
+                rec: dict[str, Any] = {"round": r0 + j, "round_time": per_round_time}
+                rec.update({k: float(v[j]) for k, v in host_metrics.items()})
+                if eval_rec and j == n - 1:
+                    rec.update(eval_rec)
+                history.append(rec)
+                if callback:
+                    callback(rec)
+                logging.info("round %d: %s", r0 + j,
+                             {k: v for k, v in rec.items() if k != "round"})
 
         t_mark = time.perf_counter()
         rounds_in_window = 0
@@ -541,26 +759,32 @@ class FedSim:
         pending: list[tuple] = []
         try:
             for segment in plan:
-                r0 = segment[0]
-                # start the trace after the first round so first-call costs
+                r0, n = segment
+                # start the trace after the first segment so first-call costs
                 # don't drown the steady-state rounds (a 1-round run traces
                 # its only round)
                 if cfg.profile_dir and profiler is None and (
                         r0 > start_round or cfg.comm_round - start_round == 1):
                     profiler = self._start_profiler()
-                staged = prefetch.get(segment) if prefetch else self.stage_round(r0)
-                variables, server_state, metrics = self.run_staged_round(
-                    staged, variables, server_state)
-                rounds_in_window += 1
-                if is_eval_round(r0) or depth == 0:
+                staged = prefetch.get(segment) if prefetch else self._stage_segment(segment)
+                if n == 1:
+                    variables, server_state, metrics = self.run_staged_round(
+                        staged, variables, server_state)
+                    stacked = {k: v.reshape(1) for k, v in metrics.items()}
+                else:
+                    variables, server_state, stacked = self.run_block(
+                        r0, n, variables, server_state, staged=staged)
+                rounds_in_window += n
+                last = r0 + n - 1
+                if is_eval_round(last) or depth == 0:
                     # synchronisation point: fetch everything queued
-                    # (including this round's metrics), then eval
-                    ready = pending + drain.push(segment, metrics) + drain.flush()
+                    # (including this segment's metrics), then eval
+                    ready = pending + drain.push(segment, stacked) + drain.flush()
                     pending = []
                     if depth == 0:
                         self._synchronize()
                     per_round = (time.perf_counter() - t_mark) / max(rounds_in_window, 1)
-                    eval_rec = self.eval_record(variables) if is_eval_round(r0) else None
+                    eval_rec = self.eval_record(variables) if is_eval_round(last) else None
                     for pseg, host in ready:
                         emit(pseg, host, per_round,
                              eval_rec=eval_rec if pseg == segment else None)
@@ -570,7 +794,7 @@ class FedSim:
                     # non-blocking: metrics that fell off the drain's back
                     # are copied to the host in the background and emitted at
                     # the window's sync point with its timing
-                    pending.extend(drain.push(segment, metrics))
+                    pending.extend(drain.push(segment, stacked))
         finally:
             if prefetch:
                 prefetch.close()

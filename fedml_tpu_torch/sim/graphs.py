@@ -1,0 +1,158 @@
+"""Block dispatch on the card: a FedSim round captured once as a CUDA graph
+and replayed for every round of a block.
+
+The JAX engine runs an eval-aligned block of R rounds as one program, a
+``lax.scan`` over the rounds' stacked index maps
+(``fedml_tpu/sim/engine.py:1268-1365``): one dispatch per block instead of
+one per round, which amortises the host's cost of dispatch where a round is
+many small kernels. Eager PyTorch launches every kernel from the host; its
+counterpart of the block program is a CUDA graph. :class:`RoundGraph`
+captures a whole round of a :class:`~fedml_tpu_torch.sim.engine.FedSim`
+(:meth:`FedSim.round_step`: the gather, every local step of every client,
+the aggregation and the round's metrics) once, and a block replays it once
+a round:
+
+- the round's inputs live in static buffers: its index map, weights, step
+  budgets and augmentation draws, copied in from the staged block before
+  each replay, and its dropout masks, drawn before each replay by the
+  round's :class:`~fedml_tpu_torch.core.trainer.DropoutStream` (a draw
+  reseeds a generator, which a capture cannot hold), so they are bitwise the
+  eager round's. A round's host work is these copies and one graph launch,
+  however many kernels a step has;
+- the global variables and the server state live in static buffers too: the
+  graph reads them and writes the round's aggregate back into them, so
+  consecutive replays carry the model on the device;
+- each replay's metrics are copied into the block's ``[R]`` stacks.
+
+Capture: one warm-up round first runs on a side stream on scratch copies of
+the variables (lazy initialisations, such as cuBLAS handles, the autograd
+device thread and the kernels' build, then happen outside the capture, as
+the ``torch.cuda.graphs`` documentation requires) and changes no variable;
+then the round is captured into the graph's own memory pool, which the graph
+holds for its life. A failed capture or replay raises: nothing falls back to
+eager rounds.
+
+The prefetch thread (``sim/prefetch.py``) pins host memory and copies to the
+device, which a capture in the global mode refuses from any thread, so
+:meth:`FedSim.run` captures before it starts the thread. The copies the
+thread issues later go on the device's default stream, on which the block's
+input copies and replays are issued after them, so a staged block has landed
+before the replay that reads it.
+
+The flash kernel's launches made while a graph is captured are tallied
+(``ops/attention.py``, :func:`~fedml_tpu_torch.ops.attention.captured_launches`)
+and each replay adds the tally to the launch counters, which so count
+launches on the device.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils import _pytree as pytree
+
+from fedml_tpu_torch.ops import attention
+
+
+class StaticDropout:
+    """A round's dropout keep masks in static ``[E * S, C, B, ...]`` buffers,
+    served by :meth:`masks` as :class:`DropoutStream` serves them and filled
+    from the round's stream before each replay."""
+
+    def __init__(self, sites: dict, steps: int, cohort: int, batch: int,
+                 device: torch.device):
+        self.buffers = {name: torch.empty((steps, cohort, batch) + tuple(shape),
+                                          dtype=torch.bool, device=device)
+                        for name, (shape, _) in sites.items()}
+        self.steps = steps
+
+    def masks(self, step: int) -> dict[str, torch.Tensor]:
+        return {k: b[step] for k, b in self.buffers.items()}
+
+    def fill(self, stream) -> None:
+        for t in range(self.steps):
+            for k, m in stream.masks(t).items():
+                self.buffers[k][t].copy_(m)
+
+
+class RoundGraph:
+    """One round of ``sim`` captured as a CUDA graph, on the inputs' shapes
+    of ``staged`` (a round of a block; its values feed the warm-up), with
+    ``variables`` and ``server_state`` as the warm-up's model."""
+
+    def __init__(self, sim, staged, variables, server_state):
+        device = sim.device
+        # no host budgets: the scan mode masks its steps on the device
+        self.inputs = type(staged)(
+            staged.round_idx, staged.cohort, staged.idx.clone(), None, staged.weights.clone(),
+            staged.num_steps.clone(), None,
+            None if staged.draws is None else {k: d.clone() for k, d in staged.draws.items()})
+        sites = sim.trainer.dropout_sites
+        self.dropout = (StaticDropout(sites, sim.trainer.epochs * sim._steps,
+                                      len(staged.cohort), sim.config.batch_size, device)
+                        if sites else None)
+        if self.dropout is not None:
+            self.dropout.fill(sim._dropout(staged.round_idx, len(staged.cohort)))
+        self.variables = {k: v.detach().clone() for k, v in variables.items()}
+        leaves, self._state_spec = pytree.tree_flatten(server_state)
+        self.state = [t.detach().clone() for t in leaves]
+
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            # one warm-up round on scratch copies (see the module docstring)
+            sim.round_step(self.inputs, {k: v.clone() for k, v in self.variables.items()},
+                           self._server_state(clone=True), self.dropout)
+        current.wait_stream(side)
+        torch.cuda.synchronize(device)
+
+        self.graph = torch.cuda.CUDAGraph()
+        before = attention.captured_launches()
+        with torch.cuda.graph(self.graph):
+            new_variables, new_state, self.metrics = sim.round_step(
+                self.inputs, self.variables, self._server_state(), self.dropout)
+            for k, t in new_variables.items():
+                self.variables[k].copy_(t)
+            for old, t in zip(self.state, pytree.tree_flatten(new_state)[0]):
+                old.copy_(t)
+        after = attention.captured_launches()
+        # the flash kernel's launches that each replay makes
+        self.launches = {k: after[k] - before[k] for k in after}
+
+    def _server_state(self, clone: bool = False):
+        return pytree.tree_unflatten([t.clone() if clone else t for t in self.state],
+                                     self._state_spec)
+
+    def replay_round(self, sim, block, j: int) -> dict[str, torch.Tensor]:
+        """Round ``j`` of ``block`` (a :class:`BlockStaged`): its inputs
+        copied into the static buffers, its dropout masks drawn into them,
+        one replay. Returns the graph's metric buffers, which the next
+        replay overwrites."""
+        staged = block.round(j)
+        self.inputs.idx.copy_(staged.idx)
+        self.inputs.weights.copy_(staged.weights)
+        self.inputs.num_steps.copy_(staged.num_steps)
+        for k, d in (staged.draws or {}).items():
+            self.inputs.draws[k].copy_(d)
+        if self.dropout is not None:
+            self.dropout.fill(sim._dropout(staged.round_idx, len(staged.cohort)))
+        self.graph.replay()
+        attention.count_replay(self.launches)
+        return self.metrics
+
+    def run_block(self, sim, block, variables, server_state):
+        """The rounds of ``block`` from ``variables`` and ``server_state``:
+        ``(variables, server_state, metrics)``, the metrics stacked
+        ``[n_rounds]``, the model and state fresh copies of the carried
+        buffers."""
+        for k, t in variables.items():
+            self.variables[k].copy_(t)
+        for old, t in zip(self.state, pytree.tree_flatten(server_state)[0]):
+            old.copy_(t)
+        stacked = {k: torch.empty((block.n_rounds,) + v.shape, dtype=v.dtype, device=v.device)
+                   for k, v in self.metrics.items()}
+        for j in range(block.n_rounds):
+            for k, v in self.replay_round(sim, block, j).items():
+                stacked[k][j].copy_(v)
+        return ({k: v.clone() for k, v in self.variables.items()},
+                self._server_state(clone=True), stacked)

@@ -6,9 +6,9 @@ cohort's index map, copy it to the device, then wait for the round's
 metrics — so host staging and device work never overlap. This module
 overlaps them:
 
-- :class:`Prefetcher` runs the staging function for upcoming rounds on a
-  background thread, keeping up to ``depth`` rounds staged ahead of the
-  dispatch loop. Staging is a pure function of ``(config, round_idx)`` —
+- :class:`Prefetcher` runs the staging function for upcoming rounds (or
+  blocks of rounds) on a background thread, keeping up to ``depth`` of them
+  staged ahead of the dispatch loop. Staging is a pure function of ``(config, round_idx)`` —
   cohort sampling and shuffling are seeded per round — so prefetch order
   cannot change cohorts or metrics: the pipelined driver is bit-identical
   to the serial one. The staged payload is opaque to this module.
@@ -20,6 +20,13 @@ overlaps them:
   only at eval rounds and at the end of the run. JAX's drain blocks on the
   round that falls off; here that would be a host wait between eval rounds,
   so the port defers it to the flush.
+
+The staging thread pins host memory and copies to the device, which a CUDA
+graph capture in the global mode refuses from any thread: ``FedSim.run``
+captures its round graph (``sim/graphs.py``) before it starts the thread.
+The thread's copies go on the device's default stream, on which the
+consumer issues its work after taking the payload, so they land before the
+round (or the replay) that reads them.
 
 Knob: ``SimConfig.pipeline_depth`` (0 = serial, None = auto depth 1).
 """

@@ -104,7 +104,6 @@ UNPORTED = [
     (["--population", "speed=const:1"], "§A10"),
     (["--population_seed", "3"], "§A10"),
     (["--norm_bound", "1.0"], "§A10"),
-    (["--stage_on_device", "0"], "§A4"),
     (["--downlink_keyframe_every", "4"], "§A11"),
     (["--mqtt_host", "localhost"], "§A11"),
     (["--server_lr", "0.5"], "§A10"),
