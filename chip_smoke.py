@@ -73,7 +73,19 @@ Phases, each of which exits non-zero on failure:
     then 3 rounds as one block (a graph of 318 steps) against the same
     rounds dispatched one at a time, both under cuDNN's deterministic
     algorithms, rtol 1e-6 / atol 1e-7, and two per-round runs with the
-    default algorithms, their gap printed (``[femnist blocks]``);
+    default algorithms, their gap printed (``[femnist blocks]``); then
+    packed lanes (``[packed femnist]``: the same 3 rounds with
+    ``--pack_lanes 2``, each pass one replay of the lane pass's CUDA graph:
+    s/round beside the padded block's and per-round dispatch's, passes a
+    round, lane occupancy, a round's parts and a pass under
+    ``torch.profiler`` with one ``cudaGraphLaunch``; each round from the
+    same variables, 10 lanes bitwise equal to the padded round and 2 lanes
+    within rtol 1e-3 / atol 1e-4), the heterogeneous population
+    (``[population]``: the churn spec, packed, its saved trace replayed
+    bitwise, packed against padded as before) and LR's overflow passes
+    (``[packed overflow]``: several replays a round bitwise equal to one,
+    6 lanes bitwise equal to the padded round of 6 clients, 1 lane within
+    1e-6);
 12. card against CPU at a small size in f32: LR FedProx with stragglers
     (scan and vmap) free-running, the CNNs round by round from the same
     variables, CNNDropOut's eval forward and masks; the pipelined against
@@ -904,7 +916,8 @@ def _profiled(torch, got, fn, *args, host=False, **kwargs):
     puts into ``got`` its device kernels and copies, their busy time, the
     call's wall time, the three kernels with the most device time and the
     count of each CUDA runtime call the host made (``cudaLaunchKernel``,
-    ``cudaGraphLaunch``, ...)."""
+    ``cudaGraphLaunch``, ...); ``union_us`` is the time some kernel or copy
+    ran (their intervals' union; ``busy_us`` sums their durations)."""
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CUDA]
     if host:
@@ -917,6 +930,13 @@ def _profiled(torch, got, fn, *args, host=False, **kwargs):
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     got["kernels"] = len(device)
     got["busy_us"] = sum(e.time_range.elapsed_us() for e in device)
+    union, end = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
+        if end is None or start > end:
+            union, end = union + stop - start, stop
+        elif stop > end:
+            union, end = union + stop - end, stop
+    got["union_us"] = union
     by_name: dict[str, float] = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1168,10 +1188,12 @@ def phase_femnist_blocks(torch):
     under cuDNN's deterministic algorithms, held to rtol 1e-6 / atol 1e-7;
     then two per-round runs with the default algorithms, whose gap is
     printed: what the default algorithms alone move, with no graph. Returns
-    the flash launches."""
+    the flash launches and the runs (``[packed femnist]`` reads the
+    deterministic ones)."""
     import functools
 
     from fedml_tpu_torch.sim import engine
+    from fedml_tpu_torch.sim.graphs import RoundGraph
 
     c = dict(FEMNIST, rounds=3)
     argv = ["--dataset", "femnist", "--model", "cnn", "--data_dir", str(BUILD_DIR / "femnist"),
@@ -1190,7 +1212,7 @@ def phase_femnist_blocks(torch):
             return seconds
         return capture_round_graph
 
-    runs, captures = {}, []
+    runs, captures, replay_s = {}, [], []
     _zero_flash_counters()
     for name, block, deterministic in (("blocks", True, True), ("per round", False, True),
                                        ("per round default 1", False, False),
@@ -1200,6 +1222,9 @@ def phase_femnist_blocks(torch):
             stack.enter_context(_wrapped(engine.FedSim, "capture_round_graph", counted))
             if not block:
                 stack.enter_context(_wrapped(engine, "SimConfig", per_round))
+            else:
+                stack.enter_context(_wrapped(RoundGraph, "replay_round",
+                                             _timing(replay_s, torch.cuda.synchronize)))
             torch.backends.cudnn.deterministic = deterministic
             try:
                 runs[name] = _cli(torch, argv)
@@ -1207,6 +1232,8 @@ def phase_femnist_blocks(torch):
                 torch.backends.cudnn.deterministic = False
     if captures != [1, 0, 0, 0]:
         fail(f"femnist blocks: round graphs captured per run {captures}, expected [1, 0, 0, 0]")
+    log(f"[femnist blocks] each replay of the block, synchronised: "
+        + ", ".join(f"{t:.4f}" for t in replay_s) + " s")
     for name, (history, wall) in runs.items():
         losses = ", ".join(f"{rec['Train/Loss']:.6f}" for rec in history)
         log(f"[femnist blocks] {name}: run {wall:.2f} s, Train/Loss {losses}, Test/Acc "
@@ -1222,7 +1249,7 @@ def phase_femnist_blocks(torch):
     if over > 0:
         fail(f"femnist blocks: {beyond} differs beyond rtol {BLOCK_RTOL} / atol {BLOCK_ATOL} "
              f"(by {over:.3e} over)")
-    return _flash_launches()
+    return _flash_launches(), runs
 
 
 def phase_fedprox_stragglers(torch, data_dir):
@@ -1426,16 +1453,18 @@ def phase_small_card_vs_cpu(torch):
 BLOCK_RTOL, BLOCK_ATOL = 1e-6, 1e-7
 
 
-def _block_gap(torch, runs):
+def _block_gap(torch, runs, rtol=BLOCK_RTOL, atol=BLOCK_ATOL):
     """Two runs' variables and history values held to rtol/atol: ``(excess,
     name)`` of the value furthest beyond the tolerance (excess <= 0 when all
     agree) and ``(diff, name)`` of the largest absolute difference."""
     (v_a, h_a), (v_b, h_b) = runs
-    seen = [(-BLOCK_ATOL, 0.0, "none")]  # (excess over the tolerance, |diff|, where)
+    if len(h_a) != len(h_b):
+        fail(f"the runs have {len(h_a)} and {len(h_b)} records")
+    seen = [(-atol, 0.0, "none")]  # (excess over the tolerance, |diff|, where)
     for k in v_b:
         a, b = v_a[k].double().cpu(), v_b[k].double().cpu()
         d = (a - b).abs()
-        seen.append((float((d - BLOCK_ATOL - BLOCK_RTOL * b.abs()).max()), float(d.max()),
+        seen.append((float((d - atol - rtol * b.abs()).max()), float(d.max()),
                      f"variable {k}"))
     for rec_a, rec_b in zip(h_a, h_b):
         if set(rec_a) != set(rec_b):
@@ -1443,8 +1472,7 @@ def _block_gap(torch, runs):
         for k in rec_b:
             if k not in ("round", "round_time"):
                 d = abs(rec_a[k] - rec_b[k])
-                seen.append((d - BLOCK_ATOL - BLOCK_RTOL * abs(rec_b[k]), d,
-                             f"round {rec_b['round']} {k}"))
+                seen.append((d - atol - rtol * abs(rec_b[k]), d, f"round {rec_b['round']} {k}"))
     over = max(seen)
     largest = max(seen, key=lambda e: e[1])
     return (over[0], over[2]), (largest[1], largest[2])
@@ -1557,6 +1585,374 @@ def phase_blocks_small(torch):
     log(f"[blocks] {len(cases)} cases in {time.perf_counter() - t0:.2f} s")
     return _flash_launches()
 
+
+# packed lanes (SimConfig.pack_lanes) and the heterogeneous population: the
+# JAX packed-lane test's power-law sizes (tests/test_packed_lanes.py:42) for
+# the small LR overflow check; FEMNIST at [femnist]'s recipe, cut to 3
+# rounds, for the packed pass graph and the population's churn. Packed
+# against padded at the cohort's width (10 lanes for 10 clients) is held
+# bitwise; with fewer lanes each conv runs as a grouped cuDNN conv of L
+# groups where the padded round's has C, and cuDNN may pick another
+# algorithm at another width (on the CPU the two agree bitwise,
+# tests/test_torch_packed.py), so a round from the same variables is held
+# to PACKED_CNN_RTOL / PACKED_CNN_ATOL: cuDNN's f32 weight gradient of a
+# conv is up to 7.552e-4 off float64 (relative) on this card (PERF.md §6),
+# so two algorithms may part by that share of a gradient, and a client's
+# chain of up to 318 steps carries it into its model
+PACKED_CNN_RTOL, PACKED_CNN_ATOL = 1e-3, 1e-4
+POWERLAW = [97, 41, 24, 12, 9, 6]
+POPULATION_SPEC = "speed=lognormal:0,0.5;avail=0.8;avail_block=4;dropout=0.05"
+# LR packed into one lane against the padded round of six clients: the
+# vmapped GEMMs and the loss's reductions run at width 1 against 6, and the
+# card's kernels (cuBLAS, PyTorch's reductions) may sum in another order at
+# another width: a few f32 ulps of the weights (~1e-7 at |w| ~ 1)
+PACKED_LR_RTOL, PACKED_LR_ATOL = 1e-6, 1e-6
+
+
+def _femnist_argv(rounds, *extra):
+    c = FEMNIST
+    return ["--dataset", "femnist", "--model", "cnn", "--data_dir", str(BUILD_DIR / "femnist"),
+            "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--epochs", str(c["epochs"]), "--comm_round", str(rounds),
+            "--frequency_of_the_test", str(rounds), *extra]
+
+
+@contextlib.contextmanager
+def _packed_recorder(torch):
+    """Record what a packed run did: each round's plan stats
+    (``PackedStaged.stats``), the pass graph replays a round and the
+    captures' seconds."""
+    from fedml_tpu_torch.sim.engine import FedSim
+    from fedml_tpu_torch.sim.graphs import PassGraph
+
+    rec = {"stats": {}, "replays": {}, "captures": [], "round": None}
+
+    def run_packed(original):
+        def wrapped(self, staged, *args, **kwargs):
+            rec["stats"][staged.round_idx] = dict(staged.stats)
+            rec["round"] = staged.round_idx
+            rec["replays"][staged.round_idx] = 0
+            return original(self, staged, *args, **kwargs)
+        return wrapped
+
+    def replay_pass(original):
+        def wrapped(self, *args, **kwargs):
+            rec["replays"][rec["round"]] += 1
+            return original(self, *args, **kwargs)
+        return wrapped
+
+    def capture(original):
+        def wrapped(self, *args, **kwargs):
+            seconds = original(self, *args, **kwargs)
+            if seconds:
+                rec["captures"].append(seconds)
+            return seconds
+        return wrapped
+
+    with _wrapped(FedSim, "_run_packed", run_packed), \
+            _wrapped(PassGraph, "replay_pass", replay_pass), \
+            _wrapped(FedSim, "capture_pass_graph", capture):
+        yield rec
+
+
+def _deterministic_cli(torch, argv):
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _cli(torch, argv)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _pass_counts(name, rec, rounds):
+    """Check one graph replay a pass in every round of a packed run and
+    return the per-round pass counts."""
+    passes = [rec["stats"][r]["n_passes"] for r in range(rounds)]
+    replays = [rec["replays"][r] for r in range(rounds)]
+    if replays != passes or len(rec["captures"]) != 1:
+        fail(f"{name}: {replays} graph replays a round for {passes} passes, "
+             f"{len(rec['captures'])} captures (expected one replay a pass, one capture)")
+    return passes
+
+
+def phase_packed_overflow(torch):
+    """Packed lanes against padded rounds on the card at a small size: LR on
+    the JAX packed-lane test's power-law clients (97 ... 6 samples), all 6
+    a round, B=8, E=2, SGD 0.2, 4 rounds with an eval every 2, from the same
+    variables. One lane and a capacity factor of 0.01 (a lane of the largest
+    client's 26 steps), so every round overflows into several replays of
+    the lane graph: bitwise equal to one lane sized to the round (capacity
+    factor 10, one replay a round; the same width). Six lanes (the cohort's
+    width) are bitwise equal to the padded round (per-round dispatch). The
+    one lane against the padded round is held to ``PACKED_LR_RTOL`` /
+    ``PACKED_LR_ATOL``, its gap printed. Returns the flash launches."""
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.models.linear import LogisticRegression
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    rng = np.random.RandomState(3)
+    n = sum(POWERLAW)
+    centers = rng.normal(0.0, 2.0, (4, 12))
+    y = rng.randint(0, 4, n).astype(np.int32)
+    x = (centers[y] + rng.normal(0.0, 0.6, (n, 12))).astype(np.float32)
+    bounds = np.cumsum([0] + POWERLAW)
+    train = FederatedArrays({"x": x, "y": y}, {i: np.arange(bounds[i], bounds[i + 1])
+                                               for i in range(len(POWERLAW))})
+    test = {"x": x[:16], "y": y[:16]}
+    base = dict(client_num_in_total=len(POWERLAW), client_num_per_round=6, batch_size=8,
+                comm_round=4, epochs=2, frequency_of_the_test=2, seed=0)
+
+    def sim(**kw):
+        trainer = ClientTrainer(module=LogisticRegression(4, 12, device="cuda"),
+                                optimizer=sgd(0.2), epochs=2)
+        return FedSim(trainer, train, test, SimConfig(**base, **kw), device="cuda")
+
+    _zero_flash_counters()
+    padded = sim(block_dispatch=False)
+    init = {k: t.clone() for k, t in padded.init_variables().items()}
+    runs, recs = {"padded": padded.run(variables={k: t.clone() for k, t in init.items()})}, {}
+    for name, kw in (("overflow", dict(pack_lanes=1, pack_capacity_factor=0.01)),
+                     ("one pass", dict(pack_lanes=1, pack_capacity_factor=10.0)),
+                     ("six lanes", dict(pack_lanes=6))):
+        with _packed_recorder(torch) as recs[name]:
+            runs[name] = sim(**kw).run(variables={k: t.clone() for k, t in init.items()})
+    passes = _pass_counts("packed overflow", recs["overflow"], base["comm_round"])
+    if min(passes) < 2 or max(_pass_counts("packed one pass", recs["one pass"],
+                                           base["comm_round"])) != 1:
+        fail(f"packed overflow: passes a round {passes}; the capacity factor 0.01 should "
+             "overflow every round, 10 never")
+    checks = [("overflow", "one pass", 0.0, 0.0), ("padded", "six lanes", 0.0, 0.0),
+              ("padded", "overflow", PACKED_LR_RTOL, PACKED_LR_ATOL)]
+    for a, b, rtol, atol in checks:
+        (over, beyond), (diff, where) = _block_gap(torch, [runs[a], runs[b]], rtol=rtol,
+                                                   atol=atol)
+        log(f"[packed overflow] LR, {b} against {a}: largest difference {diff:.3e} ({where}), "
+            f"bitwise equal {diff == 0.0}" + (f"; passes a round {passes}, one graph replay "
+                                              f"each" if b == "overflow" else ""))
+        if over > 0:
+            fail(f"packed overflow: {b} against {a}: {beyond} differs beyond rtol {rtol} / "
+                 f"atol {atol} (by {over:.3e} over)")
+    return _flash_launches()
+
+
+def _one_round_gaps(torch, sims, rounds):
+    """Each round ``r`` < ``rounds`` run by every FedSim of ``sims`` (name ->
+    FedSim; the first is the reference) from the same variables, the
+    reference's previous output (round 0: fresh variables), on the same
+    staged inputs, under deterministic cuDNN: name -> a ``(diff, excess)``
+    pair a round, the largest absolute difference of its variables and
+    ``Train/Loss`` from the reference's, and the largest excess over
+    ``PACKED_CNN_RTOL`` / ``PACKED_CNN_ATOL`` (> 0: beyond)."""
+    names = list(sims)
+    ref = sims[names[0]]
+    v = ref.init_round_variables()
+    gaps = {name: [] for name in names[1:]}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for r in range(rounds):
+            out = {name: sim.run_staged_round(sim.stage_round(r),
+                                              {k: t.clone() for k, t in v.items()})
+                   for name, sim in sims.items()}
+            v_ref, _, m_ref = out[names[0]]
+            for name in names[1:]:
+                v_o, _, m_o = out[name]
+                pairs = [(v_o[k].double(), v_ref[k].double()) for k in v_ref]
+                pairs.append((m_o["Train/Loss"].double(), m_ref["Train/Loss"].double()))
+                diff = max(float((a - b).abs().max()) for a, b in pairs)
+                excess = max(float(((a - b).abs() - PACKED_CNN_ATOL
+                                    - PACKED_CNN_RTOL * b.abs()).max()) for a, b in pairs)
+                gaps[name].append((diff, excess))
+            v = v_ref
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return gaps
+
+
+def _packed_round_parts(torch, sim, round_idx, variables):
+    """One packed round of ``sim`` on the card (``run_staged_round``), timed
+    by part with a synchronisation around each: the dropout masks' draws,
+    the graph replays and the eager aggregation (seconds each); then its
+    first pass again (``PassGraph.replay_pass``: the masks' draws, the
+    input copies, the replay) under ``torch.profiler`` with the host's
+    calls. Returns the parts, the plan's stats and the profile."""
+    from fedml_tpu_torch.core.trainer import LaneDropout
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    staged = sim.stage_round(round_idx)
+    parts = {"dropout draws": [], "replays": [], "aggregation": []}
+    sync = torch.cuda.synchronize
+    with _wrapped(LaneDropout, "fill", _timing(parts["dropout draws"], sync)), \
+            _wrapped(torch.cuda.CUDAGraph, "replay", _timing(parts["replays"], sync)), \
+            _wrapped(FedSim, "_packed_aggregate", _timing(parts["aggregation"], sync)):
+        sim.run_staged_round(staged, variables)
+    graph = sim._pass_graphs[sim._pass_graph_key(staged)]
+    profile = {"s_lane": staged.passes[0].slot.shape[1]}
+    _profiled(torch, profile, graph.replay_pass, staged.passes[0],
+              sim._dropout(round_idx, len(staged.cohort)), host=True)
+    return {k: sum(v) for k, v in parts.items()}, staged.stats, profile
+
+
+def phase_packed_femnist(torch, padded_runs):
+    """FEMNIST + CNNDropOut through the CLI at ``[femnist blocks]``'s recipe
+    (3 rounds, the eval at the last) with ``--pack_lanes 2``: each pass one
+    replay of the lane pass's CUDA graph, under cuDNN's deterministic
+    algorithms. Prints s/round packed (and each round's seconds), in the
+    padded block and padded per round (``padded_runs``, the same recipe in
+    ``[femnist blocks]``), the passes a round, lane occupancy (executed
+    steps over lane slots), round 1's parts (synchronised) and its first
+    pass under ``torch.profiler`` with the host's calls (kernels a lane
+    step, device idle, one ``cudaGraphLaunch``), outside the timed run. Then each
+    of rounds 0-2 from the same variables, against the padded round
+    (per-round dispatch): packed with 10 lanes (the cohort's width) must be
+    bitwise equal; packed with 2 lanes, whose convs run grouped over 2
+    lanes where the padded round's run over 10 clients, is held to
+    ``PACKED_CNN_RTOL`` / ``PACKED_CNN_ATOL``, its gap printed. Returns the
+    flash launches."""
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    rounds = 3
+    round_s, made = [], []
+
+    def keep(original):
+        def run(self, *args, **kwargs):
+            made.append(self)
+            return original(self, *args, **kwargs)
+        return run
+
+    _zero_flash_counters()
+    with _packed_recorder(torch) as rec, _wrapped(FedSim, "run", keep), \
+            _wrapped(FedSim, "_run_packed", _timing(round_s, torch.cuda.synchronize)):
+        history, wall = _deterministic_cli(torch, _femnist_argv(rounds, "--pack_lanes", "2"))
+    launches = _flash_launches()
+    passes = _pass_counts("packed femnist", rec, rounds)
+    stats = [rec["stats"][r] for r in range(rounds)]
+    executed = sum(st["total_steps"] for st in stats)
+    slots = sum(st["capacity"] for st in stats)
+    padded_slots = sum(st["padded_steps"] for st in stats)
+    values = [v for r in history for v in r.values()]
+    if not all(np.isfinite(values)) or len(history) != rounds:
+        fail(f"packed femnist: bad history {history}")
+    per_round = {"packed replays": history, "padded block": padded_runs["blocks"][0],
+                 "padded per round": padded_runs["per round"][0]}
+    seconds = {k: np.mean([r["round_time"] for r in h]) for k, h in per_round.items()}
+    log(f"[packed femnist] CNNDropOut, {FEMNIST['clients']} clients, --pack_lanes 2, "
+        f"deterministic cuDNN: s/round " + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
+        + f" (each packed round, synchronised: "
+        + ", ".join(f"{t:.4f}" for t in round_s) + f" s); passes a round {passes}; lane "
+        f"occupancy {executed / slots:.2%} ({executed} executed steps of {slots} lane slots; "
+        f"the padded rounds ran {padded_slots} client steps, {executed / padded_slots:.2%} of "
+        f"them with data); capture {rec['captures'][0]:.2f} s; run {wall:.2f} s; Train/Loss "
+        + ", ".join(f"{r['Train/Loss']:.6f}" for r in history)
+        + f", Test/Acc {history[-1]['Test/Acc']:.6f}; flash launches {launches}")
+    (sim,) = made
+    parts, st, profile = _packed_round_parts(torch, sim, 1, sim.init_round_variables())
+    log(f"[packed femnist] round 1 by part, synchronised: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()) + f" ({st['n_passes']} passes)")
+    union, pass_wall = profile["union_us"] / 1e6, profile["wall"]
+    log(f"[packed femnist] round 1, pass 1 again under torch.profiler: {profile['kernels']} "
+        f"device kernels and copies over {profile['s_lane']} lane steps, "
+        f"{profile['kernels'] / profile['s_lane']:.1f} a lane step; device busy "
+        f"{union * 1e3:.3f} ms of {pass_wall * 1e3:.3f} ms ({1 - union / pass_wall:.1%} idle, "
+        f"the masks' draws and input copies included; durations summed "
+        f"{profile['busy_us'] / 1e3:.3f} ms); host CUDA calls: "
+        + ", ".join(f"{k} {n}" for k, n in sorted(profile["api"].items()) if n))
+    graph_launches = profile["api"].get("cudaGraphLaunch", 0)
+    if graph_launches != 1:
+        fail(f"packed femnist: a pass made {graph_launches} cudaGraphLaunch calls, expected 1")
+    sims = {"padded": FedSim(sim.trainer, sim.train_data, None, dataclasses.replace(
+        sim.config, pack_lanes=0, block_dispatch=False, pipeline_depth=0), device="cuda")}
+    for lanes in (10, 2):
+        sims[f"packed {lanes} lanes"] = FedSim(sim.trainer, sim.train_data, None,
+                                               dataclasses.replace(sim.config, pack_lanes=lanes),
+                                               device="cuda")
+    t0 = time.perf_counter()
+    gaps = _one_round_gaps(torch, sims, rounds)
+    log(f"[packed femnist] rounds 0-{rounds - 1}, each from the same variables, against the "
+        f"padded round ({time.perf_counter() - t0:.2f} s): largest difference a round, "
+        + "; ".join(f"{k} " + ", ".join(f"{d:.3e}" for d, _ in v) for k, v in gaps.items()))
+    _check_gaps("packed femnist", gaps)
+    return launches
+
+
+def _check_gaps(name, gaps):
+    """Fail unless the cohort-wide lanes (``packed 10 lanes``) equal the
+    padded rounds bitwise and the other lane widths stay within
+    ``PACKED_CNN_RTOL`` / ``PACKED_CNN_ATOL``."""
+    for lanes, per_round in gaps.items():
+        if lanes == "packed 10 lanes" and any(d for d, _ in per_round):
+            fail(f"{name}: 10 lanes (the cohort's width) differ from the padded round: "
+                 f"{per_round}")
+        worst = max(per_round, key=lambda g: g[1])
+        if worst[1] > 0:
+            fail(f"{name}: {lanes} differ from the padded round by {worst[0]:.3e}, beyond rtol "
+                 f"{PACKED_CNN_RTOL} / atol {PACKED_CNN_ATOL} (by {worst[1]:.3e})")
+
+
+def phase_population(torch):
+    """FEMNIST through the CLI with the churn population
+    (``POPULATION_SPEC``: lognormal speeds, 80% availability in blocks of 4
+    rounds, 5% mid-round dropout), 3 rounds, packed (``--pack_lanes 2``:
+    dropped clients re-packed into overflow passes), deterministic cuDNN;
+    the population saved as a trace (``population.save_trace``) and
+    replayed through ``--population_trace``, its history bitwise equal to
+    the generative run's (``round_time`` aside); then rounds 0-2, each from
+    the same variables, packed (10 lanes and 2) against the padded round
+    (per-round dispatch) under the population, held as in
+    ``[packed femnist]``. Returns the flash launches."""
+    from fedml_tpu_torch import population as poplib
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    rounds = 3
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    made = []
+
+    def keep(original):
+        def run(self, *args, **kwargs):
+            made.append(self)
+            return original(self, *args, **kwargs)
+        return run
+
+    _zero_flash_counters()
+    with _packed_recorder(torch) as rec, _wrapped(FedSim, "run", keep):
+        packed, packed_wall = _deterministic_cli(
+            torch, _femnist_argv(rounds, "--pack_lanes", "2", "--population", POPULATION_SPEC))
+    passes = _pass_counts("population", rec, rounds)
+    pop = poplib.Population(POPULATION_SPEC, FEMNIST["clients"], 0)
+    views = [pop.round_view(r, FEMNIST["per_round"]) for r in range(rounds)]
+    trace = poplib.save_trace(BUILD_DIR / "population_trace.jsonl", pop, rounds,
+                              FEMNIST["per_round"])
+    with _packed_recorder(torch) as rec_trace:
+        replayed, replay_wall = _deterministic_cli(
+            torch, _femnist_argv(rounds, "--pack_lanes", "2", "--population_trace", str(trace)))
+    _pass_counts("population trace", rec_trace, rounds)
+    launches = _flash_launches()
+    (sim,) = made
+    padded = FedSim(sim.trainer, sim.train_data, None, dataclasses.replace(
+        sim.config, pack_lanes=0, block_dispatch=False, pipeline_depth=0), device="cuda")
+    wide = FedSim(sim.trainer, sim.train_data, None, dataclasses.replace(
+        sim.config, pack_lanes=10), device="cuda")
+    gaps = _one_round_gaps(torch, {"padded": padded, "packed 10 lanes": wide,
+                                   "packed 2 lanes": sim}, rounds)
+    same = _strip_times(replayed) == _strip_times(packed)
+    values = [v for r in packed for v in r.values()]
+    log(f"[population] FEMNIST, {POPULATION_SPEC!r}, --pack_lanes 2: dropped a round "
+        f"{[int(v.dropped.sum()) for v in views]}, eligible "
+        f"{[v.eligible_count for v in views]}, passes a round {passes}, one graph replay each; "
+        f"s/round generative {np.mean([r['round_time'] for r in packed]):.4f}, replayed trace "
+        f"{np.mean([r['round_time'] for r in replayed]):.4f} (runs {packed_wall:.2f} and "
+        f"{replay_wall:.2f} s); the trace's replay bitwise equal to the generative run: {same}; "
+        f"rounds 0-{rounds - 1} from the same variables, against the padded round: largest "
+        f"difference a round " + "; ".join(f"{k} " + ", ".join(f"{d:.3e}" for d, _ in v)
+                                           for k, v in gaps.items())
+        + f"; Train/Loss " + ", ".join(f"{r['Train/Loss']:.6f}" for r in packed)
+        + f"; flash launches {launches}")
+    if not all(np.isfinite(values)) or len(packed) != rounds:
+        fail(f"population: bad history {packed}")
+    if not same:
+        fail(f"population: the trace's replay {replayed} differs from the run {packed}")
+    _check_gaps("population", gaps)
+    return launches
 
 # the recurrent family: small widths for the card-vs-CPU check; BASELINE row 4
 # at its recipe (fedml_tpu/exp/repro_shakespeare.py:3-8), 1200 rounds cut to
@@ -2225,8 +2621,17 @@ def main() -> None:
                                             mnist_dir)
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
         f"six runs (repro, four CLI, FedProx)")
-    cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
-    cli_launches["femnist_blocks"] = _timed("femnist blocks", phase_femnist_blocks, torch)
+    femnist_loads = []
+    with _loaded_once(femnist_loads):
+        cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
+        cli_launches["femnist_blocks"], femnist_runs = _timed("femnist blocks",
+                                                              phase_femnist_blocks, torch)
+        cli_launches["packed_femnist"] = _timed("packed femnist", phase_packed_femnist, torch,
+                                                femnist_runs)
+        cli_launches["population"] = _timed("population", phase_population, torch)
+    log(f"[femnist] the 3400-client fallback built in {femnist_loads[0]:.2f} s, "
+        f"{len(femnist_loads)} time(s) for the FEMNIST phases' CLI runs")
+    cli_launches["packed_overflow"] = _timed("packed overflow", phase_packed_overflow, torch)
     cli_launches["cli_transformer"] = _timed("small card vs cpu", phase_small_card_vs_cpu,
                                              torch)
     cli_launches["blocks_small"] = _timed("blocks small", phase_blocks_small, torch)
@@ -2240,7 +2645,8 @@ def main() -> None:
     cli_launches["fednas_small"] = _timed("fednas small", phase_fednas_small, torch)
     cli_launches["fednas"], cli_launches["fednas_unrolled"] = _timed("fednas", phase_fednas,
                                                                      torch, smi)
-    for path in ("femnist_blocks", "blocks_small", "rnn_small", "shakespeare_cli",
+    for path in ("femnist_blocks", "packed_femnist", "population", "packed_overflow",
+                 "blocks_small", "rnn_small", "shakespeare_cli",
                  "repro_shakespeare", "so_nwp", "so_lr", "fednas_small", "fednas",
                  "fednas_unrolled"):
         if any(cli_launches[path].values()):

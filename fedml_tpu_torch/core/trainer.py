@@ -31,6 +31,11 @@ Two local-training programs, one per cohort mode of the engine:
   function of ``(params, model_state, opt_state)`` stacked ``[C, ...]``,
   stepped by ``torch.func.vmap`` of ``torch.func.grad_and_value`` over a
   functional apply of the module and the optimizer's functional form.
+
+:func:`make_lane_step` is the same step for packed lanes
+(``SimConfig.pack_lanes``): a lane resets its carry to the global model at
+each client boundary, and :class:`LaneDropout` serves each lane the masks
+its client would draw in the padded round.
 """
 
 from __future__ import annotations
@@ -357,6 +362,37 @@ class DropoutStream:
         return draw_dropout_masks(self.sites, self._generator, self.lead)
 
 
+class LaneDropout:
+    """A packed pass's dropout keep masks, ``[S_lane, L, B, ...]`` buffers
+    served by lane step: lane ``l`` at lane step ``t`` runs client slot
+    ``c`` at chain step ``g`` and reads slice ``c`` of step ``g``'s draw of
+    the round's :class:`DropoutStream`, the masks the padded round gives
+    that client at that step. :meth:`fill` draws each distinct chain step
+    of the pass once and scatters its slices into place; a lane step that
+    runs no client keeps stale masks, which its fully padded batch never
+    uses. The buffers are fixed, so a CUDA graph of the pass reads them."""
+
+    def __init__(self, sites: dict, s_lane: int, lanes: int, batch: int,
+                 device: torch.device):
+        self.buffers = {name: torch.zeros((s_lane, lanes, batch) + tuple(shape),
+                                          dtype=torch.bool, device=device)
+                        for name, (shape, _) in sites.items()}
+
+    def masks(self, t: int) -> dict[str, torch.Tensor]:
+        return {k: b[t] for k, b in self.buffers.items()}
+
+    def fill(self, stream: DropoutStream, order) -> None:
+        """``order`` is the pass's ``(pos, slots, groups)``: ``pos`` the flat
+        ``t * L + l`` positions of its live lane steps and ``slots`` their
+        client slots (device tensors, sorted by chain step), ``groups`` the
+        host's ``(g, lo, hi)`` runs of one chain step ``g`` in them."""
+        pos, slots, groups = order
+        for g, lo, hi in groups:
+            for k, m in stream.masks(g).items():
+                flat = self.buffers[k].view((-1,) + tuple(m.shape[1:]))
+                flat.index_copy_(0, pos[lo:hi], m.index_select(0, slots[lo:hi]))
+
+
 # ---------------------------------------------------------------------------
 # ClientTrainer
 # ---------------------------------------------------------------------------
@@ -587,35 +623,20 @@ def make_local_train(trainer: ClientTrainer):
     return local_train
 
 
-def make_vmap_train(trainer: ClientTrainer):
-    """Returns ``vmap_train(global_variables, data, num_steps, draws=None) ->
-    (stacked_variables, metrics)``, the whole cohort's training at once
-    (``fedml_tpu/core/trainer.py:247-312`` under ``jax.vmap``).
-
-    ``data`` is the cohort's ``[C, S, B, ...]`` batch stack, ``num_steps``
-    the ``[C]`` per-client step budgets, ``draws`` the ``[C, E, S, B]``
-    augmentation draws, ``dropout`` the round's :class:`DropoutStream` (each
-    step's ``[C, B, ...]`` masks enter the mapped step as batched inputs).
-    Every client starts from ``global_variables`` with a fresh optimizer
-    state; the proximal term takes ``global_variables``' parameters
-    unbatched; ``(params, model_state, opt_state)`` are carried
-    stacked ``[C, ...]`` through E epochs x S steps, each step one
-    ``torch.func.vmap`` of ``torch.func.grad_and_value`` over the functional
-    apply of the module. A client's step is a no-op (``torch.where(has_data,
-    new, old)`` on all three) when its batch is fully padded or past its
-    budget. ``metrics["train_loss"]`` ``[C]`` is each client's mean loss over
-    the executed steps of its last executed epoch. The variables come back
-    stacked ``[C, ...]`` in ``global_variables``' key order.
-
-    Raises when the trainer's optimizer has no functional form: the vmap
-    mode never falls back to training clients one at a time."""
+def _functional_step(trainer: ClientTrainer):
+    """One client's step as a pure function, ``step(params, state,
+    opt_state, batch, global_params) -> (params, state, opt_state, loss,
+    w)``, to be batched by ``torch.func.vmap``: ``torch.func.grad_and_value``
+    over the functional apply of the module, the optimizer's functional
+    update, and a no-op (``torch.where(has_data, new, old)`` on all three)
+    when the batch is fully padded. ``w`` is 1.0 where the step saw data.
+    Raises when the trainer's optimizer has no functional form."""
     opt = trainer.optimizer
     if not (callable(getattr(opt, "init", None)) and callable(getattr(opt, "update", None))):
         raise TypeError(
             "cohort_execution='vmap' steps the optimizer's functional form (init/update, "
             f"e.g. fedml_tpu_torch.core.trainer.sgd or adam); {opt!r} has none")
     loss_of = trainer.loss_and_metrics[0]
-    param_names = [k for k, _ in trainer.module.named_parameters()]
 
     def loss_fn(params, state, batch, global_params):
         logits, new_state = trainer.apply_train(params, state, batch["x"],
@@ -637,7 +658,33 @@ def make_vmap_train(trainer: ClientTrainer):
         return (keep(new_params, params), keep(new_state, state),
                 keep(new_opt_state, opt_state), loss, has_data.float())
 
-    vstep = torch.func.vmap(step, in_dims=(0, 0, 0, 0, None))
+    return step
+
+
+def make_vmap_train(trainer: ClientTrainer):
+    """Returns ``vmap_train(global_variables, data, num_steps, draws=None) ->
+    (stacked_variables, metrics)``, the whole cohort's training at once
+    (``fedml_tpu/core/trainer.py:247-312`` under ``jax.vmap``).
+
+    ``data`` is the cohort's ``[C, S, B, ...]`` batch stack, ``num_steps``
+    the ``[C]`` per-client step budgets, ``draws`` the ``[C, E, S, B]``
+    augmentation draws, ``dropout`` the round's :class:`DropoutStream` (each
+    step's ``[C, B, ...]`` masks enter the mapped step as batched inputs).
+    Every client starts from ``global_variables`` with a fresh optimizer
+    state; the proximal term takes ``global_variables``' parameters
+    unbatched; ``(params, model_state, opt_state)`` are carried
+    stacked ``[C, ...]`` through E epochs x S steps, each step one
+    ``torch.func.vmap`` of :func:`_functional_step`. A client's step is a
+    no-op when its batch is fully padded or past its budget.
+    ``metrics["train_loss"]`` ``[C]`` is each client's mean loss over the
+    executed steps of its last executed epoch. The variables come back
+    stacked ``[C, ...]`` in ``global_variables``' key order.
+
+    Raises when the trainer's optimizer has no functional form: the vmap
+    mode never falls back to training clients one at a time."""
+    opt = trainer.optimizer
+    vstep = torch.func.vmap(_functional_step(trainer), in_dims=(0, 0, 0, 0, None))
+    param_names = [k for k, _ in trainer.module.named_parameters()]
 
     def vmap_train(global_variables: StateDict, data: Batch, num_steps: torch.Tensor,
                    draws=None, dropout: DropoutStream | None = None):
@@ -677,6 +724,36 @@ def make_vmap_train(trainer: ClientTrainer):
         return {k: merged[k] for k in global_variables}, {"train_loss": train_loss}
 
     return vmap_train
+
+
+def make_lane_step(trainer: ClientTrainer):
+    """One packed-lane step (``fedml_tpu/core/trainer.py:315-342``):
+    ``lane_step(params, state, opt_state, global_variables, opt0, batch,
+    is_first, global_params) -> (params, state, opt_state, loss, w)``.
+
+    The packed execution mode (``SimConfig.pack_lanes``) runs a lane that
+    carries one client's training state at a time; ``is_first`` marks a
+    client boundary: the carry is reset to the broadcast global variables
+    and the fresh optimizer state ``opt0`` by a pure select
+    (``torch.where``, no arithmetic, so the reset is bit-exact), then the
+    ordinary step of :func:`make_vmap_train` runs (:func:`_functional_step`).
+    ``w`` is the step's loss weight (did the step see data).
+    ``global_params`` are the proximal term's (empty without one). Written
+    to be batched by ``torch.func.vmap`` over the lane axis, with
+    ``global_variables``, ``opt0`` and ``global_params`` unbatched and
+    ``is_first`` a per-lane bool."""
+    step = _functional_step(trainer)
+
+    def lane_step(params: StateDict, state: StateDict, opt_state: StateDict,
+                  global_variables: StateDict, opt0: StateDict, batch: Batch,
+                  is_first: torch.Tensor, global_params: StateDict):
+        def reset(fresh, carried):
+            return {k: torch.where(is_first, fresh[k], carried[k]) for k in carried}
+
+        return step(reset(global_variables, params), reset(global_variables, state),
+                    reset(opt0, opt_state), batch, global_params)
+
+    return lane_step
 
 
 def make_local_eval(trainer: ClientTrainer):

@@ -25,9 +25,12 @@ round up to the synchronisation of its metrics, eval excluded; the pipelined
 loop's is its window's per-round mean (the window's rounds over its wall
 time up to the synchronisation, eval excluded), as ``FedSim.run`` reports it.
 
-The JAX loop's trace spans come with ``obs/trace.py`` (ROADMAP §A13), and
-its packed, sharded, population and defense summaries with those planes
-(§A10, §A12).
+At the start the loop logs the sim's packed-lane and population summaries
+(``FedSim.pack_summary``, ``population_summary``), as the JAX loop does;
+with packed lanes on the card it captures the lane pass's CUDA graph before
+the prefetch thread starts. The JAX loop's trace spans come with
+``obs/trace.py`` (ROADMAP §A13), and its sharded and defense summaries with
+those planes (§A10, §A12).
 """
 
 from __future__ import annotations
@@ -54,6 +57,20 @@ def run_rounds(sim, cfg, metrics_out: str | None, round_sleep: float = 0.0,
             os.unlink(sentinel)
     variables = sim.init_round_variables()
     server_state = sim.aggregator.init_state(variables)
+    pack = getattr(sim, "pack_summary", lambda: {})()
+    if pack:
+        # packed lanes (SimConfig.pack_lanes): the lane geometry beside the
+        # run, so a reader can tell which execution mode made the curve
+        logging.info("packed-lane execution: %s", pack)
+        if sim.device.type == "cuda" and cfg.comm_round > 0:
+            # a capture may not overlap the prefetch thread's pinned copies
+            sim.capture_pass_graph(0, variables=variables)
+    pop = getattr(sim, "population_summary", lambda: {})()
+    if pop:
+        # a heterogeneous population (SimConfig.population): the spec or
+        # trace up front, so a curve trained under churned cohorts and
+        # truncated budgets is never taken for an idealized run
+        logging.info("population: %s", pop)
     freq = max(cfg.frequency_of_the_test, 1)
     depth = getattr(sim, "pipeline_depth", 0)
     prefetch = drain = None

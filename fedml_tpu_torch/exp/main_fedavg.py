@@ -12,7 +12,9 @@ hold (among them ``--model lr`` on ``mnist``, ``synthetic_*`` and
 ``stackoverflow_nwp``; the datasets without their files on the registry's
 fixtures), ``--client_optimizer sgd|adam`` with ``--wd`` and ``--momentum``,
 ``--augment``, ``--eval_on_clients``, ``--stage_on_device`` (0: host
-staging), ``--pipeline_depth``, ``--profile_dir``, ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
+staging), ``--pack_lanes`` and ``--pack_capacity_factor`` (packed lanes),
+``--population``, ``--population_trace`` and ``--population_seed`` (the
+heterogeneous population), ``--pipeline_depth``, ``--profile_dir``, ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
 config; it needs PyYAML, imported only when ``--cf`` is given). The JAX
 CLI's own flag-combination errors are kept as they are; after them, a flag
 whose plane is not ported raises ``NotImplementedError`` naming its ROADMAP
@@ -104,10 +106,11 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--send_retries", type=int, default=0)
     parser.add_argument("--retry_base_delay", type=float, default=0.05)
     parser.add_argument("--heartbeat_interval", type=float, default=0.0)
-    # heterogeneous population model (ROADMAP §A10)
-    parser.add_argument("--population", type=str, default=None)
-    parser.add_argument("--population_trace", type=str, default=None)
-    parser.add_argument("--population_seed", type=int, default=None)
+    # heterogeneous population model (fedml_tpu_torch/population): cohort
+    # eligibility, step budgets and mid-round dropout on the sim engine
+    from fedml_tpu_torch.population import add_cli_flags as add_population_cli_flags
+
+    add_population_cli_flags(parser)
     # update compression (ROADMAP §A10) and downlink coding (§A11)
     parser.add_argument("--compressor", type=str, default="none")
     parser.add_argument("--topk-frac", "--topk_frac", dest="topk_frac", type=float,
@@ -130,8 +133,15 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--stage_on_device", type=int, default=-1,
                         help="-1 auto (on the device up to 2 GiB of training arrays), "
                              "0 host staging, 1 device-resident dataset + on-device gather")
-    parser.add_argument("--pack_lanes", type=int, default=0)
-    parser.add_argument("--pack_capacity_factor", type=float, default=1.25)
+    parser.add_argument("--pack_lanes", type=int, default=0,
+                        help="packed-lane cohort execution: bin-pack each round's "
+                             "per-client step streams into N fixed-length lanes instead "
+                             "of padding every client to the cohort max (on the card each "
+                             "pass a CUDA graph replay). 0 = off (padded path); the same "
+                             "results either way")
+    parser.add_argument("--pack_capacity_factor", type=float, default=1.25,
+                        help="lane-length head room over the expected cohort load; "
+                             "overflow draws spill to an extra sequential pass")
     parser.add_argument("--mesh_shape", type=str, default=None)
     parser.add_argument("--shard_rules", type=str, default=None)
     parser.add_argument("--pipeline_depth", type=int, default=-1,
@@ -175,14 +185,11 @@ _UNPORTED_FLAGS = {
     "norm_bound": "§A10 (robust aggregation)", "stddev": "§A10 (robust aggregation)",
     "robust_rule": "§A10 (robust aggregation)", "reservoir_k": "§A10 (robust aggregation)",
     "retry_base_delay": "§A11",
-    "population": "§A10 (population model)", "population_trace": "§A10 (population model)",
-    "population_seed": "§A10 (population model)",
     "compressor": "§A10 (update compression)", "topk_frac": "§A10 (update compression)",
     "quantize_bits": "§A10 (update compression)",
     "error_feedback": "§A10 (update compression)",
     "downlink_compressor": "§A11", "downlink_keyframe_every": "§A11",
     "downlink_retention": "§A11",
-    "pack_lanes": "§A10 (packed lanes)", "pack_capacity_factor": "§A10 (packed lanes)",
     "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
     "trace_dir": "§A13 (obs/trace.py)",
     "checkpoint_dir": "§A13 (obs/checkpoint.py)", "checkpoint_every": "§A13 (obs/checkpoint.py)",
@@ -352,6 +359,7 @@ def run(args) -> list[dict]:
     from fedml_tpu_torch.data.registry import load_partition_data
     from fedml_tpu_torch.models.registry import create_model
     from fedml_tpu_torch.obs.metrics import MetricsLogger, logging_config
+    from fedml_tpu_torch.population import sim_config_fields as population_fields
     from fedml_tpu_torch.sim.engine import FedSim, SimConfig
 
     logging_config(0)
@@ -380,6 +388,9 @@ def run(args) -> list[dict]:
         stage_on_device=None if args.stage_on_device < 0 else bool(args.stage_on_device),
         pipeline_depth=None if args.pipeline_depth < 0 else args.pipeline_depth,
         profile_dir=args.profile_dir,
+        pack_lanes=args.pack_lanes,
+        pack_capacity_factor=args.pack_capacity_factor,
+        **population_fields(args),
     )
     sim = FedSim(trainer, ds.train, ds.test_arrays, cfg, aggregator=aggregator,
                  device=args.device)

@@ -5,6 +5,10 @@ one ``[C, S, B]`` index map (C clients x S steps x B batch, -1 = empty slot)
 with the true per-client sample counts as aggregation weights. The functions
 are copies of the reference's, so the same seed gives bitwise-equal maps and
 batches; the engine gathers the batches on the device from the map.
+
+The packed-lane planners (:func:`pack_cohort`, :func:`pack_index_map`,
+``SimConfig.pack_lanes``) bin-pack the cohort's executed-step streams into
+L fixed-length lanes, so skewed cohorts stop computing straggler padding.
 """
 
 from __future__ import annotations
@@ -214,6 +218,237 @@ def stack_cohort(
     """
     idx, sizes = cohort_index_map(data, client_ids, batch_size, steps=steps, rng=rng)
     return gather_index_stack(data.arrays, idx), sizes
+
+
+# ---------------------------------------------------------------------------
+# Packed-lane execution planning (``SimConfig.pack_lanes``): instead of one
+# lane per client padded to the cohort max, the cohort's per-client step
+# streams are bin-packed into L fixed-length lanes, so the device's work
+# scales with the executed steps, not C x the straggler max. Copies of the
+# reference's planners (``fedml_tpu/sim/cohort.py:273-505``), bitwise equal.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PackPass:
+    """One dispatch of the packed lane program: [L, S_lane] per-step plan.
+
+    ``slot``: global cohort slot executing at this lane step (-1 = lane tail
+    padding). ``gidx``: the step's global index e*S+s in the client's
+    epochs-x-steps chain — drives both the per-step rng-key gather and the
+    loss-buffer scatter, so skipped padding steps cannot shift the client's
+    rng stream. ``sidx``: the data-step row s into the round's [C, S, B]
+    cohort index map (epochs re-read the same rows, exactly as the padded
+    scan does). ``boundary``: 1 on the client's last executed step — the
+    round program emits the finished client's model into its update-stack
+    slot there and resets the lane carry to the global params."""
+
+    slot: np.ndarray      # [L, S_lane] int32
+    gidx: np.ndarray      # [L, S_lane] int32
+    sidx: np.ndarray      # [L, S_lane] int32
+    boundary: np.ndarray  # [L, S_lane] int32
+
+
+@dataclasses.dataclass(frozen=True)
+class PackPlan:
+    """A round's lane packing: one or more fixed-shape :class:`PackPass`
+    dispatches (overflow cohorts spill to extra sequential passes, keeping
+    every pass the same compiled program). ``total_steps`` counts executed
+    (data-carrying, in-budget) steps across the cohort; ``capacity`` is
+    ``len(passes) * lanes * s_lane`` — their ratio is the packed padding
+    fraction."""
+
+    passes: tuple
+    lanes: int
+    s_lane: int
+    total_steps: int
+    capacity: int
+
+    @property
+    def padding_frac(self) -> float:
+        return 1.0 - self.total_steps / max(self.capacity, 1)
+
+
+def executed_steps(
+    num_steps: np.ndarray, data_steps: np.ndarray, steps_per_epoch: int,
+    epochs: int,
+) -> np.ndarray:
+    """[C, E] executed (parameter-changing) step counts per client per epoch:
+    a padded-scan step is a real step iff its batch row carries data
+    (``s < data_steps``) AND it is inside the client's straggler budget
+    (``e*S + s < num_steps``). Everything else is a masked no-op the packed
+    path exists to skip."""
+    S = int(steps_per_epoch)
+    num_steps = np.asarray(num_steps, np.int64)
+    data_steps = np.asarray(data_steps, np.int64)
+    budget = np.clip(
+        num_steps[:, None] - np.arange(int(epochs))[None, :] * S, 0, S
+    )
+    return np.minimum(np.maximum(data_steps, 0)[:, None], budget)
+
+
+def _assign_lanes(bin_totals: np.ndarray, lanes_per_shard: int, s_lane: int,
+                  n_shards: int) -> list:
+    """The greedy-LPT lane assignment shared by the main packing and the
+    dropped-client re-pack: ``assign[p][lane] = clients`` (placement order)
+    for pass p. Clients with a zero total are skipped; a client that fits
+    no lane of the current pass spills to a fresh pass."""
+    c_local = len(bin_totals) // n_shards
+    L = lanes_per_shard * n_shards
+    assign: list[list[list[int]]] = []
+    for shard in range(n_shards):
+        slots = np.arange(shard * c_local, (shard + 1) * c_local)
+        order = slots[np.argsort(-bin_totals[slots], kind="stable")]
+        pending = [int(s) for s in order if bin_totals[s] > 0]
+        p = 0
+        while pending:
+            while len(assign) <= p:
+                assign.append([[] for _ in range(L)])
+            loads = np.zeros(lanes_per_shard, np.int64)
+            lane_clients: list[list[int]] = [[] for _ in range(lanes_per_shard)]
+            nxt: list[int] = []
+            for s in pending:
+                lane = int(np.argmin(loads))
+                # the least-loaded lane not fitting means NO lane fits
+                if loads[lane] + bin_totals[s] <= s_lane:
+                    loads[lane] += bin_totals[s]
+                    lane_clients[lane].append(s)
+                else:
+                    nxt.append(s)
+            for li, clients in enumerate(lane_clients):
+                assign[p][shard * lanes_per_shard + li] = clients
+            pending = nxt
+            p += 1
+    return assign
+
+
+def pack_cohort(
+    num_steps: np.ndarray,
+    data_steps: np.ndarray,
+    steps_per_epoch: int,
+    epochs: int,
+    lanes_per_shard: int,
+    s_lane: int,
+    n_shards: int = 1,
+    predicted_steps: np.ndarray | None = None,
+) -> PackPlan:
+    """Greedy-LPT bin packing of the cohort's step streams into lanes.
+
+    Clients are packed per shard (slot block ``[d*c_local, (d+1)*
+    c_local)`` goes to lane block ``[d*lanes_per_shard, ...)``), so each
+    shard's lanes only ever emit into its own update-stack block (the port
+    runs one shard, the JAX engine one per mesh device). Within a shard:
+    longest-processing-time order, each client onto the least-loaded lane
+    that still fits; clients that fit no lane of the current pass spill to
+    a fresh pass (same shapes, an extra sequential pass). Pure numpy,
+    O(total executed steps) like the CSR staging machinery.
+
+    ``predicted_steps``: the scheduler's per-client step forecast — lane ORDERING and fit
+    decisions bin by the predicted executed totals (the planner cannot know
+    who will drop mid-round), while placement emits the ACTUAL streams.
+    Clients whose actual stream came up short (mid-round dropout truncated
+    their budget: ``num_steps < predicted_steps``) are pulled out of their
+    predicted lane and RE-PACKED by their actual totals into dedicated
+    overflow passes appended after the main ones — every client's executed
+    stream is still placed exactly once (``tests/test_torch_packed.py``
+    holds the invariant). ``None`` keeps the original actual-steps binning
+    bit-identically."""
+    num_steps = np.asarray(num_steps, np.int64)
+    C = len(num_steps)
+    if C % n_shards:
+        raise ValueError(f"cohort size {C} not divisible by {n_shards} shards")
+    c_local = C // n_shards
+    S = int(steps_per_epoch)
+    E = int(epochs)
+    per_epoch = executed_steps(num_steps, data_steps, S, E)
+    totals = per_epoch.sum(axis=1)
+    if predicted_steps is None:
+        bin_totals = totals
+    else:
+        predicted_steps = np.asarray(predicted_steps, np.int64)
+        if (predicted_steps < num_steps).any():
+            bad = int(np.argmax(predicted_steps < num_steps))
+            raise ValueError(
+                f"cohort slot {bad}: predicted_steps "
+                f"{int(predicted_steps[bad])} < actual num_steps "
+                f"{int(num_steps[bad])} — dropout only ever truncates a "
+                "budget, a larger actual means the prediction wiring is "
+                "wrong"
+            )
+        bin_totals = executed_steps(
+            predicted_steps, data_steps, S, E
+        ).sum(axis=1)
+    if (bin_totals > s_lane).any():
+        bad = int(np.argmax(bin_totals))
+        raise ValueError(
+            f"cohort slot {bad} needs {int(bin_totals[bad])} steps but lanes "
+            f"are {s_lane} long — size s_lane to the population max"
+        )
+    # mid-round-dropped clients: predicted a longer stream than they
+    # executed — binned with everyone (the scheduler's view), then pulled
+    # and re-packed by ACTUAL totals into overflow passes below
+    dropped_mask = bin_totals > totals
+    L = lanes_per_shard * n_shards
+    assign = _assign_lanes(bin_totals, lanes_per_shard, s_lane, n_shards)
+    if dropped_mask.any():
+        # dropped clients leave their predicted lanes (the lane slot was
+        # reserved by the forecast) and their ACTUAL truncated streams are
+        # re-packed into overflow passes appended after the main ones —
+        # same compiled shapes, extra sequential dispatches, every client
+        # still placed exactly once
+        for p_assign in assign:
+            for li, clients in enumerate(p_assign):
+                p_assign[li] = [s for s in clients if not dropped_mask[s]]
+        assign.extend(_assign_lanes(
+            np.where(dropped_mask, totals, 0), lanes_per_shard, s_lane,
+            n_shards,
+        ))
+        # a main pass whose every client dropped would dispatch a no-op
+        assign = [a for a in assign if any(lane for lane in a)]
+    passes = []
+    for p_assign in assign:
+        slot = np.full((L, s_lane), -1, np.int32)
+        gidx = np.zeros((L, s_lane), np.int32)
+        sidx = np.zeros((L, s_lane), np.int32)
+        boundary = np.zeros((L, s_lane), np.int32)
+        for li, clients in enumerate(p_assign):
+            pos = 0
+            for s in clients:
+                t = int(totals[s])
+                counts = per_epoch[s]
+                g = np.concatenate(
+                    [e * S + np.arange(c) for e, c in enumerate(counts)]
+                )
+                sx = np.concatenate([np.arange(c) for c in counts])
+                slot[li, pos:pos + t] = s
+                gidx[li, pos:pos + t] = g
+                sidx[li, pos:pos + t] = sx
+                boundary[li, pos + t - 1] = 1
+                pos += t
+        passes.append(PackPass(slot, gidx, sidx, boundary))
+    if not passes:  # an all-empty cohort still needs one (no-op) dispatch
+        passes.append(PackPass(
+            np.full((L, s_lane), -1, np.int32),
+            np.zeros((L, s_lane), np.int32),
+            np.zeros((L, s_lane), np.int32),
+            np.zeros((L, s_lane), np.int32),
+        ))
+    return PackPlan(
+        tuple(passes), L, int(s_lane), int(totals.sum()),
+        len(passes) * L * int(s_lane),
+    )
+
+
+def pack_index_map(idx: np.ndarray, pack_pass: PackPass) -> np.ndarray:
+    """Gather the round's [C, S, B] cohort index map into the packed
+    [L, S_lane, B] lane layout (-1 = empty slot). Lane steps read the exact
+    rows the padded scan would have read, so batch content is bit-identical
+    by construction."""
+    C, S, _ = idx.shape
+    safe_slot = np.clip(pack_pass.slot, 0, C - 1)
+    safe_s = np.clip(pack_pass.sidx, 0, S - 1)
+    out = idx[safe_slot, safe_s]
+    return np.where((pack_pass.slot >= 0)[..., None], out, -1).astype(np.int32)
 
 
 def batch_array(arrays: dict[str, np.ndarray], batch_size: int) -> dict[str, np.ndarray]:

@@ -29,6 +29,21 @@ FedSim, so a block's host work does not grow with the kernels of a step. On
 the CPU a block runs its rounds one after another, with the same staging
 and stacked metrics.
 
+Packed lanes (``pack_lanes`` > 0, ``engine.py:1082-1266,1669-1856``): a
+round's clients' executed steps are bin-packed into L lanes of a fixed
+length (:func:`~fedml_tpu_torch.sim.cohort.pack_cohort`, on the staging
+thread); a lane pass runs them vmapped over the lanes, each lane resetting
+to the global model at a client's first step and writing the client's model
+into its slot of the update stack at its last, and the aggregation gets the
+padded round's update stack in slot order (an unwritten slot holds the
+global model) and the loss summed as the padded round sums it. On the card
+each pass is one replay of a CUDA graph of the lane pass
+(``sim/graphs.py`` :class:`PassGraph`); on the CPU it runs eagerly. The
+heterogeneous population (``population``/``population_trace``,
+:mod:`fedml_tpu_torch.population`) drives cohort eligibility, step budgets
+and mid-round dropout (a dropped client weighs 0), through the JAX engine's
+hooks (``engine.py:1503-1631``); without one every round is what it was.
+
 :meth:`FedSim.run` is the JAX engine's driver (``engine.py:2069-2183``):
 with ``pipeline_depth`` >= 1 (the default, depth 1) a background thread
 stages the next segments (a round or a block, ``sim/prefetch.py``) into
@@ -44,6 +59,7 @@ records a ``torch.profiler`` Chrome trace of the rounds after the first.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from pathlib import Path
@@ -52,16 +68,18 @@ from typing import Any
 import numpy as np
 import torch
 
+from fedml_tpu_torch import population as poplib
 from fedml_tpu_torch.algorithms.base import Aggregator, EmptyRoundError, fedavg_aggregator
 from fedml_tpu_torch.algorithms.fedprox import straggler_epochs
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core import tree as treelib
-from fedml_tpu_torch.core.trainer import (ClientTrainer, DropoutStream, make_local_eval,
-                                          make_local_train, make_vmap_train)
+from fedml_tpu_torch.core.trainer import (ClientTrainer, DropoutStream, LaneDropout, _last_epoch,
+                                          make_lane_step, make_local_eval, make_local_train,
+                                          make_vmap_train)
 from fedml_tpu_torch.device import resolve_device
 from fedml_tpu_torch.ops import augment as augmentlib
 from fedml_tpu_torch.sim import cohort as cohortlib
-from fedml_tpu_torch.sim.graphs import RoundGraph
+from fedml_tpu_torch.sim.graphs import PassGraph, RoundGraph
 from fedml_tpu_torch.sim.prefetch import MetricsDrain, Prefetcher
 
 StateDict = dict[str, torch.Tensor]
@@ -70,11 +88,6 @@ StateDict = dict[str, torch.Tensor]
 # the values the port accepts (the JAX default first) and the ROADMAP item
 # that ports the rest.
 _NOT_PORTED = {
-    "population": ((None,), "§A10"),
-    "population_trace": ((None,), "§A10"),
-    "population_seed": ((None,), "§A10"),
-    "pack_lanes": ((0,), "§A10"),
-    "pack_capacity_factor": ((1.25,), "§A10"),
     "compressor": (("none",), "§A10"),
     "topk_frac": ((0.01,), "§A10"),
     "quantize_bits": ((8,), "§A10"),
@@ -99,8 +112,14 @@ class SimConfig:
     defaults, :func:`resolve_dispatch`) keep the dataset on the device and
     run eval-aligned blocks of rounds;
     ``pipeline_depth`` is the driver's staging depth (None = 1, 0 = serial);
-    ``profile_dir`` records a ``torch.profiler`` trace. A value of the JAX
-    engine's other fields that the port does not implement raises."""
+    ``profile_dir`` records a ``torch.profiler`` trace. ``population``
+    (a spec string, :func:`~fedml_tpu_torch.population.parse_population_spec`)
+    or ``population_trace`` (a saved trace) drive cohort eligibility, step
+    budgets and mid-round dropout, drawn from ``population_seed`` (None =
+    ``seed``); ``pack_lanes`` > 0 bin-packs each round's client step streams
+    into that many lanes, ``pack_capacity_factor`` the lane length's head
+    room. A value of the JAX engine's other fields that the port does not
+    implement raises."""
 
     client_num_in_total: int = 10
     client_num_per_round: int = 10
@@ -155,15 +174,16 @@ def resolve_dispatch(config: SimConfig, nbytes: int, platform: str) -> tuple[boo
     (``fedml_tpu/sim/engine.py:681-691``). The dataset stays on the device as
     ``config.stage_on_device`` says, by default when it takes at most 2 GiB;
     rounds run in blocks as ``config.block_dispatch`` says, by default with
-    the dataset on the device and a device that is not the CPU, and never
-    with the dataset on the host. The JAX rule also turns blocks off under
-    packed lanes (``pack_lanes`` > 0) and sharded rounds (``shard_rules``),
-    which ``SimConfig`` still refuses in the port (§A10, §A12)."""
+    the dataset on the device and a device that is not the CPU, never with
+    the dataset on the host and never under packed lanes (``pack_lanes`` >
+    0: a packed round dispatches one pass at a time). The JAX rule also
+    turns blocks off under sharded rounds (``shard_rules``), which
+    ``SimConfig`` still refuses in the port (§A12)."""
     on_device = (config.stage_on_device if config.stage_on_device is not None
                  else nbytes <= 2 << 30)
     block = (config.block_dispatch if config.block_dispatch is not None
              else on_device and platform != "cpu")
-    return on_device, bool(block and on_device)
+    return on_device, bool(block and on_device and config.pack_lanes <= 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +229,39 @@ class BlockStaged:
                       None if self.draws is None else {k: d[j] for k, d in self.draws.items()})
 
 
+@dataclasses.dataclass(frozen=True)
+class LanePass:
+    """One pass of a packed round on the device (``[L, S_lane]`` plan of a
+    :class:`~fedml_tpu_torch.sim.cohort.PackPass`): ``data`` is its
+    ``[L, S_lane, B]`` lane index map into the resident dataset (on-device
+    staging) or the gathered ``[L, S_lane, B, ...]`` lane batch stacks (host
+    staging); ``slot``, ``gidx`` and ``boundary`` are int64; ``dropout``
+    is the pass's :meth:`LaneDropout.fill` order (None without dropout)."""
+
+    data: Any
+    slot: torch.Tensor
+    gidx: torch.Tensor
+    boundary: torch.Tensor
+    dropout: tuple | None
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedStaged:
+    """A packed round's staged payload (``pack_lanes`` > 0, the JAX
+    ``PackedStaged``): one :class:`LanePass` a pass, the cohort's ``[C]``
+    weights and step budgets on the device, the round's ``[C, E, S, B]``
+    augmentation draws, and ``stats``, the host's plan accounting
+    (``n_passes``, ``total_steps``, ``capacity``, ``padded_steps``)."""
+
+    round_idx: int
+    cohort: np.ndarray
+    passes: tuple
+    weights: torch.Tensor
+    num_steps: torch.Tensor
+    draws: dict | None
+    stats: dict
+
+
 class FedSim:
     """Federated simulator on one device, in either cohort mode
     (``config.cohort_execution``: ``"vmap"`` trains the cohort at once,
@@ -225,16 +278,32 @@ class FedSim:
     aggregator: server rule; defaults to the FedAvg weighted mean
     device: where the model and the round run, and the dataset with
         on-device staging
+    local_train_fn: the JAX engine's custom round program (the GAN's), not
+        ported (ROADMAP §A13): anything but None raises
     """
 
     def __init__(self, trainer: ClientTrainer, train_data: cohortlib.FederatedArrays,
                  test_arrays: dict[str, np.ndarray] | None, config: SimConfig,
-                 aggregator: Aggregator | None = None, device: str | torch.device = "cuda"):
+                 aggregator: Aggregator | None = None, device: str | torch.device = "cuda",
+                 local_train_fn=None):
         self.device = resolve_device(device)
         self.trainer = trainer
         self.train_data = train_data
         self.config = config
+        # the heterogeneous population (fedml_tpu_torch.population): the
+        # spec or the trace that drives cohorts, budgets and dropout
+        self._population = self._make_population(config)
+        self._pop_view_cache: tuple | None = None
         self.aggregator = aggregator or fedavg_aggregator()
+        # per-client persistent models (the JAX gossip rules; none is
+        # ported, but a rule that says so is refused as the JAX engine does)
+        self._per_client = bool(getattr(self.aggregator, "per_client", False))
+        if self._per_client and self._population is not None:
+            raise ValueError(
+                "per-client aggregators (decentralized/gossip) keep slot i "
+                "== client i with full participation every round; a "
+                "population's availability churn breaks that identity — "
+                "run populations with broadcast-mode aggregation")
         if config.cohort_execution == "vmap":
             self._vmap_train = make_vmap_train(trainer)
         else:
@@ -242,6 +311,27 @@ class FedSim:
         self._local_eval = make_local_eval(trainer)
         # pin steps-per-epoch to the population max, as the JAX engine does
         self._steps = cohortlib.steps_per_epoch(train_data.max_client_size(), config.batch_size)
+        self._pack = self._check_pack(config, local_train_fn)
+        if local_train_fn is not None:
+            raise NotImplementedError(
+                "local_train_fn (a custom round program, e.g. the GAN's) is not ported to "
+                "fedml_tpu_torch yet: ROADMAP §A13 (fedgan)")
+        if self._pack:
+            # the lane length, fixed for the FedSim (engine.py:570-590): the
+            # population's largest per-client step count, with capacity
+            # head room over the expected cohort load; a round that
+            # overflows every lane spills to an extra pass of the same shape
+            self._c_pad = config.client_num_per_round
+            sizes = train_data.client_sizes()
+            slots = self._steps * config.batch_size
+            d = np.ceil(np.minimum(sizes, slots) / max(config.batch_size, 1)).astype(np.int64)
+            t = trainer.epochs * d
+            t_max = int(t.max()) if len(t) else 1
+            mean_t = float(t.mean()) if len(t) else 1.0
+            need = config.pack_capacity_factor * mean_t * self._c_pad / config.pack_lanes
+            self._s_lane = max(t_max, int(np.ceil(need)), 1)
+            self._lane_step = torch.func.vmap(make_lane_step(trainer),
+                                              in_dims=(0, 0, 0, None, None, 0, 0, None))
         nbytes = sum(np.asarray(a).nbytes for a in train_data.arrays.values())
         self._on_device, self._block_dispatch = resolve_dispatch(config, nbytes,
                                                                  self.device.type)
@@ -265,8 +355,94 @@ class FedSim:
         else:
             self._train_eval = cohortlib.batch_array(
                 {k: v[:n_eval] for k, v in train_data.arrays.items()}, bs)
-        # block dispatch on the card: one captured round per staged shape
+        # block dispatch on the card: one captured round per staged shape;
+        # packed rounds: one captured lane pass per pass shape
         self._graphs: dict[tuple, RoundGraph] = {}
+        self._pass_graphs: dict[tuple, PassGraph] = {}
+
+    @staticmethod
+    def _make_population(config: SimConfig):
+        """The population that ``config`` names (None without one), with the
+        JAX engine's checks and errors (``engine.py:243-299``)."""
+        if not (config.population or config.population_trace):
+            return None
+        if config.population and config.population_trace:
+            raise ValueError(
+                "SimConfig.population and SimConfig.population_trace "
+                "are both set — one of them would silently win; pick "
+                "the generative spec OR the trace replay")
+        if config.straggler_frac > 0:
+            raise ValueError(
+                "SimConfig.population replaces the uniform "
+                "straggler_frac draw with speed-model step budgets — "
+                "configure per-client heterogeneity in exactly one "
+                "place (drop straggler_frac)")
+        pop_seed = config.population_seed if config.population_seed is not None else config.seed
+        if config.population_trace:
+            population = poplib.load_trace(config.population_trace)
+            if population.num_clients != config.client_num_in_total:
+                raise ValueError(
+                    f"population trace {config.population_trace} was "
+                    f"captured over {population.num_clients} "
+                    f"clients but client_num_in_total="
+                    f"{config.client_num_in_total} — a trace replays "
+                    "one population only")
+            if population.jitter_active:
+                raise NotImplementedError(
+                    f"population trace {config.population_trace} "
+                    "records upload-arrival jitter — a wire-only "
+                    "knob; there is no wire on the sim engine "
+                    "(re-capture without jitter, or run the "
+                    "message-passing backends)")
+            return population
+        spec = poplib.parse_population_spec(config.population)
+        if spec.jitter_active:
+            raise NotImplementedError(
+                "population jitter schedules upload-arrival delays "
+                "— a wire-only knob; there is no wire on the sim "
+                "engine (run the message-passing backends, or drop "
+                "jitter from the spec)")
+        return poplib.Population(spec, config.client_num_in_total, pop_seed)
+
+    def _check_pack(self, config: SimConfig, local_train_fn) -> bool:
+        """Whether rounds run packed, with the JAX engine's conflicts
+        (``engine.py:526-567``), each error leading with the field to
+        change."""
+        if config.pack_lanes < 0:
+            raise ValueError(
+                f"pack_lanes must be >= 0 (got {config.pack_lanes}); "
+                "0 disables packing")
+        if config.pack_lanes == 0:
+            return False
+        if self._per_client:
+            raise ValueError(
+                f"aggregator={self.aggregator.name!r} (per-client) "
+                f"conflicts with pack_lanes={config.pack_lanes}: packed "
+                "lanes reset carries to the BROADCAST global params at "
+                "client boundaries, but per-client aggregators (decentralized/"
+                "gossip) keep a model per client — use the padded path "
+                "(pack_lanes=0)")
+        if config.cohort_execution == "scan":
+            raise ValueError(
+                "SimConfig.cohort_execution='scan' conflicts with "
+                f"pack_lanes={config.pack_lanes}: packed lanes replace "
+                "the cohort execution loop entirely — leave "
+                "cohort_execution='vmap' (lanes are vmapped)")
+        if local_train_fn is not None:
+            raise ValueError(
+                "local_train_fn conflicts with pack_lanes="
+                f"{config.pack_lanes}: packed lanes drive "
+                "ClientTrainer.train_step directly (boundary-aware lane "
+                "steps) and cannot honor a custom round program (e.g. "
+                "the GAN adversarial loop) — use the padded path "
+                "(pack_lanes=0)")
+        if config.block_dispatch:
+            raise ValueError(
+                "SimConfig.block_dispatch=True conflicts with "
+                f"pack_lanes={config.pack_lanes}: packed rounds already "
+                "dispatch one program per pass — leave block_dispatch "
+                "off (or unset) with pack_lanes")
+        return True
 
     @property
     def pipeline_depth(self) -> int:
@@ -332,10 +508,51 @@ class FedSim:
         """A single evaluable model: the identity in broadcast mode."""
         return variables
 
+    def _population_view(self, round_idx: int):
+        """The round's realized population state, cached per round (the
+        sampler, budget, weight and pack hooks all read it). Raises
+        :class:`EmptyRoundError` when availability churn or dropout leaves
+        the round nothing to aggregate (``engine.py:1503-1531``)."""
+        cached = self._pop_view_cache
+        if cached is not None and cached[0] == round_idx:
+            return cached[1]
+        view = self._population.round_view(round_idx, self.config.client_num_per_round)
+        if view.eligible_count == 0 or not view.real().any():
+            raise EmptyRoundError(
+                f"round {round_idx}: availability churn left no eligible "
+                f"clients (population of {self._population.num_clients}, "
+                "0 available) — nothing to aggregate; widen avail/"
+                "avail_block or skip the round")
+        if bool((view.dropped | ~view.real()).all()):
+            raise EmptyRoundError(
+                f"round {round_idx}: every sampled cohort member "
+                f"({int(view.real().sum())} of "
+                f"{view.cohort_size}) dropped mid-round — no update "
+                "survives to aggregate (the wire path's all-dropped-round "
+                "semantics)")
+        self._pop_view_cache = (round_idx, view)
+        return view
+
+    def _population_budgets(self, view) -> tuple[np.ndarray, np.ndarray]:
+        """``(actual, predicted)`` per-slot step budgets of a population
+        round, in scan-step units of the epochs x steps chain."""
+        return poplib.step_budgets(view, self.trainer.epochs * self._steps)
+
     def _round_budgets(self, cohort, round_idx: int) -> np.ndarray:
         """Per-client local-step budgets (scan-step units): stragglers run a
-        reduced epoch count e_i, i.e. the first e_i * steps-per-epoch steps."""
+        reduced epoch count e_i, i.e. the first e_i * steps-per-epoch steps.
+        With a population, the budgets come from its speed model instead
+        (dropout truncation included)."""
         cfg = self.config
+        if self._population is not None:
+            view = self._population_view(round_idx)
+            if not np.array_equal(np.asarray(cohort), view.cohort):
+                raise ValueError(
+                    "SimConfig.population drives cohort selection; "
+                    "compositions that pick their own cohorts (e.g. "
+                    "hierarchical groups) need the population off")
+            actual, _ = self._population_budgets(view)
+            return actual
         if cfg.straggler_frac > 0.0:
             epochs_arr = straggler_epochs(
                 round_idx, len(cohort), cfg.epochs, cfg.straggler_frac, cfg.seed)
@@ -353,7 +570,19 @@ class FedSim:
         )
         idx, weights = cohortlib.cohort_index_map(
             self.train_data, cohort, cfg.batch_size, steps=self._steps, rng=shuffle)
-        return idx, weights, self._round_budgets(cohort, round_idx)
+        num_steps = self._round_budgets(cohort, round_idx)
+        return idx, self._population_weights(weights, round_idx), num_steps
+
+    def _population_weights(self, weights: np.ndarray, round_idx: int) -> np.ndarray:
+        """Zero the aggregation weight of the cohort members that drop
+        mid-round: they trained part of their budget, but their update never
+        reaches the server, so they leave the weighted mean and the loss
+        average as a padding slot does. The identity without a
+        population."""
+        if self._population is None:
+            return weights
+        view = self._population_view(round_idx)
+        return np.where(view.dropped, 0.0, weights).astype(np.float32)
 
     def _round_draws(self, round_idx: int, n_clients: int):
         """The round's augmentation draws, ``[C, E, S, B]`` CPU tensors,
@@ -370,7 +599,12 @@ class FedSim:
         return {k: torch.stack([d[k] for d in per]) for k in per[0]}
 
     def _sample_cohort(self, round_idx: int) -> np.ndarray:
+        """The round's cohort: the reference's seeded draw, or with a
+        population its availability-aware one (``client_num_per_round``
+        slots, -1 for an empty slot when churn leaves fewer clients)."""
         cfg = self.config
+        if self._population is not None:
+            return self._population_view(round_idx).cohort
         cohort = rnglib.sample_clients(round_idx, cfg.client_num_in_total,
                                        cfg.client_num_per_round)
         if len(cohort) == 0:
@@ -383,8 +617,11 @@ class FedSim:
         ``stage_cohort``), weights, step budgets and augmentation draws,
         copied to the device. Pure in (config, round_idx), so staging it
         ahead of the dispatch loop (``sim/prefetch.py``) cannot change
-        cohorts or metrics."""
+        cohorts or metrics. Under ``pack_lanes`` a :class:`PackedStaged`
+        lane plan, bin-packing included (:meth:`_stage_packed_round`)."""
         cohort = self._sample_cohort(round_idx)
+        if self._pack:
+            return self._stage_packed_round(cohort, round_idx)
         idx, weights, num_steps = self._host_cohort_indices(cohort, round_idx)
         draws = self._round_draws(round_idx, len(cohort))
         if self._on_device:
@@ -420,20 +657,283 @@ class FedSim:
         r, n = segment
         return self.stage_round(r) if n == 1 else self.stage_block(r, n)
 
+    # -- packed lanes (SimConfig.pack_lanes) ---------------------------------
+
+    def _pack_round_plan(self, cohort, round_idx: int):
+        """Host-only planning for one packed round (``engine.py:1669-1704``):
+        the round's ``[C, S, B]`` index map, built as the padded round builds
+        it, and the lane packing of each client's executed-step stream,
+        binned by the population's predicted budgets when there is one
+        (the planner cannot know who drops mid-round; dropped clients are
+        re-packed by their actual streams into overflow passes)."""
+        idx, weights, num_steps = self._host_cohort_indices(cohort, round_idx)
+        if len(weights) != self._c_pad:
+            raise ValueError(
+                f"packed execution compiled for {self._c_pad} cohort slots "
+                f"but this cohort stages {len(weights)} — compositions that "
+                "pick their own cohort sizes (e.g. hierarchical groups) "
+                "need the padded path")
+        B = self.config.batch_size
+        data_steps = -(-(idx >= 0).reshape(len(weights), -1).sum(axis=1) // B)
+        predicted = None
+        if self._population is not None:
+            _, predicted = self._population_budgets(self._population_view(round_idx))
+        plan = cohortlib.pack_cohort(
+            num_steps, data_steps, self._steps, self.trainer.epochs,
+            self.config.pack_lanes, self._s_lane, 1, predicted_steps=predicted)
+        return idx, weights, num_steps, plan
+
+    def _plan_stats(self, n_slots: int, plan) -> dict:
+        return {"n_passes": len(plan.passes), "total_steps": plan.total_steps,
+                "capacity": plan.capacity,
+                "padded_steps": n_slots * self.trainer.epochs * self._steps}
+
+    def pack_round_stats(self, round_idx: int) -> dict:
+        """Plan accounting for the round the engine would run (its sampled
+        cohort, its budgets), all on the host: pass count, executed steps,
+        lane capacity and the padded round's step count."""
+        _, weights, _, plan = self._pack_round_plan(self._sample_cohort(round_idx), round_idx)
+        return self._plan_stats(len(weights), plan)
+
+    @staticmethod
+    def _dropout_order(pack_pass) -> tuple:
+        """The host half of a pass's :meth:`LaneDropout.fill` order: the flat
+        ``t * L + l`` positions of its live lane steps and their client
+        slots, sorted by chain step, and the ``(g, lo, hi)`` runs of one
+        chain step in them."""
+        L = pack_pass.slot.shape[0]
+        slot_t, gidx_t = pack_pass.slot.T, pack_pass.gidx.T  # [S_lane, L]
+        t, lane = np.nonzero(slot_t >= 0)
+        g = gidx_t[t, lane]
+        order = np.argsort(g, kind="stable")
+        pos, slots, g = (t * L + lane)[order], slot_t[t, lane][order], g[order]
+        starts = np.flatnonzero(np.r_[True, g[1:] != g[:-1]]) if len(g) else np.zeros(0, int)
+        ends = np.r_[starts[1:], len(g)]
+        groups = tuple((int(g[a]), int(a), int(b)) for a, b in zip(starts, ends))
+        return pos.astype(np.int64), slots.astype(np.int64), groups
+
+    def _stage_packed_round(self, cohort, round_idx: int) -> PackedStaged:
+        """Host staging for one packed round (``engine.py:1721-1777``): plan
+        it (:meth:`_pack_round_plan`), lay each pass's lane index map out
+        (or, with host staging, gather its lane batch stacks) and copy plan
+        and data to the device. Pure in (config, round_idx) like every
+        staging path, so the prefetch thread runs it ahead."""
+        idx, weights, num_steps, plan = self._pack_round_plan(cohort, round_idx)
+        sites = self.trainer.dropout_sites
+        passes = []
+        for pp in plan.passes:
+            pidx = cohortlib.pack_index_map(idx, pp)
+            if self._on_device:
+                data = self._stage_put(pidx)
+            else:
+                data = {k: self._stage_put(v) for k, v in
+                        cohortlib.gather_index_stack(self.train_data.arrays, pidx).items()}
+            order = None
+            if sites:
+                pos, slots, groups = self._dropout_order(pp)
+                order = (self._stage_put(pos), self._stage_put(slots), groups)
+            passes.append(LanePass(data, *(self._stage_put(a.astype(np.int64))
+                                           for a in (pp.slot, pp.gidx, pp.boundary)), order))
+        draws = self._round_draws(round_idx, len(cohort))
+        return PackedStaged(
+            round_idx, cohort, tuple(passes), self._stage_put(weights),
+            self._stage_put(num_steps),
+            None if draws is None else {k: self._stage_put(d) for k, d in draws.items()},
+            self._plan_stats(len(weights), plan))
+
+    def _packed_buffers(self, variables: StateDict, lanes: int) -> tuple:
+        """A packed round's zeroed output buffers (``engine.py:1084-1101``):
+        the ``[C + L, ...]`` update stack, its ``[C + L]`` written flags and
+        the ``[C + L, E * S]`` per-(client, chain step) loss and weight
+        buffers the round's loss is rebuilt from. Row ``C + l`` is lane
+        ``l``'s scratch row, where its writes land when it runs no client
+        (the JAX scatter's ``mode="drop"``)."""
+        rows = self._c_pad + lanes
+        T = self.trainer.epochs * self._steps
+        stack = {k: torch.zeros((rows,) + v.shape, dtype=v.dtype, device=v.device)
+                 for k, v in variables.items()}
+        zeros = functools.partial(torch.zeros, dtype=torch.float32, device=self.device)
+        return stack, zeros(rows), zeros((rows, T)), zeros((rows, T))
+
+    def lane_pass(self, lp: LanePass, global_variables: StateDict, bufs: tuple,
+                  draws: dict | None, dropout: LaneDropout | None) -> None:
+        """One pass over an ``[L, S_lane]`` lane plan (``engine.py:1103-1191``),
+        a function of its tensors alone (what a CUDA graph of the pass
+        captures, ``sim/graphs.py``), writing into ``bufs``
+        (:meth:`_packed_buffers`). Each lane carries one client's training
+        state at a time: at a client's first chain step (``gidx`` 0) it is
+        reset to the global model and a fresh optimizer state
+        (:func:`~fedml_tpu_torch.core.trainer.make_lane_step`); each step's
+        loss and weight land at the client's (slot, chain step) entry, and
+        at its last step (``boundary``) the lane's model lands in the
+        client's row of the update stack. Augmentation draws and dropout
+        masks are the client's at its chain step, as in the padded round."""
+        stack, written, lbuf, wbuf = bufs
+        opt = self.trainer.optimizer
+        L, s_lane = lp.slot.shape
+        S, T = self._steps, self.trainer.epochs * self._steps
+        data = (lp.data if isinstance(lp.data, dict)
+                else self._gather_batches(self._dataset, lp.data))
+        param_names = [k for k, _ in self.trainer.module.named_parameters()]
+        global_params = {k: global_variables[k] for k in param_names}
+        prox_params = global_params if self.trainer.prox_mu > 0.0 else {}
+        opt0 = opt.init(global_params, ())
+        lanes = {k: v.unsqueeze(0).expand((L,) + v.shape) for k, v in global_variables.items()}
+        params = {k: lanes[k] for k in param_names}
+        state = {k: v for k, v in lanes.items() if k not in params}
+        opt_state = {k: v.unsqueeze(0).expand((L,) + v.shape) for k, v in opt0.items()}
+        scratch = self._c_pad + torch.arange(L, device=lp.slot.device)
+        ones = torch.ones(L, dtype=written.dtype, device=written.device)
+        lane_draws = None
+        if draws is not None:
+            slot0 = torch.clamp(lp.slot, min=0)
+            g0 = torch.clamp(lp.gidx, 0, T - 1)
+            lane_draws = {k: d[slot0, g0 // S, g0 % S] for k, d in draws.items()}
+        for t in range(s_lane):
+            batch = {k: v[:, t] for k, v in data.items()}
+            if lane_draws is not None:
+                batch["x"] = self.trainer.augment.apply(
+                    batch["x"], {k: d[:, t] for k, d in lane_draws.items()})
+            if dropout is not None:
+                batch["dropout"] = dropout.masks(t)
+            slot, gidx = lp.slot[:, t], lp.gidx[:, t]
+            live = slot >= 0
+            params, state, opt_state, loss, w = self._lane_step(
+                params, state, opt_state, global_variables, opt0, batch,
+                live & (gidx == 0), prox_params)
+            row = torch.where(live, slot, scratch)
+            g = torch.clamp(gidx, 0, T - 1)
+            lbuf.index_put_((row, g), loss)
+            wbuf.index_put_((row, g), w)
+            emit = torch.where(live & (lp.boundary[:, t] > 0), slot, scratch)
+            merged = {**params, **state}
+            for k, st in stack.items():
+                st.index_copy_(0, emit, merged[k])
+            written.index_copy_(0, emit, ones)
+
+    def _packed_aggregate(self, global_variables: StateDict, server_state, bufs: tuple,
+                          weights: torch.Tensor, num_steps: torch.Tensor):
+        """Rebuild the padded round's per-client quantities from a packed
+        round's buffers and aggregate them (``engine.py:1211-1266``): each
+        written slot's model (an unwritten one holds the global model, as
+        the padded round's fully masked client does), in slot order, and
+        each client's train loss summed step by step in the padded
+        ``make_vmap_train``'s order, so the two agree bitwise."""
+        stack, written, lbuf, wbuf = bufs
+        C, E, S = self._c_pad, self.trainer.epochs, self._steps
+        done = written[:C] > 0
+        local = {k: torch.where(done.reshape((C,) + (1,) * g.dim()), stack[k][:C], g.unsqueeze(0))
+                 for k, g in global_variables.items()}
+        products, ws = lbuf[:C] * wbuf[:C], wbuf[:C]
+        loss_sums, w_sums = [], []
+        for e in range(E):
+            total = torch.zeros(C, dtype=torch.float32, device=ws.device)
+            w = torch.zeros_like(total)
+            for s in range(S):
+                total = total + products[:, e * S + s]
+                w = w + ws[:, e * S + s]
+            loss_sums.append(total)
+            w_sums.append(w)
+        last = _last_epoch(num_steps, S, E)
+        rows = torch.arange(C, device=last.device)
+        train_loss = (torch.stack(loss_sums)[last, rows]
+                      / torch.clamp(torch.stack(w_sums)[last, rows], min=1.0))
+        new_global, server_state, agg_metrics = self.aggregator.aggregate(
+            global_variables, iter(treelib.unstack(local, C)), weights, server_state)
+        metrics = {"Train/Loss": torch.sum(train_loss * weights / torch.sum(weights)),
+                   **agg_metrics}
+        return new_global, server_state, metrics
+
+    def _run_packed(self, staged: PackedStaged, global_variables: StateDict, server_state):
+        """One packed round (``engine.py:1829-1856``): zeroed buffers, the
+        passes one after another (on the card each one replay of the
+        FedSim's CUDA graph of the pass, ``sim/graphs.py``; on the CPU
+        eagerly), then the aggregation."""
+        dropout = self._dropout(staged.round_idx, len(staged.cohort))
+        if self.device.type == "cuda":
+            self.capture_pass_graph(staged=staged, variables=global_variables)
+            graph = self._pass_graphs[self._pass_graph_key(staged)]
+            bufs = graph.run_round(staged, global_variables, dropout)
+        else:
+            L = staged.passes[0].slot.shape[0]
+            bufs = self._packed_buffers(global_variables, L)
+            lane_dropout = (LaneDropout(self.trainer.dropout_sites, self._s_lane, L,
+                                        self.config.batch_size, self.device)
+                            if dropout is not None else None)
+            for lp in staged.passes:
+                if lane_dropout is not None:
+                    lane_dropout.fill(dropout, lp.dropout)
+                self.lane_pass(lp, global_variables, bufs, staged.draws, lane_dropout)
+        return self._packed_aggregate(global_variables, server_state, bufs, staged.weights,
+                                      staged.num_steps)
+
+    @staticmethod
+    def _pass_graph_key(staged: PackedStaged) -> tuple:
+        lp = staged.passes[0]
+        data = lp.data if isinstance(lp.data, dict) else {"idx": lp.data}
+        return (tuple((k, tuple(v.shape)) for k, v in sorted(data.items())),
+                tuple((k, tuple(d.shape)) for k, d in sorted((staged.draws or {}).items())))
+
+    def capture_pass_graph(self, round_idx: int = 0, staged: PackedStaged | None = None,
+                           variables: StateDict | None = None) -> float:
+        """Capture the lane pass as a CUDA graph (``sim/graphs.py``
+        :class:`PassGraph`), warmed up on the first pass of round
+        ``round_idx`` (or of ``staged``) from ``variables`` (default: fresh
+        ones); returns the seconds the warm-up and the capture took, 0 if
+        this FedSim already holds the graph. :meth:`run` calls it before its
+        prefetch thread starts; a caller who calls it first keeps the
+        capture out of the rounds it times."""
+        if self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
+        if not self._pack:
+            raise ValueError("capture_pass_graph needs packed lanes (pack_lanes > 0)")
+        staged = staged if staged is not None else self.stage_round(round_idx)
+        key = self._pass_graph_key(staged)
+        if key in self._pass_graphs:
+            return 0.0
+        t0 = time.perf_counter()
+        if variables is None:
+            variables = self.init_round_variables()
+        self._pass_graphs[key] = PassGraph(self, staged, variables)
+        return time.perf_counter() - t0
+
+    def pack_summary(self) -> dict:
+        """Static packed-execution accounting (empty when ``pack_lanes`` is
+        off): the lane geometry and the step count one padded round would
+        run, logged at run start (``engine.py:1858-1872``)."""
+        if not self._pack:
+            return {}
+        return {
+            "pack_lanes": self.config.pack_lanes,
+            "s_lane": self._s_lane,
+            "lane_capacity_per_pass": self.config.pack_lanes * self._s_lane,
+            "padded_scan_steps": self._c_pad * self.trainer.epochs * self._steps,
+        }
+
+    def population_summary(self) -> dict:
+        """Static population accounting (empty without a population): the
+        spec or trace and its geometry, logged at run start."""
+        if self._population is None:
+            return {}
+        return self._population.describe()
+
     def _dropout(self, round_idx: int, n_clients: int) -> DropoutStream | None:
         cfg = self.config
         return (DropoutStream(self.trainer.dropout_sites, cfg.seed, round_idx, n_clients,
                               cfg.batch_size, self.device)
                 if self.trainer.dropout_sites else None)
 
-    def run_staged_round(self, staged: Staged, global_variables: StateDict,
+    def run_staged_round(self, staged: Staged | PackedStaged, global_variables: StateDict,
                          server_state=()):
         """One round from a :meth:`stage_round` payload: returns
         ``(new_global, server_state, metrics)`` with ``metrics["Train/Loss"]``
         the sample-weighted mean of the clients' train losses (a device
         tensor: nothing here waits for the device). It trains on the staged
         batch stack (host staging) or gathers from the resident dataset
-        (``engine.py:1779-1828``)."""
+        (``engine.py:1779-1828``); a :class:`PackedStaged` round runs its
+        lane passes (:meth:`_run_packed`)."""
+        if isinstance(staged, PackedStaged):
+            return self._run_packed(staged, global_variables, server_state)
         return self.round_step(staged, global_variables, server_state,
                                self._dropout(staged.round_idx, len(staged.cohort)))
 
@@ -530,6 +1030,9 @@ class FedSim:
         if not self._on_device:
             raise ValueError("run_block requires the on-device dataset path "
                              "(stage_on_device): host-staged rounds dispatch one at a time")
+        if self._pack:
+            raise ValueError("run_block runs padded rounds: packed rounds (pack_lanes > 0) "
+                             "dispatch one pass at a time")
         block = staged if staged is not None else self.stage_block(start_round, n_rounds)
         if (block.round_idx, block.n_rounds) != (start_round, n_rounds):
             raise ValueError(f"run_block({start_round}, {n_rounds}) got the block staged for "
@@ -731,6 +1234,8 @@ class FedSim:
             # a capture may not overlap the prefetch thread's pinned copies
             self.capture_round_graph(blocks[0][0], variables=variables,
                                      server_state=server_state)
+        if self._pack and plan and self.device.type == "cuda":
+            self.capture_pass_graph(plan[0][0], variables=variables)
         prefetch = Prefetcher(plan, self._stage_segment, depth) if depth and plan else None
         drain = MetricsDrain(depth)
         profiler = None

@@ -1,5 +1,7 @@
-"""Block dispatch on the card: a FedSim round captured once as a CUDA graph
-and replayed for every round of a block.
+"""CUDA graphs of the FedSim's work on the card: a round captured once and
+replayed for every round of a block (:class:`RoundGraph`), and a packed
+round's lane pass captured once and replayed for every pass
+(:class:`PassGraph`).
 
 The JAX engine runs an eval-aligned block of R rounds as one program, a
 ``lax.scan`` over the rounds' stacked index maps
@@ -50,6 +52,7 @@ from __future__ import annotations
 import torch
 from torch.utils import _pytree as pytree
 
+from fedml_tpu_torch.core.trainer import LaneDropout
 from fedml_tpu_torch.ops import attention
 
 
@@ -156,3 +159,93 @@ class RoundGraph:
                 stacked[k][j].copy_(v)
         return ({k: v.clone() for k, v in self.variables.items()},
                 self._server_state(clone=True), stacked)
+
+
+class PassGraph:
+    """One lane pass of a packed round of ``sim``
+    (:meth:`FedSim.lane_pass`) captured as a CUDA graph on the shapes of
+    ``staged``'s first pass, with ``variables`` as the warm-up's model: the
+    port's counterpart of the JAX engine's one compiled program per pass
+    (``fedml_tpu/sim/engine.py:1829-1856``). Each pass of a round, overflow
+    passes included, is one replay.
+
+    The pass's inputs live in static buffers: its lane data (index map or
+    lane batch stacks), ``slot``, ``gidx`` and ``boundary``, the round's
+    augmentation draws and the global model, copied in before the replay,
+    and its dropout masks, drawn into a
+    :class:`~fedml_tpu_torch.core.trainer.LaneDropout` from the round's
+    stream. The round's output buffers (update stack, written flags, loss
+    and weight buffers) are static too: zeroed before the round's first
+    pass, each replay writes its clients' rows, and the aggregation reads
+    them after the last, outside the graph. Warm-up and capture as
+    :class:`RoundGraph`'s."""
+
+    def __init__(self, sim, staged, variables):
+        device = sim.device
+        lp = staged.passes[0]
+        L = lp.slot.shape[0]
+
+        def clone(tree):
+            return None if tree is None else {k: v.clone() for k, v in tree.items()}
+
+        data = clone(lp.data) if isinstance(lp.data, dict) else lp.data.clone()
+        self.inputs = type(lp)(data, lp.slot.clone(), lp.gidx.clone(), lp.boundary.clone(),
+                               None)
+        self.draws = clone(staged.draws)
+        sites = sim.trainer.dropout_sites
+        self.dropout = (LaneDropout(sites, lp.slot.shape[1], L, sim.config.batch_size, device)
+                        if sites else None)
+        stream = sim._dropout(staged.round_idx, len(staged.cohort))
+        if self.dropout is not None:
+            self.dropout.fill(stream, lp.dropout)
+        self.variables = {k: v.detach().clone() for k, v in variables.items()}
+        self.bufs = sim._packed_buffers(self.variables, L)
+
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            # one warm-up pass on scratch buffers (see RoundGraph)
+            sim.lane_pass(self.inputs, clone(self.variables),
+                          sim._packed_buffers(self.variables, L), self.draws, self.dropout)
+        current.wait_stream(side)
+        torch.cuda.synchronize(device)
+
+        self.graph = torch.cuda.CUDAGraph()
+        before = attention.captured_launches()
+        with torch.cuda.graph(self.graph):
+            sim.lane_pass(self.inputs, self.variables, self.bufs, self.draws, self.dropout)
+        after = attention.captured_launches()
+        self.launches = {k: after[k] - before[k] for k in after}
+
+    def replay_pass(self, lp, stream) -> None:
+        """One pass ``lp`` (a :class:`LanePass`): its inputs copied into the
+        static buffers, its dropout masks drawn from ``stream`` into them,
+        one replay."""
+        if isinstance(lp.data, dict):
+            for k, v in lp.data.items():
+                self.inputs.data[k].copy_(v)
+        else:
+            self.inputs.data.copy_(lp.data)
+        for name in ("slot", "gidx", "boundary"):
+            getattr(self.inputs, name).copy_(getattr(lp, name))
+        if self.dropout is not None:
+            self.dropout.fill(stream, lp.dropout)
+        self.graph.replay()
+        attention.count_replay(self.launches)
+
+    def run_round(self, staged, variables, stream):
+        """The passes of ``staged`` (a :class:`PackedStaged`) from the global
+        model ``variables``, one replay each, with ``stream`` the round's
+        dropout stream; returns the round's output buffers, which the next
+        round's :meth:`run_round` zeroes."""
+        for k, t in variables.items():
+            self.variables[k].copy_(t)
+        for k, d in (staged.draws or {}).items():
+            self.draws[k].copy_(d)
+        stack, written, lbuf, wbuf = self.bufs
+        for t in (*stack.values(), written, lbuf, wbuf):
+            t.zero_()
+        for lp in staged.passes:
+            self.replay_pass(lp, stream)
+        return self.bufs

@@ -11,7 +11,9 @@ overlaps them:
   staged ahead of the dispatch loop. Staging is a pure function of ``(config, round_idx)`` —
   cohort sampling and shuffling are seeded per round — so prefetch order
   cannot change cohorts or metrics: the pipelined driver is bit-identical
-  to the serial one. The staged payload is opaque to this module.
+  to the serial one. The staged payload is opaque to this module; under
+  packed lanes it is the round's lane plan, so the bin-packing runs on the
+  thread too (``fedml_tpu/sim/prefetch.py:18-20``).
 - :class:`MetricsDrain` keeps each round's metrics as device tensors in a
   bounded queue. A round that falls off its back is fetched: its metrics
   are copied to pinned host memory with ``non_blocking=True`` and an event
@@ -23,7 +25,8 @@ overlaps them:
 
 The staging thread pins host memory and copies to the device, which a CUDA
 graph capture in the global mode refuses from any thread: ``FedSim.run``
-captures its round graph (``sim/graphs.py``) before it starts the thread.
+captures its round graph or its lane pass graph (``sim/graphs.py``) before
+it starts the thread.
 The thread's copies go on the device's default stream, on which the
 consumer issues its work after taking the payload, so they land before the
 round (or the replay) that reads them.

@@ -94,15 +94,15 @@ UNPORTED = [
     (["--jobs", "jobs.json"], "§A11"),
     (["--compressor", "topk"], "§A10"),
     (["--topk_frac", "0.1"], "§A10"),
-    (["--pack_lanes", "2"], "§A10"),
+    (["--quantize_bits", "4"], "§A10"),
     (["--mesh_shape", "2x4"], "§A12"),
     (["--shard_rules", "cnn_tp"], "§A12"),
     (["--checkpoint_dir", "ck"], "§A13"),
     (["--init_from", "p.npz"], "§A13"),
     (["--save_params_to", "p.npz"], "§A13"),
     (["--trace_dir", "tr"], "§A13"),
-    (["--population", "speed=const:1"], "§A10"),
-    (["--population_seed", "3"], "§A10"),
+    (["--robust_rule", "median"], "§A10"),
+    (["--stddev", "0.1"], "§A10"),
     (["--norm_bound", "1.0"], "§A10"),
     (["--downlink_keyframe_every", "4"], "§A11"),
     (["--mqtt_host", "localhost"], "§A11"),

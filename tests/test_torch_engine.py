@@ -235,9 +235,10 @@ def test_fedsim_run_history(rng):
 
 def test_simconfig_rejects_unported_fields():
     SimConfig(block_dispatch=True)
-    with pytest.raises(NotImplementedError, match="population"):
-        SimConfig(population="speed=const:1")
-    with pytest.raises(NotImplementedError, match="pack_lanes"):
-        SimConfig(pack_lanes=2)
+    SimConfig(population="speed=const:1", pack_lanes=2, pack_capacity_factor=2.0)
+    with pytest.raises(NotImplementedError, match="compressor"):
+        SimConfig(compressor="q8")
+    with pytest.raises(NotImplementedError, match="robust_rule"):
+        SimConfig(robust_rule="median")
     SimConfig(stage_on_device=True, block_dispatch=False, pipeline_depth=0,
               eval_on_clients=True, straggler_frac=0.2, profile_dir="prof")
