@@ -103,8 +103,8 @@ Phases, each of which exits non-zero on failure:
     CLI (``[shakespeare cli]``: blocks against per-round dispatch in turns,
     round 1 of each profiled with the host's CUDA calls, the capture timed);
     BASELINE row 4 through ``exp/repro_shakespeare.main`` at full width
-    (715-client Markov fixture, 10 a round, B=4, SGD 1.0, E=1, seq 80; 20
-    rounds, eval every 10), its pipelined loop against the serial one
+    (715-client Markov fixture, 10 a round, B=4, SGD 1.0, E=1, seq 80; 10
+    rounds, eval every 5), its pipelined loop against the serial one
     (bitwise; round 1 of the serial run under ``torch.profiler``), with the
     fixture's build time, s/round, best accuracy against the fixture's
     Bayes ceiling and peak memory (``[repro_shakespeare]``); StackOverflow
@@ -125,7 +125,25 @@ Phases, each of which exits non-zero on failure:
     s/round, search steps/s, images/s, peak memory and one search step
     under ``torch.profiler`` (``[fednas]``); and one unrolled search step
     at that width beside a first-order one, timed, with peak memory
-    (``[fednas unrolled]``).
+    (``[fednas unrolled]``);
+16. the server rules, checkpoints and tracing (no flash launch on any of
+    their paths): FedOpt at row 4's recipe through the CLI (``--algorithm
+    fedopt``, server Adam, its step count a device tensor in the round's
+    graph), blocks against per-round dispatch in turns, rtol 1e-6 / atol
+    1e-7, then the six server optimizers on a small LR card against CPU
+    (``[fedopt]``, after ``[shakespeare cli]``); FedNova at row 1 with
+    stragglers, E=2, 10 rounds, tau_eff by round, blocks against per round
+    and card against CPU (``[fednova]``); hierarchical FedAvg at row 1, 2
+    groups x 2 group rounds, 3 global rounds, card against CPU
+    (``[hierarchical]``); ``--trace_dir`` at row 1, traced and untraced in
+    turns, bitwise, with the span counts and the repro loop's spans
+    (``[trace]``); the robust rules (median, trimmed mean, Krum, with
+    clipping and DP noise) on FEMNIST + CNNDropOut at full width, 3 rounds
+    as one block against per-round dispatch under deterministic cuDNN, each
+    rule on the card's client stack against CPU copies (``[robust]``); and
+    round checkpoints (FedAdam at row 1: 20 rounds straight against 10 and a
+    resume to 20, bitwise) and a FEMNIST params file warm-starting a fresh
+    run, its eval bitwise the saving run's (``[checkpoint]``).
 
 Each phase prints its seconds (``[phase]``). It prints a
 ``{"kernels": [...]}`` line, then as its last line
@@ -824,12 +842,13 @@ def _timing(into, sync=None):
     return make
 
 
-def _cli(torch, argv):
-    """The port's CLI (``exp/main_fedavg``) on the card: (history, seconds)."""
+def _cli(torch, argv, device="cuda"):
+    """The port's CLI (``exp/main_fedavg``) on ``device`` (the card by
+    default): (history, seconds)."""
     from fedml_tpu_torch.exp import main_fedavg as cli
 
     args = cli.parse_with_config(cli.add_args(argparse.ArgumentParser()),
-                                 argv + ["--device", "cuda"])
+                                 argv + ["--device", device])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     history = cli.run(args)
@@ -1966,7 +1985,7 @@ RNN_SMALL = {"original": dict(dataset="shakespeare", vocab_size=90, embedding_di
              "stackoverflow": dict(dataset="stackoverflow_nwp", vocab_size=512,
                                    embedding_dim=16, hidden_size=48, seq=8)}
 SHAKESPEARE = dict(clients=715, per_round=10, batch=4, lr=1.0, seq=80, samples=16,
-                   rounds=20, freq=10, profiled=1)
+                   rounds=10, freq=5, profiled=1)
 SO_NWP = dict(clients=100, per_round=50, batch=16, lr=10 ** -0.5, rounds=4, freq=3)
 SO_LR = dict(clients=10, per_round=10, batch=10, lr=0.1, rounds=2)
 
@@ -2026,7 +2045,7 @@ def phase_repro_shakespeare(torch, smi):
     ``exp/repro_shakespeare.main``, at full width on the card: the Markov
     char-LM fixture of 715 clients (16 windows of 80 characters each, built
     once and timed here), ``RNNOriginalFedAvg``, 10 a round, B=4, SGD 1.0,
-    E=1, vmapped; 20 rounds with an eval every 10, dispatched one at a time
+    E=1, vmapped; 10 rounds with an eval every 5, dispatched one at a time
     by ``exp/_loop.run_rounds``: pipelined (the default), then serial
     (``pipeline_depth`` 0, round 1 under ``torch.profiler``). The two runs'
     records are bitwise equal, ``round_time`` aside. Report and metrics go to
@@ -2122,7 +2141,8 @@ def phase_shakespeare_cli(torch, smi):
     3-8``: 2 x LSTM 256, 10 clients a round, B=4, SGD 1.0, E=1) on the
     registry's Markov fixture, which the CLI builds without files (715
     clients of 30 windows of 20 characters, so 8 steps a round; the repro's
-    are 16 windows of 80), 20 rounds with an eval every 10: two blocks of 10 replays of the round's CUDA graph (the default on
+    are 16 windows of 80), 10 rounds with an eval every 5: two blocks of 5
+    replays of the round's CUDA graph (the default on
     the card) against the same rounds dispatched one at a time
     (``block_dispatch=False``, set here: the CLI has no such flag, as in the
     JAX package), four runs in turns (blocks, per round, per round, blocks),
@@ -2583,6 +2603,457 @@ def phase_fednas(torch, smi):
     return launches_run, launches_unrolled
 
 
+# -- the server rules, checkpoints and tracing ---------------------------------
+
+
+def _mnist_argv(data_dir, rounds, freq, *extra):
+    """BASELINE row 1's recipe through the CLI (``MNIST``), ``rounds`` rounds
+    with an eval every ``freq``."""
+    c = MNIST
+    return ["--dataset", "mnist", "--model", "lr", "--data_dir", str(data_dir),
+            "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--epochs", str(c["epochs"]), "--comm_round", str(rounds),
+            "--frequency_of_the_test", str(freq), *extra]
+
+
+def _per_round_config(original):
+    import functools
+
+    return functools.partial(original, block_dispatch=False)
+
+
+def _per_round_cli(torch, argv, device="cuda"):
+    """A CLI run with every round dispatched alone (``block_dispatch=False``,
+    set here: the CLI has no such flag, as in the JAX package)."""
+    from fedml_tpu_torch.sim import engine
+
+    with _wrapped(engine, "SimConfig", _per_round_config):
+        return _cli(torch, argv, device)
+
+
+def _history_gap(a, b):
+    """The largest absolute difference of two histories' values (round time
+    aside) and where."""
+    if len(a) != len(b):
+        fail(f"the runs have {len(a)} and {len(b)} records")
+    gap = (0.0, "none")
+    for ra, rb in zip(a, b):
+        if set(ra) - {"round_time"} != set(rb) - {"round_time"}:
+            fail(f"the records differ in keys: {ra} {rb}")
+        for k in rb:
+            if k not in ("round", "round_time"):
+                gap = max(gap, (abs(ra[k] - rb[k]), f"round {rb['round']} {k}"))
+    return gap
+
+
+def _card_then_cpu(torch, argv):
+    """A CLI run on the card, then the same run on the CPU from the card
+    run's initial variables (a model drawn on the card from the seed is not
+    the one the CPU's generator draws): the two histories."""
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    init = {}
+
+    def capture(original):
+        def init_variables(self):
+            v = original(self)
+            init.setdefault("v", {k: t.detach().cpu().clone() for k, t in v.items()})
+            return v
+        return init_variables
+
+    def replay(original):
+        def init_variables(self):
+            return {k: t.clone().to(self.device) for k, t in init["v"].items()}
+        return init_variables
+
+    with _wrapped(FedSim, "init_variables", capture):
+        card = _cli(torch, argv)
+    with _wrapped(FedSim, "init_variables", replay):
+        cpu = _cli(torch, argv, "cpu")
+    return card, cpu
+
+
+def _small_rule_sim(torch, device, aggregator, rounds=5, epochs=1, straggler=0.0):
+    """A small f32 LogisticRegression FedSim on the synthetic LEAF MNIST
+    clients with the server rule ``aggregator``; its rounds make one
+    eval-aligned block (on the card, replays of the round's CUDA graph)."""
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.data.leaf import synthetic_leaf_mnist
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    train, test, _ = synthetic_leaf_mnist(n_clients=8, seed=0)
+    module = create_model("lr", 10, "femnist", device=device)
+    cfg = SimConfig(client_num_in_total=8, client_num_per_round=4, batch_size=16,
+                    comm_round=rounds, epochs=epochs, frequency_of_the_test=rounds,
+                    eval_batch_size=64, seed=0, straggler_frac=straggler)
+    return FedSim(ClientTrainer(module=module, optimizer=sgd(0.05), epochs=epochs), train, test,
+                  cfg, aggregator=aggregator, device=device)
+
+
+def phase_fedopt(torch, smi):
+    """FedOpt at BASELINE row 4's recipe through the CLI (``[shakespeare
+    cli]``'s argv: the Markov fixture, 715 clients, 10 a round, B=4, 2 x LSTM
+    256, client SGD 1.0, 20 rounds, an eval every 10) with ``--algorithm
+    fedopt`` at the JAX defaults (adam, server lr 0.1, b1 0.9): two blocks of
+    10 replays of the round's CUDA graph, whose server step carries Adam's
+    step count as a device tensor, against the same rounds dispatched one at
+    a time, four runs in turns (blocks, per round, per round, blocks), held
+    to rtol 1e-6 / atol 1e-7 (a count frozen in the graph would break the
+    bias correction from a block's second round); s/round of each beside
+    plain FedAvg's. Then each of the six server optimizers on a small f32
+    LogisticRegression, 5 rounds on the card against the CPU, each round
+    from the same variables and server state, within ``E2E_ATOL``; the
+    free-running 5 rounds (one block on the card) are printed beside. Round
+    by round, as the CNN checks run: rmsprop's update, ``g * rsqrt(nu +
+    1e-8)``, multiplies a pseudo-gradient's rounding by up to ``lr /
+    sqrt(1e-8)`` = 1000 where ``g`` is small (``g = old - avg``, a
+    difference of nearly equal numbers), and free-running its card and CPU
+    runs part by 1.725e-04 in 5 rounds (measured on the H100). Returns the
+    flash launches."""
+    from fedml_tpu_torch.algorithms.fedopt import fedopt_aggregator, server_optimizer
+
+    c = dict(SHAKESPEARE, rounds=20, freq=10)
+    argv = ["--dataset", "shakespeare", "--model", "rnn",
+            "--data_dir", str(BUILD_DIR / "shakespeare_cli"),
+            "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--epochs", "1", "--comm_round", str(c["rounds"]),
+            "--frequency_of_the_test", str(c["freq"]), "--algorithm", "fedopt"]
+    _zero_flash_counters()
+    runs, loads = [], []
+    with _loaded_once(loads):
+        for name in ("blocks", "per round", "per round", "blocks"):
+            run = _per_round_cli(torch, argv) if name == "per round" else _cli(torch, argv)
+            runs.append((name,) + run)
+    launches = _flash_launches()
+    base = runs[1][1]
+    if not all(np.isfinite([v for r in base for v in r.values()])):
+        fail(f"fedopt: bad history {base}")
+    for name, history, wall in runs:
+        (over, beyond), (diff, where) = _block_gap(torch, (({}, history), ({}, base)))
+        log(f"[fedopt {name}] {smi}: rounds {c['freq']}-{c['rounds'] - 1} "
+            f"{history[-1]['round_time']:.5f} s a round (plain FedAvg's at this recipe: "
+            f"[shakespeare cli] above), rounds 0-{c['freq'] - 1} "
+            f"{history[0]['round_time']:.5f} s a round; run {wall:.2f} s; against the first "
+            f"per-round run: largest difference {diff:.3e} ({where}); Test/Acc "
+            f"{history[-1]['Test/Acc']:.4f}")
+        if over > 0:
+            fail(f"fedopt: the {name} run's {beyond} differs beyond rtol {BLOCK_RTOL} / "
+                 f"atol {BLOCK_ATOL}")
+    from torch.utils import _pytree as pytree
+
+    for name in ("sgd", "adam", "yogi", "adagrad", "rmsprop", "adamw"):
+        sims, init = {}, None
+        for device in ("cpu", "cuda"):
+            sims[device] = _small_rule_sim(
+                torch, device, fedopt_aggregator(server_optimizer(name, 0.1, 0.9)))
+            if init is None:
+                init = sims[device].init_round_variables()
+        free = {d: sim.run(variables={k: v.to(d) for k, v in init.items()})
+                for d, sim in sims.items()}
+        free_err = _max_err(torch, (free["cuda"], free["cpu"]))
+        # round by round from the CPU's variables and server state
+        variables, state, step_err = init, sims["cpu"].aggregator.init_state(init), 0.0
+        for r in range(5):
+            out = {d: sims[d].run_round(r, {k: v.to(d) for k, v in variables.items()},
+                                        pytree.tree_map(lambda t, d=d: t.to(d), state))
+                   for d in ("cuda", "cpu")}
+            gaps = [float((out["cuda"][0][k].cpu() - out["cpu"][0][k]).abs().max())
+                    for k in variables]
+            gaps += [float((a.cpu().float() - b.float()).abs().max()) for a, b in zip(
+                pytree.tree_leaves(out["cuda"][1]), pytree.tree_leaves(out["cpu"][1]))]
+            gaps.append(abs(float(out["cuda"][2]["Train/Loss"])
+                            - float(out["cpu"][2]["Train/Loss"])))
+            step_err = max(step_err, *gaps)
+            variables, state = out["cpu"][0], out["cpu"][1]
+        log(f"[fedopt small] server {name}: 5 rounds card vs CPU, each from the same "
+            f"variables and server state: largest difference {step_err:.3e}; free-running "
+            f"(one block on the card): {free_err:.3e}")
+        if not step_err <= E2E_ATOL:
+            fail(f"fedopt small: server {name} card vs CPU {step_err:.3e} > {E2E_ATOL}")
+    return launches
+
+
+def phase_fednova(torch, mnist_dir):
+    """FedNova at BASELINE row 1 (the 1000-client MNIST LEAF fixture, LR)
+    through the CLI with ``--algorithm fednova --straggler_frac 0.5 --epochs
+    2``, 10 rounds: one block of 10 graph replays, the same rounds
+    dispatched one at a time (rtol 1e-6 / atol 1e-7), and the CPU's run
+    from the card run's initial variables (``E2E_ATOL``). Prints each round's ``tau_eff``, which must vary (the
+    stragglers' tau differs). Returns the flash launches."""
+    rounds = 10
+    argv = _mnist_argv(mnist_dir, rounds, rounds, "--algorithm", "fednova",
+                       "--straggler_frac", "0.5", "--epochs", "2")
+    _zero_flash_counters()
+    (blocks, wall_b), (cpu, wall_c) = _card_then_cpu(torch, argv)
+    launches = _flash_launches()
+    per_round, wall_p = _per_round_cli(torch, argv)
+    taus = [rec["tau_eff"] for rec in blocks]
+    log(f"[fednova] tau_eff by round: {', '.join(f'{t:.4f}' for t in taus)}")
+    if len(set(taus)) < 2 or not all(np.isfinite(taus)):
+        fail(f"fednova: tau_eff does not vary: {taus}")
+    (over, beyond), (diff, where) = _block_gap(torch, (({}, blocks), ({}, per_round)))
+    gap, gap_where = _history_gap(blocks, cpu)
+    log(f"[fednova] {rounds} rounds, E=2, straggler_frac 0.5: one block {wall_b:.2f} s "
+        f"({blocks[-1]['round_time']:.5f} s a round), per round {wall_p:.2f} s "
+        f"({per_round[-1]['round_time']:.5f} s a round), CPU {wall_c:.2f} s; blocks vs per "
+        f"round largest difference {diff:.3e} ({where}); card vs CPU {gap:.3e} ({gap_where}); "
+        f"Test/Acc {blocks[-1]['Test/Acc']:.4f}")
+    if over > 0:
+        fail(f"fednova: blocks vs per round {beyond} beyond rtol {BLOCK_RTOL} / atol "
+             f"{BLOCK_ATOL}")
+    if not gap <= E2E_ATOL:
+        fail(f"fednova: card vs CPU {gap:.3e} ({gap_where}) > {E2E_ATOL}")
+    return launches
+
+
+ROBUST = dict(norm_bound=1.0, stddev=1e-3, rules=("median", "trimmed_mean", "krum"))
+
+
+def phase_robust(torch, femnist_runs):
+    """``--algorithm fedavg_robust`` on FEMNIST + CNNDropOut through the CLI
+    at ``[femnist]``'s width (3400 clients, 10 a round, B=20, the fallback),
+    for each of median, trimmed mean and Krum, with clipping and DP noise:
+    3 rounds as one block against per-round dispatch, both under cuDNN's
+    deterministic algorithms, rtol 1e-6 / atol 1e-7 (the noise drawn into
+    the graph's buffers before each replay); the rule applied to the card's
+    own clipped client stack (the per-round run's last round) against the
+    same rule on CPU copies: median and Krum bitwise (Krum's index too),
+    trimmed mean within 1e-6. Prints the ``Robust/*`` metrics, s/round
+    beside the plain FedAvg block's (``[femnist blocks]``) and peak memory.
+    The median's per-round run saves its final model (``--save_params_to``,
+    for ``[checkpoint]``). Returns the flash launches and the saved file."""
+    from fedml_tpu_torch.algorithms import robust
+
+    plain = femnist_runs["blocks"][0][-1]["round_time"]
+    saved = BUILD_DIR / "robust_median.npz"
+    _zero_flash_counters()
+    records = {}
+    for rule in ROBUST["rules"]:
+        argv = _femnist_argv(3, "--algorithm", "fedavg_robust", "--robust_rule", rule,
+                             "--norm_bound", str(ROBUST["norm_bound"]),
+                             "--stddev", str(ROBUST["stddev"]))
+        torch.cuda.reset_peak_memory_stats()
+        blocks, wall_b = _deterministic_cli(torch, argv)
+        peak = torch.cuda.max_memory_allocated()
+        seen = {}
+
+        def recorded(fn_name):
+            def make(original):
+                def wrapped(stacked, *args, **kwargs):
+                    seen[fn_name] = ({k: v.detach().clone() for k, v in stacked.items()}, args)
+                    return original(stacked, *args, **kwargs)
+                return wrapped
+            return make
+
+        extra = ["--save_params_to", str(saved)] if rule == "median" else []
+        with _wrapped(robust, "coordinate_median", recorded("coordinate_median")), \
+                _wrapped(robust, "trimmed_mean", recorded("trimmed_mean")), \
+                _wrapped(robust, "krum_select", recorded("krum_select")):
+            per_round, wall_p = _deterministic_per_round(torch, argv + extra)
+        records[rule] = per_round
+        (over, beyond), (diff, where) = _block_gap(torch, (({}, blocks), ({}, per_round)))
+        metrics = {k: [round(rec[k], 6) for rec in blocks] for k in blocks[0]
+                   if k.startswith("Robust/")}
+        fn_name = {"median": "coordinate_median", "trimmed_mean": "trimmed_mean",
+                   "krum": "krum_select"}[rule]
+        stack, args = seen[fn_name]
+        on_card = getattr(robust, fn_name)(stack, *args)
+        on_cpu = getattr(robust, fn_name)({k: v.cpu() for k, v in stack.items()}, *args)
+        if rule == "krum":
+            rule_gap = float(int(on_card) != int(on_cpu))
+            chosen = f"Krum's client {int(on_card)} on the card, {int(on_cpu)} on the CPU"
+        else:
+            rule_gap = max(float((on_card[k].cpu() - on_cpu[k]).abs().max()) for k in on_cpu)
+            chosen = f"largest difference {rule_gap:.3e}"
+        log(f"[robust {rule}] clip {ROBUST['norm_bound']}, DP stddev {ROBUST['stddev']}: "
+            f"{blocks[-1]['round_time']:.4f} s a round in one block of 3 (plain FedAvg's "
+            f"block {plain:.4f} s), {per_round[-1]['round_time']:.4f} s a round per round "
+            f"(runs {wall_b:.2f} s, {wall_p:.2f} s); peak device memory "
+            f"{peak / 2**30:.3f} GiB; {metrics}; block vs per round largest difference "
+            f"{diff:.3e} ({where}); the rule on the card's client stack vs CPU copies: "
+            f"{chosen}; Test/Acc {blocks[-1]['Test/Acc']:.4f}")
+        if over > 0:
+            fail(f"robust {rule}: block vs per round {beyond} beyond rtol {BLOCK_RTOL} / atol "
+                 f"{BLOCK_ATOL}")
+        if rule == "trimmed_mean" and not rule_gap <= 1e-6:
+            fail(f"robust trimmed_mean: card vs CPU {rule_gap:.3e} > 1e-6")
+        if rule != "trimmed_mean" and rule_gap != 0.0:
+            fail(f"robust {rule}: the card's rule and the CPU's differ ({chosen})")
+        if rule == "krum":
+            for k, v in stack.items():
+                if not torch.equal(v[int(on_card)].cpu(), v.cpu()[int(on_cpu)]):
+                    fail(f"robust krum: the selected client's {k} differs")
+    return _flash_launches(), records["median"], saved
+
+
+def _deterministic_per_round(torch, argv):
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _per_round_cli(torch, argv)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def phase_hierarchical(torch, mnist_dir):
+    """Hierarchical FedAvg at BASELINE row 1 through the CLI (``--algorithm
+    hierarchical --group_num 2 --group_comm_round 2``, 3 global rounds: each
+    group round one eager dispatch over the group's half of the clients), card
+    against CPU from the same initial variables within ``E2E_ATOL``. Returns the flash launches."""
+    argv = _mnist_argv(mnist_dir, 3, 1, "--algorithm", "hierarchical", "--group_num", "2",
+                       "--group_comm_round", "2")
+    _zero_flash_counters()
+    (card, wall), (cpu, wall_c) = _card_then_cpu(torch, argv)
+    launches = _flash_launches()
+    gap, where = _history_gap(card, cpu)
+    log(f"[hierarchical] 3 global rounds x 2 groups of {MNIST['clients'] // 2} x 2 group "
+        f"rounds: card "
+        f"{wall:.2f} s ({wall / 3:.3f} s a global round, evals included), CPU {wall_c:.2f} s; "
+        f"card vs CPU largest difference {gap:.3e} ({where}); Test/Acc by global round "
+        f"{[round(r['Test/Acc'], 4) for r in card]}")
+    if len(card) != 3 or not gap <= E2E_ATOL:
+        fail(f"hierarchical: card vs CPU {gap:.3e} ({where}) > {E2E_ATOL}, {len(card)} records")
+    return launches
+
+
+def phase_checkpoint(torch, mnist_dir, femnist_record, saved):
+    """Round checkpoints and parameter files on the card. BASELINE row 1 with
+    FedAdam (``--algorithm fedopt``), one round a dispatch with a checkpoint
+    every 5 rounds: 20 rounds straight against 10 rounds, then ``--resume
+    1`` up to 20; the histories and the final variables (``--save_params_to``)
+    bitwise equal. Then ``[robust]``'s FEMNIST median run's saved model
+    warm-starts a fresh run (``--init_from``, 0 rounds): the warm-started
+    model's pooled eval is bitwise the saving run's final eval. Prints the
+    file's size and the seconds to save and to load. Returns the flash
+    launches."""
+    import shutil
+
+    from fedml_tpu_torch.obs import checkpoint
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    root = BUILD_DIR / "checkpoint"
+    shutil.rmtree(root, ignore_errors=True)
+    base = _mnist_argv(mnist_dir, 20, 10, "--algorithm", "fedopt", "--checkpoint_every", "5")
+    _zero_flash_counters()
+    straight, wall_s = _cli(torch, base + ["--checkpoint_dir", str(root / "a"),
+                                           "--save_params_to", str(root / "a.npz")])
+    first, _ = _cli(torch, _mnist_argv(mnist_dir, 10, 10, "--algorithm", "fedopt",
+                                       "--checkpoint_every", "5",
+                                       "--checkpoint_dir", str(root / "b")))
+    resumed, wall_r = _cli(torch, base + ["--checkpoint_dir", str(root / "b"), "--resume", "1",
+                                          "--save_params_to", str(root / "b.npz")])
+    launches = _flash_launches()
+    a, b = checkpoint.load_params(root / "a.npz"), checkpoint.load_params(root / "b.npz")
+    same_vars = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    log(f"[checkpoint] FedAdam, row 1: 20 rounds straight ({wall_s:.2f} s, a checkpoint every "
+        f"5) against 10 + resume to 20 ({wall_r:.2f} s for the last 10): histories equal "
+        f"{resumed == straight}, final variables bitwise equal {same_vars}; kept "
+        f"{sorted(p.name for p in (root / 'b').glob('round_*'))}")
+    if len(first) != 10 or resumed != straight or not same_vars:
+        fail("checkpoint: the resumed run differs from the straight run")
+    times = {}
+
+    def timing(name):
+        def make(original):
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = original(*args, **kwargs)
+                times[name] = time.perf_counter() - t0
+                return out
+            return timed
+        return make
+
+    sims = []
+
+    def keep_sim(original):
+        def init_round_variables(self, *args, **kwargs):
+            out = original(self, *args, **kwargs)
+            sims.append((self, {k: v.clone() for k, v in out.items()}))
+            return out
+        return init_round_variables
+
+    with _wrapped(checkpoint, "load_params", timing("load")), \
+            _wrapped(FedSim, "init_round_variables", keep_sim):
+        _deterministic_cli(torch, _femnist_argv(0, "--init_from", str(saved)))
+    sim, warm = sims[-1]
+    torch.backends.cudnn.deterministic = True
+    try:
+        evals = sim.evaluate(warm)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    t_save = time.perf_counter()
+    checkpoint.save_params(root / "resave.npz", warm)
+    times["save"] = time.perf_counter() - t_save
+    want = {k: femnist_record[k] for k in evals}
+    log(f"[checkpoint] FEMNIST CNNDropOut params file {saved.stat().st_size / 2**20:.3f} MiB: "
+        f"save {times['save']:.4f} s, load into the model {times['load']:.4f} s; the "
+        f"warm-started model's eval {evals} against the saving run's final eval {want}: "
+        f"bitwise equal {evals == want}")
+    if evals != want:
+        fail("checkpoint: the warm-started model's eval differs from the saved model's")
+    return launches
+
+
+def phase_trace(torch, mnist_dir):
+    """``--trace_dir`` at BASELINE row 1 through the CLI (two blocks of 10,
+    pipelined): traced and untraced runs in turns (untraced, traced, traced,
+    untraced), histories bitwise equal (round time aside), s/round of each
+    (the tracer's cost on the host-dispatch cell) and the span counts by
+    name; then 5 rounds of the same FedSim through the repro loop
+    (``exp/_loop.run_rounds``) under ``obs/trace.trace_to``. The engine's
+    stage, dispatch and eval spans, the prefetch thread's and the loop's
+    must each be present. Returns the flash launches."""
+    import dataclasses
+    import json as _json
+
+    from fedml_tpu_torch.exp._loop import run_rounds
+    from fedml_tpu_torch.obs import trace
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    c = MNIST
+    argv = _mnist_argv(mnist_dir, c["rounds"], c["freq"])
+    sims = []
+
+    def keep(original):
+        def run(self, *args, **kwargs):
+            sims.append(self)
+            return original(self, *args, **kwargs)
+        return run
+
+    _zero_flash_counters()
+    runs = []
+    with _wrapped(FedSim, "run", keep):
+        for i, traced in enumerate((False, True, True, False)):
+            extra = ["--trace_dir", str(BUILD_DIR / f"trace_{i}")] if traced else []
+            runs.append((traced,) + _cli(torch, argv + extra))
+    base = _strip_times(runs[0][1])
+    for traced, history, wall in runs:
+        steady = np.mean([r["round_time"] for r in history[c["freq"]:]])
+        log(f"[trace] {'traced' if traced else 'untraced'}: {steady * 1e3:.3f} ms a round "
+            f"(rounds {c['freq']}-{c['rounds'] - 1}), run {wall:.2f} s")
+        if _strip_times(history) != base:
+            fail("trace: a traced run's history differs from the untraced one's")
+    recs = [_json.loads(line) for line in
+            (BUILD_DIR / "trace_1" / trace.JSONL_TRACE_NAME).read_text().splitlines()]
+    cfg = dataclasses.replace(sims[-1].config, comm_round=5, frequency_of_the_test=5)
+    with trace.trace_to(BUILD_DIR / "trace_loop") as tracer:
+        run_rounds(sims[-1], cfg, None)
+    launches = _flash_launches()
+    counts: dict[str, int] = {}
+    for r in recs + tracer.events():
+        if r.get("ph") in ("X", "C", "i"):
+            counts[r["name"]] = counts.get(r["name"], 0) + 1
+    log(f"[trace] spans, counters and events by name (the traced CLI run, then 5 rounds of "
+        f"the repro loop): {dict(sorted(counts.items()))}")
+    need = ["engine/stage", "engine/dispatch", "engine/eval", "loop/round"]
+    missing = [n for n in need if n not in counts]
+    if missing or not any(n.startswith("prefetch/") for n in counts):
+        fail(f"trace: missing spans {missing or 'prefetch/*'}")
+    return launches
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds printed under the phase's name."""
     t0 = time.perf_counter()
@@ -2619,8 +3090,12 @@ def main() -> None:
         cli_launches["mnist_lr"] = _timed("mnist_lr", phase_mnist_lr, torch, mnist_dir, records)
         cli_launches["fedprox_lr"] = _timed("fedprox", phase_fedprox_stragglers, torch,
                                             mnist_dir)
+        cli_launches["fednova"] = _timed("fednova", phase_fednova, torch, mnist_dir)
+        cli_launches["hierarchical"] = _timed("hierarchical", phase_hierarchical, torch,
+                                              mnist_dir)
+        cli_launches["trace"] = _timed("trace", phase_trace, torch, mnist_dir)
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
-        f"six runs (repro, four CLI, FedProx)")
+        f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace)")
     femnist_loads = []
     with _loaded_once(femnist_loads):
         cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
@@ -2629,6 +3104,10 @@ def main() -> None:
         cli_launches["packed_femnist"] = _timed("packed femnist", phase_packed_femnist, torch,
                                                 femnist_runs)
         cli_launches["population"] = _timed("population", phase_population, torch)
+        cli_launches["robust"], median_run, saved = _timed("robust", phase_robust, torch,
+                                                           femnist_runs)
+        cli_launches["checkpoint"] = _timed("checkpoint", phase_checkpoint, torch, mnist_dir,
+                                            median_run[-1], saved)
     log(f"[femnist] the 3400-client fallback built in {femnist_loads[0]:.2f} s, "
         f"{len(femnist_loads)} time(s) for the FEMNIST phases' CLI runs")
     cli_launches["packed_overflow"] = _timed("packed overflow", phase_packed_overflow, torch)
@@ -2638,6 +3117,7 @@ def main() -> None:
     cli_launches["rnn_small"] = _timed("rnn small", phase_rnn_small, torch)
     cli_launches["shakespeare_cli"] = _timed("shakespeare cli", phase_shakespeare_cli, torch,
                                              smi)
+    cli_launches["fedopt"] = _timed("fedopt", phase_fedopt, torch, smi)
     cli_launches["repro_shakespeare"] = _timed("repro_shakespeare", phase_repro_shakespeare,
                                                torch, smi)
     cli_launches["so_nwp"] = _timed("so_nwp", phase_so_nwp, torch, smi)
@@ -2648,7 +3128,8 @@ def main() -> None:
     for path in ("femnist_blocks", "packed_femnist", "population", "packed_overflow",
                  "blocks_small", "rnn_small", "shakespeare_cli",
                  "repro_shakespeare", "so_nwp", "so_lr", "fednas_small", "fednas",
-                 "fednas_unrolled"):
+                 "fednas_unrolled", "fedopt", "fednova", "robust", "hierarchical",
+                 "checkpoint", "trace"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

@@ -1,9 +1,12 @@
 """Server-side aggregator protocol, the port of ``fedml_tpu/algorithms/base.py``.
 
-An aggregator is a pair of functions over state dicts. Where the JAX package
-hands the rule a stack of client models with a leading client axis, the port
-hands it the client models as an iterable in cohort order: the engine trains
-each client as the rule draws it, so one client's model lives at a time.
+An aggregator is a pair of functions over state dicts. The JAX package hands
+every rule the stack of client models with a leading client axis; the port
+hands a rule the client models as an iterable in cohort order by default (the
+scan mode trains each client as the rule draws it, so one client's model
+lives at a time), and the stacked ``[C, ...]`` state dict to a rule that asks
+for it (``Aggregator.stacked``): the cross-client rules (median, trimmed
+mean, Krum, clipping, FedNova's normalised sum) read every client at once.
 """
 
 from __future__ import annotations
@@ -23,16 +26,24 @@ class EmptyRoundError(RuntimeError):
 @dataclasses.dataclass(frozen=True)
 class Aggregator:
     """``init_state(global_variables) -> state`` and
-    ``aggregate(global, locals, weights, state) -> (new_global, new_state,
-    metrics)``.
+    ``aggregate(global, locals, weights, state, rng=None, extras=None) ->
+    (new_global, new_state, metrics)``.
 
     ``locals`` is an iterable of client state dicts in cohort order, consumed
-    once; ``weights`` is a [C] tensor of per-client sample counts (the
-    reference's weighting scheme)."""
+    once, or, when ``stacked`` is True, one state dict whose leaves carry a
+    leading ``[C]`` client axis; ``weights`` is a [C] tensor of per-client
+    sample counts (the reference's weighting scheme). The engine passes, on
+    every path, ``rng``: the round's
+    :class:`~fedml_tpu_torch.core.rng.RoundNoise` (its gaussian draws), and
+    ``extras``: ``tau`` [C], each client's true local SGD step count
+    (heterogeneous under the straggler protocol, FedNova's), and
+    ``max_tau``, the static bound on those counts. Every leaf of ``state``
+    is a tensor, so a CUDA graph of the round carries it on the device."""
 
     init_state: Callable[[Any], Any]
     aggregate: Callable[..., tuple[Any, Any, dict]]
     name: str = "aggregator"
+    stacked: bool = False
 
 
 def fedavg_aggregator() -> Aggregator:
@@ -41,7 +52,7 @@ def fedavg_aggregator() -> Aggregator:
     def init_state(global_variables):
         return ()
 
-    def aggregate(global_variables, local_variables, weights, state):
+    def aggregate(global_variables, local_variables, weights, state, rng=None, extras=None):
         return treelib.weighted_mean(local_variables, weights), state, {}
 
     return Aggregator(init_state, aggregate, name="fedavg")

@@ -26,6 +26,12 @@ flat ``state_dict``;
   that order are ``weight_ih [4H, in]``, the kernels ``hi, hf, hg, ho``
   (``[H, H]``) ``weight_hh [4H, H]`` and their biases ``bias_hh [4H]``.
 
+Either direction takes part of a model as well (a backbone without its head,
+the parameters without the BatchNorm statistics): ``resnet`` says which
+family's names to use where the part alone does not tell (a ResNet's head
+is flax's top-level ``Dense_0``), :func:`is_resnet` reads it off the whole
+model's state dict.
+
 Leaves: a Dense kernel ``[in, out]`` is the transpose of the port's weight
 (``qkv`` stays one ``[3D, D]`` weight, so the q|k|v split of its output is
 the same); a Conv kernel HWIO is the port's OIHW weight; LayerNorm and
@@ -90,13 +96,23 @@ def _port_names(comp: str, top_level: bool, resnet: bool) -> list[str]:
     return [_COMPONENTS.get(comp, comp)]
 
 
-def from_flax(variables: dict) -> dict[str, torch.Tensor]:
+def is_resnet(state_dict: dict) -> bool:
+    """Whether a port state dict is a CIFAR ResNet's: residual ``blocks``
+    beside a top-level ``bn_0`` (a TransformerLM has blocks and no BatchNorm,
+    DARTS a BatchNorm and ``cells``)."""
+    return (any(k.startswith("blocks.") for k in state_dict)
+            and any(k.startswith("bn_0.") for k in state_dict))
+
+
+def from_flax(variables: dict, resnet: bool | None = None) -> dict[str, torch.Tensor]:
     """JAX TransformerLM, CifarResNet, LogisticRegression, CNN, RNN or DARTS
-    variables -> the port's state dict (CPU tensors in the leaves' own
-    dtype)."""
+    variables, whole or in part -> the port's state dict (CPU tensors in the
+    leaves' own dtype). ``resnet`` None: a ResNet when the parameters hold
+    a ``BasicBlock``."""
     collections = (variables if "params" in variables or "batch_stats" in variables
                    else {"params": variables})
-    resnet = any(k.startswith("BasicBlock_") for k in collections.get("params", {}))
+    if resnet is None:
+        resnet = any(k.startswith("BasicBlock_") for k in collections.get("params", {}))
     sd = {}
     for tree in collections.values():
         tree = dict(tree)
@@ -136,17 +152,20 @@ def _lstm_to_flax(leaf_name: str, t: torch.Tensor) -> dict:
             for g, a in zip(_GATES, np.split(arr, 4))}
 
 
-def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
-    """The port's state dict -> ``{"params": ...}`` (and ``"batch_stats"``
-    for a ResNet, ``"batch_stats"`` and ``"arch"`` for DARTS) nested dicts of
-    numpy arrays in the JAX package's layout."""
-    resnet = "bn_0.running_mean" in state_dict
-    out: dict = {"params": {}}
+def to_flax(state_dict: dict[str, torch.Tensor], resnet: bool | None = None) -> dict:
+    """The port's state dict, whole or in part -> ``{"params": ...}`` (and
+    ``"batch_stats"`` for a ResNet, ``"batch_stats"`` and ``"arch"`` for
+    DARTS) nested dicts of numpy arrays in the JAX package's layout; a
+    collection the state dict has no leaf of is left out. ``resnet`` None:
+    :func:`is_resnet`."""
+    if resnet is None:
+        resnet = is_resnet(state_dict)
+    out: dict = {}
     for name, t in state_dict.items():
         parts = name.split(".")
         m = re.fullmatch(r"lstm_(\d+)", parts[0])
         if m:
-            cell = out["params"].setdefault(f"OptimizedLSTMCell_{m.group(1)}", {})
+            cell = out.setdefault("params", {}).setdefault(f"OptimizedLSTMCell_{m.group(1)}", {})
             for gate, leaves in _lstm_to_flax(parts[1], t).items():
                 cell.setdefault(gate, {}).update(leaves)
             continue

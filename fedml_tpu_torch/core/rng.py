@@ -49,3 +49,34 @@ def sample_clients(round_idx: int, client_num_in_total: int,
         return np.arange(client_num_in_total)
     rng = np.random.RandomState(round_idx)
     return rng.choice(client_num_in_total, client_num_per_round, replace=False)
+
+
+class RoundNoise:
+    """The server rule's gaussian draws for one round (weak-DP noise,
+    ``algorithms/robust.py``): the k-th call of :meth:`normal` draws on
+    ``device`` from a generator seeded from ``(seed, round_idx, k)`` by
+    numpy's SeedSequence, so a round's noise is a pure function of the run's
+    seed and the round, whatever ran before it. JAX's threaded keys
+    (``fold_in(key(seed), round)``) give other numbers. A draw reseeds the
+    generator, which a CUDA graph cannot capture: a round replayed from a
+    graph reads the same draws from buffers filled before the replay
+    (``sim/graphs.py`` :class:`StaticNoise`)."""
+
+    TAG = 0xD9
+
+    def __init__(self, seed: int, round_idx: int, device: str | torch.device = "cpu"):
+        self.seed, self.round_idx = int(seed), int(round_idx)
+        self.device = torch.device(device)
+        self._generator: torch.Generator | None = None  # made at the first draw
+        self._k = 0
+
+    def normal(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The next draw: standard normals of ``shape`` and ``dtype``."""
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
+        mixed = np.random.SeedSequence(
+            [self.seed, self.round_idx, self._k, self.TAG]).generate_state(1, np.uint64)[0]
+        self._k += 1
+        self._generator.manual_seed(int(mixed))
+        return torch.randn(tuple(shape), generator=self._generator, device=self.device,
+                           dtype=dtype)

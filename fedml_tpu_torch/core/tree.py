@@ -1,7 +1,11 @@
 """State-dict arithmetic, the port of ``fedml_tpu/core/tree.py:74-120``.
 
 Model variables in the port are flat ``state_dict``-style dicts of tensors
-(name -> tensor) instead of JAX pytrees.
+(name -> tensor) instead of JAX pytrees. Where the JAX package splits them
+into collections, ``params`` and ``batch_stats``, the port tells them apart
+by name (:func:`is_model_state`): BatchNorm's running statistics are the
+model state, every other leaf a parameter, as ``convert.to_flax`` files
+them.
 """
 
 from __future__ import annotations
@@ -11,6 +15,22 @@ from typing import Iterable
 import torch
 
 StateDict = dict[str, torch.Tensor]
+
+
+# the leaf names of the model state (flax's ``batch_stats`` collection)
+_MODEL_STATE = ("running_mean", "running_var")
+
+
+def is_model_state(name: str) -> bool:
+    """Whether leaf ``name`` is model state (a BatchNorm running statistic,
+    flax's ``batch_stats``) rather than a parameter."""
+    return name.rsplit(".", 1)[-1] in _MODEL_STATE
+
+
+def params_of(tree: StateDict) -> StateDict:
+    """The parameters of a state dict (flax's ``params`` collection), in
+    its order."""
+    return {k: v for k, v in tree.items() if not is_model_state(k)}
 
 
 def add(a: StateDict, b: StateDict) -> StateDict:

@@ -28,9 +28,9 @@ time up to the synchronisation, eval excluded), as ``FedSim.run`` reports it.
 At the start the loop logs the sim's packed-lane and population summaries
 (``FedSim.pack_summary``, ``population_summary``), as the JAX loop does;
 with packed lanes on the card it captures the lane pass's CUDA graph before
-the prefetch thread starts. The JAX loop's trace spans come with
-``obs/trace.py`` (ROADMAP §A13), and its sharded and defense summaries with
-those planes (§A10, §A12).
+the prefetch thread starts. Each round runs in a ``loop/round`` span and the
+salvage of drained rounds in ``loop/salvage_flush`` (``obs/trace.py``, the
+JAX loop's); its sharded summary comes with that plane (§A12).
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ import json
 import logging
 import os
 import time
+
+from fedml_tpu_torch.obs import trace
 
 
 def run_rounds(sim, cfg, metrics_out: str | None, round_sleep: float = 0.0,
@@ -99,20 +101,22 @@ def run_rounds(sim, cfg, metrics_out: str | None, round_sleep: float = 0.0,
             for r in range(cfg.comm_round):
                 evaled = (r + 1) % freq == 0 or r == cfg.comm_round - 1
                 try:
-                    if prefetch is None:
-                        t_mark = time.perf_counter()
-                        variables, server_state, m = sim.run_round(r, variables, server_state)
-                        ready = [(r, {k: float(v) for k, v in m.items()})]  # synchronises
-                    else:
-                        variables, server_state, m = sim.run_staged_round(
-                            prefetch.get(r), variables, server_state)
-                        # queue this round's metrics on the device; an eval
-                        # round fetches everything queued
-                        pending.extend(drain.push(r, m))
-                        if evaled:
-                            ready, pending = pending + drain.flush(), []
+                    with trace.span("loop/round", round=r):
+                        if prefetch is None:
+                            t_mark = time.perf_counter()
+                            variables, server_state, m = sim.run_round(r, variables,
+                                                                       server_state)
+                            ready = [(r, {k: float(v) for k, v in m.items()})]  # synchronises
                         else:
-                            ready = []
+                            variables, server_state, m = sim.run_staged_round(
+                                prefetch.get(r), variables, server_state)
+                            # queue this round's metrics on the device; an eval
+                            # round fetches everything queued
+                            pending.extend(drain.push(r, m))
+                            if evaled:
+                                ready, pending = pending + drain.flush(), []
+                            else:
+                                ready = []
                     window += 1
                     if ready:
                         per_round = (time.perf_counter() - t_mark) / window
@@ -146,7 +150,8 @@ def run_rounds(sim, cfg, metrics_out: str | None, round_sleep: float = 0.0,
             # an exception or a stop broke the loop off
             if drain is not None:
                 try:
-                    salvaged, pending = pending + drain.flush(), []
+                    with trace.span("loop/salvage_flush"):
+                        salvaged, pending = pending + drain.flush(), []
                     per_round = (time.perf_counter() - t_mark) / max(len(salvaged), 1)
                     for rr, mm in salvaged:
                         write(rr, mm, per_round)

@@ -4,8 +4,11 @@
 Every flag of the JAX CLI is here with the same name, dest and default
 (reference flag names, fedml_experiments/distributed/fedavg/main_fedavg.py:
 46-130), plus ``--device`` (default ``cuda``; ``--device cpu`` runs on the
-CPU). Ported: ``--algorithm fedavg`` and ``fedprox`` (with the straggler
-protocol) on the sim engine, every model and dataset the port's registries
+CPU). Ported: ``--algorithm fedavg``, ``fedprox`` (with the straggler
+protocol), ``fedopt`` (``--server_optimizer``, ``--server_lr``,
+``--server_momentum``), ``fednova``, ``fedavg_robust`` (``--robust_rule``,
+``--norm_bound``, ``--stddev``) and ``hierarchical`` (``--group_num``,
+``--group_comm_round``) on the sim engine, every model and dataset the port's registries
 hold (among them ``--model lr`` on ``mnist``, ``synthetic_*`` and
 ``stackoverflow_lr``, the ``tag`` task; ``--model cnn`` on ``femnist``;
 ``--model rnn`` on ``shakespeare``, ``fed_shakespeare`` and
@@ -14,7 +17,13 @@ fixtures), ``--client_optimizer sgd|adam`` with ``--wd`` and ``--momentum``,
 ``--augment``, ``--eval_on_clients``, ``--stage_on_device`` (0: host
 staging), ``--pack_lanes`` and ``--pack_capacity_factor`` (packed lanes),
 ``--population``, ``--population_trace`` and ``--population_seed`` (the
-heterogeneous population), ``--pipeline_depth``, ``--profile_dir``, ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
+heterogeneous population), ``--pipeline_depth``, ``--profile_dir``,
+``--trace_dir`` (host spans as ``trace.jsonl`` and Chrome JSON),
+``--checkpoint_dir`` / ``--checkpoint_every`` / ``--resume`` (round
+checkpoints; with ``--checkpoint_every`` the rounds run one dispatch at a
+time, so every saved round has its exact state), ``--init_from`` /
+``--save_params_to`` (a params file in the JAX package's layout, read and
+written by either package), ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
 config; it needs PyYAML, imported only when ``--cf`` is given). The JAX
 CLI's own flag-combination errors are kept as they are; after them, a flag
 whose plane is not ported raises ``NotImplementedError`` naming its ROADMAP
@@ -85,7 +94,8 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--algorithm", type=str, default="fedavg",
                         choices=["fedavg", "fedopt", "fedprox", "fednova", "fedgan",
                                  "hierarchical", "decentralized", "fedavg_robust"],
-                        help="fedavg and fedprox are ported; the rest are ROADMAP §A10")
+                        help="decentralized (ROADMAP §A10) and fedgan (§A13) are not "
+                             "ported yet")
     parser.add_argument("--server_optimizer", type=str, default="adam")
     parser.add_argument("--server_lr", type=float, default=1e-1)
     parser.add_argument("--server_momentum", type=float, default=0.9)
@@ -179,11 +189,7 @@ _UNPORTED_FLAGS = {
     "server_mode": "§A11", "buffer_goal": "§A11", "staleness_weight": "§A11",
     "tree_fan_ins": "§A11", "tree_transport": "§A11", "tier_timeout": "§A11",
     "tier_compressor": "§A11",
-    "server_optimizer": "§A10 (FedOpt)", "server_lr": "§A10 (FedOpt)",
-    "server_momentum": "§A10 (FedOpt)",
-    "group_num": "§A10 (hierarchical)", "group_comm_round": "§A10 (hierarchical)",
-    "norm_bound": "§A10 (robust aggregation)", "stddev": "§A10 (robust aggregation)",
-    "robust_rule": "§A10 (robust aggregation)", "reservoir_k": "§A10 (robust aggregation)",
+    "reservoir_k": "§A11 (the wire path's reservoir defense)",
     "retry_base_delay": "§A11",
     "compressor": "§A10 (update compression)", "topk_frac": "§A10 (update compression)",
     "quantize_bits": "§A10 (update compression)",
@@ -191,10 +197,6 @@ _UNPORTED_FLAGS = {
     "downlink_compressor": "§A11", "downlink_keyframe_every": "§A11",
     "downlink_retention": "§A11",
     "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
-    "trace_dir": "§A13 (obs/trace.py)",
-    "checkpoint_dir": "§A13 (obs/checkpoint.py)", "checkpoint_every": "§A13 (obs/checkpoint.py)",
-    "resume": "§A13 (obs/checkpoint.py)", "init_from": "§A13 (obs/checkpoint.py)",
-    "save_params_to": "§A13 (obs/checkpoint.py)",
 }
 
 
@@ -227,14 +229,32 @@ def build_trainer(args, model, dataset_name: str):
 
 def build_aggregator(args, train_data):
     from fedml_tpu_torch.algorithms.base import fedavg_aggregator
+    from fedml_tpu_torch.algorithms.fednova import fednova_aggregator
+    from fedml_tpu_torch.algorithms.fedopt import fedopt_aggregator, server_optimizer
     from fedml_tpu_torch.algorithms.fedprox import fedprox_aggregator
+    from fedml_tpu_torch.algorithms.robust import RobustConfig, robust_aggregator
 
-    if args.algorithm == "fedavg":
-        return fedavg_aggregator()
+    if args.algorithm == "fedopt":
+        return fedopt_aggregator(
+            server_optimizer(args.server_optimizer, args.server_lr, args.server_momentum))
+    if args.algorithm == "fednova":
+        return fednova_aggregator(
+            client_lr=args.lr, momentum=args.momentum, mu=0.0, batch_size=args.batch_size,
+            epochs=args.epochs, max_client_samples=train_data.max_client_size())
+    if args.algorithm == "fedavg_robust":
+        return robust_aggregator(RobustConfig(
+            norm_bound=args.norm_bound, stddev=args.stddev, rule=args.robust_rule))
     if args.algorithm == "fedprox":
         return fedprox_aggregator()
+    if args.algorithm in ("fedavg", "hierarchical"):
+        return fedavg_aggregator()
+    if args.algorithm == "decentralized":
+        raise NotImplementedError(
+            "--algorithm decentralized is not ported to fedml_tpu_torch yet: ROADMAP §A10 "
+            "(decentralized/gossip, the engine's per-client mode)")
     raise NotImplementedError(
-        f"--algorithm {args.algorithm} is not ported to fedml_tpu_torch yet: ROADMAP §A10")
+        f"--algorithm {args.algorithm} is not ported to fedml_tpu_torch yet: ROADMAP §A13 "
+        f"({args.algorithm})")
 
 
 def _check_flag_combinations(args) -> None:
@@ -355,7 +375,14 @@ def _check_ported(args, defaults: dict) -> None:
 
 
 def run(args) -> list[dict]:
-    """Run the experiment ``args`` describe; returns the round history."""
+    """Run the experiment ``args`` describe; returns the round history. With
+    ``--trace_dir`` the run is traced (``obs/trace.py`` ``run_traced``)."""
+    from fedml_tpu_torch.obs.trace import run_traced
+
+    return run_traced(_run, args)
+
+
+def _run(args) -> list[dict]:
     from fedml_tpu_torch.data.registry import load_partition_data
     from fedml_tpu_torch.models.registry import create_model
     from fedml_tpu_torch.obs.metrics import MetricsLogger, logging_config
@@ -395,11 +422,64 @@ def run(args) -> list[dict]:
     sim = FedSim(trainer, ds.train, ds.test_arrays, cfg, aggregator=aggregator,
                  device=args.device)
     with MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb)) as metrics:
-        variables = sim.init_round_variables()
-        _, history = sim.run(
+        if args.algorithm == "hierarchical":
+            from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFedAvg, HierConfig
+
+            hier = HierarchicalFedAvg(sim, HierConfig(
+                group_num=args.group_num, global_comm_round=args.comm_round,
+                group_comm_round=args.group_comm_round))
+            return hier.run(callback=metrics.log)[1]
+        return _run_checkpointed(args, sim, cfg, metrics)
+
+
+def _run_checkpointed(args, sim, cfg, metrics) -> list[dict]:
+    """The checkpoint-aware run (``main_fedavg.py:1234-1302``): warm start
+    from ``--init_from``, ``--resume`` from the latest round checkpoint, then
+    the engine's :meth:`~FedSim.run` (blocks, pipelining, profiling), or,
+    with ``--checkpoint_every``, one round a dispatch with a checkpoint every
+    N rounds; ``--save_params_to`` saves the final model."""
+    from fedml_tpu_torch.obs import checkpoint
+
+    ckptr = checkpoint.RoundCheckpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    overrides = None
+    if args.init_from:
+        overrides = checkpoint.load_params(args.init_from, like=sim.init_variables())
+        logging.info("warm-starting from %s", args.init_from)
+    variables = sim.init_round_variables(overrides)
+    server_state = sim.aggregator.init_state(variables)
+    start_round = 0
+    history: list[dict] = []
+    if args.resume and ckptr is not None and ckptr.latest_round() is not None:
+        variables, server_state, start_round, history = ckptr.restore(
+            variables, like_server_state=server_state)
+        start_round += 1
+        logging.info("resumed from round %d", start_round - 1)
+
+    def save_params(final_variables):
+        if args.save_params_to:
+            saved = checkpoint.save_params(args.save_params_to, sim.consensus(final_variables))
+            logging.info("saved final model variables to %s", saved)
+
+    if ckptr is None or not args.checkpoint_every:
+        final_variables, run_history = sim.run(
             callback=lambda rec: metrics.log(rec, round_idx=rec["round"]),
-            variables=variables, server_state=sim.aggregator.init_state(variables),
-        )
+            variables=variables, server_state=server_state, start_round=start_round)
+        save_params(final_variables)
+        return history + run_history
+    if cfg.profile_dir:
+        logging.warning("--profile_dir is not captured on the checkpointed per-round "
+                        "path; run without --checkpoint_every to profile")
+    freq = max(cfg.frequency_of_the_test, 1)
+    for r in range(start_round, cfg.comm_round):
+        variables, server_state, m = sim.run_round(r, variables, server_state)
+        rec = {"round": r, **{k: float(v) for k, v in m.items()}}
+        if (r + 1) % freq == 0 or r == cfg.comm_round - 1:
+            rec.update(sim.eval_record(variables))
+        history.append(rec)
+        metrics.log(rec, round_idx=r)
+        if (r + 1) % args.checkpoint_every == 0:
+            ckptr.save(r, variables, server_state, history)
+    save_params(variables)
     return history
 
 

@@ -2,9 +2,9 @@
 from ``fedml_tpu/obs/metrics.py``: python logging with a per-process format
 (fedml_api/utils/logger.py:7), and one metric sink with the reference's
 wandb key names (Train/Acc, Train/Loss, Test/Acc, Test/Loss by round),
-writing JSONL locally and forwarding to wandb when asked and available.
-``CommBytesAccountant`` and ``RoundTimer`` (wire path and tracing) are not
-ported yet (ROADMAP §A11, §A13)."""
+writing JSONL locally and forwarding to wandb when asked and available,
+and the robust defenses' metric keys. ``CommBytesAccountant`` and
+``RoundTimer`` (the wire path's) are not ported yet (ROADMAP §A11)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,14 @@ import logging
 import time
 from pathlib import Path
 from typing import Any
+
+# Robust-aggregation defense keys (algorithms/robust.py): per-round mean
+# pre-clip update norm, fraction of the cohort whose delta got clipped, and
+# how many client updates the combine rule discarded (Krum and the median
+# keep one, trimmed mean drops 2k), each over the real (weight > 0) clients
+ROBUST_UPDATE_NORM = "Robust/UpdateNorm"
+ROBUST_CLIP_FRACTION = "Robust/ClipFraction"
+ROBUST_FILTERED = "Robust/FilteredClients"
 
 
 def logging_config(process_id: int = 0, level=logging.INFO) -> None:

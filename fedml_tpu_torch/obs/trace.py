@@ -1,0 +1,565 @@
+"""Process-wide span/event tracer, a copy of ``fedml_tpu/obs/trace.py``:
+one stream of spans, events, counters and gauges from the round driver, the
+prefetch thread and the experiment loops, exported as JSONL and as Chrome
+trace-event JSON (loadable in Perfetto / ``chrome://tracing``, one track per
+thread). The records have the JAX package's schema, so one reader parses
+both packages' traces.
+
+- **Read-only.** Tracing wraps host code with timers; it never touches
+  staging, seeds or aggregation: a traced run's history is bitwise an
+  untraced run's. A span times the host: on the card a dispatch span ends
+  when its work is queued, not when the device has run it.
+- **Zero overhead when disabled.** Call sites use the module-level helpers
+  (:func:`span` / :func:`gauge` / ...), which cost one global read and return
+  a shared no-op context manager when no tracer is installed.
+- **Thread-safe.** Spans land from the driver thread and the prefetch
+  staging thread; each thread gets its own track id (Chrome ``tid``).
+
+Usage::
+
+    from fedml_tpu_torch.obs import trace
+
+    with trace.span("engine/stage", round=r):
+        ...
+    trace.gauge("prefetch/queue_depth", q.qsize())
+
+    tracer = trace.install()          # start recording (process-wide)
+    ...
+    trace.uninstall()
+    tracer.export_chrome("trace.chrome.json")
+
+or, scoped (the ``--trace_dir`` entry-point wiring)::
+
+    with trace.trace_to(run_dir):     # exports trace.jsonl + chrome on exit
+        ...
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import threading
+import time
+from pathlib import Path
+from typing import Any
+
+__all__ = [
+    "Tracer", "install", "uninstall", "get", "enabled",
+    "span", "event", "counter", "gauge", "trace_to", "wire_ctx",
+    "lane_traces",
+    "CHROME_TRACE_NAME", "JSONL_TRACE_NAME", "META_EVENT_NAME",
+]
+
+JSONL_TRACE_NAME = "trace.jsonl"
+CHROME_TRACE_NAME = "trace.chrome.json"
+META_EVENT_NAME = "trace/meta"
+
+# ancestors carried in a wire trace context (the JAX package's comm/base.py stamping): enough
+# to reconstruct the enclosing handler/broadcast chain at the receiver
+# without letting deeply-nested rounds grow the header unboundedly
+MAX_CTX_CHAIN = 8
+
+
+class _NullSpan:
+    """Shared do-nothing context manager — the disabled-tracer fast path."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """One live span; created by :meth:`Tracer.span`.
+
+    On enter it is assigned a tracer-unique ``span_id`` and pushed on the
+    calling thread's open-span stack (the stack top is its ``parent_id``),
+    so every recorded span carries a causal parent link and
+    :func:`wire_ctx` can snapshot the open chain for the wire."""
+
+    __slots__ = ("_tracer", "_name", "_attrs", "_t0", "span_id", "_open")
+
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+        self._tracer = tracer
+        self._name = name
+        self._attrs = attrs
+
+    def __enter__(self) -> "_Span":
+        tracer = self._tracer
+        self._t0 = tracer._clock()
+        stack = tracer._stack()
+        self.span_id = next(tracer._ids)
+        self._open = {
+            "name": self._name, "ts": tracer._us(self._t0),
+            "tid": tracer._tid(), "span_id": self.span_id,
+            "parent_id": stack[-1]["span_id"] if stack else None,
+            "attrs": self._attrs,
+        }
+        stack.append(self._open)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        tracer = self._tracer
+        t_end = tracer._clock()
+        stack = tracer._stack()
+        if stack and stack[-1] is self._open:
+            stack.pop()
+        else:  # out-of-order exit (shouldn't happen): drop just this entry
+            try:
+                stack.remove(self._open)
+            except ValueError:
+                pass
+        rec = {
+            "name": self._name, "ph": "X", "ts": self._open["ts"],
+            "dur": max(tracer._us(t_end) - self._open["ts"], 0.0),
+            "tid": self._open["tid"],
+            "args": {**self._attrs, "span_id": self.span_id},
+        }
+        if self._open["parent_id"] is not None:
+            rec["args"]["parent_id"] = self._open["parent_id"]
+        tracer._record(rec)
+        return False
+
+
+class Tracer:
+    """Thread-safe in-memory span/event recorder.
+
+    Events are stored directly in Chrome trace-event shape (``name``/``ph``/
+    ``ts``/``dur``/``tid``/``args``; timestamps in microseconds relative to
+    tracer construction, measured on ``time.perf_counter``), so both
+    exporters are a serialization of the same list. ``ph`` values used:
+    ``X`` complete span, ``C`` counter/gauge sample, ``i`` instant event.
+    """
+
+    PID = 1  # single-process tracer; one Chrome process track
+
+    # events kept in memory while recording (~150 bytes each → ~300 MB
+    # worst case). The buffer is a RING: once full, the OLDEST events are
+    # evicted, so a multi-hour traced run keeps the most recent window (the
+    # part an operator debugging "why did it just get slow" actually wants)
+    # at bounded memory; ``dropped`` counts evictions and both exporters
+    # surface it as a ``trace/dropped_events`` counter record.
+    DEFAULT_MAX_EVENTS = 2_000_000
+    DROPPED_EVENT_NAME = "trace/dropped_events"
+
+    def __init__(self, max_events: int | None = None,
+                 lane: str | None = None):
+        from collections import deque
+
+        self._clock = time.perf_counter
+        self._t0 = self._clock()
+        # wall-clock anchor for this tracer's t=0 (exported as metadata):
+        # lets tools/trace_merge.py coarsely align lanes that never
+        # exchanged a message, before send<->recv pairs refine the offset
+        self.wall0 = time.time()
+        # lane label identifying this tracer's process/rank in a merged
+        # multi-rank trace; rides outgoing wire contexts so the receive
+        # side can name its causal origin
+        self.lane = lane
+        self._lock = threading.Lock()
+        self._max_events = (self.DEFAULT_MAX_EVENTS if max_events is None
+                            else int(max_events))
+        self._events: "deque[dict]" = deque(maxlen=self._max_events)  # guarded-by: _lock
+        self.dropped = 0  # guarded-by: _lock
+        self._thread_ids: dict[int, int] = {}
+        self._thread_names: dict[int, str] = {}
+        self._ids = itertools.count(1)  # span ids; count.__next__ is atomic
+        self._local = threading.local()
+        # thread ident -> that thread's open-span stack, registered on the
+        # thread's first span so exporters can surface still-open spans
+        self._open_stacks: dict[int, list] = {}  # guarded-by: _lock
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+            with self._lock:
+                self._open_stacks[threading.get_ident()] = st
+        return st
+
+    def _record(self, rec: dict) -> None:
+        with self._lock:
+            if len(self._events) >= self._max_events:
+                self.dropped += 1  # deque evicts the oldest on append
+            if self._max_events > 0:
+                self._events.append(rec)
+
+    # -- recording -----------------------------------------------------------
+
+    def _tid(self) -> int:
+        t = threading.current_thread()
+        ident = t.ident or 0
+        tid = self._thread_ids.get(ident)
+        if tid is None:
+            with self._lock:
+                tid = self._thread_ids.setdefault(
+                    ident, len(self._thread_ids) + 1
+                )
+                self._thread_names[tid] = t.name
+        return tid
+
+    def _us(self, t: float) -> float:
+        return (t - self._t0) * 1e6
+
+    def span(self, name: str, **attrs: Any) -> _Span:
+        """Context manager recording one complete span on the calling
+        thread's track; ``attrs`` become the span's Chrome ``args``."""
+        return _Span(self, name, attrs)
+
+    def add_span(self, name: str, t_start: float, t_end: float,
+                 **attrs: Any) -> None:
+        """Record an already-timed span (``time.perf_counter`` endpoints) —
+        the manual-timing API for callers like RoundTimer that measured the
+        interval themselves. Parented under the calling thread's innermost
+        open span, like a context-manager span would be."""
+        stack = self._stack()
+        rec = {
+            "name": name, "ph": "X", "ts": self._us(t_start),
+            "dur": max((t_end - t_start) * 1e6, 0.0), "tid": self._tid(),
+            "args": {**attrs, "span_id": next(self._ids)},
+        }
+        if stack:
+            rec["args"]["parent_id"] = stack[-1]["span_id"]
+        self._record(rec)
+
+    def current_ctx(self, origin: int | None = None) -> dict:
+        """The calling thread's wire trace context: innermost open span id,
+        its ancestor chain (inner-first, capped), this tracer's lane label,
+        the sender rank, and the send wall time — the header dict
+        ``comm/base.py`` stamps under ``MSG_ARG_KEY_TRACE_CTX``."""
+        stack = self._stack()
+        ctx: dict[str, Any] = {"rank": origin, "sent_at": time.time()}
+        if self.lane is not None:
+            ctx["lane"] = self.lane
+        if stack:
+            ctx["span"] = stack[-1]["span_id"]
+            chain = [s["span_id"] for s in stack[-2::-1]]
+            if chain:
+                ctx["chain"] = chain[:MAX_CTX_CHAIN]
+        return ctx
+
+    def event(self, name: str, **attrs: Any) -> None:
+        """Record an instant event (a point-in-time marker)."""
+        rec = {"name": name, "ph": "i", "ts": self._us(self._clock()),
+               "tid": self._tid(), "s": "t"}
+        if attrs:
+            rec["args"] = attrs
+        self._record(rec)
+
+    def counter(self, name: str, value: float, **attrs: Any) -> None:
+        """Record one sample of a named counter/gauge series."""
+        rec = {"name": name, "ph": "C", "ts": self._us(self._clock()),
+               "tid": self._tid(),
+               "args": {"value": float(value), **attrs}}
+        self._record(rec)
+
+    # a gauge is a counter whose samples are levels, not increments; the
+    # trace stream does not distinguish them
+    gauge = counter
+
+    # -- reading / export ----------------------------------------------------
+
+    def events(self) -> list[dict]:
+        """Snapshot of recorded events (copies the list, not the dicts)."""
+        with self._lock:
+            return list(self._events)
+
+    def _dropped_record(self) -> dict | None:
+        """The exporter-surfaced drop counter: a ``C`` record named
+        :data:`DROPPED_EVENT_NAME` appended to both export formats when the
+        ring evicted anything — a truncated trace must say so in-band, not
+        only in a log line that scrolled away."""
+        with self._lock:
+            dropped = self.dropped
+        if not dropped:
+            return None
+        return {"name": self.DROPPED_EVENT_NAME, "ph": "C",
+                "ts": self._us(self._clock()), "tid": 0,
+                "args": {"value": float(dropped),
+                         "max_events": self._max_events}}
+
+    def thread_names(self) -> dict[int, str]:
+        with self._lock:
+            return dict(self._thread_names)
+
+    def open_spans(self) -> list[dict]:
+        """Spans entered but not yet exited at call time, as Chrome ``B``
+        (begin) records — a span a crash or hang left unterminated exports
+        open-ended instead of vanishing. Perfetto renders an unmatched
+        ``B`` as running to the end of the trace; tools/trace_report.py
+        flags it the same way."""
+        with self._lock:
+            stacks = [list(st) for st in self._open_stacks.values()]
+        recs = []
+        for stack in stacks:
+            for s in stack:
+                args = {**s["attrs"], "span_id": s["span_id"], "open": True}
+                if s["parent_id"] is not None:
+                    args["parent_id"] = s["parent_id"]
+                recs.append({"name": s["name"], "ph": "B", "ts": s["ts"],
+                             "tid": s["tid"], "args": args})
+        return recs
+
+    def _meta_records(self) -> list[dict]:
+        """Lane/wall-clock metadata + thread names, for the JSONL export:
+        tools/trace_merge.py reads these to label each per-rank lane and to
+        anchor lanes with no send<->recv pair on the wall clock."""
+        meta = [{
+            "name": META_EVENT_NAME, "ph": "M", "ts": 0.0, "tid": 0,
+            "args": {"wall0": self.wall0, "lane": self.lane},
+        }]
+        for tid, tname in sorted(self.thread_names().items()):
+            meta.append({"name": "thread_name", "ph": "M", "ts": 0.0,
+                         "tid": tid, "args": {"name": tname}})
+        return meta
+
+    def export_jsonl(self, path: str | Path) -> Path:
+        """One event per line, same records as the Chrome export, prefixed
+        with ``M`` metadata lines (lane label, wall-clock anchor, thread
+        names) and suffixed with any still-open spans."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        recs = self._meta_records() + self.events() + self.open_spans()
+        dropped = self._dropped_record()
+        if dropped is not None:
+            recs.append(dropped)
+        with open(path, "w") as f:
+            for rec in recs:
+                f.write(json.dumps({"pid": self.PID, **rec}) + "\n")
+        return path
+
+    def export_chrome(self, path: str | Path) -> Path:
+        """Chrome trace-event JSON (object form with ``traceEvents``),
+        loadable in Perfetto / ``chrome://tracing``. Thread-name metadata
+        events give each Python thread its own named track."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        meta = [
+            {"name": "process_name", "ph": "M", "pid": self.PID, "tid": 0,
+             "args": {"name": self.lane or "fedml_tpu_torch"}},
+        ]
+        for tid, tname in sorted(self.thread_names().items()):
+            meta.append({"name": "thread_name", "ph": "M", "pid": self.PID,
+                         "tid": tid, "args": {"name": tname}})
+        recs = self.events() + self.open_spans()
+        dropped = self._dropped_record()
+        if dropped is not None:
+            recs.append(dropped)
+        payload = {
+            "traceEvents": meta + [
+                {"pid": self.PID, **rec} for rec in recs
+            ],
+            "displayTimeUnit": "ms",
+            "traceMeta": {"wall0": self.wall0, "lane": self.lane},
+        }
+        if dropped is not None:
+            payload["droppedEvents"] = int(dropped["args"]["value"])
+        with open(path, "w") as f:
+            json.dump(payload, f)
+        return path
+
+
+# ---------------------------------------------------------------------------
+# Process-wide tracer + the zero-overhead module-level helpers every
+# instrumented call site uses. With the multi-tenant job plane, tracer
+# installs can additionally be job-scoped (obs/jobscope.py): a thread bound
+# to a job resolves that job's tracer first and falls back to the process
+# one, so N co-scheduled federations keep separate span streams while
+# single-job runs keep the one-global-read hot path.
+# ---------------------------------------------------------------------------
+
+_tracer: Tracer | None = None
+_job_store = None  # lazily built: jobscope is only imported when job-scoping is used
+
+
+def _job_tracers():
+    global _job_store
+    if _job_store is None:
+        from fedml_tpu_torch.obs import jobscope
+
+        _job_store = jobscope.JobStore("tracer")
+    return _job_store
+
+
+def install(tracer: Tracer | None = None) -> Tracer:
+    """Install ``tracer`` (a fresh one by default) as the process tracer and
+    return it. Replaces any previously-installed tracer."""
+    global _tracer
+    _tracer = tracer if tracer is not None else Tracer()
+    return _tracer
+
+
+def uninstall() -> Tracer | None:
+    """Remove and return the process tracer (instrumentation reverts to the
+    no-op path)."""
+    global _tracer
+    t, _tracer = _tracer, None
+    return t
+
+
+def install_job(job: str, tracer: Tracer | None = None) -> Tracer:
+    """Install a tracer scoped to ``job``: threads bound to the job
+    (jobscope.bound / jobscope.wrap_target) resolve it ahead of the process
+    tracer, so each co-scheduled federation exports its own span stream."""
+    return _job_tracers().install(
+        job, tracer if tracer is not None else Tracer())
+
+
+def uninstall_job(job: str) -> Tracer | None:
+    return _job_tracers().uninstall(job)
+
+
+def job_tracers() -> dict[str, Tracer]:
+    """Snapshot of the installed job-scoped tracers (job -> tracer)."""
+    return _job_tracers().installed()
+
+
+def get() -> Tracer | None:
+    """The calling thread's job-scoped tracer when one is installed, else
+    the process tracer, else None. Call sites whose span *attributes* are
+    expensive to compute should guard on this."""
+    store = _job_store
+    if store is not None:
+        t = store.lookup()
+        if t is not None:
+            return t
+    return _tracer
+
+
+def enabled() -> bool:
+    return get() is not None
+
+
+def span(name: str, **attrs: Any):
+    """Span on the resolved tracer; shared no-op when none is installed."""
+    t = get()
+    return t.span(name, **attrs) if t is not None else _NULL_SPAN
+
+
+def event(name: str, **attrs: Any) -> None:
+    t = get()
+    if t is not None:
+        t.event(name, **attrs)
+
+
+def counter(name: str, value: float, **attrs: Any) -> None:
+    t = get()
+    if t is not None:
+        t.counter(name, value, **attrs)
+
+
+gauge = counter
+
+
+def wire_ctx(origin: int | None = None) -> dict | None:
+    """The calling thread's wire trace context on the resolved tracer, or
+    None when no tracer is installed — the value ``comm/base.py`` stamps
+    under ``Message.MSG_ARG_KEY_TRACE_CTX`` when a manager's ``trace_wire``
+    opt-in is armed. None means: do not stamp, keep the wire byte-identical
+    to an untraced run."""
+    t = get()
+    return t.current_ctx(origin) if t is not None else None
+
+
+def run_traced(run_fn, args):
+    """Entry-point seam for the ``--trace_dir`` flag: run ``run_fn(args)``
+    under :class:`trace_to` when ``args.trace_dir`` is set, plain otherwise.
+    One definition shared by main_fedavg and every repro entry."""
+    trace_dir = getattr(args, "trace_dir", None)
+    if not trace_dir:
+        return run_fn(args)
+    with trace_to(trace_dir):
+        return run_fn(args)
+
+
+def add_cli_flag(parser):
+    """Register the canonical ``--trace_dir`` flag (one help text for every
+    entry point that supports traced runs)."""
+    parser.add_argument(
+        "--trace_dir", type=str, default=None,
+        help="record host-side span telemetry (round driver, prefetcher, "
+             "experiment loops) and write trace.jsonl + "
+             "trace.chrome.json (Perfetto/chrome://tracing) into this dir; "
+             "read-only, results are unchanged",
+    )
+    return parser
+
+
+class lane_traces:
+    """Context manager: install one job-scoped :class:`Tracer` per lane
+    label and export each as ``trace_<lane>.jsonl`` into ``trace_dir`` on
+    exit — the in-process multi-rank tracing harness the loopback/shm run
+    harnesses use (a real multi-process deployment instead passes each
+    process its own ``--trace_dir`` and merges the per-process files).
+    Threads are routed to their lane's tracer by binding them with
+    ``jobscope`` (obs/jobscope.py); ``tools/trace_merge.py`` merges the
+    exported files into one Perfetto trace."""
+
+    def __init__(self, trace_dir: str | Path, lanes: list[str]):
+        self.trace_dir = Path(trace_dir)
+        self.lanes = list(lanes)
+        self.tracers: dict[str, Tracer] = {}
+        self.paths: dict[str, Path] = {}
+
+    def __enter__(self) -> "lane_traces":
+        for lane in self.lanes:
+            self.tracers[lane] = install_job(lane, Tracer(lane=lane))
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for lane in self.lanes:
+            uninstall_job(lane)
+            self.paths[lane] = self.tracers[lane].export_jsonl(
+                self.trace_dir / f"trace_{lane}.jsonl"
+            )
+        return False
+
+
+class trace_to:
+    """Context manager: install a fresh process tracer, and on exit export
+    ``trace.jsonl`` + ``trace.chrome.json`` into ``trace_dir`` and restore
+    the previously-installed tracer (if any). The ``--trace_dir`` wiring of
+    the experiment entry points."""
+
+    def __init__(self, trace_dir: str | Path):
+        self.trace_dir = Path(trace_dir)
+        self.tracer: Tracer | None = None
+        self._prev: Tracer | None = None
+
+    def __enter__(self) -> Tracer:
+        self._prev = get()
+        self.tracer = install()
+        return self.tracer
+
+    def __exit__(self, *exc) -> bool:
+        global _tracer
+        _tracer = self._prev
+        assert self.tracer is not None
+        self.jsonl_path = self.tracer.export_jsonl(
+            self.trace_dir / JSONL_TRACE_NAME
+        )
+        self.chrome_path = self.tracer.export_chrome(
+            self.trace_dir / CHROME_TRACE_NAME
+        )
+        import logging
+
+        logging.info("trace written: %s (%d events); open %s in Perfetto",
+                     self.jsonl_path, len(self.tracer.events()),
+                     self.chrome_path)
+        dropped = self.tracer._dropped_record()
+        if dropped is not None:
+            logging.warning(
+                "trace ring wrapped: %d oldest events evicted past the "
+                "%d-event cap (Tracer(max_events=...) raises it; the "
+                "exports carry a %s counter record)",
+                int(dropped["args"]["value"]),
+                int(dropped["args"]["max_events"]),
+                Tracer.DROPPED_EVENT_NAME,
+            )
+        return False

@@ -44,6 +44,19 @@ heterogeneous population (``population``/``population_trace``,
 and mid-round dropout (a dropped client weighs 0), through the JAX engine's
 hooks (``engine.py:1503-1631``); without one every round is what it was.
 
+The server rule (``aggregator``, ``algorithms/``) gets the cohort's models in
+cohort order, or the stacked ``[C, ...]`` state dict when it asks for it
+(``Aggregator.stacked``: the scan mode then stacks the clients as they
+finish), with the round's :class:`~fedml_tpu_torch.core.rng.RoundNoise` and
+``extras`` (each client's true step count ``tau`` and its bound ``max_tau``,
+``engine.py:916-984``), on every path: vmap, scan and packed. The robust
+defenses (``robust_rule``, ``norm_bound``, ``dp_stddev``) build the robust
+rule, as the JAX engine does. :meth:`FedSim.run_cohort_round` runs a round
+over an explicit cohort (hierarchical FedAvg's groups). The JAX engine's
+trace points (``obs/trace.py``: ``engine/stage``, ``engine/dispatch``,
+``engine/eval``, ``engine/sync``, ``engine/lane_occupancy``,
+``engine/overflow_passes``) time the host's part of each.
+
 :meth:`FedSim.run` is the JAX engine's driver (``engine.py:2069-2183``):
 with ``pipeline_depth`` >= 1 (the default, depth 1) a background thread
 stages the next segments (a round or a block, ``sim/prefetch.py``) into
@@ -71,12 +84,14 @@ import torch
 from fedml_tpu_torch import population as poplib
 from fedml_tpu_torch.algorithms.base import Aggregator, EmptyRoundError, fedavg_aggregator
 from fedml_tpu_torch.algorithms.fedprox import straggler_epochs
+from fedml_tpu_torch.algorithms.robust import RobustConfig, robust_aggregator
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.core.trainer import (ClientTrainer, DropoutStream, LaneDropout, _last_epoch,
                                           make_lane_step, make_local_eval, make_local_train,
                                           make_vmap_train)
 from fedml_tpu_torch.device import resolve_device
+from fedml_tpu_torch.obs import trace
 from fedml_tpu_torch.ops import augment as augmentlib
 from fedml_tpu_torch.sim import cohort as cohortlib
 from fedml_tpu_torch.sim.graphs import PassGraph, RoundGraph
@@ -92,9 +107,6 @@ _NOT_PORTED = {
     "topk_frac": ((0.01,), "§A10"),
     "quantize_bits": ((8,), "§A10"),
     "downlink_compressor": (("none",), "§A11"),
-    "robust_rule": (("mean",), "§A10"),
-    "norm_bound": ((0.0,), "§A10"),
-    "dp_stddev": ((0.0,), "§A10"),
     "error_feedback": ((True,), "§A10"),
     "mesh_shape": ((None,), "§A12"),
     "shard_rules": ((None,), "§A12"),
@@ -118,8 +130,9 @@ class SimConfig:
     budgets and mid-round dropout, drawn from ``population_seed`` (None =
     ``seed``); ``pack_lanes`` > 0 bin-packs each round's client step streams
     into that many lanes, ``pack_capacity_factor`` the lane length's head
-    room. A value of the JAX engine's other fields that the port does not
-    implement raises."""
+    room. ``robust_rule``, ``norm_bound`` and ``dp_stddev`` configure the
+    robust defenses (``algorithms/robust.py``). A value of the JAX engine's
+    other fields that the port does not implement raises."""
 
     client_num_in_total: int = 10
     client_num_per_round: int = 10
@@ -275,7 +288,9 @@ class FedSim:
     train_data: FederatedArrays (client-partitioned train set)
     test_arrays: dict of [N, ...] arrays, the pooled global test set, or None
     config: SimConfig
-    aggregator: server rule; defaults to the FedAvg weighted mean
+    aggregator: server rule; defaults to the FedAvg weighted mean, or to the
+        robust rule ``config``'s defense fields describe (an explicit
+        aggregator beside them raises)
     device: where the model and the round run, and the dataset with
         on-device staging
     local_train_fn: the JAX engine's custom round program (the GAN's), not
@@ -294,6 +309,17 @@ class FedSim:
         # spec or the trace that drives cohorts, budgets and dropout
         self._population = self._make_population(config)
         self._pop_view_cache: tuple | None = None
+        robust_on = (config.robust_rule != "mean" or config.norm_bound > 0
+                     or config.dp_stddev > 0)
+        if robust_on and aggregator is not None:
+            raise ValueError(
+                "SimConfig robust defense flags (robust_rule/norm_bound/"
+                "dp_stddev) conflict with an explicit aggregator= — one of "
+                "them would silently win; configure the defense in exactly "
+                "one place")
+        if robust_on:
+            aggregator = robust_aggregator(RobustConfig(
+                norm_bound=config.norm_bound, stddev=config.dp_stddev, rule=config.robust_rule))
         self.aggregator = aggregator or fedavg_aggregator()
         # per-client persistent models (the JAX gossip rules; none is
         # ported, but a rule that says so is refused as the JAX engine does)
@@ -359,6 +385,9 @@ class FedSim:
         # packed rounds: one captured lane pass per pass shape
         self._graphs: dict[tuple, RoundGraph] = {}
         self._pass_graphs: dict[tuple, PassGraph] = {}
+        # program kinds dispatched so far (the first dispatch of each is
+        # marked in the trace, engine.py:1768-1777)
+        self._dispatched: set[str] = set()
 
     @staticmethod
     def _make_population(config: SimConfig):
@@ -619,21 +648,28 @@ class FedSim:
         ahead of the dispatch loop (``sim/prefetch.py``) cannot change
         cohorts or metrics. Under ``pack_lanes`` a :class:`PackedStaged`
         lane plan, bin-packing included (:meth:`_stage_packed_round`)."""
-        cohort = self._sample_cohort(round_idx)
-        if self._pack:
-            return self._stage_packed_round(cohort, round_idx)
-        idx, weights, num_steps = self._host_cohort_indices(cohort, round_idx)
-        draws = self._round_draws(round_idx, len(cohort))
-        if self._on_device:
-            idx_t, batches = self._stage_put(idx), None
-        else:
-            idx_t = None
-            batches = {k: self._stage_put(v) for k, v in
-                       cohortlib.gather_index_stack(self.train_data.arrays, idx).items()}
-        return Staged(
-            round_idx, cohort, idx_t, batches, self._stage_put(weights),
-            self._stage_put(num_steps), num_steps,
-            None if draws is None else {k: self._stage_put(d) for k, d in draws.items()})
+        return self.stage_cohort_round(self._sample_cohort(round_idx), round_idx)
+
+    def stage_cohort_round(self, cohort, round_idx: int) -> Staged | PackedStaged:
+        """:meth:`stage_round`'s payload for an explicit ``cohort`` (client
+        ids), ``engine.py:1650-1665``: what compositions that pick their own
+        cohorts (hierarchical FedAvg's groups) stage."""
+        cohort = np.asarray(cohort)
+        with trace.span("engine/stage", round=round_idx, packed=self._pack):
+            if self._pack:
+                return self._stage_packed_round(cohort, round_idx)
+            idx, weights, num_steps = self._host_cohort_indices(cohort, round_idx)
+            draws = self._round_draws(round_idx, len(cohort))
+            if self._on_device:
+                idx_t, batches = self._stage_put(idx), None
+            else:
+                idx_t = None
+                batches = {k: self._stage_put(v) for k, v in
+                           cohortlib.gather_index_stack(self.train_data.arrays, idx).items()}
+            return Staged(
+                round_idx, cohort, idx_t, batches, self._stage_put(weights),
+                self._stage_put(num_steps), num_steps,
+                None if draws is None else {k: self._stage_put(d) for k, d in draws.items()})
 
     def stage_block(self, start_round: int, n_rounds: int) -> BlockStaged:
         """Host staging for an ``n_rounds`` block (``engine.py:1308-1333``):
@@ -641,17 +677,18 @@ class FedSim:
         and the rounds' augmentation draws, copied to the device. Pure in
         (config, rounds), so the prefetch thread can stage the next block
         while the current one runs."""
-        rounds = range(start_round, start_round + n_rounds)
-        cohorts = [self._sample_cohort(r) for r in rounds]
-        per = [self._host_cohort_indices(c, r) for c, r in zip(cohorts, rounds)]
-        draws = [self._round_draws(r, len(c)) for c, r in zip(cohorts, rounds)]
-        budgets = np.stack([p[2] for p in per])
-        return BlockStaged(
-            start_round, n_rounds, cohorts,
-            *(self._stage_put(np.stack([p[i] for p in per])) for i in range(2)),
-            self._stage_put(budgets), budgets,
-            None if draws[0] is None else
-            {k: self._stage_put(torch.stack([d[k] for d in draws])) for k in draws[0]})
+        with trace.span("engine/stage", round=start_round, n_rounds=n_rounds, block=True):
+            rounds = range(start_round, start_round + n_rounds)
+            cohorts = [self._sample_cohort(r) for r in rounds]
+            per = [self._host_cohort_indices(c, r) for c, r in zip(cohorts, rounds)]
+            draws = [self._round_draws(r, len(c)) for c, r in zip(cohorts, rounds)]
+            budgets = np.stack([p[2] for p in per])
+            return BlockStaged(
+                start_round, n_rounds, cohorts,
+                *(self._stage_put(np.stack([p[i] for p in per])) for i in range(2)),
+                self._stage_put(budgets), budgets,
+                None if draws[0] is None else
+                {k: self._stage_put(torch.stack([d[k] for d in draws])) for k in draws[0]})
 
     def _stage_segment(self, segment: tuple[int, int]):
         r, n = segment
@@ -719,6 +756,12 @@ class FedSim:
         and data to the device. Pure in (config, round_idx) like every
         staging path, so the prefetch thread runs it ahead."""
         idx, weights, num_steps, plan = self._pack_round_plan(cohort, round_idx)
+        # lane occupancy (executed steps / scanned lane slots, overflow passes
+        # included) and the overflow pass count: whether the lane geometry
+        # fits the population
+        trace.gauge("engine/lane_occupancy", plan.total_steps / max(plan.capacity, 1),
+                    round=round_idx)
+        trace.counter("engine/overflow_passes", len(plan.passes) - 1, round=round_idx)
         sites = self.trainer.dropout_sites
         passes = []
         for pp in plan.passes:
@@ -812,7 +855,7 @@ class FedSim:
             written.index_copy_(0, emit, ones)
 
     def _packed_aggregate(self, global_variables: StateDict, server_state, bufs: tuple,
-                          weights: torch.Tensor, num_steps: torch.Tensor):
+                          weights: torch.Tensor, num_steps: torch.Tensor, noise):
         """Rebuild the padded round's per-client quantities from a packed
         round's buffers and aggregate them (``engine.py:1211-1266``): each
         written slot's model (an unwritten one holds the global model, as
@@ -838,11 +881,35 @@ class FedSim:
         rows = torch.arange(C, device=last.device)
         train_loss = (torch.stack(loss_sums)[last, rows]
                       / torch.clamp(torch.stack(w_sums)[last, rows], min=1.0))
-        new_global, server_state, agg_metrics = self.aggregator.aggregate(
-            global_variables, iter(treelib.unstack(local, C)), weights, server_state)
+        new_global, server_state, agg_metrics = self._aggregate(
+            global_variables, local, weights, num_steps, server_state, noise)
         metrics = {"Train/Loss": torch.sum(train_loss * weights / torch.sum(weights)),
                    **agg_metrics}
         return new_global, server_state, metrics
+
+    def _round_noise(self, round_idx: int) -> rnglib.RoundNoise:
+        return rnglib.RoundNoise(self.config.seed, round_idx, self.device)
+
+    def _aggregate(self, global_variables: StateDict, clients, weights: torch.Tensor,
+                   num_steps: torch.Tensor, server_state, noise):
+        """The round's server side on every path (``engine.py:916-984``):
+        the rule gets the cohort's models (``clients``: a stacked ``[C,
+        ...]`` state dict, or an iterable of the clients' in cohort order)
+        as it asks for them, the round's noise and ``extras``: each client's
+        true SGD step count ``tau = e_i * ceil(max(n_i, 1) / B)`` (e_i the
+        client's epochs of budget, ``num_steps / steps``) and the static
+        bound ``max_tau``."""
+        epochs_i = num_steps.float() / float(self._steps)
+        tau = epochs_i * torch.ceil(torch.clamp(weights.float(), min=1.0)
+                                    / self.config.batch_size)
+        extras = {"tau": tau, "max_tau": self.trainer.epochs * self._steps}
+        if self.aggregator.stacked:
+            if not isinstance(clients, dict):
+                clients = _stack_as_they_come(clients, len(weights))
+        elif isinstance(clients, dict):
+            clients = iter(treelib.unstack(clients, len(weights)))
+        return self.aggregator.aggregate(global_variables, clients, weights, server_state,
+                                         noise, extras)
 
     def _run_packed(self, staged: PackedStaged, global_variables: StateDict, server_state):
         """One packed round (``engine.py:1829-1856``): zeroed buffers, the
@@ -865,7 +932,7 @@ class FedSim:
                     lane_dropout.fill(dropout, lp.dropout)
                 self.lane_pass(lp, global_variables, bufs, staged.draws, lane_dropout)
         return self._packed_aggregate(global_variables, server_state, bufs, staged.weights,
-                                      staged.num_steps)
+                                      staged.num_steps, self._round_noise(staged.round_idx))
 
     @staticmethod
     def _pass_graph_key(staged: PackedStaged) -> tuple:
@@ -933,16 +1000,35 @@ class FedSim:
         (``engine.py:1779-1828``); a :class:`PackedStaged` round runs its
         lane passes (:meth:`_run_packed`)."""
         if isinstance(staged, PackedStaged):
-            return self._run_packed(staged, global_variables, server_state)
-        return self.round_step(staged, global_variables, server_state,
-                               self._dropout(staged.round_idx, len(staged.cohort)))
+            with trace.span("engine/dispatch", program="packed",
+                            n_passes=staged.stats["n_passes"],
+                            first=self._first_dispatch("packed")):
+                return self._run_packed(staged, global_variables, server_state)
+        program = "gather" if staged.idx is not None else "padded"
+        with trace.span("engine/dispatch", program=program,
+                        first=self._first_dispatch(program)):
+            return self.round_step(staged, global_variables, server_state,
+                                   self._dropout(staged.round_idx, len(staged.cohort)))
+
+    def _first_dispatch(self, program: str) -> bool:
+        """True exactly once per program kind, marking it in the trace
+        (``engine.py:1768-1777``): on the card a kind's first dispatch pays
+        its one-time costs (a graph capture, cuDNN's algorithm search)."""
+        if program in self._dispatched:
+            return False
+        self._dispatched.add(program)
+        trace.event("engine/first_dispatch", program=program)
+        return True
 
     def round_step(self, staged: Staged, global_variables: StateDict, server_state,
-                   dropout: DropoutStream | None):
+                   dropout: DropoutStream | None, noise=None):
         """The round's device work, a function of its tensors alone (what a
         CUDA graph of the round captures, ``sim/graphs.py``): ``dropout``
-        serves each step's masks."""
+        serves each step's masks, ``noise`` the server rule's gaussian draws
+        (by default the round's :class:`~fedml_tpu_torch.core.rng.RoundNoise`)."""
         cfg = self.config
+        if noise is None:
+            noise = self._round_noise(staged.round_idx)
         n = len(staged.cohort)
         weights, draws = staged.weights, staged.draws
 
@@ -956,8 +1042,8 @@ class FedSim:
         if cfg.cohort_execution == "vmap":
             stacked, train_metrics = self._vmap_train(
                 global_variables, client_batches(), staged.num_steps, draws, dropout)
-            new_global, server_state, agg_metrics = self.aggregator.aggregate(
-                global_variables, iter(treelib.unstack(stacked, n)), weights, server_state)
+            new_global, server_state, agg_metrics = self._aggregate(
+                global_variables, stacked, weights, staged.num_steps, server_state, noise)
             losses_t = train_metrics["train_loss"]
         else:
             losses: list[torch.Tensor] = []
@@ -973,8 +1059,9 @@ class FedSim:
                     losses.append(metrics["train_loss"])
                     yield variables
 
-            new_global, server_state, agg_metrics = self.aggregator.aggregate(
-                global_variables, trained_clients(), weights, server_state)
+            new_global, server_state, agg_metrics = self._aggregate(
+                global_variables, trained_clients(), weights, staged.num_steps, server_state,
+                noise)
             losses_t = torch.stack(losses)
         metrics = {"Train/Loss": torch.sum(losses_t * weights / torch.sum(weights)),
                    **agg_metrics}
@@ -984,6 +1071,14 @@ class FedSim:
         """One round, staged and run: ``(new_global, server_state, metrics)``."""
         return self.run_staged_round(self.stage_round(round_idx), global_variables,
                                      server_state)
+
+    def run_cohort_round(self, cohort, round_idx: int, global_variables: StateDict,
+                         server_state=()):
+        """One round over an explicit ``cohort`` (client ids), staged and
+        run (``engine.py:1636-1644``): what compositions that pick their own
+        cohorts (hierarchical FedAvg's groups) dispatch, one at a time."""
+        return self.run_staged_round(self.stage_cohort_round(cohort, round_idx),
+                                     global_variables, server_state)
 
     @staticmethod
     def _graph_key(staged: Staged) -> tuple:
@@ -1048,7 +1143,10 @@ class FedSim:
         self.capture_round_graph(staged=block, variables=global_variables,
                                  server_state=server_state)
         graph = self._graphs[self._graph_key(block.round(0))]
-        return graph.run_block(self, block, global_variables, server_state)
+        program = f"block{n_rounds}"
+        with trace.span("engine/dispatch", program=program, round=start_round,
+                        n_rounds=n_rounds, first=self._first_dispatch(program)):
+            return graph.run_block(self, block, global_variables, server_state)
 
     def _eval(self, variables: StateDict, batches: dict[str, torch.Tensor]):
         summed = self._local_eval(variables, batches)
@@ -1150,11 +1248,12 @@ class FedSim:
     def eval_record(self, variables: StateDict) -> dict[str, float]:
         """The test-round metric block: pooled eval (+ per-client summary
         when configured). One definition for every run loop."""
-        eval_vars = self.consensus(variables)
-        out = self.evaluate(eval_vars)
-        if self.config.eval_on_clients:
-            out.update(self.per_client_summary(eval_vars))
-        return out
+        with trace.span("engine/eval", on_clients=self.config.eval_on_clients):
+            eval_vars = self.consensus(variables)
+            out = self.evaluate(eval_vars)
+            if self.config.eval_on_clients:
+                out.update(self.per_client_summary(eval_vars))
+            return out
 
     def _dispatch_plan(self, start_round: int) -> list[tuple[int, int]]:
         """The run's dispatch segments ``[(first_round, n_rounds), ...]``
@@ -1284,10 +1383,11 @@ class FedSim:
                 if is_eval_round(last) or depth == 0:
                     # synchronisation point: fetch everything queued
                     # (including this segment's metrics), then eval
-                    ready = pending + drain.push(segment, stacked) + drain.flush()
-                    pending = []
-                    if depth == 0:
-                        self._synchronize()
+                    with trace.span("engine/sync", round=last):
+                        ready = pending + drain.push(segment, stacked) + drain.flush()
+                        pending = []
+                        if depth == 0:
+                            self._synchronize()
                     per_round = (time.perf_counter() - t_mark) / max(rounds_in_window, 1)
                     eval_rec = self.eval_record(variables) if is_eval_round(last) else None
                     for pseg, host in ready:
@@ -1306,3 +1406,21 @@ class FedSim:
             if profiler is not None:
                 self._stop_profiler(profiler)
         return variables, history
+
+
+def _stack_as_they_come(clients, n: int) -> StateDict:
+    """The ``[n, ...]`` stack of ``n`` client state dicts drawn from an
+    iterable, each copied into its row as it comes (the scan mode's clients,
+    one trained at a time)."""
+    stack: StateDict = {}
+    count = 0
+    for c, tree in enumerate(clients):
+        if not stack:
+            stack = {k: torch.empty((n,) + v.shape, dtype=v.dtype, device=v.device)
+                     for k, v in tree.items()}
+        for k, v in tree.items():
+            stack[k][c].copy_(v)
+        count += 1
+    if count != n:
+        raise ValueError(f"{count} client models for {n} weights")
+    return stack

@@ -19,11 +19,16 @@ a round:
   each replay, and its dropout masks, drawn before each replay by the
   round's :class:`~fedml_tpu_torch.core.trainer.DropoutStream` (a draw
   reseeds a generator, which a capture cannot hold), so they are bitwise the
-  eager round's. A round's host work is these copies and one graph launch,
-  however many kernels a step has;
+  eager round's; so are the server rule's gaussian draws (weak-DP noise,
+  :class:`StaticNoise`), drawn before each replay by the round's
+  :class:`~fedml_tpu_torch.core.rng.RoundNoise`. A round's host work is
+  these copies and one graph launch, however many kernels a step has;
 - the global variables and the server state live in static buffers too: the
   graph reads them and writes the round's aggregate back into them, so
-  consecutive replays carry the model on the device;
+  consecutive replays carry the model on the device. Every leaf of a server
+  state is a tensor (FedOpt's step count too), so nothing the round moves is
+  frozen into the graph; nothing in a captured round reads the device from
+  the host (a robust rule's statistics and Krum's choice stay on it);
 - each replay's metrics are copied into the block's ``[R]`` stacks.
 
 Capture: one warm-up round first runs on a side stream on scratch copies of
@@ -77,6 +82,38 @@ class StaticDropout:
                 self.buffers[k][t].copy_(m)
 
 
+class StaticNoise:
+    """A captured round's gaussian draws in static buffers, served in call
+    order by :meth:`normal` as :class:`~fedml_tpu_torch.core.rng.RoundNoise`
+    serves them, and filled from the round's ``RoundNoise`` before each
+    replay. The buffers are made at the warm-up round's calls, outside the
+    capture; :meth:`rewind` starts a round's calls over."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.buffers: list[torch.Tensor] = []
+        self._k = 0
+
+    def rewind(self) -> None:
+        self._k = 0
+
+    def normal(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        k, self._k = self._k, self._k + 1
+        if k == len(self.buffers):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("StaticNoise: a draw the warm-up round did not make")
+            self.buffers.append(torch.zeros(tuple(shape), dtype=dtype, device=self.device))
+        buf = self.buffers[k]
+        if tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
+            raise RuntimeError(f"StaticNoise: draw {k} is {tuple(shape)} {dtype}, the "
+                               f"warm-up's {tuple(buf.shape)} {buf.dtype}")
+        return buf
+
+    def fill(self, noise) -> None:
+        for buf in self.buffers:
+            buf.copy_(noise.normal(buf.shape, buf.dtype))
+
+
 class RoundGraph:
     """One round of ``sim`` captured as a CUDA graph, on the inputs' shapes
     of ``staged`` (a round of a block; its values feed the warm-up), with
@@ -98,22 +135,26 @@ class RoundGraph:
         self.variables = {k: v.detach().clone() for k, v in variables.items()}
         leaves, self._state_spec = pytree.tree_flatten(server_state)
         self.state = [t.detach().clone() for t in leaves]
+        self.noise = StaticNoise(device)
 
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            # one warm-up round on scratch copies (see the module docstring)
+            # one warm-up round on scratch copies (see the module docstring);
+            # it makes the noise buffers
             sim.round_step(self.inputs, {k: v.clone() for k, v in self.variables.items()},
-                           self._server_state(clone=True), self.dropout)
+                           self._server_state(clone=True), self.dropout, self.noise)
         current.wait_stream(side)
         torch.cuda.synchronize(device)
+        self.noise.fill(sim._round_noise(staged.round_idx))
 
         self.graph = torch.cuda.CUDAGraph()
         before = attention.captured_launches()
+        self.noise.rewind()
         with torch.cuda.graph(self.graph):
             new_variables, new_state, self.metrics = sim.round_step(
-                self.inputs, self.variables, self._server_state(), self.dropout)
+                self.inputs, self.variables, self._server_state(), self.dropout, self.noise)
             for k, t in new_variables.items():
                 self.variables[k].copy_(t)
             for old, t in zip(self.state, pytree.tree_flatten(new_state)[0]):
@@ -139,6 +180,7 @@ class RoundGraph:
             self.inputs.draws[k].copy_(d)
         if self.dropout is not None:
             self.dropout.fill(sim._dropout(staged.round_idx, len(staged.cohort)))
+        self.noise.fill(sim._round_noise(staged.round_idx))
         self.graph.replay()
         attention.count_replay(self.launches)
         return self.metrics

@@ -32,6 +32,13 @@ consumer issues its work after taking the payload, so they land before the
 round (or the replay) that reads them.
 
 Knob: ``SimConfig.pipeline_depth`` (0 = serial, None = auto depth 1).
+
+Trace points (``obs/trace.py``, the JAX module's): ``prefetch/stage`` (one
+staging call on the thread), ``prefetch/producer_blocked`` (the thread waits
+on a full queue: the device side is the bottleneck),
+``prefetch/consumer_stall`` (the driver waits on staging: the host is),
+``prefetch/drain_fetch`` (one metrics fetch, with how long the metrics sat
+queued) and the gauge ``prefetch/queue_depth``.
 """
 
 from __future__ import annotations
@@ -39,9 +46,12 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from typing import Any, Callable, Iterable
 
 import torch
+
+from fedml_tpu_torch.obs import trace
 
 THREAD_NAME = "fedsim-prefetch"
 
@@ -74,7 +84,8 @@ class Prefetcher:
             for task in self._tasks:
                 if self._stop.is_set():
                     return
-                payload = self._stage(task)
+                with trace.span("prefetch/stage", task=str(task)):
+                    payload = self._stage(task)
                 if not self._offer((task, payload)):
                     return
         except BaseException as e:  # noqa: BLE001 — must reach the consumer
@@ -83,19 +94,37 @@ class Prefetcher:
 
     def _offer(self, item) -> bool:
         """Bounded put that never wedges: gives up when close() fires."""
-        while not self._stop.is_set():
-            try:
-                self._q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
+        try:
+            # fast path: room in the queue, the producer is ahead
+            self._q.put_nowait(item)
+        except queue.Full:
+            # the producer waits on a full queue: the device side is the
+            # bottleneck, and a span per blocked wait shows it
+            with trace.span("prefetch/producer_blocked"):
+                while True:
+                    if self._stop.is_set():
+                        return False
+                    try:
+                        self._q.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+        trace.gauge("prefetch/queue_depth", self._q.qsize())
+        return True
 
     def get(self, task: Any) -> Any:
         """Return the staged payload for ``task`` — which must be the next
         task in submission order (the driver consumes the same plan it
         handed the prefetcher)."""
-        staged_task, payload = self._wait_for_item(task)
+        try:
+            # fast path: the payload is already staged (the pipeline keeps up)
+            staged_task, payload = self._q.get_nowait()
+        except queue.Empty:
+            # the consumer waits on staging: host staging is the bottleneck
+            # for this round
+            with trace.span("prefetch/consumer_stall", task=str(task)):
+                staged_task, payload = self._wait_for_item(task)
+        trace.gauge("prefetch/queue_depth", self._q.qsize())
         if staged_task is _SENTINEL:
             raise self._exc
         if staged_task != task:
@@ -159,11 +188,11 @@ class MetricsDrain:
 
     def __init__(self, depth: int = 1):
         self.depth = max(0, int(depth))
-        self._q: list[tuple[Any, Any]] = []
+        self._q: list[tuple[Any, Any, float]] = []
         self._inflight: list[torch.cuda.Event] = []
 
     def push(self, tag: Any, metrics: Any) -> list[tuple[Any, Any]]:
-        self._q.append((tag, metrics))
+        self._q.append((tag, metrics, time.perf_counter()))
         out = []
         while len(self._q) > self.depth:
             out.append(self._fetch(self._q.pop(0)))
@@ -177,8 +206,14 @@ class MetricsDrain:
         self._wait()
         return out
 
-    def _fetch(self, item: tuple[Any, Any]) -> tuple[Any, Any]:
-        tag, metrics = item
+    def _fetch(self, item: tuple[Any, Any, float]) -> tuple[Any, Any]:
+        tag, metrics, pushed = item
+        # behind_s: how long the metrics sat queued before the fetch
+        with trace.span("prefetch/drain_fetch", tag=str(tag),
+                        behind_s=round(time.perf_counter() - pushed, 6)):
+            return self._fetch_now(tag, metrics)
+
+    def _fetch_now(self, tag: Any, metrics: Any) -> tuple[Any, Any]:
         if not isinstance(metrics, dict):
             return tag, metrics
         host = {}

@@ -97,17 +97,9 @@ UNPORTED = [
     (["--quantize_bits", "4"], "§A10"),
     (["--mesh_shape", "2x4"], "§A12"),
     (["--shard_rules", "cnn_tp"], "§A12"),
-    (["--checkpoint_dir", "ck"], "§A13"),
-    (["--init_from", "p.npz"], "§A13"),
-    (["--save_params_to", "p.npz"], "§A13"),
-    (["--trace_dir", "tr"], "§A13"),
-    (["--robust_rule", "median"], "§A10"),
-    (["--stddev", "0.1"], "§A10"),
-    (["--norm_bound", "1.0"], "§A10"),
+    (["--reservoir_k", "4"], "§A11"),
     (["--downlink_keyframe_every", "4"], "§A11"),
     (["--mqtt_host", "localhost"], "§A11"),
-    (["--server_lr", "0.5"], "§A10"),
-    (["--group_num", "3"], "§A10"),
 ]
 
 
@@ -117,12 +109,59 @@ def test_unported_flags_raise_with_their_roadmap_item(argv, item):
         port_cli.main(argv + ["--device", "cpu"])
 
 
-@pytest.mark.parametrize("algorithm", ["fedopt", "fednova", "fedavg_robust", "decentralized",
-                                       "fedgan", "hierarchical"])
-def test_unported_algorithms_raise(tmp_path, algorithm):
-    with pytest.raises(NotImplementedError, match="§A10"):
+@pytest.mark.parametrize("algorithm,item", [("decentralized", "§A10"), ("fedgan", "§A13")])
+def test_unported_algorithms_raise(tmp_path, algorithm, item):
+    with pytest.raises(NotImplementedError, match=item):
         port_cli.main(["--algorithm", algorithm, "--device", "cpu", "--client_num_in_total",
                        "4", "--data_dir", str(tmp_path)])
+
+
+SERVER_RULES = {
+    "fedopt_adam": ["--algorithm", "fedopt"],
+    "fedopt_yogi": ["--algorithm", "fedopt", "--server_optimizer", "yogi",
+                    "--server_lr", "0.05"],
+    "fednova_stragglers": ["--algorithm", "fednova", "--straggler_frac", "0.5",
+                           "--epochs", "2"],
+    # 8 a round: the JAX engine pads a cohort to a multiple of its 8-device
+    # CPU mesh with zero-weight copies of the global model, which the median
+    # would read
+    "robust_median_clip": ["--algorithm", "fedavg_robust", "--robust_rule", "median",
+                           "--norm_bound", "0.5", "--client_num_in_total", "10",
+                           "--client_num_per_round", "8"],
+    "hierarchical": ["--algorithm", "hierarchical", "--group_num", "2",
+                     "--group_comm_round", "2"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SERVER_RULES))
+def test_server_rules_match_jax_cli(monkeypatch, tmp_path, name):
+    """Two rounds of each server rule through both CLIs from the JAX run's
+    initial variables (hierarchical: two global rounds): every record, atol
+    1e-5 (LogisticRegression)."""
+    captured = {}
+    original = jax_engine.FedSim.init_variables
+
+    def capture(self):
+        v = original(self)
+        captured["v"] = convert.from_flax(jax.tree.map(np.asarray, dict(v)))
+        return v
+
+    monkeypatch.setattr(jax_engine.FedSim, "init_variables", capture)
+    argv = ["--client_num_in_total", "6", "--client_num_per_round", "4", "--comm_round", "2",
+            "--frequency_of_the_test", "1", "--data_dir", str(tmp_path / "none")]
+    argv += SERVER_RULES[name]
+    args = jax_cli.add_args(argparse.ArgumentParser()).parse_args(argv)
+    want = jax_cli.run(args)
+    monkeypatch.setattr(port_engine.FedSim, "init_variables",
+                        lambda self: {k: t.clone() for k, t in captured["v"].items()})
+    got = port_cli.run(port_cli.add_args(argparse.ArgumentParser()).parse_args(
+        argv + ["--device", "cpu"]))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        keys = set(w) - {"round_time", "_ts"}
+        assert set(g) - {"round_time"} == keys
+        for k in keys:
+            np.testing.assert_allclose(g[k], w[k], atol=1e-5, err_msg=k)
 
 
 @pytest.mark.parametrize("argv", [["--is_mobile", "1"], ["--server_mode", "async"],

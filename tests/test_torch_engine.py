@@ -238,7 +238,8 @@ def test_simconfig_rejects_unported_fields():
     SimConfig(population="speed=const:1", pack_lanes=2, pack_capacity_factor=2.0)
     with pytest.raises(NotImplementedError, match="compressor"):
         SimConfig(compressor="q8")
-    with pytest.raises(NotImplementedError, match="robust_rule"):
-        SimConfig(robust_rule="median")
+    with pytest.raises(NotImplementedError, match="error_feedback"):
+        SimConfig(error_feedback=False)
+    SimConfig(robust_rule="median", norm_bound=1.0, dp_stddev=0.1)
     SimConfig(stage_on_device=True, block_dispatch=False, pipeline_depth=0,
               eval_on_clients=True, straggler_frac=0.2, profile_dir="prof")
