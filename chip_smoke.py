@@ -53,8 +53,19 @@ Phases, each of which exits non-zero on failure:
    offline fixture) + ResNet-56, hetero alpha=0.5, 10 clients x B=64, SGD
    lr 0.001 wd 0.001, bf16, augmentation, vmapped cohort, cut to E=1 and 2
    rounds; per round its seconds, images/s, FLOP/s from the shapes and peak
-   memory; then one round of the same run in scan. It runs no kernel of the
-   repo (the ResNet path has no TPU kernel: cuDNN convolutions);
+   memory. It runs no kernel of the repo (the ResNet path has no TPU
+   kernel: cuDNN convolutions). Then the CIFAR zoo (no TPU kernel either):
+   resnet18_gn, mobilenet, mobilenet_v3, vgg11 and efficientnet-b0 at full
+   width, f32, card against CPU from the same variables, the eval and
+   training forwards and one vmapped FedAvg round of 2 clients x 2 steps
+   (``[zoo small]``); ``repro_cross_silo.run`` on the 50k/10k CIFAR-100
+   fixture with MobileNet, 1 round in scan (the recipe's rule) with a
+   1-epoch fixture ceiling, then the round in vmap, each with s/round,
+   images/s and peak memory (``[cross_silo zoo]``); and ``main_fedavg
+   --dataset fed_cifar100 --model resnet18_gn`` on the fallback at
+   fed_cifar100's recipe (10 a round, B=20, SGD 0.1, bf16, vmapped), 2
+   rounds as one block against per-round dispatch under deterministic
+   cuDNN, rtol 1e-6 / atol 1e-7 (``[resnet18_gn]``);
 10. BASELINE row 1 (LEAF-format MNIST fixture of 1000 clients, written and
     timed here; LogisticRegression, 10 a round, B=10, SGD 0.03, E=1, 20
     rounds, eval every 10) through ``exp/repro_mnist_lr.main``, then through
@@ -121,7 +132,7 @@ Phases, each of which exits non-zero on failure:
     drawn from one CPU generator seed (``[fednas small]``);
     ``exp/main_fednas.run`` at the DARTS search width (16 channels, 8
     cells, 4 steps, B=64, SGD 0.025, Adam 3e-4 for α, first order) on the
-    CIFAR-10 fallback of 2,000 images over 4 clients, 2 rounds, with
+    CIFAR-10 fallback of 2,000 images over 4 clients, 1 round, with
     s/round, search steps/s, images/s, peak memory and one search step
     under ``torch.profiler`` (``[fednas]``); and one unrolled search step
     at that width beside a first-order one, timed, with peak memory
@@ -724,13 +735,14 @@ def _resnet_train_flops_per_image(torch, model, image=32):
 
 def phase_cross_silo(torch):
     """The cross-silo flagship at full width through the entry point a user
-    calls, in the vmapped cohort (2 rounds), then one round of the same run
-    in scan. Fails on non-finite metrics or a first-round loss far from
+    calls, in the vmapped cohort (2 rounds; the scan mode's round is
+    MobileNet's, ``[cross_silo zoo]``). Fails on non-finite metrics or a
+    first-round loss far from
     ln 10: within [ln 10 - 1, ln 10 + 3], since at flax's initialisation
     ResNet-56's logits have a standard deviation near 2 (the residual
     stream grows over 27 blocks), which puts the loss of the first steps
-    near 3-4 in the JAX package and the port alike. Returns the vmap and
-    scan round times."""
+    near 3-4 in the JAX package and the port alike. Returns the last
+    round's time."""
     from fedml_tpu_torch.core import partition
     from fedml_tpu_torch.data import cv
     from fedml_tpu_torch.exp import repro_cross_silo as repro
@@ -745,9 +757,9 @@ def phase_cross_silo(torch):
             "--partition_method", "hetero", "--partition_alpha", "0.5",
             "--client_num_in_total", str(c["clients"]), "--batch_size", str(c["batch"]),
             "--lr", "0.001", "--wd", "0.001", "--epochs", str(c["epochs"]),
-            "--round_sleep", "0", "--device", "cuda"]
+            "--ceiling_epochs", "0", "--round_sleep", "0", "--device", "cuda"]
     runs = {}
-    for mode, rounds in (("vmap", c["rounds"]), ("scan", 1)):
+    for mode, rounds in (("vmap", c["rounds"]),):
         metrics = BUILD_DIR / f"cross_silo_{mode}.jsonl"
         args = repro.add_args(argparse.ArgumentParser()).parse_args(
             argv + ["--cohort_execution", mode, "--comm_round", str(rounds),
@@ -795,13 +807,260 @@ def phase_cross_silo(torch):
         if not ln10 - 1.0 <= records[0]["Train/Loss"] <= ln10 + 3.0:
             fail(f"cross-silo {mode}: first-round loss {records[0]['Train/Loss']} is far from "
                  f"ln 10 = {ln10:.4f} (band [ln 10 - 1, ln 10 + 3])")
-    vmap_t = runs["vmap"][1][-1]["round_time"]
-    scan_t = runs["scan"][1][0]["round_time"]
-    log(f"[cross-silo] round time vmap {vmap_t:.3f} s (round {runs['vmap'][1][-1]['round']}) "
-        f"against scan {scan_t:.3f} s (round 0): vmap/scan {vmap_t / scan_t:.3f}; round-0 "
-        f"Train/Loss vmap {runs['vmap'][1][0]['Train/Loss']:.5f}, scan "
-        f"{runs['scan'][1][0]['Train/Loss']:.5f}")
-    return vmap_t, scan_t
+    return runs["vmap"][1][-1]["round_time"]
+
+
+# the CIFAR zoo of ROADMAP §A7 at full width: the names of the JAX registry,
+# each with its federated recipe's step (cross-silo SGD 0.001 wd 0.001;
+# resnet18_gn fed_cifar100's SGD 0.1); dropout and drop-connect at 0
+ZOO = {"resnet18_gn": (0.1, 0.0, {}), "mobilenet": (1e-3, 1e-3, {}),
+       "mobilenet_v3": (1e-3, 1e-3, {}), "vgg11": (1e-3, 1e-3, {"dropout_rate": 0.0}),
+       "efficientnet-b0": (1e-3, 1e-3, {"dropout_rate": 0.0, "drop_connect_rate": 0.0})}
+# repro_cross_silo's recipe on the CIFAR-100 fixture with MobileNet, cut to E=1
+# and 1 round, with a 1-epoch fixture ceiling
+CROSS_SILO_ZOO = dict(CROSS_SILO, rounds=1, classes=100, ceiling_epochs=1)
+# repro_fed_cifar100.py's recipe (10 clients a round, B=20, SGD 0.1, bf16) on
+# the registry's fed_cifar100 fallback, which reads the CIFAR-100 fixture;
+# 500 clients of 100 images (homo), 2 rounds
+RESNET18_GN = dict(clients=500, per_round=10, batch=20, lr=0.1, rounds=2)
+
+
+def _out_and_state(out, stateful):
+    return out if stateful else (out, {})
+
+
+def _calibrated(model, init, stats):
+    """``init`` with each BatchNorm's running statistics replaced by the
+    batch statistics its training forward took (backed out of the momentum
+    update ``new = m * old + (1 - m) * batch``), so that evaluation runs
+    through statistics of the data's own scale."""
+    out = dict(init)
+    for k, new in stats.items():
+        m = model.get_submodule(k.rsplit(".", 1)[0]).momentum
+        batch = (new.cpu() - m * init[k]) / (1 - m)
+        out[k] = batch.clamp_min(0.0) if k.endswith("running_var") else batch
+    return out
+
+
+def _zoo_round(torch, name, lr, wd, kwargs, init, data, device, dtype=None):
+    """One vmapped FedAvg round of ``[zoo small]`` on ``device``:
+    ``(variables, history)``."""
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    xs, ys, part = data
+    model = create_model(name, 10, "cifar10", device=device, **kwargs)
+    if dtype is not None:  # the float64 reference of the CPU's rounding
+        model = model.double()
+        for mod in model.modules():
+            if isinstance(getattr(mod, "dtype", None), torch.dtype):
+                mod.dtype = dtype
+        xs = xs.astype(np.float64)
+    cfg = SimConfig(client_num_in_total=2, client_num_per_round=2, batch_size=4,
+                    comm_round=1, epochs=1, frequency_of_the_test=1, eval_batch_size=8,
+                    seed=0, cohort_execution="vmap")
+    sim = FedSim(ClientTrainer(module=model, optimizer=sgd(lr, weight_decay=wd)),
+                 FederatedArrays({"x": xs[:16], "y": ys[:16]}, part),
+                 {"x": xs[16:], "y": ys[16:]}, cfg, device=device)
+    return sim.run(variables={k: v.to(device, dtype or v.dtype) for k, v in init.items()})
+
+
+def phase_zoo_small(torch):
+    """The CIFAR zoo (``ZOO``: resnet18_gn, mobilenet, mobilenet_v3 large,
+    vgg11, efficientnet-b0) at full width, f32 under deterministic cuDNN,
+    card against CPU from the same variables (the port's seeded init, made
+    on the CPU and copied), on 4 images of 32x32: the training forward
+    (logits and new BN statistics), the eval forward through BN statistics
+    calibrated to the batch (:func:`_calibrated`), each within 1e-4; then
+    one vmapped FedAvg round of 2 clients x 2 steps (B=4) at the model's
+    recipe with an eval, a replay of the round's CUDA graph on the card,
+    within 1e-4 or, where f32 itself is further off, within twice the CPU
+    run's distance from the same round in float64 (MobileNet V1's deep
+    plain ReLU + BatchNorm stack: its early layers' f32 gradients are
+    1e-3-ish off float64 at flax's initialisation). Returns the flash
+    launches (none)."""
+    from fedml_tpu_torch.models.registry import create_model
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(4, 32, 32, 3).astype(np.float32)
+    data = (rng.randn(24, 32, 32, 3).astype(np.float32), rng.randint(0, 10, 24).astype(np.int32),
+            {0: np.arange(0, 8), 1: np.arange(8, 16)})
+    _zero_flash_counters()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, (lr, wd, kwargs) in ZOO.items():
+            t0 = time.perf_counter()
+            models = {d: create_model(name, 10, "cifar10", device=d, **kwargs)
+                      for d in ("cpu", "cuda")}
+            init = {k: v.clone() for k, v in models["cpu"].state_dict().items()}
+            stateful = next(models["cpu"].buffers(), None) is not None
+            out = {}
+            for d in ("cpu", "cuda"):
+                m, xd = models[d], torch.tensor(x, device=d)
+                m.load_state_dict(init)
+                with torch.no_grad():
+                    tr, stats = _out_and_state(m(xd, train=True), stateful)
+                    if d == "cpu":
+                        calibrated = _calibrated(m, init, stats)
+                    m.load_state_dict(calibrated)
+                    out[d] = [m(xd), tr, *stats.values()]
+            errs = [float((a.cpu() - b).abs().max()) for a, b in zip(out["cuda"], out["cpu"])]
+            runs = {d: _zoo_round(torch, name, lr, wd, kwargs, init, data, d)
+                    for d in ("cuda", "cpu")}
+            round_err = _max_err(torch, (runs["cuda"], runs["cpu"]))
+            bound, f64_note = E2E_ATOL, ""
+            if round_err > E2E_ATOL:
+                f64 = _zoo_round(torch, name, lr, wd, kwargs, init, data, "cpu", torch.float64)
+                cpu_f64 = _max_err(torch, (runs["cpu"], f64))
+                bound = max(E2E_ATOL, 2 * cpu_f64)
+                f64_note = f" (the CPU's f32 round is {cpu_f64:.3e} off float64: bound {bound:.3e})"
+            rec = runs["cuda"][1][-1]
+            log(f"[zoo small] {name} ({sum(v.numel() for v in init.values()) / 1e6:.2f}M "
+                f"variables, f32, 4 x 32x32): card vs CPU training forward "
+                f"max_abs_err={errs[1]:.3e}"
+                + (f", new BN statistics {max(errs[2:]):.3e}" if len(errs) > 2 else "")
+                + f", eval forward {errs[0]:.3e} (logits up to "
+                f"{float(out['cpu'][0].abs().max()):.3f}); one vmapped FedAvg round of 2 clients "
+                f"x 2 steps (SGD {lr}, wd {wd}, a graph replay on the card) {round_err:.3e}"
+                f"{f64_note}; Train/Loss {rec['Train/Loss']:.5f}, Test/Loss "
+                f"{rec['Test/Loss']:.5f}; {time.perf_counter() - t0:.2f} s")
+            if not max(errs) <= E2E_ATOL or not round_err <= bound:
+                fail(f"zoo small: {name} on the card disagrees with the CPU: eval/train "
+                     f"{errs} > {E2E_ATOL} or round {round_err} > {bound}")
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"[zoo small] flash launches {_flash_launches()}")
+    return _flash_launches()
+
+
+def phase_cross_silo_zoo(torch):
+    """``repro_cross_silo.run`` on the 50k/10k CIFAR-100 fixture (its
+    write timed) with ``--model mobilenet`` at full width: 10 silos, B=64,
+    hetero 0.5, bf16, augmentation, E=1, 1 round, in scan (the recipe's
+    rule) with ``--ceiling_epochs 1``, then the same round in vmap (the
+    mode the rule avoids), each with s/round, images/s and peak memory.
+    Fails on non-finite metrics or a ceiling outside [0, 1]. Returns the
+    flash launches (none)."""
+    from fedml_tpu_torch.core import partition
+    from fedml_tpu_torch.data import cv
+    from fedml_tpu_torch.exp import repro_cross_silo as repro
+    from fedml_tpu_torch.sim.cohort import steps_per_epoch
+
+    c = CROSS_SILO_ZOO
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    data_dir = BUILD_DIR / "cifar100"
+    t0 = time.perf_counter()
+    repro.write_cifar100_fixture(data_dir, n_train=c["n_train"], n_test=c["n_test"],
+                                 seed=0, signal=0.045)
+    write_s = time.perf_counter() - t0
+    argv = ["--dataset", "cifar100", "--model", "mobilenet", "--data_dir", str(data_dir),
+            "--fixture_train_n", str(c["n_train"]), "--fixture_test_n", str(c["n_test"]),
+            "--fixture_signal", "0.045", "--partition_method", "hetero",
+            "--partition_alpha", "0.5", "--client_num_in_total", str(c["clients"]),
+            "--batch_size", str(c["batch"]), "--lr", "0.001", "--wd", "0.001",
+            "--epochs", str(c["epochs"]), "--comm_round", str(c["rounds"]),
+            "--frequency_of_the_test", str(c["rounds"]), "--round_sleep", "0",
+            "--device", "cuda"]
+    (_, y), _, _ = cv._load_cifar100_raw(data_dir)
+    sizes = np.array([len(p) for p in partition.partition(
+        "hetero", y, c["clients"], 0.5, 0).values()])
+    executed = int(sum(steps_per_epoch(int(n), c["batch"]) for n in sizes)) * c["epochs"]
+    _zero_flash_counters()
+    runs = {}
+    for mode, extra in (("scan", ["--ceiling_epochs", str(c["ceiling_epochs"])]),
+                        ("vmap", ["--cohort_execution", "vmap", "--ceiling_epochs", "0"])):
+        metrics = BUILD_DIR / f"cross_silo_zoo_{mode}.jsonl"
+        args = repro.add_args(argparse.ArgumentParser()).parse_args(
+            argv + extra + ["--metrics_out", str(metrics)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = repro.run(args)
+        wall = time.perf_counter() - t0
+        records = [json.loads(line) for line in metrics.read_text().splitlines()]
+        runs[mode] = (result, records, wall, torch.cuda.max_memory_allocated())
+        if args.cohort_execution != mode or len(records) != c["rounds"]:
+            fail(f"cross_silo zoo {mode}: ran in {args.cohort_execution}, "
+                 f"{len(records)} of {c['rounds']} rounds")
+        values = [v for rec in records for k, v in rec.items() if k != "round"]
+        if not all(np.isfinite(values)):
+            fail(f"cross_silo zoo {mode} produced non-finite metrics: {records}")
+        torch.cuda.empty_cache()
+    log(f"[cross_silo zoo] CIFAR-100 fixture {c['n_train']}/{c['n_test']} written in "
+        f"{write_s:.2f} s; MobileNet bf16, hetero alpha=0.5, {c['clients']} clients x "
+        f"B={c['batch']}, E={c['epochs']}: client sizes {sizes.tolist()}, {executed} executed "
+        f"client steps a round")
+    for mode, (result, records, wall, peak) in runs.items():
+        t = records[-1]["round_time"]
+        log(f"[cross_silo zoo {mode}] round {records[-1]['round']}: {t:.3f} s, "
+            f"{executed * c['batch'] / t:.1f} images/s (executed steps x {c['batch']}), "
+            f"Train/Loss {records[-1]['Train/Loss']:.5f}, Test/Acc "
+            f"{records[-1]['Test/Acc']:.4f}; run() {wall:.2f} s; peak device memory "
+            f"{peak / 2**30:.2f} GiB; result {json.dumps(result)}")
+    ceiling = runs["scan"][0].get("fixture_ceiling")
+    if ceiling is None or not 0.0 <= ceiling <= 1.0:
+        fail(f"cross_silo zoo: bad fixture ceiling {ceiling}")
+    scan_t, vmap_t = (runs[m][1][-1]["round_time"] for m in ("scan", "vmap"))
+    log(f"[cross_silo zoo] MobileNet round time scan {scan_t:.3f} s against vmap "
+        f"{vmap_t:.3f} s (vmap/scan {vmap_t / scan_t:.3f}); peak memory scan "
+        f"{runs['scan'][3] / 2**30:.2f} GiB, vmap {runs['vmap'][3] / 2**30:.2f} GiB; fixture "
+        f"ceiling after {runs['scan'][0]['ceiling_epochs']} centralized epoch(s) "
+        f"{ceiling:.4f}; flash launches {_flash_launches()}")
+    return _flash_launches()
+
+
+def phase_resnet18_gn(torch):
+    """``main_fedavg --dataset fed_cifar100 --model resnet18_gn`` on the
+    registry's fallback (the CIFAR-100 fixture of ``[cross_silo zoo]``, 500
+    clients of 100 images) at ``repro_fed_cifar100.py``'s recipe: 10 clients
+    a round, B=20, SGD 0.1, bf16, vmapped; 2 rounds as one block (replays of
+    the round's CUDA graph) against the same rounds dispatched one at a
+    time, under deterministic cuDNN, rtol 1e-6 / atol 1e-7, with s/round in
+    each mode and peak memory. Returns the flash launches (none)."""
+    from fedml_tpu_torch.exp import repro_cross_silo as repro
+
+    c = RESNET18_GN
+    c_data = CROSS_SILO_ZOO
+    data_dir = BUILD_DIR / "cifar100"
+    repro.write_cifar100_fixture(data_dir, n_train=c_data["n_train"], n_test=c_data["n_test"],
+                                 seed=0, signal=0.045)
+    argv = ["--dataset", "fed_cifar100", "--model", "resnet18_gn", "--data_dir", str(data_dir),
+            "--partition_method", "homo", "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--model_dtype", "bfloat16", "--comm_round", str(c["rounds"]),
+            "--frequency_of_the_test", str(c["rounds"])]
+    _zero_flash_counters()
+    runs, peaks = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, call in (("blocks", _cli), ("per round", _per_round_cli)):
+            torch.cuda.reset_peak_memory_stats()
+            runs[name] = call(torch, argv)
+            peaks[name] = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name, (history, wall) in runs.items():
+        times = ", ".join(f"{rec['round_time']:.4f}" for rec in history)
+        log(f"[resnet18_gn] {name}: s/round {times}; Train/Loss "
+            + ", ".join(f"{rec['Train/Loss']:.6f}" for rec in history)
+            + f", Test/Acc {history[-1]['Test/Acc']:.4f}; run {wall:.2f} s; peak device "
+            f"memory {peaks[name] / 2**30:.2f} GiB")
+        values = [v for rec in history for k, v in rec.items() if k != "round"]
+        if len(history) != c["rounds"] or not all(np.isfinite(values)):
+            fail(f"resnet18_gn {name}: bad history {history}")
+    (over, beyond), (diff, where) = _block_gap(torch, [({}, runs[k][0])
+                                                      for k in ("blocks", "per round")])
+    log(f"[resnet18_gn] deterministic cuDNN, one block of {c['rounds']} graph replays vs "
+        f"per-round dispatch: largest difference {diff:.3e} ({where}), bitwise equal "
+        f"{diff == 0.0}; flash launches {_flash_launches()}")
+    if over > 0:
+        fail(f"resnet18_gn: {beyond} differs beyond rtol {BLOCK_RTOL} / atol {BLOCK_ATOL} "
+             f"(by {over:.3e} over)")
+    return _flash_launches()
 
 
 # the unified CLI's rows at full width (ROADMAP §A5, §A6): BASELINE row 1,
@@ -2376,9 +2635,9 @@ def phase_so_lr(torch):
 
 FEDNAS_SMALL = dict(num_classes=4, channels=4, layers=3, steps=2, hw=8, batch=4)
 # the DARTS search network (Liu et al., ICLR 2019, sec. 3.1) on the CIFAR-10
-# fallback (2,000 images), first order; cut to 4 clients and 2 rounds
+# fallback (2,000 images), first order; cut to 4 clients and 1 round
 FEDNAS = dict(dataset="cifar10", channels=16, layers=8, steps=4, batch=64, lr=0.025,
-              arch_lr=3e-4, clients=4, rounds=2, profiled_step=5)
+              arch_lr=3e-4, clients=4, rounds=1, profiled_step=5)
 
 
 def _fednas_err(torch, a, b):
@@ -2481,8 +2740,8 @@ def phase_fednas(torch, smi):
     """The FedNAS path at the DARTS search width through its entry point,
     ``exp/main_fednas.run``: CIFAR-10 (the registry's fallback of 2,000
     32x32 images, hetero alpha 0.5) over 4 clients, channels 16, 8 cells, 4
-    steps, B=64, SGD 0.025 for the weights, Adam 3e-4 for α, first order, 2
-    rounds; one search step of round 0 under ``torch.profiler``. Then one
+    steps, B=64, SGD 0.025 for the weights, Adam 3e-4 for α, first order, 1
+    round; one search step of it under ``torch.profiler``. Then one
     unrolled (second-order) ``search_step`` at the same width, timed after a
     warm-up call beside a first-order one, with its peak memory. Returns the
     flash launches of the two parts."""
@@ -2550,9 +2809,9 @@ def phase_fednas(torch, smi):
         f"--layers {c['layers']} --steps {c['steps']} --batch_size {c['batch']} --lr {c['lr']} "
         f"--arch_lr {c['arch_lr']}, first order, {c['rounds']} rounds; fixture loaded in "
         f"{loads[0]:.2f} s; {steps_round} search "
-        f"steps a round; round 0 {per_round[0]:.3f} s (one step under the profiler), round 1 "
-        f"{per_round[1]:.3f} s: {steps_round / per_round[1]:.3f} search steps/s, "
-        f"{images / per_round[1]:.1f} images/s (each image once in a training and once in a "
+        f"steps a round; the last round {per_round[-1]:.3f} s (round 0 has one step under the "
+        f"profiler): {steps_round / per_round[-1]:.3f} search steps/s, "
+        f"{images / per_round[-1]:.1f} images/s (each image once in a training and once in a "
         f"validation batch); Train/Loss by round {round_losses}; genotype_normal {last['genotype_normal']}; run {wall:.2f} s; peak device memory "
         f"{peak / 2**30:.2f} GiB; flash launches {launches_run}")
     top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms ({us / max(profile['busy_us'], 1e-9):.1%})"
@@ -3084,6 +3343,9 @@ def main() -> None:
     _timed("resnet small", phase_small_resnet, torch)
     _timed("cross_silo", phase_cross_silo, torch)
     cli_launches, loads = {}, []
+    cli_launches["zoo_small"] = _timed("zoo small", phase_zoo_small, torch)
+    cli_launches["cross_silo_zoo"] = _timed("cross_silo zoo", phase_cross_silo_zoo, torch)
+    cli_launches["resnet18_gn"] = _timed("resnet18_gn", phase_resnet18_gn, torch)
     with _loaded_once(loads):
         cli_launches["repro_mnist_lr"], mnist_dir, records = _timed(
             "repro_mnist_lr", phase_repro_mnist_lr, torch)
@@ -3129,7 +3391,7 @@ def main() -> None:
                  "blocks_small", "rnn_small", "shakespeare_cli",
                  "repro_shakespeare", "so_nwp", "so_lr", "fednas_small", "fednas",
                  "fednas_unrolled", "fedopt", "fednova", "robust", "hierarchical",
-                 "checkpoint", "trace"):
+                 "checkpoint", "trace", "zoo_small", "cross_silo_zoo", "resnet18_gn"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

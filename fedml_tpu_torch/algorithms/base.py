@@ -38,11 +38,17 @@ class Aggregator:
     ``extras``: ``tau`` [C], each client's true local SGD step count
     (heterogeneous under the straggler protocol, FedNova's), and
     ``max_tau``, the static bound on those counts. Every leaf of ``state``
-    is a tensor, so a CUDA graph of the round carries it on the device."""
+    is a tensor, so a CUDA graph of the round carries it on the device.
+    ``per_client``, ``num_clients`` and ``needs_prev_stack`` are the JAX
+    fields of the per-client mode (a model kept per client), which the
+    engine refuses (ROADMAP §A10)."""
 
     init_state: Callable[[Any], Any]
     aggregate: Callable[..., tuple[Any, Any, dict]]
     name: str = "aggregator"
+    per_client: bool = False
+    num_clients: int | None = None
+    needs_prev_stack: bool = False
     stacked: bool = False
 
 

@@ -1,9 +1,10 @@
 """Weights between the JAX package and the port.
 
 :func:`from_flax` turns the JAX package's variables of a TransformerLM, a
-CIFAR ResNet, a LogisticRegression, one of the CNNs, one of the RNNs or the
-DARTS search network (nested dicts of numpy arrays: ``{"params": ...}``,
-for the ResNet with ``"batch_stats"`` beside it, for DARTS with
+ResNet (CIFAR or ResNet-18, BatchNorm or GroupNorm), MobileNet V1 or V3,
+VGG, EfficientNet, a LogisticRegression, one of the CNNs, one of the RNNs or
+the DARTS search network (nested dicts of numpy arrays: ``{"params":
+...}``, with ``"batch_stats"`` beside it for a BatchNorm network, for DARTS
 ``"batch_stats"`` and ``"arch"``, or a bare params tree) into the port's
 flat ``state_dict``;
 :func:`to_flax` is its inverse. Names map one path component at a time:
@@ -12,7 +13,14 @@ flat ``state_dict``;
   ``MultiHeadSelfAttention_0`` <-> ``attn``, a block's ``Dense_0`` <->
   ``fc_0``;
 - ResNet: ``BasicBlock_3`` <-> ``blocks.3``, ``Conv_0`` <-> ``conv_0``,
-  ``BatchNorm_0`` <-> ``bn_0``, the top-level ``Dense_0`` <-> ``head``;
+  ``BatchNorm_0`` <-> ``bn_0``, ``GroupNorm_0`` <-> ``gn_0``, the top-level
+  ``Dense_0`` <-> ``head``;
+- MobileNet, MobileNet V3, VGG and EfficientNet: ``DepthwiseSeparable_3``
+  <-> ``separables.3``, ``InvertedResidual_3`` <-> ``inverted.3``,
+  ``MBConv_3`` <-> ``mbconvs.3``, ``SqueezeExcite_0`` <-> ``se`` (V3's two
+  Dense layers in it are ``fc_0``/``fc_1``, EfficientNet's biased convs
+  ``conv_0``/``conv_1``), ``Conv_i``/``BatchNorm_i``/``GroupNorm_i`` as in
+  the ResNet, the top-level ``Dense_i`` <-> ``dense_i``;
 - LogisticRegression and the CNNs: ``Conv_i`` <-> ``conv_i``, the
   top-level ``Dense_i`` <-> ``dense_i``;
 - the DARTS search network: ``Cell_3`` <-> ``cells.3``, ``MixedOp_5`` <->
@@ -34,8 +42,9 @@ model's state dict.
 
 Leaves: a Dense kernel ``[in, out]`` is the transpose of the port's weight
 (``qkv`` stays one ``[3D, D]`` weight, so the q|k|v split of its output is
-the same); a Conv kernel HWIO is the port's OIHW weight; LayerNorm and
-BatchNorm ``scale`` is ``weight``; BatchNorm's ``batch_stats`` ``mean`` and
+the same); a Conv kernel HWIO is the port's OIHW weight (a depthwise
+kernel ``[k, k, 1, C]`` is ``[C, 1, k, k]``); LayerNorm, BatchNorm and
+GroupNorm ``scale`` is ``weight``; BatchNorm's ``batch_stats`` ``mean`` and
 ``var`` are the buffers ``running_mean`` and ``running_var``.
 """
 
@@ -54,6 +63,7 @@ _COMPONENTS = {
     "Dense_0": "fc_0",
     "Dense_1": "fc_1",
     "Embed_0": "embed",
+    "SqueezeExcite_0": "se",
 }
 _INVERSE = {v: k for k, v in _COMPONENTS.items()}
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
@@ -75,7 +85,10 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, Any]:
 
 
 # a flax component "<prefix>_<n>" is the port's "<list>.<n>"
-_LISTS = {"Cell": "cells", "MixedOp": "edges", "_Op": "ops"}
+_LISTS = {"Cell": "cells", "MixedOp": "edges", "_Op": "ops",
+          "DepthwiseSeparable": "separables", "InvertedResidual": "inverted",
+          "MBConv": "mbconvs"}
+_NORMS = {"BatchNorm": "bn", "GroupNorm": "gn"}
 _LIST_INVERSE = {v: k for k, v in _LISTS.items()}
 
 
@@ -84,12 +97,12 @@ def _port_names(comp: str, top_level: bool, resnet: bool) -> list[str]:
     m = re.fullmatch(r"(?:block|BasicBlock)_(\d+)", comp)
     if m:
         return ["blocks", m.group(1)]
-    m = re.fullmatch(r"(Cell|MixedOp|_Op)_(\d+)", comp)
-    if m:
+    m = re.fullmatch(r"(\w+)_(\d+)", comp)
+    if m and m.group(1) in _LISTS:
         return [_LISTS[m.group(1)], m.group(2)]
-    m = re.fullmatch(r"(Conv|BatchNorm)_(\d+)", comp)
+    m = re.fullmatch(r"(Conv|BatchNorm|GroupNorm)_(\d+)", comp)
     if m:
-        return [f"{'conv' if m.group(1) == 'Conv' else 'bn'}_{m.group(2)}"]
+        return [f"{_NORMS.get(m.group(1), 'conv')}_{m.group(2)}"]
     m = re.fullmatch(r"Dense_(\d+)", comp)
     if m and top_level:
         return ["head"] if resnet else [f"dense_{m.group(1)}"]
@@ -97,11 +110,12 @@ def _port_names(comp: str, top_level: bool, resnet: bool) -> list[str]:
 
 
 def is_resnet(state_dict: dict) -> bool:
-    """Whether a port state dict is a CIFAR ResNet's: residual ``blocks``
-    beside a top-level ``bn_0`` (a TransformerLM has blocks and no BatchNorm,
-    DARTS a BatchNorm and ``cells``)."""
+    """Whether a port state dict is a ResNet's: residual ``blocks`` beside a
+    top-level ``bn_0`` or ``gn_0`` (a TransformerLM has blocks and no such
+    norm, DARTS a BatchNorm and ``cells``, the other CIFAR models no
+    ``blocks``)."""
     return (any(k.startswith("blocks.") for k in state_dict)
-            and any(k.startswith("bn_0.") for k in state_dict))
+            and any(k.startswith(("bn_0.", "gn_0.")) for k in state_dict))
 
 
 def from_flax(variables: dict, resnet: bool | None = None) -> dict[str, torch.Tensor]:
@@ -182,9 +196,10 @@ def to_flax(state_dict: dict[str, torch.Tensor], resnet: bool | None = None) -> 
                 path.append(f"{_LIST_INVERSE[comp]}_{parts[i + 1]}")
                 i += 2
                 continue
-            m = re.fullmatch(r"(conv|bn|dense)_(\d+)", comp)
+            m = re.fullmatch(r"(conv|bn|gn|dense)_(\d+)", comp)
             if m:
-                kind = {"conv": "Conv", "bn": "BatchNorm", "dense": "Dense"}[m.group(1)]
+                kind = {"conv": "Conv", "bn": "BatchNorm", "gn": "GroupNorm",
+                        "dense": "Dense"}[m.group(1)]
                 path.append(f"{kind}_{m.group(2)}")
             elif comp == "head" and resnet:
                 path.append("Dense_0")
@@ -199,7 +214,7 @@ def to_flax(state_dict: dict[str, torch.Tensor], resnet: bool | None = None) -> 
         elif last in _ARCH:
             collection = "arch"
         elif last == "weight":
-            if parent in _LAYER_NORMS or parent.startswith("bn_"):
+            if parent in _LAYER_NORMS or parent.startswith(("bn_", "gn_")):
                 last = "scale"
             elif parent in ("tok_embed", "embed"):
                 last = "embedding"

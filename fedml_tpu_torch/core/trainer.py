@@ -402,16 +402,17 @@ class LaneDropout:
 class ClientTrainer:
     """A module (whose variables are the working copy of the client model),
     a task, an optimizer (:class:`SGD` or :class:`Adam`), the local epoch
-    count, an optional augmentation of training batches
+    count and FedProx's proximal coefficient ``prox_mu``, the JAX fields in
+    their order; then an optional augmentation of training batches
     (:class:`~fedml_tpu_torch.ops.augment.ImageAugment`; evaluation never
-    sees it) and FedProx's proximal coefficient ``prox_mu``."""
+    sees it), which the JAX package adds by wrapping the trainer."""
 
     module: torch.nn.Module
     task: str = "classification"
     optimizer: Any = dataclasses.field(default_factory=lambda: sgd(0.03))
     epochs: int = 1
-    augment: Any = None
     prox_mu: float = 0.0
+    augment: Any = None
 
     def __post_init__(self):
         if self.task not in TASKS:
@@ -441,10 +442,10 @@ class ClientTrainer:
         return dict(getattr(self.module, "dropout_sites", {}))
 
     def _train_kwargs(self, masks) -> dict:
-        if self.stateful:
-            return {"train": True}
         if self.dropout_sites:
             return {"train": True, "dropout": masks}
+        if self.stateful:
+            return {"train": True}
         return {}
 
     def forward_train(self, x: torch.Tensor, masks=None) -> tuple[torch.Tensor, StateDict]:

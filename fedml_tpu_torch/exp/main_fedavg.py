@@ -12,8 +12,11 @@ protocol), ``fedopt`` (``--server_optimizer``, ``--server_lr``,
 hold (among them ``--model lr`` on ``mnist``, ``synthetic_*`` and
 ``stackoverflow_lr``, the ``tag`` task; ``--model cnn`` on ``femnist``;
 ``--model rnn`` on ``shakespeare``, ``fed_shakespeare`` and
-``stackoverflow_nwp``; the datasets without their files on the registry's
-fixtures), ``--client_optimizer sgd|adam`` with ``--wd`` and ``--momentum``,
+``stackoverflow_nwp``; the CIFAR zoo, ``resnet56``, ``resnet110``,
+``resnet18_gn``, ``mobilenet``, ``mobilenet_v3``, ``vgg*`` and
+``efficientnet*``, on ``cifar10``, ``cifar100``, ``cinic10`` and
+``fed_cifar100``'s fallback; the datasets without their files on the
+registry's fixtures), ``--client_optimizer sgd|adam`` with ``--wd`` and ``--momentum``,
 ``--augment``, ``--eval_on_clients``, ``--stage_on_device`` (0: host
 staging), ``--pack_lanes`` and ``--pack_capacity_factor`` (packed lanes),
 ``--population``, ``--population_trace`` and ``--population_seed`` (the

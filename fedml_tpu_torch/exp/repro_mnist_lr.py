@@ -16,8 +16,6 @@ Departures from the JAX entry point:
 - ``--out`` defaults to no report and ``--metrics_out`` to no file: the JAX
   defaults write ``REPRO.md`` and ``repro_metrics.jsonl``, files of the JAX
   package's own runs;
-- the report carries no fixture-ceiling line (``exp/repro_ceilings.py`` is
-  ROADMAP §A7b);
 - ``--device`` (default ``cuda``) names the device; with no card the run
   raises unless ``--device cpu``.
 
@@ -110,8 +108,16 @@ def run(args) -> dict:
 
 
 def _write_report(path: Path, args, result: dict, evals: list) -> None:
-    from fedml_tpu_torch.exp._report import update_section
+    from fedml_tpu_torch.exp._report import ceiling_lookup, update_section
 
+    ceil = ceiling_lookup("mnist_lr", report_path=path)
+    ceiling_line = (
+        f"\n- fixture centralized ceiling {ceil['ceiling_acc'] * 100:.2f} "
+        "(Fixture ceilings section) -> federated best is "
+        f"**{100 * result['best_test_acc'] / ceil['ceiling_acc']:.1f}% of "
+        "ceiling**"
+        if ceil else ""
+    )
     curve = "\n".join(
         f"| {e['round']} | {e['Train/Acc']:.4f} | {e['Test/Acc']:.4f} |" for e in evals)
     fixture_note = (
@@ -141,7 +147,7 @@ lr=0.03, E=1.
 
 ## Result
 
-- best test accuracy: **{result['best_test_acc'] * 100:.2f}**
+- best test accuracy: **{result['best_test_acc'] * 100:.2f}**{ceiling_line}
 - first round with test acc > 75: **{result['first_round_over_75']}**
 - wall-clock: {result['rounds_per_sec']} rounds/sec
 

@@ -1,0 +1,164 @@
+"""BASELINE reproduction, Synthetic(α,β) + LogisticRegression (Linear row 3),
+the port of ``fedml_tpu/exp/repro_synthetic.py``.
+
+Reference config (benchmark/README.md:12-18): 30 clients, 10/round, B=10,
+SGD lr=0.01, E=1 → test acc > 60 within >200 rounds, for
+(α,β) ∈ {(0,0), (0.5,0.5), (1,1)}. The generator is fully specified math
+(the FedProx paper's recipe, ``data/synthetic.py``, a copy of the JAX
+package's), so this row reproduces with no data caveats. The three runs go
+through ``FedSim.run`` with the JAX entry point's flags: packed lanes
+(``--pack_lanes``), the robust defenses (``--robust_rule``,
+``--norm_bound``, ``--dp_stddev``), the heterogeneous population
+(``--population``, ``--population_trace``, ``--population_seed``) and
+``--trace_dir``.
+
+Departures from the JAX entry point:
+
+- ``--device`` (default ``cuda``) names the device; with no card the run
+  raises unless ``--device cpu``.
+
+Usage: python -m fedml_tpu_torch.exp.repro_synthetic [--comm_round 250] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+
+
+def run(args) -> dict:
+    from fedml_tpu_torch.obs.trace import run_traced
+
+    return run_traced(_run, args)
+
+
+def _run(args) -> dict:
+    from fedml_tpu_torch.algorithms.robust import sim_config_fields as robust_fields
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.data.synthetic import synthetic_classification
+    from fedml_tpu_torch.models.linear import LogisticRegression
+    from fedml_tpu_torch.obs.metrics import logging_config
+    from fedml_tpu_torch.population import sim_config_fields as population_fields
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    logging_config(0)
+    results = {}
+    for a, b in ((0.0, 0.0), (0.5, 0.5), (1.0, 1.0)):
+        train, test = synthetic_classification(
+            n_clients=args.client_num_in_total, alpha=a, beta=b,
+            seed=args.seed, size_dist=args.size_dist,
+        )
+        trainer = ClientTrainer(
+            module=LogisticRegression(num_classes=10, in_features=train.arrays["x"].shape[1],
+                                      device=args.device),
+            optimizer=sgd(args.lr), epochs=1,
+        )
+        cfg = SimConfig(
+            client_num_in_total=args.client_num_in_total,
+            client_num_per_round=args.client_num_per_round,
+            batch_size=args.batch_size, comm_round=args.comm_round, epochs=1,
+            frequency_of_the_test=args.frequency_of_the_test, seed=args.seed,
+            pack_lanes=args.pack_lanes,
+            pack_capacity_factor=args.pack_capacity_factor,
+            **robust_fields(args),
+            **population_fields(args),
+        )
+        _, hist = FedSim(trainer, train, test, cfg, device=args.device).run()
+        evals = [(h["round"], h["Test/Acc"]) for h in hist if "Test/Acc" in h]
+        best = max(acc for _, acc in evals)
+        first60 = next((r for r, acc in evals if acc > 0.6), None)
+        results[f"synthetic({a},{b})"] = {
+            "best_test_acc": round(best, 4), "first_round_over_60": first60,
+            "clients_sizes_minmax": [int(train.client_sizes().min()),
+                                     int(train.client_sizes().max())],
+            "curve": [(r, round(acc, 3)) for r, acc in evals],
+        }
+        logging.info("synthetic(%s,%s): best %.3f, first>60 round %s",
+                     a, b, best, first60)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    if args.report:
+        _write_report(args.report, args, results)
+    return results
+
+
+def _write_report(path, args, results: dict) -> None:
+    from fedml_tpu_torch.exp._report import ceiling_lookup, update_section
+
+    def _row(name, r):
+        ceil = ceiling_lookup(name, report_path=path)
+        base = f"{ceil['ceiling_acc'] * 100:.1f}" if ceil else "n/a"
+        return (f"| {name} | {r['best_test_acc'] * 100:.1f} | {base} "
+                f"| {r['first_round_over_60']} |")
+
+    rows = "\n".join(_row(name, r) for name, r in results.items())
+    curves = "\n".join(
+        f"- `{name}`: " + ", ".join(f"{rr}:{acc * 100:.1f}" for rr, acc in r["curve"])
+        for name, r in results.items()
+    )
+    update_section(path, "synthetic_ab_torch", f"""# BASELINE reproduction — Synthetic(α,β) + LogisticRegression (Linear Models row 3), PyTorch port
+
+Reference target (BASELINE.md / benchmark/README.md:12-18): test acc **> 60**
+within **> 200 rounds** — 30 clients, 10/round, B=10, SGD lr=0.01, E=1, for
+(α,β) ∈ {{(0,0), (0.5,0.5), (1,1)}}.
+
+**Data:** the generator is fully specified math (W_k~N(u_k,1), u_k~N(0,α),
+B_k~N(0,β), x~N(v_k, Σ_jj=j^-1.2), per-client sample counts
+lognormal(4,2)+50, capped at 10,000; see clients_sizes_minmax in the JSON
+output). No fixture substitution was needed. Device: {args.device}.
+
+| config | best test acc ({args.comm_round} rounds) | centralized baseline (ceilings table) | first round > 60 |
+|---|---|---|---|
+{rows}
+
+Accuracy curves (round:acc, eval every {args.frequency_of_the_test} rounds):
+
+{curves}
+
+Reproduce with: `python -m fedml_tpu_torch.exp.repro_synthetic --report REPORT.md`
+""")
+
+
+def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    from fedml_tpu_torch.algorithms.robust import add_cli_flags as add_robust_cli_flags
+    from fedml_tpu_torch.obs.trace import add_cli_flag as add_trace_cli_flag
+    from fedml_tpu_torch.population import add_cli_flags as add_population_cli_flags
+
+    parser.add_argument("--client_num_in_total", type=int, default=30)
+    parser.add_argument("--client_num_per_round", type=int, default=10)
+    parser.add_argument("--batch_size", type=int, default=10)
+    parser.add_argument("--lr", type=float, default=0.01)
+    parser.add_argument("--comm_round", type=int, default=250)
+    parser.add_argument("--frequency_of_the_test", type=int, default=25)
+    parser.add_argument("--pack_lanes", type=int, default=0,
+                        help="packed-lane cohort execution: N lanes bin-packed from the "
+                             "cohort's step streams instead of padding to the straggler "
+                             "max; 0 = padded path (the same history either way)")
+    parser.add_argument("--pack_capacity_factor", type=float, default=1.25,
+                        help="lane-length head room over the expected cohort load "
+                             "(overflow spills to an extra pass)")
+    add_trace_cli_flag(parser)
+    add_robust_cli_flags(parser)
+    add_population_cli_flags(parser)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--size_dist", type=str, default="lognormal",
+                        choices=["lognormal", "uniform"],
+                        help="lognormal = reference sample sizes; uniform = "
+                             "small shapes for smoke tests")
+    parser.add_argument("--out", type=str, default=None)
+    parser.add_argument("--report", type=str, default=None,
+                        help="markdown report to update (marked section)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu")
+    return parser
+
+
+def main(argv=None):
+    args = add_args(argparse.ArgumentParser("synthetic baseline repro")).parse_args(argv)
+    return run(args)
+
+
+if __name__ == "__main__":
+    main()

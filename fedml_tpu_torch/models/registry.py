@@ -2,10 +2,14 @@
 
 Ported: ``lr`` (LogisticRegression), the FedAvg-paper CNNs ``cnn``
 (``CNNDropOut``, the FEMNIST model) and ``cnn_original``, ``lenet``,
-``transformer``, the CIFAR ResNets with BatchNorm, ``resnet56`` and
-``resnet110``, and ``rnn`` (``RNNStackOverflow`` on ``stackoverflow_nwp``,
-``RNNOriginalFedAvg`` on any other dataset). Every other model name of the
-JAX registry raises, naming the ROADMAP item that ports it.
+``transformer``, the ResNets ``resnet56``, ``resnet110`` (BatchNorm) and
+``resnet18_gn`` (GroupNorm, the fed_cifar100 model), ``mobilenet`` (V1),
+``mobilenet_v3`` (mode "large", as the JAX registry builds it),
+``efficientnet-b0`` ... ``-b8`` (a bare ``efficientnet`` is b0),
+``vgg<depth>`` (11, 13, 16, 19; a bare ``vgg`` is VGG-16) and ``rnn``
+(``RNNStackOverflow`` on ``stackoverflow_nwp``, ``RNNOriginalFedAvg`` on
+any other dataset). The segmentation models raise, naming their ROADMAP
+item; an unknown name raises ``ValueError``, as in the JAX registry.
 ``TASK_BY_DATASET`` and :func:`task_for_dataset` are the JAX registry's.
 """
 
@@ -17,22 +21,40 @@ from typing import Any
 import torch
 
 from fedml_tpu_torch.models.cnn import CNNDropOut, CNNOriginalFedAvg, LeNet
+from fedml_tpu_torch.models.efficientnet import efficientnet
 from fedml_tpu_torch.models.linear import LogisticRegression
-from fedml_tpu_torch.models.resnet import resnet56, resnet110
+from fedml_tpu_torch.models.mobilenet import MobileNet, MobileNetV3
+from fedml_tpu_torch.models.resnet import resnet18_gn, resnet56, resnet110
 from fedml_tpu_torch.models.rnn import RNNOriginalFedAvg, RNNStackOverflow
 from fedml_tpu_torch.models.transformer import TransformerLM
+from fedml_tpu_torch.models.vgg import VGG
 
-# model names of the JAX registry that later slices port (ROADMAP.md §A)
+# model names of the JAX registry that a later slice ports (ROADMAP.md §A)
 _NOT_PORTED = {
-    "resnet18_gn": "§A7 (the rest: resnet18_gn)",
-    "mobilenet": "§A7 (the rest: MobileNet)",
+    "unet": "§A13 (fedseg: UNet)",
+    "deeplab": "§A13 (fedseg: DeepLabLite)",
+    "deeplab_lite": "§A13 (fedseg: DeepLabLite)",
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # per-example input shape of the ported models on each dataset the CLI
 # serves them (flax infers it at the first call; torch sizes layers up front)
-_INPUT_SHAPES = {"mnist": (28, 28), "femnist": (28, 28)}
+_INPUT_SHAPES = {"mnist": (28, 28), "femnist": (28, 28), "cifar10": (32, 32, 3),
+                 "cifar100": (32, 32, 3), "cinic10": (32, 32, 3),
+                 "fed_cifar100": (32, 32, 3)}
+
+# models whose compute dtype the JAX registry refuses to set
+_NO_DTYPE = ("lr", "rnn")
+
+
+# the CIFAR zoo without an input shape, by name
+_ZOO = {
+    "resnet56": resnet56, "resnet110": resnet110, "resnet18_gn": resnet18_gn,
+    "mobilenet": lambda class_num, **kw: MobileNet(num_classes=class_num, **kw),
+    "mobilenet_v3": lambda class_num, **kw: MobileNetV3(num_classes=class_num, mode="large",
+                                                        **kw),
+}
 
 
 def create_model(model_name: str, output_dim: int, dataset: str = "",
@@ -42,30 +64,34 @@ def create_model(model_name: str, output_dim: int, dataset: str = "",
     """The reference's name/dataset dispatch (main_fedavg.py:354-390).
 
     ``dtype`` (a torch dtype or "float32"/"bfloat16") is the compute dtype
-    for the models that take one (the CNNs, the ResNets, the transformer);
-    parameters stay f32. As in the JAX registry, a dtype other than f32 for
-    a model without one (``lr``, ``rnn``) raises; ``rnn`` ignores
-    ``output_dim`` (its vocabulary is the model's), as there.
+    for the models that take one (the CNNs, the CIFAR zoo, the
+    transformer); parameters stay f32. As in the JAX registry, a dtype other
+    than f32 for a model without one (``lr``, ``rnn``) raises; ``rnn``
+    ignores ``output_dim`` (its vocabulary is the model's), as there.
     ``input_shape`` is one example's shape (e.g. ``(28, 28)``), which sizes
-    ``lr``'s and the CNNs' first Dense; it defaults to the dataset's (28 x
-    28 for ``mnist`` and ``femnist``). ``model_kwargs`` set the model's
-    other fields (for the transformer: ``embed_dim``, ``num_layers``,
-    ``num_heads``, ``max_len``, ``attn_impl``, ...; for ``cnn``:
-    ``dropout_rates``; for ``rnn``: ``vocab_size``, ``embedding_dim``,
+    ``lr``'s, the CNNs' and VGG's first Dense; it defaults to the dataset's
+    (28 x 28 for ``mnist`` and ``femnist``, 32 x 32 x 3 for the CIFAR
+    datasets). ``model_kwargs`` set the model's other fields (for the
+    transformer: ``embed_dim``, ``num_layers``, ``num_heads``, ``max_len``,
+    ``attn_impl``, ...; for ``cnn``: ``dropout_rates``; for ``vgg*``:
+    ``dropout_rate``; for ``efficientnet*``: ``dropout_rate``,
+    ``drop_connect_rate``; for ``rnn``: ``vocab_size``, ``embedding_dim``,
     ``hidden_size``). The model is built on ``device``, which must be
     available."""
-    if model_name not in ("lr", "cnn", "cnn_original", "lenet", "transformer", "resnet56",
-                          "resnet110", "rnn"):
-        slice_ = _NOT_PORTED.get(model_name, "§A13 (remaining families)")
+    if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {model_name!r} (dataset={dataset!r}) is not ported to "
-            f"fedml_tpu_torch yet: ROADMAP {slice_}"
+            f"fedml_tpu_torch yet: ROADMAP {_NOT_PORTED[model_name]}"
         )
+    if not (model_name in _ZOO or model_name in ("lr", "cnn", "cnn_original", "lenet",
+                                                 "transformer", "rnn")
+            or model_name.startswith(("efficientnet", "vgg"))):
+        raise ValueError(f"unknown model {model_name!r} (dataset={dataset!r})")
     if isinstance(dtype, str):
         if dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {dtype!r} (expected one of {sorted(_DTYPES)})")
         dtype = _DTYPES[dtype]
-    if model_name in ("lr", "rnn") and dtype not in (None, torch.float32):
+    if model_name in _NO_DTYPE and dtype not in (None, torch.float32):
         raise ValueError(f"model {model_name!r} does not take a compute dtype")
     if model_name == "rnn":
         factory = RNNStackOverflow if dataset == "stackoverflow_nwp" else RNNOriginalFedAvg
@@ -86,8 +112,15 @@ def create_model(model_name: str, output_dim: int, dataset: str = "",
                        **model_kwargs)
     if model_name == "transformer":
         return TransformerLM(vocab_size=output_dim, dtype=dtype, device=device, **model_kwargs)
-    factory = resnet56 if model_name == "resnet56" else resnet110
-    return factory(class_num=output_dim, dtype=dtype, device=device, **model_kwargs)
+    if model_name.startswith("efficientnet"):
+        name = model_name if "-" in model_name else "efficientnet-b0"
+        return efficientnet(name, num_classes=output_dim, dtype=dtype, device=device,
+                            **model_kwargs)
+    if model_name.startswith("vgg"):
+        shape = input_shape or _INPUT_SHAPES.get(dataset, (32, 32, 3))
+        return VGG(depth=int(model_name[3:] or 16), num_classes=output_dim, dtype=dtype,
+                   input_shape=shape, device=device, **model_kwargs)
+    return _ZOO[model_name](class_num=output_dim, dtype=dtype, device=device, **model_kwargs)
 
 
 TASK_BY_DATASET = {

@@ -18,7 +18,10 @@
   optimizer states) and round-trips bitwise. The last ``keep`` rounds are
   kept. Its server half (``save_server`` / ``restore_server``) stores a
   nested dict of numpy arrays and JSON values, the ``.json`` written last as
-  the commit marker.
+  the commit marker. Where orbax is installed, the JAX package writes its
+  rounds through orbax (``round_<k>/state/``) instead: the port's
+  ``restore`` refuses such a round with a ``ValueError``, as only params
+  files cross between the packages.
 """
 
 from __future__ import annotations
@@ -187,12 +190,19 @@ class RoundCheckpointer:
                 like_server_state: Any = None):
         """``(variables, server_state, round_idx, history)`` of round
         ``round_idx`` (default: the latest), each tensor of its template
-        leaf's dtype and device."""
+        leaf's dtype and device. A round the JAX package wrote through orbax
+        (``round_k/state/``) raises ``ValueError``."""
         if round_idx is None:
             round_idx = self.latest_round()
         if round_idx is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         path = self.dir / f"round_{round_idx:06d}"
+        if not (path / "state.npz").exists() and (path / "state").is_dir():
+            raise ValueError(
+                f"{path} holds an orbax checkpoint (round_k/state/, written by the JAX "
+                "package's RoundCheckpointer where orbax is installed), which "
+                "fedml_tpu_torch cannot read without JAX: only params files "
+                "(save_params/load_params) cross between the packages")
         template = {"variables": like_variables}
         if _has_leaves(like_server_state):
             template["server_state"] = like_server_state

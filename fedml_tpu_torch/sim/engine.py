@@ -143,17 +143,17 @@ class SimConfig:
     eval_batch_size: int = 256
     seed: int = 0
     shuffle_each_round: bool = True
-    # cap the pooled train eval to the first N samples (None = all)
-    train_eval_samples: int | None = None
-    # "vmap": every client of the cohort at once; "scan": one after another
-    cohort_execution: str = "vmap"
     straggler_frac: float = 0.0
     population: str | None = None
     population_trace: str | None = None
     population_seed: int | None = None
     eval_on_clients: bool = False
+    # cap the pooled train eval to the first N samples (None = all)
+    train_eval_samples: int | None = None
     stage_on_device: bool | None = None
     block_dispatch: bool | None = None
+    # "vmap": every client of the cohort at once; "scan": one after another
+    cohort_execution: str = "vmap"
     pack_lanes: int = 0
     pack_capacity_factor: float = 1.25
     compressor: str = "none"
@@ -263,16 +263,18 @@ class PackedStaged:
     """A packed round's staged payload (``pack_lanes`` > 0, the JAX
     ``PackedStaged``): one :class:`LanePass` a pass, the cohort's ``[C]``
     weights and step budgets on the device, the round's ``[C, E, S, B]``
-    augmentation draws, and ``stats``, the host's plan accounting
-    (``n_passes``, ``total_steps``, ``capacity``, ``padded_steps``)."""
+    augmentation draws in the place of the JAX round key (``rkey``), and
+    ``stats``, the host's plan accounting (``n_passes``, ``total_steps``,
+    ``capacity``, ``padded_steps``); then the port's own fields, the round
+    and its cohort."""
 
-    round_idx: int
-    cohort: np.ndarray
     passes: tuple
     weights: torch.Tensor
     num_steps: torch.Tensor
     draws: dict | None
     stats: dict
+    round_idx: int
+    cohort: np.ndarray
 
 
 class FedSim:
@@ -322,7 +324,8 @@ class FedSim:
                 norm_bound=config.norm_bound, stddev=config.dp_stddev, rule=config.robust_rule))
         self.aggregator = aggregator or fedavg_aggregator()
         # per-client persistent models (the JAX gossip rules; none is
-        # ported, but a rule that says so is refused as the JAX engine does)
+        # ported: a rule that says so is refused, under packing or a
+        # population with the JAX engine's messages)
         self._per_client = bool(getattr(self.aggregator, "per_client", False))
         if self._per_client and self._population is not None:
             raise ValueError(
@@ -338,6 +341,11 @@ class FedSim:
         # pin steps-per-epoch to the population max, as the JAX engine does
         self._steps = cohortlib.steps_per_epoch(train_data.max_client_size(), config.batch_size)
         self._pack = self._check_pack(config, local_train_fn)
+        if self._per_client:
+            raise NotImplementedError(
+                f"aggregator={self.aggregator.name!r} keeps a model per client (per_client), "
+                "a mode of the JAX engine not ported to fedml_tpu_torch yet: ROADMAP §A10 "
+                "(decentralized/gossip, the engine's per-client mode)")
         if local_train_fn is not None:
             raise NotImplementedError(
                 "local_train_fn (a custom round program, e.g. the GAN's) is not ported to "
@@ -779,10 +787,10 @@ class FedSim:
                                            for a in (pp.slot, pp.gidx, pp.boundary)), order))
         draws = self._round_draws(round_idx, len(cohort))
         return PackedStaged(
-            round_idx, cohort, tuple(passes), self._stage_put(weights),
-            self._stage_put(num_steps),
-            None if draws is None else {k: self._stage_put(d) for k, d in draws.items()},
-            self._plan_stats(len(weights), plan))
+            passes=tuple(passes), weights=self._stage_put(weights),
+            num_steps=self._stage_put(num_steps),
+            draws=None if draws is None else {k: self._stage_put(d) for k, d in draws.items()},
+            stats=self._plan_stats(len(weights), plan), round_idx=round_idx, cohort=cohort)
 
     def _packed_buffers(self, variables: StateDict, lanes: int) -> tuple:
         """A packed round's zeroed output buffers (``engine.py:1084-1101``):

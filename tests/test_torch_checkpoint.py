@@ -196,3 +196,19 @@ def test_round_checkpointer_keeps_three_and_round_trips_structures(tmp_path):
     back = ck.restore_server()
     np.testing.assert_array_equal(back["model"], np.arange(4.0))
     assert back["meta"] == {"n": 2, "ids": [1, 2]}
+
+
+def test_jax_orbax_round_is_refused_naming_the_layout(tmp_path):
+    """A round the JAX RoundCheckpointer wrote through orbax
+    (``round_k/state/``) is refused by the port's restore with a message
+    that names the layout and the params files that do cross."""
+    jck = jckpt.RoundCheckpointer(tmp_path)
+    assert jck._ckptr is not None, "orbax is installed here"
+    jm = JaxLR(num_classes=3)
+    variables = jax.tree.map(np.asarray, dict(jm.init(jax.random.key(0), jnp.zeros((1, 4)))))
+    path = jck.save(0, variables, history=[{"round": 0}])
+    assert (path / "state").is_dir() and not (path / "state.npz").exists()
+    port = create_model("lr", 3, input_shape=(4,), device="cpu")
+    like = {k: torch.zeros_like(v) for k, v in port.state_dict().items()}
+    with pytest.raises(ValueError, match=r"orbax.*round_k/state/.*save_params/load_params"):
+        checkpoint.RoundCheckpointer(tmp_path).restore(like)

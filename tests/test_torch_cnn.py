@@ -26,6 +26,7 @@ import torch
 
 from fedml_tpu.models import cnn as jax_cnn
 from fedml_tpu.models.linear import LogisticRegression as JaxLR
+from fedml_tpu.models.registry import create_model as jax_create_model
 from fedml_tpu_torch import convert
 from fedml_tpu_torch.core.trainer import DropoutStream, draw_dropout_masks
 from fedml_tpu_torch.models import cnn as port_cnn
@@ -172,9 +173,18 @@ def test_registry_names_and_tasks():
     m = create_model("cnn_original", 62, "femnist", dtype="bfloat16", device="cpu")
     assert all(p.dtype == torch.float32 for p in m.parameters())
     assert m(torch.zeros(2, 28, 28)).dtype == torch.float32
-    for name, item in (("resnet18_gn", "§A7"), ("mobilenet", "§A7"), ("vgg16", "§A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            create_model(name, 10, device="cpu")
+    with pytest.raises(NotImplementedError, match="§A13"):
+        create_model("unet", 10, device="cpu")
+    with pytest.raises(ValueError, match="unknown model"):
+        create_model("alexnet", 10, device="cpu")
+    # the CIFAR zoo's names build with the JAX package's parameter shapes
+    for name in ("mobilenet", "vgg16"):
+        shapes = jax.eval_shape(jax_create_model(name, 10, "cifar10").init,
+                                jax.random.key(0), jnp.zeros((1, 32, 32, 3)))
+        zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), dict(shapes))
+        assert {k: tuple(v.shape) for k, v in convert.from_flax(zeros).items()} == {
+            k: tuple(v.shape)
+            for k, v in create_model(name, 10, "cifar10", device="cpu").state_dict().items()}
     assert task_for_dataset("stackoverflow_nwp") == "nwp"
     assert task_for_dataset("shakespeare") == "char_lm"
     assert task_for_dataset("femnist") == "classification"

@@ -28,6 +28,7 @@ from flax import linen as nn
 
 from fedml_tpu.core.trainer import ClientTrainer as JaxTrainer
 from fedml_tpu.models.resnet import CifarResNet as JaxResNet
+from fedml_tpu.models.resnet import resnet18_gn as jax_resnet18_gn
 from fedml_tpu.models.resnet import resnet56 as jax_resnet56
 from fedml_tpu_torch import convert
 from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
@@ -151,7 +152,8 @@ def test_converter_round_trip_bitwise(rng):
 
 def test_resnet56_shapes_match_jax():
     """The registry's ResNet-56 has the JAX ResNet-56's variables, name for
-    name and shape for shape; ResNet-110 too."""
+    name and shape for shape; ResNet-110 and ResNet-18 with GroupNorm too; a
+    §A13 model raises."""
     for name, jax_model in (("resnet56", jax_resnet56()), ("resnet110", JaxResNet(depth=110))):
         shapes = jax.eval_shape(jax_model.init, jax.random.key(0), jnp.zeros((1, 32, 32, 3)))
         zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), dict(shapes))
@@ -159,8 +161,15 @@ def test_resnet56_shapes_match_jax():
         assert {k: tuple(v.shape) for k, v in convert.from_flax(zeros).items()} == {
             k: tuple(v.shape) for k, v in model.state_dict().items()}
         assert all(p.dtype == torch.float32 for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="§A7"):
-        create_model("resnet18_gn", 100, device="cpu")
+    with pytest.raises(NotImplementedError, match="§A13"):
+        create_model("unet", 10, device="cpu")
+    # the GroupNorm ResNet-18 builds with the JAX resnet18_gn's shapes
+    shapes = jax.eval_shape(jax_resnet18_gn().init, jax.random.key(0),
+                            jnp.zeros((1, 32, 32, 3)))
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), dict(shapes))
+    model = create_model("resnet18_gn", 100, dtype="bfloat16", device="cpu")
+    assert {k: tuple(v.shape) for k, v in convert.from_flax(zeros).items()} == {
+        k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
 @pytest.mark.parametrize("train", [False, True])

@@ -119,7 +119,7 @@ def test_registry_and_unported_options():
     assert model.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("resnet18_gn", 100, device="cpu")
+        create_model("unet", 100, device="cpu")
     for kwargs in ({"attn_impl": "ring"}, {"remat": True}, {"mp_axis": "model"},
                    {"dropout_rate": 0.1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
