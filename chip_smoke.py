@@ -114,8 +114,8 @@ Phases, each of which exits non-zero on failure:
     CLI (``[shakespeare cli]``: blocks against per-round dispatch in turns,
     round 1 of each profiled with the host's CUDA calls, the capture timed);
     BASELINE row 4 through ``exp/repro_shakespeare.main`` at full width
-    (715-client Markov fixture, 10 a round, B=4, SGD 1.0, E=1, seq 80; 10
-    rounds, eval every 5), its pipelined loop against the serial one
+    (715-client Markov fixture, 10 a round, B=4, SGD 1.0, E=1, seq 80; 6
+    rounds, eval every 3), its pipelined loop against the serial one
     (bitwise; round 1 of the serial run under ``torch.profiler``), with the
     fixture's build time, s/round, best accuracy against the fixture's
     Bayes ceiling and peak memory (``[repro_shakespeare]``); StackOverflow
@@ -149,12 +149,25 @@ Phases, each of which exits non-zero on failure:
     (``[hierarchical]``); ``--trace_dir`` at row 1, traced and untraced in
     turns, bitwise, with the span counts and the repro loop's spans
     (``[trace]``); the robust rules (median, trimmed mean, Krum, with
-    clipping and DP noise) on FEMNIST + CNNDropOut at full width, 3 rounds
+    clipping and DP noise) on FEMNIST + CNNDropOut at full width, 2 rounds
     as one block against per-round dispatch under deterministic cuDNN, each
     rule on the card's client stack against CPU copies (``[robust]``); and
     round checkpoints (FedAdam at row 1: 20 rounds straight against 10 and a
     resume to 20, bitwise) and a FEMNIST params file warm-starting a fresh
-    run, its eval bitwise the saving run's (``[checkpoint]``).
+    run, its eval bitwise the saving run's (``[checkpoint]``);
+17. update compression and gossip (no flash launch on either path):
+    ``[compress]`` (after ``[robust]``) holds the six codecs' planes on the
+    card bitwise to the CPU's on a ResNet-56-shaped delta, runs FEMNIST +
+    CNNDropOut at its recipe with ``--compressor q4 --error_feedback 0``
+    (2 rounds as one block against per-round dispatch, deterministic
+    cuDNN, rtol 1e-6 / atol 1e-7) and the cross-silo flagship with top-k
+    0.01 and error feedback (1 round: residual nonzero after it, uplink
+    bytes 10 x one client's); ``[gossip]`` (after ``[trace]``) runs
+    ``--algorithm decentralized`` at row 1 (all 1000 clients on a ring,
+    3 rounds, one block against per-round dispatch, bitwise) and an
+    8-client ring card against CPU within 1e-5. ``[fednas small]`` also
+    runs each of its checks twice on the card under deterministic
+    algorithms and prints the largest difference (ROADMAP §C, item 3).
 
 Each phase prints its seconds (``[phase]``). It prints a
 ``{"kernels": [...]}`` line, then as its last line
@@ -167,6 +180,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -741,8 +755,8 @@ def phase_cross_silo(torch):
     ln 10: within [ln 10 - 1, ln 10 + 3], since at flax's initialisation
     ResNet-56's logits have a standard deviation near 2 (the residual
     stream grows over 27 blocks), which puts the loss of the first steps
-    near 3-4 in the JAX package and the port alike. Returns the last
-    round's time."""
+    near 3-4 in the JAX package and the port alike. Returns the rounds'
+    times."""
     from fedml_tpu_torch.core import partition
     from fedml_tpu_torch.data import cv
     from fedml_tpu_torch.exp import repro_cross_silo as repro
@@ -807,7 +821,7 @@ def phase_cross_silo(torch):
         if not ln10 - 1.0 <= records[0]["Train/Loss"] <= ln10 + 3.0:
             fail(f"cross-silo {mode}: first-round loss {records[0]['Train/Loss']} is far from "
                  f"ln 10 = {ln10:.4f} (band [ln 10 - 1, ln 10 + 3])")
-    return runs["vmap"][1][-1]["round_time"]
+    return [rec["round_time"] for rec in runs["vmap"][1]]
 
 
 # the CIFAR zoo of ROADMAP §A7 at full width: the names of the JAX registry,
@@ -2243,8 +2257,10 @@ RNN_SMALL = {"original": dict(dataset="shakespeare", vocab_size=90, embedding_di
                               hidden_size=32, seq=16),
              "stackoverflow": dict(dataset="stackoverflow_nwp", vocab_size=512,
                                    embedding_dim=16, hidden_size=48, seq=8)}
+# 6 rounds with an eval every 3, cut from 10 and 5 for the script's time
+# budget
 SHAKESPEARE = dict(clients=715, per_round=10, batch=4, lr=1.0, seq=80, samples=16,
-                   rounds=10, freq=5, profiled=1)
+                   rounds=6, freq=3, profiled=1)
 SO_NWP = dict(clients=100, per_round=50, batch=16, lr=10 ** -0.5, rounds=4, freq=3)
 SO_LR = dict(clients=10, per_round=10, batch=10, lr=0.1, rounds=2)
 
@@ -2304,7 +2320,7 @@ def phase_repro_shakespeare(torch, smi):
     ``exp/repro_shakespeare.main``, at full width on the card: the Markov
     char-LM fixture of 715 clients (16 windows of 80 characters each, built
     once and timed here), ``RNNOriginalFedAvg``, 10 a round, B=4, SGD 1.0,
-    E=1, vmapped; 10 rounds with an eval every 5, dispatched one at a time
+    E=1, vmapped; 6 rounds with an eval every 3, dispatched one at a time
     by ``exp/_loop.run_rounds``: pipelined (the default), then serial
     (``pipeline_depth`` 0, round 1 under ``torch.profiler``). The two runs'
     records are bitwise equal, ``round_time`` aside. Report and metrics go to
@@ -2400,7 +2416,7 @@ def phase_shakespeare_cli(torch, smi):
     3-8``: 2 x LSTM 256, 10 clients a round, B=4, SGD 1.0, E=1) on the
     registry's Markov fixture, which the CLI builds without files (715
     clients of 30 windows of 20 characters, so 8 steps a round; the repro's
-    are 16 windows of 80), 10 rounds with an eval every 5: two blocks of 5
+    are 16 windows of 80), 6 rounds with an eval every 3: two blocks of 3
     replays of the round's CUDA graph (the default on
     the card) against the same rounds dispatched one at a time
     (``block_dispatch=False``, set here: the CLI has no such flag, as in the
@@ -2711,10 +2727,30 @@ def phase_fednas_small(torch):
         card = check("cuda", init)
         torch.cuda.synchronize()
         errs[name] = _fednas_err(torch, card, check("cpu", init))
+    # ROADMAP §C, item 3: is FedNAS repeatable on the card? Each check twice on the
+    # card from the same variables, under deterministic algorithms (cuBLAS's
+    # check satisfied by its workspace setting; an op without a deterministic
+    # form warns instead of raising) and deterministic cuDNN
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        repeat = {}
+        for name, check in checks.items():
+            first = check("cuda", init)
+            second = check("cuda", init)
+            torch.cuda.synchronize()
+            repeat[name] = _fednas_err(torch, first, second)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
     launches = _flash_launches()
     log(f"[fednas small] DARTSNetwork {widths} 8x8, B={c['batch']}, f32, card vs CPU from "
         f"the same variables, max_abs_err (variables, optimizer states, losses): "
         + "; ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f"; flash launches {launches}")
+    log("[fednas small] two card runs of each check under deterministic algorithms and "
+        "cuDNN, largest difference: " + "; ".join(f"{k} {v:.3e}" for k, v in repeat.items())
+        + f"; bitwise equal: {max(repeat.values()) == 0.0}")
     for name, err in errs.items():
         if not err <= E2E_ATOL:
             fail(f"fednas small {name}: the card disagrees with the CPU: {err} > {E2E_ATOL}")
@@ -2954,10 +2990,11 @@ def _small_rule_sim(torch, device, aggregator, rounds=5, epochs=1, straggler=0.0
 def phase_fedopt(torch, smi):
     """FedOpt at BASELINE row 4's recipe through the CLI (``[shakespeare
     cli]``'s argv: the Markov fixture, 715 clients, 10 a round, B=4, 2 x LSTM
-    256, client SGD 1.0, 20 rounds, an eval every 10) with ``--algorithm
-    fedopt`` at the JAX defaults (adam, server lr 0.1, b1 0.9): two blocks of
-    10 replays of the round's CUDA graph, whose server step carries Adam's
-    step count as a device tensor, against the same rounds dispatched one at
+    256, client SGD 1.0, 10 rounds, an eval every 5, cut from 20 and 10 for
+    the script's time budget) with ``--algorithm fedopt`` at the JAX
+    defaults (adam, server lr 0.1, b1 0.9): two blocks of 5 replays of the
+    round's CUDA graph, whose server step carries Adam's step count as a
+    device tensor, against the same rounds dispatched one at
     a time, four runs in turns (blocks, per round, per round, blocks), held
     to rtol 1e-6 / atol 1e-7 (a count frozen in the graph would break the
     bias correction from a block's second round); s/round of each beside
@@ -2973,7 +3010,7 @@ def phase_fedopt(torch, smi):
     flash launches."""
     from fedml_tpu_torch.algorithms.fedopt import fedopt_aggregator, server_optimizer
 
-    c = dict(SHAKESPEARE, rounds=20, freq=10)
+    c = dict(SHAKESPEARE, rounds=10, freq=5)
     argv = ["--dataset", "shakespeare", "--model", "rnn",
             "--data_dir", str(BUILD_DIR / "shakespeare_cli"),
             "--client_num_in_total", str(c["clients"]),
@@ -3068,14 +3105,15 @@ def phase_fednova(torch, mnist_dir):
     return launches
 
 
-ROBUST = dict(norm_bound=1.0, stddev=1e-3, rules=("median", "trimmed_mean", "krum"))
+# 2 rounds, cut from 3 for the script's time budget
+ROBUST = dict(norm_bound=1.0, stddev=1e-3, rules=("median", "trimmed_mean", "krum"), rounds=2)
 
 
 def phase_robust(torch, femnist_runs):
     """``--algorithm fedavg_robust`` on FEMNIST + CNNDropOut through the CLI
     at ``[femnist]``'s width (3400 clients, 10 a round, B=20, the fallback),
     for each of median, trimmed mean and Krum, with clipping and DP noise:
-    3 rounds as one block against per-round dispatch, both under cuDNN's
+    2 rounds as one block against per-round dispatch, both under cuDNN's
     deterministic algorithms, rtol 1e-6 / atol 1e-7 (the noise drawn into
     the graph's buffers before each replay); the rule applied to the card's
     own clipped client stack (the per-round run's last round) against the
@@ -3091,7 +3129,8 @@ def phase_robust(torch, femnist_runs):
     _zero_flash_counters()
     records = {}
     for rule in ROBUST["rules"]:
-        argv = _femnist_argv(3, "--algorithm", "fedavg_robust", "--robust_rule", rule,
+        argv = _femnist_argv(ROBUST["rounds"], "--algorithm", "fedavg_robust",
+                             "--robust_rule", rule,
                              "--norm_bound", str(ROBUST["norm_bound"]),
                              "--stddev", str(ROBUST["stddev"]))
         torch.cuda.reset_peak_memory_stats()
@@ -3128,7 +3167,8 @@ def phase_robust(torch, femnist_runs):
             rule_gap = max(float((on_card[k].cpu() - on_cpu[k]).abs().max()) for k in on_cpu)
             chosen = f"largest difference {rule_gap:.3e}"
         log(f"[robust {rule}] clip {ROBUST['norm_bound']}, DP stddev {ROBUST['stddev']}: "
-            f"{blocks[-1]['round_time']:.4f} s a round in one block of 3 (plain FedAvg's "
+            f"{blocks[-1]['round_time']:.4f} s a round in one block of {ROBUST['rounds']} "
+            f"(plain FedAvg's "
             f"block {plain:.4f} s), {per_round[-1]['round_time']:.4f} s a round per round "
             f"(runs {wall_b:.2f} s, {wall_p:.2f} s); peak device memory "
             f"{peak / 2**30:.3f} GiB; {metrics}; block vs per round largest difference "
@@ -3313,6 +3353,255 @@ def phase_trace(torch, mnist_dir):
     return launches
 
 
+# depth cut to keep the script near its budget: FEMNIST 3 rounds -> 2, the
+# flagship 2 -> 1 (its round 1 holds both checks)
+COMPRESS = dict(specs=("none", "bf16", "topk", "q8", "q4", "topk+q4"), topk_frac=0.01,
+                femnist_rounds=2, flagship_rounds=1)
+
+
+class _SharedUniforms:
+    """Uniforms for a quantizing codec (``.uniform(shape)``) from a numpy
+    seed, put on ``device``: two of them with one seed serve the card and
+    the CPU the same numbers."""
+
+    def __init__(self, torch, device, seed=0):
+        self.torch, self.device, self.rng = torch, device, np.random.RandomState(seed)
+
+    def uniform(self, shape, dtype=None):
+        u = self.rng.random_sample(tuple(shape)).astype(np.float32)
+        return self.torch.from_numpy(u).to(self.device)
+
+
+def _plane_gap(torch, a, b, where=""):
+    """Where two encoded updates' planes differ (the card's moved to the
+    CPU), bit for bit: a list of ``(plane/leaf, elements that differ)``."""
+    from fedml_tpu_torch.compress.codec import EncodedUpdate
+
+    if isinstance(a, EncodedUpdate):
+        if a.scheme != b.scheme or a.meta != b.meta or sorted(a.planes) != sorted(b.planes):
+            return [(where or "update", "scheme, meta or plane names")]
+        return [g for name in a.planes for g in _plane_gap(torch, a.planes[name],
+                                                           b.planes[name], f"{where}{name}/")]
+    if isinstance(a, dict):
+        return [g for k in a for g in _plane_gap(torch, a[k], b[k], f"{where}{k}")]
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return [(where, f"{a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")]
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(a.dtype)
+    if bits is not None:
+        a, b = a.view(bits), b.view(bits)
+    n = int((a != b).sum())
+    return [(where, n)] if n else []
+
+
+def phase_compress(torch, femnist_runs, plain_flagship_s):
+    """Update compression on the card (``--compressor``,
+    ``compress/aggregate.py``). (1) Each codec of ``COMPRESS["specs"]``
+    (top-k at 0.01) on a ResNet-56-shaped delta (its 0.86M-element state
+    dict, normal draws x 0.01) on the card and on the CPU, the quantizers
+    fed the same uniforms: every plane bitwise equal, else the differing
+    planes are printed and the phase fails. (2) FEMNIST + CNNDropOut at
+    ``[femnist]``'s recipe with ``--compressor q4 --error_feedback 0``:
+    2 rounds as one block (the codec's uniforms drawn into the graph's
+    buffers before each replay) against per-round dispatch, both under
+    deterministic cuDNN, rtol 1e-6 / atol 1e-7; the compression ratio and
+    s/round beside the plain block's (``COMPRESS`` sets the rounds of each
+    part). (3) The cross-silo flagship
+    (CIFAR-10 fixture of ``[cross-silo]``, ResNet-56 bf16, 10 silos all
+    every round, B=64, E=1, SGD 0.001 wd 0.001, augmentation, per-round
+    dispatch), built as ``repro_cross_silo`` builds it, with top-k 0.01 and
+    error feedback: the residual stack nonzero after round 1, the
+    uplink bytes 10 x one client's encoded bytes, the round metrics finite;
+    the eval printed with the count of BatchNorm running variances below
+    zero (error feedback over model state, as in the JAX wrapper, can make
+    one negative and the eval NaN; a non-finite eval without one fails);
+    s/round beside the plain flagship's rounds (``plain_flagship_s``).
+    Returns the flash launches."""
+    from fedml_tpu_torch.compress.codec import make_codec, tree_bytes
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.data.cv import load_cifar
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.obs import metrics as metricslib
+    from fedml_tpu_torch.ops.augment import ImageAugment
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    _zero_flash_counters()
+    # (1) the codecs, card against CPU
+    rng = np.random.RandomState(0)
+    shapes = {k: tuple(v.shape) for k, v in
+              create_model("resnet56", 10, device="cpu").state_dict().items()}
+    delta = {k: torch.from_numpy((rng.randn(*s) * 0.01).astype(np.float32))
+             for k, s in shapes.items()}
+    delta_card = {k: v.cuda() for k, v in delta.items()}
+    n = sum(v.numel() for v in delta.values())
+    for spec in COMPRESS["specs"]:
+        codec = make_codec(spec, topk_frac=COMPRESS["topk_frac"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = codec.encode(delta_card, _SharedUniforms(torch, "cuda"))
+        dec_card = codec.decode(card)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        cpu = codec.encode(delta, _SharedUniforms(torch, "cpu"))
+        gaps = _plane_gap(torch, card, cpu)
+        dec_gap = _plane_gap(torch, dec_card, codec.decode(cpu))
+        log(f"[compress codecs] {spec}: {n} elements in {len(delta)} leaves, "
+            f"{card.nbytes} bytes encoded of {tree_bytes(delta)} (ratio "
+            f"{tree_bytes(delta) / card.nbytes:.3f}), card encode + decode {card_ms:.2f} ms "
+            f"(first call); planes card vs CPU: "
+            + ("bitwise equal" if not gaps else f"differ {gaps[:8]}")
+            + ("; decoded bitwise equal" if not dec_gap else f"; decoded differ {dec_gap[:8]}"))
+        if gaps or dec_gap:
+            fail(f"compress codecs {spec}: the card's planes differ from the CPU's: "
+                 f"{(gaps + dec_gap)[:8]}")
+        if card.nbytes != cpu.nbytes:
+            fail(f"compress codecs {spec}: {card.nbytes} bytes on the card, {cpu.nbytes} on "
+                 "the CPU")
+    del delta_card
+
+    # (2) FEMNIST, q4 without error feedback, blocks against per round
+    rounds = COMPRESS["femnist_rounds"]
+    argv = _femnist_argv(rounds, "--compressor", "q4", "--error_feedback", "0")
+    blocks, wall_b = _deterministic_cli(torch, argv)
+    per_round, wall_p = _deterministic_per_round(torch, argv)
+    (over, beyond), (diff, where) = _block_gap(torch, (({}, blocks), ({}, per_round)))
+    plain = femnist_runs["blocks"][0][-1]["round_time"]
+    plain_per_round = femnist_runs["per round"][0][-1]["round_time"]
+    ratio = blocks[-1][metricslib.COMM_RATIO]
+    log(f"[compress femnist] q4, no error feedback, {rounds} rounds: Comm/CompressionRatio "
+        f"{ratio:.4f}, uplink {blocks[-1][metricslib.COMM_UPLINK_BYTES]:.0f} of "
+        f"{blocks[-1][metricslib.COMM_UPLINK_DENSE_BYTES]:.0f} bytes a round; "
+        f"{blocks[-1]['round_time']:.4f} s a round in one block (plain FedAvg's block "
+        f"{plain:.4f} s), {per_round[-1]['round_time']:.4f} s a round per round (plain "
+        f"{plain_per_round:.4f} s); runs {wall_b:.2f} s, {wall_p:.2f} s; Train/Loss "
+        + ", ".join(f"{rec['Train/Loss']:.6f}" for rec in blocks)
+        + f"; Test/Acc {blocks[-1]['Test/Acc']:.4f}; block vs per round largest difference "
+        f"{diff:.3e} ({where})")
+    if over > 0:
+        fail(f"compress femnist: block vs per round {beyond} beyond rtol {BLOCK_RTOL} / atol "
+             f"{BLOCK_ATOL}")
+    if not ratio > 7.0:
+        fail(f"compress femnist: q4's compression ratio {ratio} (expected near 8)")
+
+    # (3) the cross-silo flagship with top-k and error feedback
+    c = CROSS_SILO
+    train, test, class_num = load_cifar("cifar10", BUILD_DIR / "cifar10", "hetero", 0.5,
+                                        c["clients"], 0, allow_synthetic=False)
+    model = create_model("resnet56", class_num, dtype=torch.bfloat16, device="cuda")
+    trainer = ClientTrainer(module=model, optimizer=sgd(0.001, weight_decay=0.001),
+                            epochs=c["epochs"], augment=ImageAugment())
+    frac = COMPRESS["topk_frac"]
+    cfg = SimConfig(client_num_in_total=c["clients"], client_num_per_round=c["clients"],
+                    batch_size=c["batch"], comm_round=COMPRESS["flagship_rounds"],
+                    epochs=c["epochs"], frequency_of_the_test=COMPRESS["flagship_rounds"],
+                    seed=0, block_dispatch=False, cohort_execution="vmap",
+                    compressor="topk", topk_frac=frac, error_feedback=True)
+    sim = FedSim(trainer, train, test, cfg, device="cuda")
+    variables = sim.init_round_variables()
+    state = sim.aggregator.init_state(variables)
+    one_client = make_codec("topk", topk_frac=frac).encode(variables, None).nbytes
+    times, records = [], []
+    for r in range(cfg.comm_round):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        variables, state, m = sim.run_round(r, variables, state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        records.append({k: float(v) for k, v in m.items()})
+        if r == 0:
+            nonzero = sum(int(torch.count_nonzero(v)) for v in state["residual"].values())
+            if nonzero == 0:
+                fail("compress flagship: the residual stack is zero after round 1")
+    evaluated = sim.evaluate(variables)
+    # error feedback over the BatchNorm running variances (the JAX wrapper
+    # compresses every variable, model state too) can push one below zero,
+    # and the eval's normalisation then reads NaN: count them
+    negative = sum(int((v < 0).sum()) for k, v in variables.items()
+                   if k.endswith("running_var"))
+    uplink = records[-1][metricslib.COMM_UPLINK_BYTES]
+    log(f"[compress flagship] ResNet-56 bf16, {c['clients']} silos x B={c['batch']}, top-k "
+        f"{frac} + error feedback: s/round " + ", ".join(f"{t:.3f}" for t in times)
+        + " (the plain flagship's rounds, [cross-silo]: "
+        + ", ".join(f"{t:.3f}" for t in plain_flagship_s) + " s); residual stack nonzero "
+        f"after round 1: {nonzero} of {sum(v.numel() for v in state['residual'].values())} "
+        f"elements; uplink {uplink:.0f} bytes a round = {c['clients']} x {one_client}, dense "
+        f"{records[-1][metricslib.COMM_UPLINK_DENSE_BYTES]:.0f}, Comm/CompressionRatio "
+        f"{records[-1][metricslib.COMM_RATIO]:.4f}; Train/Loss "
+        + ", ".join(f"{rec['Train/Loss']:.5f}" for rec in records)
+        + f"; eval {json.dumps({k: round(v, 5) for k, v in evaluated.items()})}; BatchNorm "
+        f"running variances below zero: {negative}")
+    if uplink != c["clients"] * one_client:
+        fail(f"compress flagship: uplink {uplink} bytes, expected {c['clients']} x {one_client}")
+    if not all(np.isfinite([v for rec in records for v in rec.values()])):
+        fail(f"compress flagship: non-finite round metrics {records}")
+    if not all(np.isfinite(list(evaluated.values()))) and negative == 0:
+        fail(f"compress flagship: a non-finite eval {evaluated} with no negative running "
+             "variance to explain it")
+    del sim, variables, state
+    torch.cuda.empty_cache()
+    return _flash_launches()
+
+
+GOSSIP = dict(rounds=3, small_clients=8, small_atol=1e-5)
+
+
+def phase_gossip(torch, mnist_dir):
+    """``--algorithm decentralized`` (gossip on a ring of every client, the
+    engine's per-client mode) at BASELINE row 1 through the CLI: the
+    1000-client LEAF fixture, all 1000 every round, B=10, SGD 0.03, 3
+    rounds as one block (the ``[1000, ...]`` model stack the graph's input)
+    against per-round dispatch: histories and final stacks bitwise equal
+    (LR runs no cuDNN). Prints ``consensus_dist`` each round, the stack's
+    bytes and s/round. Then an 8-client ring on the synthetic fixture, 3
+    rounds, the card against the CPU from the same variables, within 1e-5.
+    Returns the flash launches."""
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    final = {}
+
+    def keep_final(original):
+        def run(self, *args, **kwargs):
+            variables, history = original(self, *args, **kwargs)
+            final.setdefault("stacks", []).append({k: v.detach().clone()
+                                                   for k, v in variables.items()})
+            return variables, history
+        return run
+
+    _zero_flash_counters()
+    argv = _mnist_argv(mnist_dir, GOSSIP["rounds"], GOSSIP["rounds"], "--algorithm",
+                       "decentralized")
+    with _wrapped(FedSim, "run", keep_final):
+        blocks, wall_b = _cli(torch, argv)
+        per_round, wall_p = _per_round_cli(torch, argv)
+    gap, where = _history_gap(blocks, per_round)
+    (a, b) = final["stacks"]
+    same = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    shape = {k: tuple(v.shape) for k, v in a.items()}
+    stack_bytes = sum(v.numel() * v.element_size() for v in a.values())
+    log(f"[gossip] decentralized, row 1: ring of {a[next(iter(a))].shape[0]} clients, all "
+        f"every round, stack {shape} = {stack_bytes} bytes; consensus_dist by round "
+        + ", ".join(f"{rec['consensus_dist']:.6e}" for rec in blocks)
+        + f"; {blocks[-1]['round_time']:.4f} s a round in one block, "
+        f"{per_round[-1]['round_time']:.4f} s a round per round (runs {wall_b:.2f} s, "
+        f"{wall_p:.2f} s); Test/Acc {blocks[-1]['Test/Acc']:.4f}; block vs per round: "
+        f"histories largest difference {gap:.3e} ({where}), final stacks bitwise equal {same}")
+    if gap != 0.0 or not same:
+        fail(f"gossip: block and per-round dispatch differ ({gap:.3e} at {where}, stacks "
+             f"equal {same})")
+    small = ["--dataset", "synthetic_0.5_0.5", "--model", "lr", "--algorithm", "decentralized",
+             "--client_num_in_total", str(GOSSIP["small_clients"]), "--batch_size", "8",
+             "--lr", "0.1", "--comm_round", "3", "--frequency_of_the_test", "3",
+             "--data_dir", str(BUILD_DIR / "synthetic_none")]
+    (card, _), (cpu, _) = _card_then_cpu(torch, small)
+    gap, where = _history_gap(card, cpu)
+    log(f"[gossip] {GOSSIP['small_clients']} clients on a ring, 3 rounds, card vs CPU from the "
+        f"same variables: largest difference {gap:.3e} ({where}); consensus_dist "
+        + ", ".join(f"{rec['consensus_dist']:.6e}" for rec in card))
+    if not gap <= GOSSIP["small_atol"]:
+        fail(f"gossip: the card and the CPU differ by {gap:.3e} at {where}")
+    return _flash_launches()
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds printed under the phase's name."""
     t0 = time.perf_counter()
@@ -3341,7 +3630,7 @@ def main() -> None:
     times = _timed("kernel_times", phase_kernel_times, torch)
     small_vmap_launches = _timed("e2e vmap", phase_small_end_to_end, torch, "vmap")
     _timed("resnet small", phase_small_resnet, torch)
-    _timed("cross_silo", phase_cross_silo, torch)
+    plain_flagship_s = _timed("cross_silo", phase_cross_silo, torch)
     cli_launches, loads = {}, []
     cli_launches["zoo_small"] = _timed("zoo small", phase_zoo_small, torch)
     cli_launches["cross_silo_zoo"] = _timed("cross_silo zoo", phase_cross_silo_zoo, torch)
@@ -3356,8 +3645,9 @@ def main() -> None:
         cli_launches["hierarchical"] = _timed("hierarchical", phase_hierarchical, torch,
                                               mnist_dir)
         cli_launches["trace"] = _timed("trace", phase_trace, torch, mnist_dir)
+        cli_launches["gossip"] = _timed("gossip", phase_gossip, torch, mnist_dir)
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
-        f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace)")
+        f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip)")
     femnist_loads = []
     with _loaded_once(femnist_loads):
         cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
@@ -3368,6 +3658,8 @@ def main() -> None:
         cli_launches["population"] = _timed("population", phase_population, torch)
         cli_launches["robust"], median_run, saved = _timed("robust", phase_robust, torch,
                                                            femnist_runs)
+        cli_launches["compress"] = _timed("compress", phase_compress, torch, femnist_runs,
+                                          plain_flagship_s)
         cli_launches["checkpoint"] = _timed("checkpoint", phase_checkpoint, torch, mnist_dir,
                                             median_run[-1], saved)
     log(f"[femnist] the 3400-client fallback built in {femnist_loads[0]:.2f} s, "
@@ -3391,7 +3683,8 @@ def main() -> None:
                  "blocks_small", "rnn_small", "shakespeare_cli",
                  "repro_shakespeare", "so_nwp", "so_lr", "fednas_small", "fednas",
                  "fednas_unrolled", "fedopt", "fednova", "robust", "hierarchical",
-                 "checkpoint", "trace", "zoo_small", "cross_silo_zoo", "resnet18_gn"):
+                 "checkpoint", "trace", "zoo_small", "cross_silo_zoo", "resnet18_gn",
+                 "compress", "gossip"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

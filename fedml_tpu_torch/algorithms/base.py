@@ -34,14 +34,19 @@ class Aggregator:
     leading ``[C]`` client axis; ``weights`` is a [C] tensor of per-client
     sample counts (the reference's weighting scheme). The engine passes, on
     every path, ``rng``: the round's
-    :class:`~fedml_tpu_torch.core.rng.RoundNoise` (its gaussian draws), and
-    ``extras``: ``tau`` [C], each client's true local SGD step count
+    :class:`~fedml_tpu_torch.core.rng.RoundNoise` (its gaussian and uniform
+    draws), and ``extras``: ``tau`` [C], each client's true local SGD step count
     (heterogeneous under the straggler protocol, FedNova's), and
     ``max_tau``, the static bound on those counts. Every leaf of ``state``
     is a tensor, so a CUDA graph of the round carries it on the device.
     ``per_client``, ``num_clients`` and ``needs_prev_stack`` are the JAX
-    fields of the per-client mode (a model kept per client), which the
-    engine refuses (ROADMAP §A10)."""
+    fields of the per-client mode (a model kept per client,
+    ``algorithms/decentralized.py``), which the engine honours: with
+    ``per_client`` it keeps the ``[N, ...]`` stack of every client's model
+    across rounds, trains each client from its own row, and passes the rule
+    the previous stack in the place of the global model (the whole stack
+    whether or not ``needs_prev_stack`` asks for it: the port does not
+    shard the stack); ``num_clients`` must equal the client count."""
 
     init_state: Callable[[Any], Any]
     aggregate: Callable[..., tuple[Any, Any, dict]]

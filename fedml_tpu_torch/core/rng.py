@@ -52,17 +52,20 @@ def sample_clients(round_idx: int, client_num_in_total: int,
 
 
 class RoundNoise:
-    """The server rule's gaussian draws for one round (weak-DP noise,
-    ``algorithms/robust.py``): the k-th call of :meth:`normal` draws on
-    ``device`` from a generator seeded from ``(seed, round_idx, k)`` by
-    numpy's SeedSequence, so a round's noise is a pure function of the run's
-    seed and the round, whatever ran before it. JAX's threaded keys
-    (``fold_in(key(seed), round)``) give other numbers. A draw reseeds the
-    generator, which a CUDA graph cannot capture: a round replayed from a
-    graph reads the same draws from buffers filled before the replay
-    (``sim/graphs.py`` :class:`StaticNoise`)."""
+    """The server side's random draws for one round: gaussians (weak-DP
+    noise, ``algorithms/robust.py``) and uniforms (the stochastic rounding of
+    the quantizing codecs, ``compress/codec.py``). The k-th call of
+    :meth:`normal` or :meth:`uniform` (one counter for both) draws on
+    ``device`` from a generator seeded from ``(seed, round_idx, k, tag)`` by
+    numpy's SeedSequence, the tag the kind's own, so a round's draws are a
+    pure function of the run's seed and the round, whatever ran before it.
+    JAX's threaded keys (``fold_in(key(seed), round)``) give other numbers.
+    A draw reseeds the generator, which a CUDA graph cannot capture: a round
+    replayed from a graph reads the same draws from buffers filled before
+    the replay (``sim/graphs.py`` :class:`StaticNoise`)."""
 
     TAG = 0xD9
+    UNIFORM_TAG = 0x75
 
     def __init__(self, seed: int, round_idx: int, device: str | torch.device = "cpu"):
         self.seed, self.round_idx = int(seed), int(round_idx)
@@ -70,13 +73,20 @@ class RoundNoise:
         self._generator: torch.Generator | None = None  # made at the first draw
         self._k = 0
 
-    def normal(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """The next draw: standard normals of ``shape`` and ``dtype``."""
+    def _reseed(self, tag: int) -> torch.Generator:
         if self._generator is None:
             self._generator = torch.Generator(device=self.device)
         mixed = np.random.SeedSequence(
-            [self.seed, self.round_idx, self._k, self.TAG]).generate_state(1, np.uint64)[0]
+            [self.seed, self.round_idx, self._k, tag]).generate_state(1, np.uint64)[0]
         self._k += 1
-        self._generator.manual_seed(int(mixed))
-        return torch.randn(tuple(shape), generator=self._generator, device=self.device,
+        return self._generator.manual_seed(int(mixed))
+
+    def normal(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The next draw: standard normals of ``shape`` and ``dtype``."""
+        return torch.randn(tuple(shape), generator=self._reseed(self.TAG), device=self.device,
                            dtype=dtype)
+
+    def uniform(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The next draw: uniforms on [0, 1) of ``shape`` and ``dtype``."""
+        return torch.rand(tuple(shape), generator=self._reseed(self.UNIFORM_TAG),
+                          device=self.device, dtype=dtype)

@@ -662,7 +662,7 @@ def _functional_step(trainer: ClientTrainer):
     return step
 
 
-def make_vmap_train(trainer: ClientTrainer):
+def make_vmap_train(trainer: ClientTrainer, per_client: bool = False):
     """Returns ``vmap_train(global_variables, data, num_steps, draws=None) ->
     (stacked_variables, metrics)``, the whole cohort's training at once
     (``fedml_tpu/core/trainer.py:247-312`` under ``jax.vmap``).
@@ -681,10 +681,16 @@ def make_vmap_train(trainer: ClientTrainer):
     executed steps of its last executed epoch. The variables come back
     stacked ``[C, ...]`` in ``global_variables``' key order.
 
+    With ``per_client`` (the engine's per-client mode, ``var_axis = 0`` in
+    ``fedml_tpu/sim/engine.py:893-905``) ``global_variables`` is already the
+    ``[C, ...]`` stack of the clients' own models: client c starts from row
+    c, and the proximal term takes row c's parameters.
+
     Raises when the trainer's optimizer has no functional form: the vmap
     mode never falls back to training clients one at a time."""
     opt = trainer.optimizer
-    vstep = torch.func.vmap(_functional_step(trainer), in_dims=(0, 0, 0, 0, None))
+    vstep = torch.func.vmap(_functional_step(trainer),
+                            in_dims=(0, 0, 0, 0, 0 if per_client else None))
     param_names = [k for k, _ in trainer.module.named_parameters()]
 
     def vmap_train(global_variables: StateDict, data: Batch, num_steps: torch.Tensor,
@@ -693,7 +699,8 @@ def make_vmap_train(trainer: ClientTrainer):
             raise ValueError("the module has dropout: vmap_train needs the round's "
                              "DropoutStream")
         C, S = data["mask"].shape[:2]
-        stacked = {k: v.unsqueeze(0).expand((C,) + v.shape) for k, v in global_variables.items()}
+        stacked = (global_variables if per_client else
+                   {k: v.unsqueeze(0).expand((C,) + v.shape) for k, v in global_variables.items()})
         params = {k: stacked[k] for k in param_names}
         state = {k: v for k, v in stacked.items() if k not in params}
         global_params = ({k: global_variables[k] for k in param_names}
@@ -755,6 +762,46 @@ def make_lane_step(trainer: ClientTrainer):
                     reset(opt0, opt_state), batch, global_params)
 
     return lane_step
+
+
+def make_local_update(trainer: ClientTrainer, codec=None, local_train_fn=None):
+    """Compressed local-update program (``fedml_tpu/core/trainer.py:345-378``):
+    ``local_update(global_variables, data, rng, residual=None,
+    num_steps=None, draws=None, dropout=None, slot=0) -> (payload,
+    new_residual, metrics)``.
+
+    Runs :func:`make_local_train` (``draws``, ``dropout`` and ``slot`` are
+    its), takes the model delta, adds the carried error-feedback
+    ``residual`` (``compress/error_feedback.py``) and encodes it with
+    ``codec`` (``compress/codec.py``), whose uniforms come from ``rng``
+    (``rng.uniform(shape)``, e.g. a
+    :class:`~fedml_tpu_torch.core.rng.RoundNoise`): the client side of the
+    update-compression subsystem. ``codec=None`` returns the raw delta
+    (``payload`` is a state dict); otherwise ``payload`` is an
+    ``EncodedUpdate`` and ``metrics`` gains ``uplink_bytes`` and
+    ``uplink_dense_bytes`` (f32 tensors)."""
+    from fedml_tpu_torch.compress import error_feedback as ef
+    from fedml_tpu_torch.compress.codec import tree_bytes
+    from fedml_tpu_torch.core import tree as treelib
+
+    local_train = local_train_fn or make_local_train(trainer)
+
+    def local_update(global_variables: StateDict, data: Batch, rng, residual=None,
+                     num_steps=None, draws=None, dropout: DropoutStream | None = None,
+                     slot: int = 0):
+        new_vars, metrics = local_train(global_variables, data, num_steps, draws, dropout, slot)
+        delta = treelib.sub(new_vars, global_variables)
+        if codec is None:
+            return delta, residual, metrics
+        comp = ef.compensate(delta, residual)
+        enc, _, new_residual = ef.encode_with_feedback(codec, comp, rng)
+        device = data["mask"].device
+        metrics = dict(metrics)
+        metrics["uplink_bytes"] = torch.full((), float(enc.nbytes), device=device)
+        metrics["uplink_dense_bytes"] = torch.full((), float(tree_bytes(delta)), device=device)
+        return enc, new_residual, metrics
+
+    return local_update
 
 
 def make_local_eval(trainer: ClientTrainer):

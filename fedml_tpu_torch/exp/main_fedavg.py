@@ -7,8 +7,11 @@ Every flag of the JAX CLI is here with the same name, dest and default
 CPU). Ported: ``--algorithm fedavg``, ``fedprox`` (with the straggler
 protocol), ``fedopt`` (``--server_optimizer``, ``--server_lr``,
 ``--server_momentum``), ``fednova``, ``fedavg_robust`` (``--robust_rule``,
-``--norm_bound``, ``--stddev``) and ``hierarchical`` (``--group_num``,
-``--group_comm_round``) on the sim engine, every model and dataset the port's registries
+``--norm_bound``, ``--stddev``), ``hierarchical`` (``--group_num``,
+``--group_comm_round``) and ``decentralized`` (gossip on a ring of every
+client, each training from its own model, all of them every round) on the
+sim engine, update compression (``--compressor``, ``--topk_frac``,
+``--quantize_bits``, ``--error_feedback``), every model and dataset the port's registries
 hold (among them ``--model lr`` on ``mnist``, ``synthetic_*`` and
 ``stackoverflow_lr``, the ``tag`` task; ``--model cnn`` on ``femnist``;
 ``--model rnn`` on ``shakespeare``, ``fed_shakespeare`` and
@@ -97,8 +100,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--algorithm", type=str, default="fedavg",
                         choices=["fedavg", "fedopt", "fedprox", "fednova", "fedgan",
                                  "hierarchical", "decentralized", "fedavg_robust"],
-                        help="decentralized (ROADMAP §A10) and fedgan (§A13) are not "
-                             "ported yet")
+                        help="fedgan (ROADMAP §A13) is not ported yet")
     parser.add_argument("--server_optimizer", type=str, default="adam")
     parser.add_argument("--server_lr", type=float, default=1e-1)
     parser.add_argument("--server_momentum", type=float, default=0.9)
@@ -124,12 +126,18 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     from fedml_tpu_torch.population import add_cli_flags as add_population_cli_flags
 
     add_population_cli_flags(parser)
-    # update compression (ROADMAP §A10) and downlink coding (§A11)
-    parser.add_argument("--compressor", type=str, default="none")
+    # update compression (fedml_tpu_torch/compress) and downlink coding (§A11)
+    parser.add_argument("--compressor", type=str, default="none",
+                        help="client->server update codec: none | bf16 | topk | q8 | q4, "
+                             "composable with '+' (e.g. topk+q4). 'none' keeps the dense "
+                             "path; round metrics gain Comm/* bytes-on-wire keys")
     parser.add_argument("--topk-frac", "--topk_frac", dest="topk_frac", type=float,
-                        default=0.01)
-    parser.add_argument("--quantize_bits", type=int, default=8, choices=[4, 8])
-    parser.add_argument("--error_feedback", type=int, default=1)
+                        default=0.01, help="fraction of entries the topk codec keeps per leaf")
+    parser.add_argument("--quantize_bits", type=int, default=8, choices=[4, 8],
+                        help="bit width for the quantize/q* codecs")
+    parser.add_argument("--error_feedback", type=int, default=1,
+                        help="carry the codec's dropped mass into the next round's update "
+                             "(EF-SGD residual)")
     parser.add_argument("--downlink_compressor", type=str, default="none")
     parser.add_argument("--downlink_keyframe_every", type=int, default=8)
     parser.add_argument("--downlink_retention", type=int, default=4)
@@ -194,9 +202,6 @@ _UNPORTED_FLAGS = {
     "tier_compressor": "§A11",
     "reservoir_k": "§A11 (the wire path's reservoir defense)",
     "retry_base_delay": "§A11",
-    "compressor": "§A10 (update compression)", "topk_frac": "§A10 (update compression)",
-    "quantize_bits": "§A10 (update compression)",
-    "error_feedback": "§A10 (update compression)",
     "downlink_compressor": "§A11", "downlink_keyframe_every": "§A11",
     "downlink_retention": "§A11",
     "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
@@ -252,9 +257,10 @@ def build_aggregator(args, train_data):
     if args.algorithm in ("fedavg", "hierarchical"):
         return fedavg_aggregator()
     if args.algorithm == "decentralized":
-        raise NotImplementedError(
-            "--algorithm decentralized is not ported to fedml_tpu_torch yet: ROADMAP §A10 "
-            "(decentralized/gossip, the engine's per-client mode)")
+        from fedml_tpu_torch.algorithms.decentralized import gossip_aggregator
+        from fedml_tpu_torch.topology.topology import ring_topology
+
+        return gossip_aggregator(ring_topology(train_data.num_clients))
     raise NotImplementedError(
         f"--algorithm {args.algorithm} is not ported to fedml_tpu_torch yet: ROADMAP §A13 "
         f"({args.algorithm})")
@@ -405,9 +411,12 @@ def _run(args) -> list[dict]:
                          input_shape=tuple(ds.train.arrays["x"].shape[1:]))
     trainer = build_trainer(args, model, args.dataset)
     aggregator = build_aggregator(args, ds.train)
+    # decentralized/gossip: every node participates every round
+    per_round = (ds.train.num_clients if args.algorithm == "decentralized"
+                 else min(args.client_num_per_round, ds.train.num_clients))
     cfg = SimConfig(
         client_num_in_total=ds.train.num_clients,
-        client_num_per_round=min(args.client_num_per_round, ds.train.num_clients),
+        client_num_per_round=per_round,
         batch_size=args.batch_size,
         comm_round=args.comm_round,
         epochs=args.epochs,
@@ -420,6 +429,10 @@ def _run(args) -> list[dict]:
         profile_dir=args.profile_dir,
         pack_lanes=args.pack_lanes,
         pack_capacity_factor=args.pack_capacity_factor,
+        compressor=args.compressor,
+        topk_frac=args.topk_frac,
+        quantize_bits=args.quantize_bits,
+        error_feedback=bool(args.error_feedback),
         **population_fields(args),
     )
     sim = FedSim(trainer, ds.train, ds.test_arrays, cfg, aggregator=aggregator,

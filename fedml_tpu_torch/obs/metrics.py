@@ -3,8 +3,9 @@ from ``fedml_tpu/obs/metrics.py``: python logging with a per-process format
 (fedml_api/utils/logger.py:7), and one metric sink with the reference's
 wandb key names (Train/Acc, Train/Loss, Test/Acc, Test/Loss by round),
 writing JSONL locally and forwarding to wandb when asked and available,
-and the robust defenses' metric keys. ``CommBytesAccountant`` and
-``RoundTimer`` (the wire path's) are not ported yet (ROADMAP §A11)."""
+the robust defenses' metric keys and the bytes-on-wire keys of update
+compression (``Comm/*``). ``CommBytesAccountant`` and ``RoundTimer`` (the
+wire path's) are not ported yet (ROADMAP §A11)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,24 @@ from typing import Any
 ROBUST_UPDATE_NORM = "Robust/UpdateNorm"
 ROBUST_CLIP_FRACTION = "Robust/ClipFraction"
 ROBUST_FILTERED = "Robust/FilteredClients"
+
+# Canonical bytes-on-wire metric keys (compress subsystem): actual bytes
+# that crossed (or would cross) the transport vs the dense-f32 equivalent,
+# per round. Emitted by the sim engine's compressed aggregator
+# (compress/aggregate.py) so compression ratio shows up in the same metrics
+# stream as Train/Acc.
+COMM_UPLINK_BYTES = "Comm/UplinkBytes"
+COMM_UPLINK_DENSE_BYTES = "Comm/UplinkDenseBytes"
+COMM_DOWNLINK_BYTES = "Comm/DownlinkBytes"
+COMM_DOWNLINK_DENSE_BYTES = "Comm/DownlinkDenseBytes"
+COMM_RATIO = "Comm/CompressionRatio"
+COMM_DOWNLINK_RATIO = "Comm/DownlinkCompressionRatio"
+# downlink delta coding (the wire path's, ROADMAP §A11): how many receivers
+# were served a dense keyframe this round
+COMM_DOWNLINK_KEYFRAMES = "Comm/DownlinkKeyframes"
+
+# ratio keys are derived, not additive — totals must never sum them
+_RATIO_KEYS = (COMM_RATIO, COMM_DOWNLINK_RATIO)
 
 
 def logging_config(process_id: int = 0, level=logging.INFO) -> None:

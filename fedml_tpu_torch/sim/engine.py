@@ -57,6 +57,19 @@ trace points (``obs/trace.py``: ``engine/stage``, ``engine/dispatch``,
 ``engine/eval``, ``engine/sync``, ``engine/lane_occupancy``,
 ``engine/overflow_passes``) time the host's part of each.
 
+Update compression (``compressor``, ``topk_frac``, ``quantize_bits``,
+``error_feedback``, ``engine.py:350-392``) wraps the server rule in
+:func:`~fedml_tpu_torch.compress.aggregate.compressed_aggregator`: each
+client's delta is encoded (its error-feedback residual, keyed by cohort
+slot, in the server state) and the rule gets the reconstructed models, on
+every path. A per-client rule (``Aggregator.per_client``, the gossip rules
+of ``algorithms/decentralized.py``) selects the per-client mode
+(``engine.py:394-415,893-972,1418-1461,1622-1626``): the model variables
+are the ``[N, ...]`` stack of every client's model, every client runs
+every round in id order from its own row, the rule maps the previous
+stack and the trained one to the next, and evals read the clients' mean
+(:meth:`FedSim.consensus`).
+
 :meth:`FedSim.run` is the JAX engine's driver (``engine.py:2069-2183``):
 with ``pipeline_depth`` >= 1 (the default, depth 1) a background thread
 stages the next segments (a round or a block, ``sim/prefetch.py``) into
@@ -85,6 +98,8 @@ from fedml_tpu_torch import population as poplib
 from fedml_tpu_torch.algorithms.base import Aggregator, EmptyRoundError, fedavg_aggregator
 from fedml_tpu_torch.algorithms.fedprox import straggler_epochs
 from fedml_tpu_torch.algorithms.robust import RobustConfig, robust_aggregator
+from fedml_tpu_torch.compress.aggregate import compressed_aggregator
+from fedml_tpu_torch.compress.codec import make_codec
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.core.trainer import (ClientTrainer, DropoutStream, LaneDropout, _last_epoch,
@@ -101,13 +116,10 @@ StateDict = dict[str, torch.Tensor]
 
 # SimConfig fields of the JAX engine that the port does not implement yet:
 # the values the port accepts (the JAX default first) and the ROADMAP item
-# that ports the rest.
+# that ports the rest (downlink coding, which the JAX sim engine refuses
+# too, is refused in its words before this table is read).
 _NOT_PORTED = {
-    "compressor": (("none",), "§A10"),
-    "topk_frac": ((0.01,), "§A10"),
-    "quantize_bits": ((8,), "§A10"),
-    "downlink_compressor": (("none",), "§A11"),
-    "error_feedback": ((True,), "§A10"),
+    "downlink_compressor": (("none", ""), "§A11"),
     "mesh_shape": ((None,), "§A12"),
     "shard_rules": ((None,), "§A12"),
 }
@@ -173,6 +185,17 @@ class SimConfig:
         if self.cohort_execution not in ("vmap", "scan"):
             raise ValueError(f"unknown cohort_execution {self.cohort_execution!r} "
                              "(expected 'vmap' or 'scan')")
+        if self.downlink_compressor and self.downlink_compressor != "none":
+            # the JAX sim engine refuses downlink coding too, in these words
+            raise ValueError(
+                f"downlink_compressor={self.downlink_compressor!r}: "
+                "downlink delta coding is a wire-path plane "
+                "(compress/downlink.py) — the sim engine broadcasts "
+                "in-memory views, so there are no downlink bytes to "
+                "compress; run a message-passing backend "
+                "(loopback/shm/grpc/mqtt_s3), or 'none' for the "
+                "bit-identical sim path"
+            )
         for name, (accepted, item) in _NOT_PORTED.items():
             value = getattr(self, name)
             if value not in accepted:
@@ -323,29 +346,20 @@ class FedSim:
             aggregator = robust_aggregator(RobustConfig(
                 norm_bound=config.norm_bound, stddev=config.dp_stddev, rule=config.robust_rule))
         self.aggregator = aggregator or fedavg_aggregator()
-        # per-client persistent models (the JAX gossip rules; none is
-        # ported: a rule that says so is refused, under packing or a
-        # population with the JAX engine's messages)
+        if config.compressor and config.compressor != "none":
+            self.aggregator = self._compressed(config, self.aggregator)
+        # per-client persistent models (decentralized/gossip FL): each client
+        # trains from its own round-(r-1) model instead of a broadcast global
         self._per_client = bool(getattr(self.aggregator, "per_client", False))
-        if self._per_client and self._population is not None:
-            raise ValueError(
-                "per-client aggregators (decentralized/gossip) keep slot i "
-                "== client i with full participation every round; a "
-                "population's availability churn breaks that identity — "
-                "run populations with broadcast-mode aggregation")
+        self._check_per_client(config)
         if config.cohort_execution == "vmap":
-            self._vmap_train = make_vmap_train(trainer)
+            self._vmap_train = make_vmap_train(trainer, per_client=self._per_client)
         else:
             self._local_train = make_local_train(trainer)
         self._local_eval = make_local_eval(trainer)
         # pin steps-per-epoch to the population max, as the JAX engine does
         self._steps = cohortlib.steps_per_epoch(train_data.max_client_size(), config.batch_size)
         self._pack = self._check_pack(config, local_train_fn)
-        if self._per_client:
-            raise NotImplementedError(
-                f"aggregator={self.aggregator.name!r} keeps a model per client (per_client), "
-                "a mode of the JAX engine not ported to fedml_tpu_torch yet: ROADMAP §A10 "
-                "(decentralized/gossip, the engine's per-client mode)")
         if local_train_fn is not None:
             raise NotImplementedError(
                 "local_train_fn (a custom round program, e.g. the GAN's) is not ported to "
@@ -396,6 +410,60 @@ class FedSim:
         # program kinds dispatched so far (the first dispatch of each is
         # marked in the trace, engine.py:1768-1777)
         self._dispatched: set[str] = set()
+
+    def _compressed(self, config: SimConfig, inner: Aggregator) -> Aggregator:
+        """``inner`` behind the update codec ``config`` names, with error
+        feedback keyed by cohort slot, and the JAX engine's refusals
+        (``engine.py:361-392``)."""
+        if self._population is not None and config.error_feedback:
+            raise ValueError(
+                "sim-mode error feedback keys residuals by cohort "
+                "slot; a population's availability churn maps slots "
+                "to different clients every round — use "
+                "error_feedback=False or a message-passing backend"
+            )
+        if (config.error_feedback
+                and config.client_num_per_round != config.client_num_in_total):
+            raise ValueError(
+                "sim-mode error feedback keys residuals by cohort slot, "
+                "which matches client identity only at full participation "
+                f"(got {config.client_num_per_round}/"
+                f"{config.client_num_in_total} per round); use full "
+                "participation, error_feedback=False, or a "
+                "message-passing backend (residuals keyed by assigned "
+                "client index)"
+            )
+        return compressed_aggregator(
+            make_codec(config.compressor, topk_frac=config.topk_frac,
+                       quantize_bits=config.quantize_bits),
+            inner=inner, error_feedback=config.error_feedback,
+            num_slots=config.client_num_per_round)
+
+    def _check_per_client(self, config: SimConfig) -> None:
+        """The per-client mode's preconditions, with the JAX engine's
+        errors (``engine.py:394-415``): slot i is client i every round."""
+        if not self._per_client:
+            return
+        if self._population is not None:
+            raise ValueError(
+                "per-client aggregators (decentralized/gossip) keep slot i "
+                "== client i with full participation every round; a "
+                "population's availability churn breaks that identity — "
+                "run populations with broadcast-mode aggregation")
+        if config.client_num_per_round != config.client_num_in_total:
+            raise ValueError(
+                "per-client aggregators (decentralized/gossip) require full "
+                "participation: client_num_per_round == client_num_in_total "
+                f"(got {config.client_num_per_round} != {config.client_num_in_total})"
+            )
+        agg_n = getattr(self.aggregator, "num_clients", None)
+        if agg_n is not None and agg_n != config.client_num_in_total:
+            raise ValueError(
+                f"aggregator '{self.aggregator.name}' is configured for "
+                f"{agg_n} clients (e.g. its mixing-matrix order) but "
+                f"client_num_in_total={config.client_num_in_total} — a "
+                "mismatched topology would silently isolate clients"
+            )
 
     @staticmethod
     def _make_population(config: SimConfig):
@@ -529,21 +597,30 @@ class FedSim:
         return self.trainer.init(rnglib.generator(self.config.seed, self.device))
 
     def init_round_variables(self, overrides: StateDict | None = None) -> StateDict:
-        """The global model the rounds start from: :meth:`init_variables`,
-        with ``overrides`` (a partial state dict, name -> tensor) grafted
-        over it. The port runs broadcast mode only, so this is the model
-        itself (the JAX engine's per-client stacked layout is §A10's)."""
+        """Model state in the engine's layout (``engine.py:1418-1453``):
+        :meth:`init_variables`, with ``overrides`` (a partial state dict,
+        name -> tensor) grafted over it; in the per-client mode the ``[N,
+        ...]`` stack of N copies of it (every node starts from the same
+        point, the standard decentralized-optimization setup)."""
         v = self.init_variables()
         for k, t in (overrides or {}).items():
             if k not in v or tuple(t.shape) != tuple(v[k].shape):
                 raise ValueError(f"override {k!r} {tuple(t.shape)} matches no variable of the "
                                  f"model ({tuple(v[k].shape) if k in v else 'no such name'})")
             v[k] = torch.as_tensor(t).to(self.device, v[k].dtype)
-        return v
+        if not self._per_client:
+            return v
+        n = self.config.client_num_in_total
+        return {k: t.unsqueeze(0).repeat((n,) + (1,) * t.dim()) for k, t in v.items()}
 
     def consensus(self, variables: StateDict) -> StateDict:
-        """A single evaluable model: the identity in broadcast mode."""
-        return variables
+        """A single evaluable model: the identity in broadcast mode; the
+        average of the N clients' models in the per-client mode
+        (``engine.py:1455-1461``)."""
+        if not self._per_client:
+            return variables
+        n = self.config.client_num_in_total
+        return {k: torch.mean(v[:n], dim=0) for k, v in variables.items()}
 
     def _population_view(self, round_idx: int):
         """The round's realized population state, cached per round (the
@@ -638,8 +715,13 @@ class FedSim:
     def _sample_cohort(self, round_idx: int) -> np.ndarray:
         """The round's cohort: the reference's seeded draw, or with a
         population its availability-aware one (``client_num_per_round``
-        slots, -1 for an empty slot when churn leaves fewer clients)."""
+        slots, -1 for an empty slot when churn leaves fewer clients); in the
+        per-client mode every client in id order (``engine.py:1622-1626``)."""
         cfg = self.config
+        if self._per_client:
+            # stable identity order: slot i is client i every round, so the
+            # persistent stack and the mixing matrix's adjacency line up
+            return np.arange(cfg.client_num_in_total)
         if self._population is not None:
             return self._population_view(round_idx).cohort
         cohort = rnglib.sample_clients(round_idx, cfg.client_num_in_total,
@@ -901,9 +983,11 @@ class FedSim:
     def _aggregate(self, global_variables: StateDict, clients, weights: torch.Tensor,
                    num_steps: torch.Tensor, server_state, noise):
         """The round's server side on every path (``engine.py:916-984``):
-        the rule gets the cohort's models (``clients``: a stacked ``[C,
-        ...]`` state dict, or an iterable of the clients' in cohort order)
-        as it asks for them, the round's noise and ``extras``: each client's
+        the rule gets ``global_variables`` (in the per-client mode the
+        previous ``[N, ...]`` stack), the cohort's models (``clients``: a
+        stacked ``[C, ...]`` state dict, or an iterable of the clients' in
+        cohort order) as it asks for them, the round's noise and
+        ``extras``: each client's
         true SGD step count ``tau = e_i * ceil(max(n_i, 1) / B)`` (e_i the
         client's epochs of budget, ``num_steps / steps``) and the static
         bound ``max_tau``."""
@@ -911,6 +995,9 @@ class FedSim:
         tau = epochs_i * torch.ceil(torch.clamp(weights.float(), min=1.0)
                                     / self.config.batch_size)
         extras = {"tau": tau, "max_tau": self.trainer.epochs * self._steps}
+        # the per-client mode's rule maps the previous stack and the trained
+        # one to the next stack (engine.py:951-972); broadcast mode's the
+        # global model and the clients' to the next global model
         if self.aggregator.stacked:
             if not isinstance(clients, dict):
                 clients = _stack_as_they_come(clients, len(weights))
@@ -1032,7 +1119,7 @@ class FedSim:
                    dropout: DropoutStream | None, noise=None):
         """The round's device work, a function of its tensors alone (what a
         CUDA graph of the round captures, ``sim/graphs.py``): ``dropout``
-        serves each step's masks, ``noise`` the server rule's gaussian draws
+        serves each step's masks, ``noise`` the server rule's random draws
         (by default the round's :class:`~fedml_tpu_torch.core.rng.RoundNoise`)."""
         cfg = self.config
         if noise is None:
@@ -1058,8 +1145,10 @@ class FedSim:
 
             def trained_clients():
                 for c in range(n):
+                    start = ({k: v[c] for k, v in global_variables.items()}
+                             if self._per_client else global_variables)
                     variables, metrics = self._local_train(
-                        global_variables, client_batches(c),
+                        start, client_batches(c),
                         (staged.num_steps[c] if staged.num_steps_host is None
                          else int(staged.num_steps_host[c])),
                         None if draws is None else {k: d[c] for k, d in draws.items()},

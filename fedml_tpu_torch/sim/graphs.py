@@ -19,10 +19,11 @@ a round:
   each replay, and its dropout masks, drawn before each replay by the
   round's :class:`~fedml_tpu_torch.core.trainer.DropoutStream` (a draw
   reseeds a generator, which a capture cannot hold), so they are bitwise the
-  eager round's; so are the server rule's gaussian draws (weak-DP noise,
-  :class:`StaticNoise`), drawn before each replay by the round's
-  :class:`~fedml_tpu_torch.core.rng.RoundNoise`. A round's host work is
-  these copies and one graph launch, however many kernels a step has;
+  eager round's; so are the server rule's random draws (weak-DP noise, a
+  quantizing codec's uniforms, :class:`StaticNoise`), drawn before each
+  replay by the round's :class:`~fedml_tpu_torch.core.rng.RoundNoise`. A
+  round's host work is these copies and one graph launch, however many
+  kernels a step has;
 - the global variables and the server state live in static buffers too: the
   graph reads them and writes the round's aggregate back into them, so
   consecutive replays carry the model on the device. Every leaf of a server
@@ -83,35 +84,45 @@ class StaticDropout:
 
 
 class StaticNoise:
-    """A captured round's gaussian draws in static buffers, served in call
-    order by :meth:`normal` as :class:`~fedml_tpu_torch.core.rng.RoundNoise`
-    serves them, and filled from the round's ``RoundNoise`` before each
-    replay. The buffers are made at the warm-up round's calls, outside the
-    capture; :meth:`rewind` starts a round's calls over."""
+    """A captured round's random draws in static buffers, served in call
+    order by :meth:`normal` and :meth:`uniform` as
+    :class:`~fedml_tpu_torch.core.rng.RoundNoise` serves them, and filled
+    from the round's ``RoundNoise`` before each replay: each buffer
+    remembers the kind of draw it holds, and :meth:`fill` redraws each of
+    its kind, so a replayed round has fresh gaussians and uniforms. The
+    buffers are made at the warm-up round's calls, outside the capture;
+    :meth:`rewind` starts a round's calls over."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.buffers: list[torch.Tensor] = []
+        self.buffers: list[tuple[str, torch.Tensor]] = []
         self._k = 0
 
     def rewind(self) -> None:
         self._k = 0
 
-    def normal(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    def _serve(self, kind: str, shape, dtype: torch.dtype) -> torch.Tensor:
         k, self._k = self._k, self._k + 1
         if k == len(self.buffers):
-            if torch.cuda.is_current_stream_capturing():
+            if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
                 raise RuntimeError("StaticNoise: a draw the warm-up round did not make")
-            self.buffers.append(torch.zeros(tuple(shape), dtype=dtype, device=self.device))
-        buf = self.buffers[k]
-        if tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
-            raise RuntimeError(f"StaticNoise: draw {k} is {tuple(shape)} {dtype}, the "
-                               f"warm-up's {tuple(buf.shape)} {buf.dtype}")
+            self.buffers.append((kind, torch.zeros(tuple(shape), dtype=dtype,
+                                                   device=self.device)))
+        held, buf = self.buffers[k]
+        if held != kind or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
+            raise RuntimeError(f"StaticNoise: draw {k} is {kind} {tuple(shape)} {dtype}, the "
+                               f"warm-up's {held} {tuple(buf.shape)} {buf.dtype}")
         return buf
 
+    def normal(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self._serve("normal", shape, dtype)
+
+    def uniform(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self._serve("uniform", shape, dtype)
+
     def fill(self, noise) -> None:
-        for buf in self.buffers:
-            buf.copy_(noise.normal(buf.shape, buf.dtype))
+        for kind, buf in self.buffers:
+            buf.copy_(getattr(noise, kind)(buf.shape, buf.dtype))
 
 
 class RoundGraph:

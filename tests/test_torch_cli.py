@@ -92,9 +92,9 @@ def test_main_final_record_matches_jax(monkeypatch, tmp_path, name):
 UNPORTED = [
     (["--backend", "loopback"], "§A11"),
     (["--jobs", "jobs.json"], "§A11"),
-    (["--compressor", "topk"], "§A10"),
-    (["--topk_frac", "0.1"], "§A10"),
-    (["--quantize_bits", "4"], "§A10"),
+    (["--downlink_compressor", "topk"], "§A11"),
+    (["--downlink_retention", "2"], "§A11"),
+    (["--grpc_send_workers", "2"], "§A11"),
     (["--mesh_shape", "2x4"], "§A12"),
     (["--shard_rules", "cnn_tp"], "§A12"),
     (["--reservoir_k", "4"], "§A11"),
@@ -109,7 +109,7 @@ def test_unported_flags_raise_with_their_roadmap_item(argv, item):
         port_cli.main(argv + ["--device", "cpu"])
 
 
-@pytest.mark.parametrize("algorithm,item", [("decentralized", "§A10"), ("fedgan", "§A13")])
+@pytest.mark.parametrize("algorithm,item", [("fedgan", "§A13")])
 def test_unported_algorithms_raise(tmp_path, algorithm, item):
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main(["--algorithm", algorithm, "--device", "cpu", "--client_num_in_total",

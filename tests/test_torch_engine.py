@@ -236,10 +236,13 @@ def test_fedsim_run_history(rng):
 def test_simconfig_rejects_unported_fields():
     SimConfig(block_dispatch=True)
     SimConfig(population="speed=const:1", pack_lanes=2, pack_capacity_factor=2.0)
-    with pytest.raises(NotImplementedError, match="compressor"):
-        SimConfig(compressor="q8")
-    with pytest.raises(NotImplementedError, match="error_feedback"):
-        SimConfig(error_feedback=False)
+    SimConfig(compressor="q8", error_feedback=False)
+    with pytest.raises(NotImplementedError, match="mesh_shape"):
+        SimConfig(mesh_shape=(2, 4))
+    with pytest.raises(NotImplementedError, match="shard_rules"):
+        SimConfig(shard_rules="cnn_tp")
+    with pytest.raises(ValueError, match="downlink delta coding is a wire-path plane"):
+        SimConfig(downlink_compressor="q8")
     SimConfig(robust_rule="median", norm_bound=1.0, dp_stddev=0.1)
     SimConfig(stage_on_device=True, block_dispatch=False, pipeline_depth=0,
               eval_on_clients=True, straggler_frac=0.2, profile_dir="prof")

@@ -79,8 +79,9 @@ def test_jax_fields_are_a_prefix_of_the_port_fields(rel, name, port, ref):
 
 
 def test_a_per_client_aggregator_is_refused():
-    """The JAX per-client fields now exist on the port's Aggregator; the
-    engine refuses the mode they select, naming its ROADMAP item."""
+    """The JAX per-client fields exist on the port's Aggregator and select
+    the engine's per-client mode, which refuses a rule configured for
+    another client count, as the JAX engine does."""
     import numpy as np
     import torch
 
@@ -92,8 +93,8 @@ def test_a_per_client_aggregator_is_refused():
 
     rng = np.random.RandomState(0)
     x, y = rng.randn(8, 4).astype(np.float32), rng.randint(0, 3, 8).astype(np.int32)
-    agg = Aggregator(lambda v: (), lambda *a: None, "gossip", True, 2)
-    with pytest.raises(NotImplementedError, match="§A10"):
+    agg = Aggregator(lambda v: (), lambda *a: None, "gossip", True, 3)
+    with pytest.raises(ValueError, match="configured for 3 clients"):
         FedSim(ClientTrainer(module=LogisticRegression(3, 4, device="cpu")),
                FederatedArrays({"x": x, "y": y}, {0: np.arange(4), 1: np.arange(4, 8)}),
                {"x": x, "y": y}, SimConfig(client_num_in_total=2, client_num_per_round=2),
