@@ -37,7 +37,11 @@ Phases, each of which exits non-zero on failure:
    forward, the bf16 kernel never); each run one block, its round captured
    (timed) before the counters are set to 0; then the same rounds
    dispatched one at a time (``block_dispatch=False``) in the same process,
-   both timed;
+   both timed; then the bf16 LM's round with ``remat=True`` against
+   without, from one init: bitwise, lower peak memory, 2L flash launches a
+   train step against L; and a small LM with dropout and remat, a round
+   twice from one seed bitwise, the keep share 0.9 +- 0.01, another seed's
+   loss different (``[lm remat]``);
 7. the kernels' times at the main path's shape beside their bounds, the
    plain version's and one PyTorch call's; and each forward on the main
    path's strided views against the same work on contiguous copies;
@@ -51,8 +55,8 @@ Phases, each of which exits non-zero on failure:
 9. the cross-silo flagship at full width through
    ``fedml_tpu_torch.exp.repro_cross_silo.run``: CIFAR-10 (the 50k/10k
    offline fixture) + ResNet-56, hetero alpha=0.5, 10 clients x B=64, SGD
-   lr 0.001 wd 0.001, bf16, augmentation, vmapped cohort, cut to E=1 and 2
-   rounds; per round its seconds, images/s, FLOP/s from the shapes and peak
+   lr 0.001 wd 0.001, bf16, augmentation, vmapped cohort, cut to E=1 and 1
+   round; per round its seconds, images/s, FLOP/s from the shapes and peak
    memory. It runs no kernel of the repo (the ResNet path has no TPU
    kernel: cuDNN convolutions). Then the CIFAR zoo (no TPU kernel either):
    resnet18_gn, mobilenet, mobilenet_v3, vgg11 and efficientnet-b0 at full
@@ -65,7 +69,11 @@ Phases, each of which exits non-zero on failure:
    --dataset fed_cifar100 --model resnet18_gn`` on the fallback at
    fed_cifar100's recipe (10 a round, B=20, SGD 0.1, bf16, vmapped), 2
    rounds as one block against per-round dispatch under deterministic
-   cuDNN, rtol 1e-6 / atol 1e-7 (``[resnet18_gn]``);
+   cuDNN, rtol 1e-6 / atol 1e-7 (``[resnet18_gn]``); FedGKT (ResNet-8
+   client, ResNet-56 server) on the CIFAR-10 fixture, 10 clients, 1 round,
+   its steps after each phase's first replayed as CUDA graphs, the feature
+   stack on the card; ``main_fedgkt``'s default card against CPU (1e-4) and
+   replayed against eager steps (``[fedgkt]``);
 10. BASELINE row 1 (LEAF-format MNIST fixture of 1000 clients, written and
     timed here; LogisticRegression, 10 a round, B=10, SGD 0.03, E=1, 20
     rounds, eval every 10) through ``exp/repro_mnist_lr.main``, then through
@@ -75,16 +83,19 @@ Phases, each of which exits non-zero on failure:
     eval rounds, the capture before them, the
     last with round 1 under ``torch.profiler``); all five histories bitwise
     equal, ``round_time`` aside; then FedProx (mu 0.1) with stragglers
-    (frac 0.5, E=2), 5 rounds, with each round's executed client steps. The
-    row's JSON is loaded once for its six runs;
+    (frac 0.5, E=2), 5 rounds, with each round's executed client steps;
+    ``--algorithm fedgan`` (3 rounds as one block against per round; 8
+    clients card against CPU in float64, 1e-9: ``[fedgan]``); SplitNN's
+    relay of all 1000 clients through ``main_splitnn`` (each turn card
+    against CPU, 1e-5) and ``main_vfl`` (card against CPU, 1e-5: ``[split
+    and vertical]``). The row's JSON is loaded once for its runs;
 11. FEMNIST + CNNDropOut through the CLI (3400 clients, 10 a round, B=20,
-    SGD 0.1, E=1, the registry's synthetic fallback), 5 rounds with the
-    per-client eval of all 3400 clients at rounds 3 and 4: images/s of
-    rounds 0-3, peak memory, and the last round under ``torch.profiler``;
-    then 3 rounds as one block (a graph of 318 steps) against the same
+    SGD 0.1, E=1, the registry's synthetic fallback), 3 rounds with the
+    per-client eval of all 3400 clients at rounds 1 and 2: images/s of
+    rounds 0-1, peak memory, and the last round under ``torch.profiler``;
+    then 2 rounds as one block (a graph of 318 steps) against the same
     rounds dispatched one at a time, both under cuDNN's deterministic
-    algorithms, rtol 1e-6 / atol 1e-7, and two per-round runs with the
-    default algorithms, their gap printed (``[femnist blocks]``); then
+    algorithms, rtol 1e-6 / atol 1e-7 (``[femnist blocks]``); then
     packed lanes (``[packed femnist]``: the same 3 rounds with
     ``--pack_lanes 2``, each pass one replay of the lane pass's CUDA graph:
     s/round beside the padded block's and per-round dispatch's, passes a
@@ -111,8 +122,8 @@ Phases, each of which exits non-zero on failure:
     at a small width in f32, one vmapped cohort step on the card with every
     warning an error, then 4 vmapped FedAvg rounds card against CPU from the
     same variables, an eval every 2 (``[rnn small]``); BASELINE row 4's recipe through the
-    CLI (``[shakespeare cli]``: blocks against per-round dispatch in turns,
-    round 1 of each profiled with the host's CUDA calls, the capture timed);
+    CLI (``[shakespeare cli]``: blocks against per-round dispatch, round 1
+    of each profiled with the host's CUDA calls, the capture timed);
     BASELINE row 4 through ``exp/repro_shakespeare.main`` at full width
     (715-client Markov fixture, 10 a round, B=4, SGD 1.0, E=1, seq 80; 6
     rounds, eval every 3), its pipelined loop against the serial one
@@ -140,8 +151,8 @@ Phases, each of which exits non-zero on failure:
 16. the server rules, checkpoints and tracing (no flash launch on any of
     their paths): FedOpt at row 4's recipe through the CLI (``--algorithm
     fedopt``, server Adam, its step count a device tensor in the round's
-    graph), blocks against per-round dispatch in turns, rtol 1e-6 / atol
-    1e-7, then the six server optimizers on a small LR card against CPU
+    graph), blocks against per-round dispatch, rtol 1e-6 / atol 1e-7,
+    then the six server optimizers on a small LR card against CPU
     (``[fedopt]``, after ``[shakespeare cli]``); FedNova at row 1 with
     stragglers, E=2, 10 rounds, tau_eff by round, blocks against per round
     and card against CPU (``[fednova]``); hierarchical FedAvg at row 1, 2
@@ -152,8 +163,8 @@ Phases, each of which exits non-zero on failure:
     clipping and DP noise) on FEMNIST + CNNDropOut at full width, 2 rounds
     as one block against per-round dispatch under deterministic cuDNN, each
     rule on the card's client stack against CPU copies (``[robust]``); and
-    round checkpoints (FedAdam at row 1: 20 rounds straight against 10 and a
-    resume to 20, bitwise) and a FEMNIST params file warm-starting a fresh
+    round checkpoints (FedAdam at row 1: 10 rounds straight against 5 and a
+    resume to 10, bitwise) and a FEMNIST params file warm-starting a fresh
     run, its eval bitwise the saving run's (``[checkpoint]``);
 17. update compression and gossip (no flash launch on either path):
     ``[compress]`` (after ``[robust]``) holds the six codecs' planes on the
@@ -725,7 +736,7 @@ def phase_main_path(torch, c):
 
 # the cross-silo flagship (repro_cross_silo.py's recipe), cut to E=1 and 2
 # rounds with one eval at the end; widths, depth, clients and batch as they are
-CROSS_SILO = dict(n_train=50_000, n_test=10_000, clients=10, batch=64, epochs=1, rounds=2)
+CROSS_SILO = dict(n_train=50_000, n_test=10_000, clients=10, batch=64, epochs=1, rounds=1)
 
 
 def _resnet_train_flops_per_image(torch, model, image=32):
@@ -1083,7 +1094,8 @@ def phase_resnet18_gn(torch):
 # SGD 0.1, E=1; fedml_tpu/exp/repro_femnist_cnn.py:3-6) with CNNDropOut on
 # the registry's synthetic_leaf_mnist fallback (no h5 reader on the card)
 MNIST = dict(clients=1000, per_round=10, batch=10, lr=0.03, epochs=1, rounds=20, freq=10)
-FEMNIST = dict(clients=3400, per_round=10, batch=20, lr=0.1, epochs=1, rounds=5)
+# 3 rounds (5 before PR 13, cut for the script's time budget)
+FEMNIST = dict(clients=3400, per_round=10, batch=20, lr=0.1, epochs=1, rounds=3)
 FEDPROX = dict(mu=0.1, straggler_frac=0.5, epochs=2, rounds=5)
 
 
@@ -1420,8 +1432,8 @@ def phase_mnist_lr(torch, data_dir, repro_records):
 
 def phase_femnist_cnn(torch):
     """The FEMNIST recipe with CNNDropOut through the port's CLI at full
-    width: 5 rounds with the per-client eval over all 3400 clients at each
-    eval round (rounds 3 and 4), so rounds 0-3 make one timed window and the
+    width: 3 rounds with the per-client eval over all 3400 clients at each
+    eval round (rounds 1 and 2), so rounds 0-1 make one timed window and the
     last round runs alone under ``torch.profiler``. Returns the flash
     kernels' launches."""
     from fedml_tpu_torch.sim.engine import FedSim
@@ -1473,21 +1485,21 @@ def phase_femnist_cnn(torch):
 
 def phase_femnist_blocks(torch):
     """FEMNIST + CNNDropOut through the CLI at ``[femnist]``'s recipe, cut
-    to 3 rounds with the eval at the last and no per-client eval: one block
-    of 3 replays of the round's CUDA graph (318 steps a client-epoch, ~62,600
-    kernels, the largest round graph of the script) against the same rounds
-    dispatched one at a time (``block_dispatch=False``, set here), both
-    under cuDNN's deterministic algorithms, held to rtol 1e-6 / atol 1e-7;
-    then two per-round runs with the default algorithms, whose gap is
-    printed: what the default algorithms alone move, with no graph. Returns
-    the flash launches and the runs (``[packed femnist]`` reads the
-    deterministic ones)."""
+    to 2 rounds with the eval at the last and no per-client eval: one block
+    of 2 replays of the round's CUDA graph (318 steps a client-epoch,
+    ~62,600 kernels, the largest round graph of the script) against the
+    same rounds dispatched one at a time (``block_dispatch=False``, set
+    here), both under cuDNN's deterministic algorithms, held to rtol 1e-6 /
+    atol 1e-7. (Before PR 13: 3 rounds, and two more per-round runs with the
+    default algorithms, whose gap was printed; cut for the script's time
+    budget.) Returns the flash launches and the runs (``[packed femnist]``
+    reads them)."""
     import functools
 
     from fedml_tpu_torch.sim import engine
     from fedml_tpu_torch.sim.graphs import RoundGraph
 
-    c = dict(FEMNIST, rounds=3)
+    c = dict(FEMNIST, rounds=2)
     argv = ["--dataset", "femnist", "--model", "cnn", "--data_dir", str(BUILD_DIR / "femnist"),
             "--client_num_in_total", str(c["clients"]),
             "--client_num_per_round", str(c["per_round"]), "--batch_size", str(c["batch"]),
@@ -1506,9 +1518,7 @@ def phase_femnist_blocks(torch):
 
     runs, captures, replay_s = {}, [], []
     _zero_flash_counters()
-    for name, block, deterministic in (("blocks", True, True), ("per round", False, True),
-                                       ("per round default 1", False, False),
-                                       ("per round default 2", False, False)):
+    for name, block, deterministic in (("blocks", True, True), ("per round", False, True)):
         captures.append(0)
         with contextlib.ExitStack() as stack:
             stack.enter_context(_wrapped(engine.FedSim, "capture_round_graph", counted))
@@ -1522,8 +1532,8 @@ def phase_femnist_blocks(torch):
                 runs[name] = _cli(torch, argv)
             finally:
                 torch.backends.cudnn.deterministic = False
-    if captures != [1, 0, 0, 0]:
-        fail(f"femnist blocks: round graphs captured per run {captures}, expected [1, 0, 0, 0]")
+    if captures != [1, 0]:
+        fail(f"femnist blocks: round graphs captured per run {captures}, expected [1, 0]")
     log(f"[femnist blocks] each replay of the block, synchronised: "
         + ", ".join(f"{t:.4f}" for t in replay_s) + " s")
     for name, (history, wall) in runs.items():
@@ -1532,12 +1542,9 @@ def phase_femnist_blocks(torch):
             f"{history[-1]['Test/Acc']:.6f}")
     det = [({}, runs[k][0]) for k in ("blocks", "per round")]
     (over, beyond), (diff, where) = _block_gap(torch, det)
-    (_, _), (spread, spread_where) = _block_gap(
-        torch, [({}, runs[k][0]) for k in ("per round default 1", "per round default 2")])
     log(f"[femnist blocks] deterministic cuDNN, one block of {c['rounds']} graph replays vs "
         f"per-round dispatch: largest difference {diff:.3e} ({where}), bitwise equal "
-        f"{diff == 0.0}; default algorithms, two per-round runs: largest difference "
-        f"{spread:.3e} ({spread_where})")
+        f"{diff == 0.0}")
     if over > 0:
         fail(f"femnist blocks: {beyond} differs beyond rtol {BLOCK_RTOL} / atol {BLOCK_ATOL} "
              f"(by {over:.3e} over)")
@@ -2094,8 +2101,8 @@ def phase_packed_femnist(torch, padded_runs):
     ``[femnist blocks]``), the passes a round, lane occupancy (executed
     steps over lane slots), round 1's parts (synchronised) and its first
     pass under ``torch.profiler`` with the host's calls (kernels a lane
-    step, device idle, one ``cudaGraphLaunch``), outside the timed run. Then each
-    of rounds 0-2 from the same variables, against the padded round
+    step, device idle, one ``cudaGraphLaunch``), outside the timed run. Then
+    each of rounds 0-2 from the same variables, against the padded round
     (per-round dispatch): packed with 10 lanes (the cohort's width) must be
     bitwise equal; packed with 2 lanes, whose convs run grouped over 2
     lanes where the padded round's run over 10 clients, is held to
@@ -2420,8 +2427,8 @@ def phase_shakespeare_cli(torch, smi):
     replays of the round's CUDA graph (the default on
     the card) against the same rounds dispatched one at a time
     (``block_dispatch=False``, set here: the CLI has no such flag, as in the
-    JAX package), four runs in turns (blocks, per round, per round, blocks),
-    each pipelined. The first two profile round 1 with the host's activity:
+    JAX package), two runs (blocks, per round; four in turns before PR 13,
+    cut for the script's time budget), each pipelined. Both profile round 1 with the host's activity:
     the host's ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls, the
     device kernels, the idle share; the block round must launch graphs and
     fewer than 1% of the eager round's kernels. Prints s/round (the second
@@ -2455,7 +2462,7 @@ def phase_shakespeare_cli(torch, smi):
     runs, profiles, loads = [], {}, []
     _zero_flash_counters()
     with _loaded_once(loads), _wrapped(engine.FedSim, "capture_round_graph", timed_capture):
-        for i, name in enumerate(("blocks", "per round", "per round", "blocks")):
+        for i, name in enumerate(("blocks", "per round")):
             with contextlib.ExitStack() as stack:
                 if name == "per round":
                     stack.enter_context(_wrapped(engine, "SimConfig", per_round))
@@ -2990,12 +2997,12 @@ def _small_rule_sim(torch, device, aggregator, rounds=5, epochs=1, straggler=0.0
 def phase_fedopt(torch, smi):
     """FedOpt at BASELINE row 4's recipe through the CLI (``[shakespeare
     cli]``'s argv: the Markov fixture, 715 clients, 10 a round, B=4, 2 x LSTM
-    256, client SGD 1.0, 10 rounds, an eval every 5, cut from 20 and 10 for
+    256, client SGD 1.0, 6 rounds, an eval every 3, cut from 20, 10 and 5 for
     the script's time budget) with ``--algorithm fedopt`` at the JAX
-    defaults (adam, server lr 0.1, b1 0.9): two blocks of 5 replays of the
+    defaults (adam, server lr 0.1, b1 0.9): two blocks of 3 replays of the
     round's CUDA graph, whose server step carries Adam's step count as a
     device tensor, against the same rounds dispatched one at
-    a time, four runs in turns (blocks, per round, per round, blocks), held
+    a time, two runs (blocks, per round; four in turns before PR 13), held
     to rtol 1e-6 / atol 1e-7 (a count frozen in the graph would break the
     bias correction from a block's second round); s/round of each beside
     plain FedAvg's. Then each of the six server optimizers on a small f32
@@ -3010,7 +3017,7 @@ def phase_fedopt(torch, smi):
     flash launches."""
     from fedml_tpu_torch.algorithms.fedopt import fedopt_aggregator, server_optimizer
 
-    c = dict(SHAKESPEARE, rounds=10, freq=5)
+    c = dict(SHAKESPEARE, rounds=6, freq=3)
     argv = ["--dataset", "shakespeare", "--model", "rnn",
             "--data_dir", str(BUILD_DIR / "shakespeare_cli"),
             "--client_num_in_total", str(c["clients"]),
@@ -3020,7 +3027,7 @@ def phase_fedopt(torch, smi):
     _zero_flash_counters()
     runs, loads = [], []
     with _loaded_once(loads):
-        for name in ("blocks", "per round", "per round", "blocks"):
+        for name in ("blocks", "per round"):
             run = _per_round_cli(torch, argv) if name == "per round" else _cli(torch, argv)
             runs.append((name,) + run)
     launches = _flash_launches()
@@ -3220,8 +3227,8 @@ def phase_hierarchical(torch, mnist_dir):
 def phase_checkpoint(torch, mnist_dir, femnist_record, saved):
     """Round checkpoints and parameter files on the card. BASELINE row 1 with
     FedAdam (``--algorithm fedopt``), one round a dispatch with a checkpoint
-    every 5 rounds: 20 rounds straight against 10 rounds, then ``--resume
-    1`` up to 20; the histories and the final variables (``--save_params_to``)
+    every 5 rounds: 10 rounds straight against 5 rounds, then ``--resume
+    1`` up to 10 (cut from 20 and 10 for the script's time budget); the histories and the final variables (``--save_params_to``)
     bitwise equal. Then ``[robust]``'s FEMNIST median run's saved model
     warm-starts a fresh run (``--init_from``, 0 rounds): the warm-started
     model's pooled eval is bitwise the saving run's final eval. Prints the
@@ -3234,11 +3241,11 @@ def phase_checkpoint(torch, mnist_dir, femnist_record, saved):
 
     root = BUILD_DIR / "checkpoint"
     shutil.rmtree(root, ignore_errors=True)
-    base = _mnist_argv(mnist_dir, 20, 10, "--algorithm", "fedopt", "--checkpoint_every", "5")
+    base = _mnist_argv(mnist_dir, 10, 5, "--algorithm", "fedopt", "--checkpoint_every", "5")
     _zero_flash_counters()
     straight, wall_s = _cli(torch, base + ["--checkpoint_dir", str(root / "a"),
                                            "--save_params_to", str(root / "a.npz")])
-    first, _ = _cli(torch, _mnist_argv(mnist_dir, 10, 10, "--algorithm", "fedopt",
+    first, _ = _cli(torch, _mnist_argv(mnist_dir, 5, 5, "--algorithm", "fedopt",
                                        "--checkpoint_every", "5",
                                        "--checkpoint_dir", str(root / "b")))
     resumed, wall_r = _cli(torch, base + ["--checkpoint_dir", str(root / "b"), "--resume", "1",
@@ -3246,11 +3253,11 @@ def phase_checkpoint(torch, mnist_dir, femnist_record, saved):
     launches = _flash_launches()
     a, b = checkpoint.load_params(root / "a.npz"), checkpoint.load_params(root / "b.npz")
     same_vars = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
-    log(f"[checkpoint] FedAdam, row 1: 20 rounds straight ({wall_s:.2f} s, a checkpoint every "
-        f"5) against 10 + resume to 20 ({wall_r:.2f} s for the last 10): histories equal "
+    log(f"[checkpoint] FedAdam, row 1: 10 rounds straight ({wall_s:.2f} s, a checkpoint every "
+        f"5) against 5 + resume to 10 ({wall_r:.2f} s for the last 5): histories equal "
         f"{resumed == straight}, final variables bitwise equal {same_vars}; kept "
         f"{sorted(p.name for p in (root / 'b').glob('round_*'))}")
-    if len(first) != 10 or resumed != straight or not same_vars:
+    if len(first) != 5 or resumed != straight or not same_vars:
         fail("checkpoint: the resumed run differs from the straight run")
     times = {}
 
@@ -3602,6 +3609,507 @@ def phase_gossip(torch, mnist_dir):
     return _flash_launches()
 
 
+# the full-width LM of the main path, one round of 2 clients x 2 steps, with
+# and without remat (ROADMAP §A8b); then a small LM with dropout
+LM_REMAT = dict(MAIN, steps=2, rounds=1)
+LM_DROPOUT = dict(vocab=90, embed_dim=128, num_layers=2, num_heads=4, seq=64, clients=4,
+                  batch=4, steps=2, rate=0.1)
+
+
+def _lm_tokens(c, rng):
+    n_per = c["steps"] * c["batch"]
+    n = c["clients"] * n_per
+    x = rng.randint(0, c["vocab"], (n, c["seq"])).astype(np.int32)
+    arrays = {"x": x, "y": np.roll(x, -1, axis=1), "mask": np.ones((n, c["seq"]), np.float32)}
+    return arrays, {i: np.arange(i * n_per, (i + 1) * n_per) for i in range(c["clients"])}
+
+
+def phase_lm_remat(torch):
+    """ROADMAP §A8b on the card. The main path's bf16 TransformerLM at full
+    width (scan, flash), one round of 2 clients x 2 steps twice from one
+    init: with ``remat=True`` (each block keeps its input and reruns its
+    forward in the backward, ``transformer._RematBlock``) and without.
+    Losses and variables must be bitwise equal (the replay runs the same
+    deterministic kernels on the same inputs), else within the bf16
+    tolerance of PERF.md §2, the gap printed; the peak device memory of
+    each is printed and must be lower with remat; the flash launches of the
+    train steps must be 2L a step with remat and L without. Then a small
+    f32 LM with ``dropout_rate=0.1`` (vmapped cohort, flash, masks from the
+    round stream on the card) runs a round twice from one seed: bitwise
+    equal, and the stream's keep masks keep 0.9 +- 0.01; once more from
+    another seed, whose loss must differ (the masks reach the model).
+    Returns the flash launches of the phase (its remat and dropout
+    rounds)."""
+    from fedml_tpu_torch.core.trainer import ClientTrainer, DropoutStream, sgd
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    c = LM_REMAT
+    arrays, part = _lm_tokens(c, np.random.RandomState(0))
+    model = create_model("transformer", c["vocab"], dtype=torch.bfloat16,
+                         embed_dim=c["embed_dim"], num_layers=c["num_layers"],
+                         num_heads=c["num_heads"], max_len=c["seq"], attn_impl="flash")
+    cfg = SimConfig(client_num_in_total=c["clients"], client_num_per_round=c["clients"],
+                    batch_size=c["batch"], comm_round=1, epochs=1, seed=0,
+                    shuffle_each_round=False, cohort_execution="scan", pipeline_depth=0)
+    sim = FedSim(ClientTrainer(module=model, task="nwp", optimizer=sgd(0.01, momentum=0.9)),
+                 FederatedArrays(arrays, part), None, cfg)
+    init = sim.init_variables()
+    runs, launches = {}, {name: 0 for name in KERNELS}
+    for remat in (False, True):
+        model.remat = remat
+        _zero_flash_counters()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        variables, _, metrics = sim.run_round(0, {k: v.clone() for k, v in init.items()})
+        loss = float(metrics["Train/Loss"])
+        wall = time.perf_counter() - t0
+        runs[remat] = (variables, loss, wall, torch.cuda.max_memory_allocated() - held,
+                       _flash_launches())
+        launches = {k: launches[k] + v for k, v in runs[remat][4].items()}
+    model.remat = False
+    steps = c["clients"] * c["steps"]
+    gap = max(float((runs[True][0][k].double() - runs[False][0][k].double()).abs().max())
+              for k in init)
+    gap = max(gap, abs(runs[True][1] - runs[False][1]))
+    for remat, (_, loss, wall, peak, counts) in runs.items():
+        log(f"[lm remat] remat={remat}: D={c['embed_dim']} L={c['num_layers']} "
+            f"H={c['num_heads']} T={c['seq']} V={c['vocab']} bf16 flash, {c['clients']} "
+            f"clients x {c['steps']} steps x B={c['batch']}: round {wall:.3f} s "
+            f"({wall / steps:.3f} s a step), Train/Loss {loss:.6f}, peak device memory above "
+            f"the held {peak / 2**30:.3f} GiB, flash launches {counts}")
+    log(f"[lm remat] remat against plain: largest difference {gap:.3e} (bitwise "
+        f"{gap == 0.0}); peak memory {runs[True][3] / 2**30:.3f} GiB against "
+        f"{runs[False][3] / 2**30:.3f} GiB")
+    if not gap <= BF16_ATOL:
+        fail(f"lm remat: remat and plain differ by {gap:.3e} > {BF16_ATOL}")
+    if not runs[True][3] < runs[False][3]:
+        fail(f"lm remat: remat's peak memory {runs[True][3]} is not below plain's "
+             f"{runs[False][3]}")
+    L = c["num_layers"]
+    for remat, per_step in ((True, 2 * L), (False, L)):
+        expected = {name: (per_step * steps if spec["dtype"] == "bfloat16" else 0)
+                    for name, spec in KERNELS.items()}
+        if runs[remat][4] != expected:
+            fail(f"lm remat: remat={remat} launched {runs[remat][4]}, expected {expected}")
+    del sim, model, runs, init
+    torch.cuda.empty_cache()
+
+    d = LM_DROPOUT
+    arrays, part = _lm_tokens(d, np.random.RandomState(1))
+    model = create_model("transformer", d["vocab"], dtype=torch.float32,
+                         embed_dim=d["embed_dim"], num_layers=d["num_layers"],
+                         num_heads=d["num_heads"], max_len=d["seq"], attn_impl="flash",
+                         dropout_rate=d["rate"], remat=True)
+    trainer = ClientTrainer(module=model, task="nwp", optimizer=sgd(0.1, momentum=0.9))
+    cfg = SimConfig(client_num_in_total=d["clients"], client_num_per_round=d["clients"],
+                    batch_size=d["batch"], comm_round=1, epochs=1, seed=3)
+    sim = FedSim(trainer, FederatedArrays(arrays, part), None, cfg)
+    init = sim.init_variables()
+    _zero_flash_counters()
+    twice = [sim.run_round(0, {k: v.clone() for k, v in init.items()}) for _ in range(2)]
+    other_seed = dataclasses.replace(cfg, seed=cfg.seed + 1)
+    other = FedSim(trainer, FederatedArrays(arrays, part), None, other_seed).run_round(
+        0, {k: v.clone() for k, v in init.items()})
+    counts = _flash_launches()
+    launches = {k: launches[k] + v for k, v in counts.items()}
+    same = (all(torch.equal(twice[0][0][k], twice[1][0][k]) for k in init)
+            and torch.equal(twice[0][2]["Train/Loss"], twice[1][2]["Train/Loss"]))
+    masks = DropoutStream(trainer.dropout_sites, cfg.seed, 0, d["clients"], d["batch"],
+                          torch.device("cuda")).masks(0)
+    kept = float(torch.cat([m.flatten() for m in masks.values()]).float().mean())
+    moved = max(float((twice[0][0][k] - init[k]).abs().max()) for k in init)
+    loss, other_loss = float(twice[0][2]["Train/Loss"]), float(other[2]["Train/Loss"])
+    log(f"[lm dropout] small LM (D={d['embed_dim']} L={d['num_layers']} T={d['seq']}) with "
+        f"dropout {d['rate']} and remat, vmapped cohort of {d['clients']}: a round twice from "
+        f"seed {cfg.seed} bitwise equal {same}; Train/Loss {loss:.6f}, from seed "
+        f"{other_seed.seed} {other_loss:.6f}; the stream's keep share {kept:.5f}; largest "
+        f"move of a variable {moved:.3e}; flash launches {counts}")
+    if not same:
+        fail("lm dropout: two rounds from one seed differ")
+    if loss == other_loss:
+        fail(f"lm dropout: seeds {cfg.seed} and {other_seed.seed} give one loss {loss}: "
+             "the masks do not reach the model")
+    if not abs(kept - (1.0 - d["rate"])) <= 0.01:
+        fail(f"lm dropout: keep share {kept} outside 0.9 +- 0.01")
+    return launches
+
+
+# FedGAN at BASELINE row 1's fixture: the fedgan recipe's Adam(2e-4, b1 0.5)
+FEDGAN = dict(rounds=3, lr=2e-4, small_clients=8, small_atol=1e-9)
+
+
+def _data_z(base, pad):
+    """``base`` (a GAN trainer) with its step's latent ``z`` read from
+    ``batch["z"]`` (a padding row's from ``pad``): the card and the CPU then
+    see one z, which their own generators would draw apart."""
+    class DataZ(base):
+        def train_step(self, variables, opt_states, batch, z):
+            fill = (1.0 - batch["mask"])[:, None] * pad.to(batch["z"].device)
+            return super().train_step(variables, opt_states, batch,
+                                      (batch["z"] + fill).to(batch["z"].dtype))
+    return DataZ
+
+
+def _gan_sim(torch, device, dtype, arrays, part, pad):
+    from fedml_tpu_torch.algorithms import fedgan
+    from fedml_tpu_torch.core.trainer import Adam
+    from fedml_tpu_torch.models.gan import Discriminator, Generator
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    img = tuple(arrays["x"].shape[1:])
+    gan = _data_z(fedgan.GANTrainer, pad)(
+        Generator(img_shape=img, dtype=dtype, device=device),
+        Discriminator(img_shape=img, dtype=dtype, device=device),
+        Adam(FEDGAN["lr"], b1=0.5), Adam(FEDGAN["lr"], b1=0.5))
+    cfg = SimConfig(client_num_in_total=len(part), client_num_per_round=len(part),
+                    batch_size=10, comm_round=1, epochs=1, seed=0)
+    return FedSim(gan, FederatedArrays(arrays, part), None, cfg,
+                  aggregator=fedgan.fedgan_aggregator(), device=device,
+                  local_train_fn=fedgan.make_gan_local_train(gan))
+
+
+def phase_fedgan(torch, mnist_dir):
+    """``--algorithm fedgan`` through the CLI at BASELINE row 1's fixture
+    (1000 LEAF clients, 10 a round, B=10, E=1) with the fedgan recipe's
+    Adam(2e-4, b1 0.5) on both networks: 3 rounds as one block (a replay of
+    the GAN round's CUDA graph, its z in static buffers) against the same
+    rounds dispatched one at a time, under deterministic algorithms, held to
+    rtol 1e-6 / atol 1e-7; s/round and Train/Loss printed. Then 8 clients
+    of the fixture's first, a round on the card and on the CPU from the same
+    variables and the same z (read from the data), in float64 (the GAN's
+    ``dtype``), within 1e-9: in f32 Adam turns the rounding of the
+    BatchNorm-cancelled near-zero gradients into steps of up to lr (1.778e-04
+    apart in f32, PERF.md §6, PR 13), in float64 the round reads ~1e-12.
+    Returns the flash launches."""
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    final = {}
+
+    def keep_final(original):
+        def run(self, *args, **kwargs):
+            variables, history = original(self, *args, **kwargs)
+            final.setdefault("v", []).append({k: v.detach().clone() for k, v in variables.items()})
+            return variables, history
+        return run
+
+    _zero_flash_counters()
+    argv = _mnist_argv(mnist_dir, FEDGAN["rounds"], FEDGAN["rounds"], "--algorithm", "fedgan",
+                       "--lr", str(FEDGAN["lr"]))
+    torch.use_deterministic_algorithms(True)
+    try:
+        with _wrapped(FedSim, "run", keep_final):
+            blocks, wall_b = _cli(torch, argv)
+            per_round, wall_p = _per_round_cli(torch, argv)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = _flash_launches()
+    (over, beyond), (diff, where) = _block_gap(torch, [(final["v"][0], blocks),
+                                                       (final["v"][1], per_round)])
+    for name, history, wall in (("block", blocks, wall_b), ("per round", per_round, wall_p)):
+        log(f"[fedgan] {name}: run {wall:.2f} s; round_time "
+            + ", ".join(f"{rec['round_time']:.4f}" for rec in history) + " s; Train/Loss "
+            + ", ".join(f"{rec['Train/Loss']:.6f}" for rec in history))
+    log(f"[fedgan] one block of {FEDGAN['rounds']} graph replays vs per-round dispatch: "
+        f"largest difference {diff:.3e} ({where}), bitwise {diff == 0.0}; records "
+        f"{sorted(blocks[-1])}")
+    if over > 0:
+        fail(f"fedgan: {beyond} differs beyond rtol {BLOCK_RTOL} / atol {BLOCK_ATOL}")
+    if not all(np.isfinite(rec["Train/Loss"]) for rec in blocks) or "Test/Acc" in blocks[-1]:
+        fail(f"fedgan: records {blocks}")
+
+    ds = load_partition_data("mnist", str(mnist_dir), "hetero", 0.5, MNIST["clients"], 0)
+    ids = range(FEDGAN["small_clients"])
+    rows = np.concatenate([ds.train.partition[i] for i in ids])
+    bounds = np.cumsum([0] + [len(ds.train.partition[i]) for i in ids])
+    part = {i: np.arange(bounds[i], bounds[i + 1]) for i in ids}
+    rng = np.random.RandomState(5)
+    pad = torch.tensor(rng.randn(100).astype(np.float32))
+    arrays = {"x": ds.train.arrays["x"][rows].astype(np.float32),
+              "y": ds.train.arrays["y"][rows],
+              "z": rng.randn(len(rows), 100).astype(np.float32).astype(np.float64)}
+    out = {}
+    for device in ("cuda", "cpu"):
+        sim = _gan_sim(torch, device, torch.float64, arrays, part, pad)
+        if device == "cuda":
+            init = {k: v.cpu().double() for k, v in sim.init_variables().items()}
+        variables, _, m = sim.run_round(0, {k: v.to(device) for k, v in init.items()})
+        out[device] = ({k: v.cpu() for k, v in variables.items()}, float(m["Train/Loss"]))
+    gap = max([float((out["cuda"][0][k] - out["cpu"][0][k]).abs().max()) for k in init]
+              + [abs(out["cuda"][1] - out["cpu"][1])])
+    log(f"[fedgan] {FEDGAN['small_clients']} clients of the fixture, one round in float64, "
+        f"card vs CPU from the same variables and z: largest difference {gap:.3e}")
+    if not gap <= FEDGAN["small_atol"]:
+        fail(f"fedgan: card and CPU differ by {gap:.3e} in float64")
+    return launches
+
+
+SPLIT_ATOL = 1e-5
+
+
+def _starting_from(torch, cls, start):
+    """``cls.init`` returning copies of ``start`` (a tuple or list of state
+    dicts) for the block: a run from the variables another run drew."""
+    def make(original):
+        def init(self, *args, **kwargs):
+            return type(start)({k: v.clone() for k, v in sd.items()} for sd in start)
+        return init
+    return _wrapped(cls, "init", make)
+
+
+def phase_split_and_vertical(torch, mnist_dir):
+    """SplitNN through ``exp/main_splitnn`` on BASELINE row 1's fixture
+    (1000 LEAF clients, the relay ring of all of them, 1 epoch, B=16, the
+    Bottom/Top MLP of hidden 32) on the card, each client's turn then rerun
+    on the CPU from the card's variables before it: every turn's loss and
+    halves within 1e-5. The free-running CPU relay from the card's start is
+    printed against the card's (its metrics and both halves: 4,000
+    sequential SGD steps through one shared half compound the products'
+    summation orders; 1.174e-05 apart in PR 13's first chip call). Vertical FL through ``exp/main_vfl`` on its
+    synthetic default (2 parties, 8 epochs) on the card and on the CPU from
+    the card run's initial variables, ``Train/Loss`` and ``Test/Acc``
+    within 1e-5. Prints s/epoch and Test/Acc. Returns the flash
+    launches."""
+    from fedml_tpu_torch.algorithms import splitnn, vertical
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.exp import main_splitnn, main_vfl
+
+    def recorded(module, name, into, host=False):
+        def make(original):
+            def call(*args, **kwargs):
+                out = original(*args, **kwargs)
+                into.append(_to_cpu(torch, (args, out)) if host else out)
+                return out
+            return call
+        return _wrapped(module, name, make)
+
+    _zero_flash_counters()
+    # hetero, as the CLI phases load the fixture (LEAF keeps its own
+    # clients whatever the flag), so the row's data is loaded once
+    split_argv = ["--dataset", "mnist", "--data_dir", str(mnist_dir), "--client_number",
+                  str(MNIST["clients"]), "--epochs", "1", "--partition_method", "hetero"]
+    args = main_splitnn.add_args(argparse.ArgumentParser()).parse_args(split_argv)
+    turns, relay_s, inits, relays = [], [], [], []
+    with recorded(splitnn, "relay_turn", turns, host=True), recorded(splitnn.SplitNN, "init",
+                                                                     inits), \
+            recorded(splitnn, "run_splitnn_relay", relays), \
+            _wrapped(splitnn, "run_splitnn_relay", _timing(relay_s, torch.cuda.synchronize)):
+        t0 = time.perf_counter()
+        metrics = main_splitnn.run(args)
+        wall = time.perf_counter() - t0
+    ds = load_partition_data(args.dataset, args.data_dir, args.partition_method,
+                             args.partition_alpha, args.client_number, args.seed)
+    cpu_split, cpu_batches = main_splitnn.build(args, ds, torch.device("cpu"))
+    gap, where = 0.0, "none"
+    for ci, ((_, cv, sv, s_opt, _), (cv_out, sv_out, _, loss)) in enumerate(turns):
+        got = splitnn.relay_turn(cpu_split, cv, sv, s_opt, cpu_batches[ci])
+        for name, a, b in (("client", cv_out, got[0]), ("server", sv_out, got[1])):
+            for k in a:
+                d = float((a[k] - b[k]).abs().max())
+                if d > gap:
+                    gap, where = d, f"turn {ci} {name} {k}"
+        if abs(float(loss) - float(got[3])) > gap:
+            gap, where = abs(float(loss) - float(got[3])), f"turn {ci} loss"
+    args_cpu = main_splitnn.add_args(argparse.ArgumentParser()).parse_args(
+        split_argv + ["--device", "cpu"])
+    start = tuple({k: v.cpu() for k, v in half.items()} for half in inits[0])
+    with _starting_from(torch, splitnn.SplitNN, start), \
+            recorded(splitnn, "run_splitnn_relay", relays):
+        free = main_splitnn.run(args_cpu)
+    (card_c, card_s, _), (free_c, free_s, _) = relays
+    free_gap = {"metrics": max(abs(metrics[k] - free[k]) for k in metrics),
+                "client halves": max(float((a[k].cpu() - b[k]).abs().max())
+                                     for a, b in zip(card_c, free_c) for k in a),
+                "server half": max(float((card_s[k].cpu() - free_s[k]).abs().max())
+                                   for k in card_s)}
+    log(f"[splitnn] main_splitnn, {len(turns)} clients of row 1's fixture in the relay, 1 "
+        f"epoch: the relay {relay_s[0]:.2f} s an epoch on the card (run {wall:.2f} s); "
+        f"{metrics}; each turn rerun on the CPU from the card's variables: largest difference "
+        f"{gap:.3e} ({where}); the free-running CPU relay from the card's start: {free}, "
+        f"largest differences " + ", ".join(f"{k} {v:.3e}" for k, v in free_gap.items())
+        + " (printed)")
+    if not gap <= SPLIT_ATOL:
+        fail(f"splitnn: a turn on the card and on the CPU differ by {gap:.3e} > {SPLIT_ATOL}")
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        args = main_vfl.add_args(argparse.ArgumentParser()).parse_args(["--device", device])
+        inits = []
+        with (recorded(vertical.VerticalFL, "init", inits) if device == "cuda"
+              else _starting_from(torch, vertical.VerticalFL, vstart)):
+            t0 = time.perf_counter()
+            metrics = main_vfl.run(args)
+            wall = time.perf_counter() - t0
+        if device == "cuda":
+            vstart = [{k: v.cpu() for k, v in party.items()} for party in inits[0]]
+        out[device] = (metrics, wall)
+    gap = max(abs(out["cuda"][0][k] - out["cpu"][0][k]) for k in out["cuda"][0])
+    log(f"[vfl] main_vfl synthetic default, {args.party_num} parties, {args.epochs} epochs: card "
+        f"{out['cuda'][1] / args.epochs:.4f} s an epoch, CPU {out['cpu'][1] / args.epochs:.4f}; "
+        f"card {out['cuda'][0]}; card vs CPU largest difference {gap:.3e}")
+    if not gap <= SPLIT_ATOL:
+        fail(f"vfl: card and CPU differ by {gap:.3e} > {SPLIT_ATOL}")
+    return _flash_launches()
+
+
+FEDGKT = dict(clients=10, batch=64, rounds=1, small_atol=1e-4)
+
+
+def _to_cpu(torch, tree):
+    """A nested structure of tuples, lists and dicts with its tensors copied
+    to the host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_cpu(torch, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(torch, v) for k, v in tree.items()}
+    return tree
+
+
+def phase_fedgkt(torch):
+    """FedGKT at the modules' default widths (the client's 1 block, the
+    server's 9 blocks a stage: the reference's ResNet-8 / ResNet-56 server
+    pair) on ``[cross_silo]``'s CIFAR-10 fixture (50,000 images), 10
+    clients, hetero 0.5, B=64, 1 round of E=1 on each side, through
+    ``run_fedgkt`` with ``main_fedgkt``'s batches: the feature stack stays on
+    the card, and each phase's steps after its first are replays of its
+    step's CUDA graph (counted: one fewer than the steps, a client and the
+    server). Prints its bytes, s/round and Train/Acc (read off the round's
+    feedback logits). Then ``main_fedgkt``'s default run (synthetic_cv, 2
+    clients, 2 rounds) on the card and on the CPU from the same variables,
+    within 1e-4; and on the card with its steps replayed against the same
+    run stepped eagerly, under deterministic algorithms, held to rtol 1e-6 /
+    atol 1e-7 (``[blocks]``' bound). Returns the flash launches."""
+    from fedml_tpu_torch.algorithms import fedgkt
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.exp import main_fedgkt
+
+    c = FEDGKT
+    _zero_flash_counters()
+    args = main_fedgkt.add_args(argparse.ArgumentParser()).parse_args(
+        ["--dataset", "cifar10", "--data_dir", str(BUILD_DIR / "cifar10"), "--client_number",
+         str(c["clients"]), "--batch_size", str(c["batch"]), "--comm_round", str(c["rounds"])])
+    gkt, batches = main_fedgkt.build(args, torch.device("cuda"))
+    gkt = fedgkt.FedGKT(type(gkt.client_module)(num_classes=10),
+                        type(gkt.server_module)(num_classes=10), gkt.client_opt, gkt.server_opt,
+                        gkt.temperature, gkt.alpha)
+    feats = []
+
+    def keep_bytes(original):
+        def server_train(self, svars, f, *rest):
+            feats.append((tuple(f.shape), f.numel() * f.element_size(), str(f.device)))
+            return original(self, svars, f, *rest)
+        return server_train
+
+    replays = []
+
+    def count_replays(original):
+        def replay(self):
+            replays.append(1)
+            return original(self)
+        return replay
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _wrapped(fedgkt.FedGKT, "server_train", keep_bytes), \
+            _wrapped(torch.cuda.CUDAGraph, "replay", count_replays):
+        cvars, svars, logits = fedgkt.run_fedgkt(gkt, batches, c["rounds"], 1, 1,
+                                                 rnglib.generator(0, torch.device("cuda")))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = sum(int(b["y"].shape[0]) for b in batches)  # a client's each, then the server's
+    # the server's feedback logits of the last round are its predictions on
+    # the features the trained clients extracted: main_fedgkt's Train/Acc
+    correct = sum(float(((lg.argmax(-1) == b["y"]).float() * b["mask"]).sum())
+                  for lg, b in zip(logits, batches))
+    images = sum(int(b["mask"].sum()) for b in batches)
+    acc = correct / images
+    log(f"[fedgkt] ResNetGKTClient (1 block) / ResNetGKTServer (9 blocks a stage), CIFAR-10 "
+        f"fixture {images} images, {c['clients']} clients hetero 0.5, B={c['batch']}, "
+        f"{c['rounds']} round of E=1 a side: {wall:.2f} s a round; {2 * steps} train steps, "
+        f"{len(replays)} of them graph replays; feature stack {feats[0][0]} "
+        f"= {feats[0][1]} bytes on {feats[0][2]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; Train/Acc {acc:.4f}")
+    if not np.isfinite(acc) or not feats[0][2].startswith("cuda"):
+        fail(f"fedgkt: Train/Acc {acc}, features on {feats[0][2]}")
+    if len(replays) != 2 * steps - len(batches) - 1:
+        fail(f"fedgkt: {len(replays)} graph replays, expected {2 * steps - len(batches) - 1}")
+    del gkt, batches, cvars, svars, logits
+    torch.cuda.empty_cache()
+
+    got, runs = {}, {}
+    for device in ("cuda", "cpu"):
+        small = main_fedgkt.add_args(argparse.ArgumentParser()).parse_args(["--device", device])
+        inits, outs = [], []
+
+        def keep(into):
+            def make(original):
+                def call(*args, **kwargs):
+                    out = original(*args, **kwargs)
+                    into.append(out)
+                    return out
+                return call
+            return make
+
+        with (_wrapped(fedgkt.FedGKT, "init", keep(inits)) if device == "cuda"
+              else _starting_from(torch, fedgkt.FedGKT, start)), \
+                _wrapped(fedgkt, "run_fedgkt", keep(outs)):
+            got[device] = main_fedgkt.run(small)
+        if device == "cuda":
+            start = tuple({k: v.cpu() for k, v in half.items()} for half in inits[0])
+        cv, sv, logits = outs[0]
+        runs[device] = [t.cpu() for t in [*(v for c_ in cv for v in c_.values()), *sv.values(),
+                                          *logits]]
+    gap = max([abs(got["cuda"]["Train/Acc"] - got["cpu"]["Train/Acc"])]
+              + [float((a - b).abs().max()) for a, b in zip(runs["cuda"], runs["cpu"])])
+    log(f"[fedgkt] main_fedgkt default (synthetic_cv, 2 clients, 2 rounds), card vs CPU from "
+        f"the same variables: {got['cuda']} against {got['cpu']}; largest difference {gap:.3e} "
+        f"(Train/Acc, both client models, the server model, the server's logits)")
+    if not gap <= c["small_atol"]:
+        fail(f"fedgkt: card and CPU differ by {gap:.3e} > {c['small_atol']}")
+
+    def eagerly(original):
+        return lambda fn, like, opt: fn
+
+    stepped = {}
+    on_card = tuple({k: v.cuda() for k, v in half.items()} for half in start)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in ("replayed", "eager"):
+            outs, replays = [], []
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(_starting_from(torch, fedgkt.FedGKT, on_card))
+                stack.enter_context(_wrapped(fedgkt, "run_fedgkt", keep(outs)))
+                stack.enter_context(_wrapped(torch.cuda.CUDAGraph, "replay", count_replays))
+                if name == "eager":
+                    stack.enter_context(_wrapped(fedgkt, "_replayed", eagerly))
+                main_fedgkt.run(main_fedgkt.add_args(argparse.ArgumentParser()).parse_args([]))
+            cv, sv, logits = outs[0]
+            stepped[name] = ([v for c_ in cv for v in c_.values()] + list(sv.values())
+                             + list(logits), len(replays))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    worst = max(float(((a - b).abs() - BLOCK_RTOL * b.abs()).max())
+                for a, b in zip(stepped["replayed"][0], stepped["eager"][0]))
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(stepped["replayed"][0], stepped["eager"][0]))
+    log(f"[fedgkt] main_fedgkt default on the card, deterministic algorithms: steps replayed "
+        f"({stepped['replayed'][1]} replays) against stepped eagerly ({stepped['eager'][1]}): "
+        f"largest difference {diff:.3e}, bitwise {diff == 0.0}")
+    if stepped["replayed"][1] == 0 or stepped["eager"][1] != 0 or not worst <= BLOCK_ATOL:
+        fail(f"fedgkt: replayed steps differ from eager ones by {diff:.3e} beyond rtol "
+             f"{BLOCK_RTOL} / atol {BLOCK_ATOL}, or replays {stepped['replayed'][1]} / "
+             f"{stepped['eager'][1]}")
+    return _flash_launches()
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds printed under the phase's name."""
     t0 = time.perf_counter()
@@ -3621,20 +4129,24 @@ def main() -> None:
     errors = _timed("kernel_vs_plain", phase_kernel_vs_plain, torch)
     _timed("gradient", phase_gradient, torch)
     _timed("e2e scan", phase_small_end_to_end, torch, "scan")
-    launches = {}
+    launches, cli_launches = {}, {}
     for config in (MAIN, MAIN_F32):
         run = _timed(f"main {config['dtype']}", phase_main_path, torch, config)
         launches.update({name: n for name, n in run.items()
                          if KERNELS[name]["dtype"] == config["dtype"]})
         torch.cuda.empty_cache()
+        if config is MAIN:
+            cli_launches["lm_remat"] = _timed("lm remat", phase_lm_remat, torch)
+            torch.cuda.empty_cache()
     times = _timed("kernel_times", phase_kernel_times, torch)
     small_vmap_launches = _timed("e2e vmap", phase_small_end_to_end, torch, "vmap")
     _timed("resnet small", phase_small_resnet, torch)
     plain_flagship_s = _timed("cross_silo", phase_cross_silo, torch)
-    cli_launches, loads = {}, []
+    loads = []
     cli_launches["zoo_small"] = _timed("zoo small", phase_zoo_small, torch)
     cli_launches["cross_silo_zoo"] = _timed("cross_silo zoo", phase_cross_silo_zoo, torch)
     cli_launches["resnet18_gn"] = _timed("resnet18_gn", phase_resnet18_gn, torch)
+    cli_launches["fedgkt"] = _timed("fedgkt", phase_fedgkt, torch)
     with _loaded_once(loads):
         cli_launches["repro_mnist_lr"], mnist_dir, records = _timed(
             "repro_mnist_lr", phase_repro_mnist_lr, torch)
@@ -3646,8 +4158,12 @@ def main() -> None:
                                               mnist_dir)
         cli_launches["trace"] = _timed("trace", phase_trace, torch, mnist_dir)
         cli_launches["gossip"] = _timed("gossip", phase_gossip, torch, mnist_dir)
+        cli_launches["fedgan"] = _timed("fedgan", phase_fedgan, torch, mnist_dir)
+        cli_launches["split_vertical"] = _timed("split and vertical", phase_split_and_vertical,
+                                                torch, mnist_dir)
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
-        f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip)")
+        f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip, fedgan, "
+        f"splitnn)")
     femnist_loads = []
     with _loaded_once(femnist_loads):
         cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
@@ -3684,7 +4200,7 @@ def main() -> None:
                  "repro_shakespeare", "so_nwp", "so_lr", "fednas_small", "fednas",
                  "fednas_unrolled", "fedopt", "fednova", "robust", "hierarchical",
                  "checkpoint", "trace", "zoo_small", "cross_silo_zoo", "resnet18_gn",
-                 "compress", "gossip"):
+                 "compress", "gossip", "fedgan", "split_vertical", "fedgkt"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

@@ -34,6 +34,12 @@ flat ``state_dict``;
   that order are ``weight_ih [4H, in]``, the kernels ``hi, hf, hg, ho``
   (``[H, H]``) ``weight_hh [4H, H]`` and their biases ``bias_hh [4H]``.
 
+The GAN's pair ``{"generator": ..., "discriminator": ...}`` (each a
+network's own variables, flax's ``Dense_i`` and ``BatchNorm_i``) is the
+port's flat state dict of both, ``generator.<name>`` and
+``discriminator.<name>``. The FedGKT server (no stem of its own) is a
+ResNet too: :func:`is_resnet` reads it off its blocks' convolutions.
+
 Either direction takes part of a model as well (a backbone without its head,
 the parameters without the BatchNorm statistics): ``resnet`` says which
 family's names to use where the part alone does not tell (a ResNet's head
@@ -111,11 +117,15 @@ def _port_names(comp: str, top_level: bool, resnet: bool) -> list[str]:
 
 def is_resnet(state_dict: dict) -> bool:
     """Whether a port state dict is a ResNet's: residual ``blocks`` beside a
-    top-level ``bn_0`` or ``gn_0`` (a TransformerLM has blocks and no such
-    norm, DARTS a BatchNorm and ``cells``, the other CIFAR models no
-    ``blocks``)."""
+    top-level ``bn_0`` or ``gn_0``, or blocks of convolutions (the FedGKT
+    server's); a TransformerLM has blocks of neither, DARTS a BatchNorm and
+    ``cells``, the other CIFAR models no ``blocks``."""
     return (any(k.startswith("blocks.") for k in state_dict)
-            and any(k.startswith(("bn_0.", "gn_0.")) for k in state_dict))
+            and any(k.startswith(("bn_0.", "gn_0.")) or re.match(r"blocks\.\d+\.conv_0\.", k)
+                    for k in state_dict))
+
+
+_PAIR = ("generator", "discriminator")  # the GAN's two networks
 
 
 def from_flax(variables: dict, resnet: bool | None = None) -> dict[str, torch.Tensor]:
@@ -123,6 +133,9 @@ def from_flax(variables: dict, resnet: bool | None = None) -> dict[str, torch.Te
     variables, whole or in part -> the port's state dict (CPU tensors in the
     leaves' own dtype). ``resnet`` None: a ResNet when the parameters hold
     a ``BasicBlock``."""
+    if set(variables) == set(_PAIR):
+        return {f"{net}.{k}": v for net in _PAIR
+                for k, v in from_flax(variables[net], resnet=False).items()}
     collections = (variables if "params" in variables or "batch_stats" in variables
                    else {"params": variables})
     if resnet is None:
@@ -172,6 +185,10 @@ def to_flax(state_dict: dict[str, torch.Tensor], resnet: bool | None = None) -> 
     DARTS) nested dicts of numpy arrays in the JAX package's layout; a
     collection the state dict has no leaf of is left out. ``resnet`` None:
     :func:`is_resnet`."""
+    nets = {k.split(".", 1)[0] for k in state_dict}
+    if nets and nets <= set(_PAIR):
+        return {net: to_flax({k[len(net) + 1:]: v for k, v in state_dict.items()
+                              if k.startswith(net + ".")}, resnet=False) for net in sorted(nets)}
     if resnet is None:
         resnet = is_resnet(state_dict)
     out: dict = {}

@@ -273,10 +273,13 @@ class Adam:
     def update(self, grads: StateDict, state: StateDict,
                params: StateDict) -> tuple[StateDict, StateDict]:
         count = state["count"] + 1
-        c1 = 1 - self.b1 ** count
-        c2 = 1 - self.b2 ** count
+        corrections = {}  # optax's bias corrections, in each parameter dtype
         new_params, new_state = {}, {"count": count}
         for k, p in params.items():
+            if p.dtype not in corrections:
+                t = count.to(p.dtype)
+                corrections[p.dtype] = (1 - self.b1 ** t, 1 - self.b2 ** t)
+            c1, c2 = corrections[p.dtype]
             g = grads[k]
             if self.weight_decay:
                 g = g + self.weight_decay * p
@@ -333,10 +336,23 @@ def draw_dropout_masks(sites: dict, generator: torch.Generator,
     """Keep masks for ``sites`` (site -> (one example's shape, rate)):
     ``lead + shape`` bools, each True with probability ``1 - rate`` (flax's
     ``bernoulli(keep_prob)``: a uniform draw below ``keep_prob``), drawn in
-    site order from ``generator`` on its device."""
-    return {name: torch.rand(lead + tuple(shape), generator=generator,
-                             device=generator.device) < 1.0 - rate
-            for name, (shape, rate) in sites.items()}
+    site order from ``generator`` on its device. A site whose rate is None
+    draws f32 standard normals instead (the GAN's latent ``z``,
+    ``algorithms/fedgan.py``)."""
+    out = {}
+    for name, (shape, rate) in sites.items():
+        size = lead + tuple(shape)
+        if rate is None:
+            out[name] = torch.randn(size, generator=generator, device=generator.device)
+        else:
+            out[name] = torch.rand(size, generator=generator, device=generator.device) < 1.0 - rate
+    return out
+
+
+def site_dtype(rate) -> torch.dtype:
+    """The dtype of a site's draw: bool keep masks, f32 normals for a rate
+    of None."""
+    return torch.float32 if rate is None else torch.bool
 
 
 class DropoutStream:

@@ -135,7 +135,9 @@ def write_leaf_mnist_fixture(
         final = d / f"all_data_niid_0_keep_0_{split}_9.json"
         tmp = final.with_name(final.name + ".tmp")
         with open(tmp, "w") as f:
-            json.dump(blob, f)
+            # json.dumps runs the C encoder (json.dump streams through the
+            # pure-Python one): the same bytes, ~10x sooner
+            f.write(json.dumps(blob))
         staged.append((tmp, final))
     for tmp, final in staged:  # test first, train (probe) last
         tmp.replace(final)

@@ -205,6 +205,16 @@ def load_partition_data(
     raise ValueError(f"unknown dataset {dataset!r}")
 
 
+def _markov_step(rng, trans, state):
+    """Each chain's next state, the draws of ``[rng.choice(len(p), p=p) for
+    p in trans[state]]`` (one uniform a chain, in order, against the row's
+    normalised cumulative sum) made at once."""
+    cdf = np.cumsum(trans[state], axis=1)
+    cdf /= cdf[:, -1:]
+    u = rng.random_sample(len(state))
+    return np.sum(cdf <= u[:, None], axis=1)
+
+
 def synthetic_char_lm(
     n_clients: int = 10, vocab: int = 90, seq_len: int = 20, samples: int = 30, seed: int = 0
 ):
@@ -219,7 +229,7 @@ def synthetic_char_lm(
             state = rng.randint(1, vocab, n_per_client)
             seqs[:, 0] = state
             for t in range(1, seq_len + 1):
-                state = np.asarray([rng.choice(vocab, p=trans[s]) for s in state])
+                state = _markov_step(rng, trans, state)
                 seqs[:, t] = state
             xs.append(seqs[:, :-1])
             ys.append(seqs[:, 1:])

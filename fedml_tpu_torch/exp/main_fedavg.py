@@ -99,8 +99,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     # algorithm switch (fedall) + algorithm-specific knobs
     parser.add_argument("--algorithm", type=str, default="fedavg",
                         choices=["fedavg", "fedopt", "fedprox", "fednova", "fedgan",
-                                 "hierarchical", "decentralized", "fedavg_robust"],
-                        help="fedgan (ROADMAP §A13) is not ported yet")
+                                 "hierarchical", "decentralized", "fedavg_robust"])
     parser.add_argument("--server_optimizer", type=str, default="adam")
     parser.add_argument("--server_lr", type=float, default=1e-1)
     parser.add_argument("--server_momentum", type=float, default=0.9)
@@ -261,9 +260,11 @@ def build_aggregator(args, train_data):
         from fedml_tpu_torch.topology.topology import ring_topology
 
         return gossip_aggregator(ring_topology(train_data.num_clients))
-    raise NotImplementedError(
-        f"--algorithm {args.algorithm} is not ported to fedml_tpu_torch yet: ROADMAP §A13 "
-        f"({args.algorithm})")
+    if args.algorithm == "fedgan":
+        from fedml_tpu_torch.algorithms.fedgan import fedgan_aggregator
+
+        return fedgan_aggregator()
+    raise ValueError(f"--algorithm {args.algorithm} has no aggregator")
 
 
 def _check_flag_combinations(args) -> None:
@@ -435,8 +436,11 @@ def _run(args) -> list[dict]:
         error_feedback=bool(args.error_feedback),
         **population_fields(args),
     )
-    sim = FedSim(trainer, ds.train, ds.test_arrays, cfg, aggregator=aggregator,
-                 device=args.device)
+    if args.algorithm == "fedgan":
+        sim = _gan_sim(args, ds, cfg, aggregator)
+    else:
+        sim = FedSim(trainer, ds.train, ds.test_arrays, cfg, aggregator=aggregator,
+                     device=args.device)
     with MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb)) as metrics:
         if args.algorithm == "hierarchical":
             from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFedAvg, HierConfig
@@ -446,6 +450,23 @@ def _run(args) -> list[dict]:
                 group_comm_round=args.group_comm_round))
             return hier.run(callback=metrics.log)[1]
         return _run_checkpointed(args, sim, cfg, metrics)
+
+
+def _gan_sim(args, ds, cfg, aggregator):
+    """The fedgan arm (``main_fedavg.py:1196-1215``): the MNIST GAN pair on
+    the dataset's image shape, Adam(lr, b1=0.5) on each network, the
+    adversarial round program and no test set."""
+    from fedml_tpu_torch.algorithms.fedgan import GANTrainer, make_gan_local_train
+    from fedml_tpu_torch.core.trainer import Adam
+    from fedml_tpu_torch.models.gan import Discriminator, Generator
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    img_shape = tuple(ds.train.arrays["x"].shape[1:])
+    gan = GANTrainer(Generator(img_shape=img_shape, device=args.device),
+                     Discriminator(img_shape=img_shape, device=args.device),
+                     Adam(args.lr, b1=0.5), Adam(args.lr, b1=0.5), epochs=args.epochs)
+    return FedSim(gan, ds.train, None, cfg, aggregator=aggregator, device=args.device,
+                  local_train_fn=make_gan_local_train(gan))
 
 
 def _run_checkpointed(args, sim, cfg, metrics) -> list[dict]:

@@ -14,8 +14,26 @@ the head runs in ``head_dtype`` with logits upcast to f32. Flax's defaults
 that differ from torch's are kept: LayerNorm eps 1e-6 with the fast variance
 E[x^2] - E[x]^2, and the tanh approximation of GELU.
 
+Dropout (``dropout_rate`` > 0) masks the attention output and the MLP
+output of each block in training, as flax's ``Dropout`` does (a kept
+element is ``x / keep``, a dropped one 0). The masks are not drawn here:
+the module names its sites in ``dropout_sites`` (``blocks.<i>.attn`` and
+``blocks.<i>.mlp``, one example's ``[max_len, embed_dim]`` each, cut to the
+sequence's T) and takes them as ``forward(x, train=True, dropout=masks)``,
+from the trainer's seeded round stream
+(:class:`~fedml_tpu_torch.core.trainer.DropoutStream`).
+
+``remat=True`` keeps only each block's input in training and reruns the
+block's forward in the backward (JAX's ``nn.remat(Block)``) through
+:class:`_RematBlock`, an ``autograd.Function`` whose backward replays the
+block under ``torch.func.vjp``; it serves the eager step and the vmapped
+cohort alike. The dropout masks are the block's inputs, so the replay
+applies the same masks as the forward. With ``attn_impl="flash"``
+the replay launches the flash forward again: 2L launches a training step in
+place of L.
+
 Not ported here: ``attn_impl="ring"`` and ``mp_axis`` (multi-GPU, ROADMAP
-§A12), ``remat`` and dropout (ROADMAP §A8b); each raises.
+§A12); each raises.
 """
 
 from __future__ import annotations
@@ -81,8 +99,9 @@ class LayerNorm(nn.Module):
 
 class MultiHeadSelfAttention(nn.Module):
     def __init__(self, embed_dim, num_heads, attn_impl="xla", dtype=torch.float32,
-                 block_q=256, block_k=1024, device=None):
+                 block_q=256, block_k=1024, device=None, dropout_rate=0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         if attn_impl not in ("xla", "flash"):
             if attn_impl == "ring":
                 raise NotImplementedError(
@@ -96,7 +115,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.qkv = Dense(embed_dim, 3 * embed_dim, bias=False, dtype=dtype, device=device)
         self.proj = Dense(embed_dim, embed_dim, bias=False, dtype=dtype, device=device)
 
-    def forward(self, x):
+    def forward(self, x, keep=None):
         b, t, c = x.shape
         head_dim = c // self.num_heads
         q, k, v = self.qkv(x).split(c, dim=-1)
@@ -109,24 +128,77 @@ class MultiHeadSelfAttention(nn.Module):
             o = flash_attention(q, k, v, True, None, self.block_q, self.block_k)
         else:
             o = attention_reference(q, k, v, causal=True)
-        return self.proj(o.transpose(1, 2).reshape(b, t, c))
+        return _dropout(self.proj(o.transpose(1, 2).reshape(b, t, c)), keep, self.dropout_rate)
+
+
+def _dropout(x, keep, rate: float):
+    """flax ``Dropout`` given its keep mask (None: the identity)."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class Block(nn.Module):
+    """``forward(x, attn_keep=None, mlp_keep=None)``: the keep masks of the
+    attention and MLP outputs (``[B, T, C]`` bools) in training with
+    dropout, None otherwise."""
+
     def __init__(self, embed_dim, num_heads, mlp_ratio=4, attn_impl="xla",
-                 dtype=torch.float32, block_q=256, block_k=1024, device=None):
+                 dtype=torch.float32, block_q=256, block_k=1024, device=None,
+                 dropout_rate=0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.ln_0 = LayerNorm(embed_dim, dtype=dtype, device=device)
         self.attn = MultiHeadSelfAttention(embed_dim, num_heads, attn_impl, dtype,
-                                           block_q, block_k, device=device)
+                                           block_q, block_k, device=device,
+                                           dropout_rate=dropout_rate)
         self.ln_1 = LayerNorm(embed_dim, dtype=dtype, device=device)
         self.fc_0 = Dense(embed_dim, mlp_ratio * embed_dim, dtype=dtype, device=device)
         self.fc_1 = Dense(mlp_ratio * embed_dim, embed_dim, dtype=dtype, device=device)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_0(x))
+    def forward(self, x, attn_keep=None, mlp_keep=None):
+        x = x + self.attn(self.ln_0(x), attn_keep)
         m = F.gelu(self.fc_0(self.ln_1(x)), approximate="tanh")
-        return x + self.fc_1(m)
+        return x + _dropout(self.fc_1(m), mlp_keep, self.dropout_rate)
+
+
+class _RematBlock(torch.autograd.Function):
+    """A block's forward that keeps only its inputs, and whose backward
+    reruns it under ``torch.func.vjp``. ``fn(x, masks, params)`` is the block
+    as a pure function; the masks and the parameters are tensor inputs, so
+    ``torch.func.vmap`` maps them (the generated vmap rule) in the vmapped
+    cohort's ``grad_and_value``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, n_masks, x, *rest):
+        return fn(x, rest[:n_masks], rest[n_masks:])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, n_masks, x, *rest = inputs
+        ctx.fn, ctx.n_masks = fn, n_masks
+        ctx.save_for_backward(x, *rest)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, *rest = ctx.saved_tensors
+        masks, params = tuple(rest[:ctx.n_masks]), rest[ctx.n_masks:]
+        _, vjp = torch.func.vjp(lambda x, *ps: ctx.fn(x, masks, ps), x, *params)
+        grads = vjp(grad)
+        return (None, None, grads[0]) + (None,) * ctx.n_masks + tuple(grads[1:])
+
+
+def _remat(block: Block, x, masks: tuple):
+    """``block(x, *masks)`` with its activations recomputed in the
+    backward."""
+    names, params = zip(*block.named_parameters())
+
+    def fn(x, masks, params):
+        return torch.func.functional_call(block, dict(zip(names, params)), (x, *masks))
+
+    return _RematBlock.apply(fn, len(masks), x, *masks, *params)
 
 
 class TransformerLM(nn.Module):
@@ -138,22 +210,22 @@ class TransformerLM(nn.Module):
                  head_dtype=torch.float32, block_q=256, block_k=1024, remat=False,
                  mp_axis=None, device="cuda"):
         super().__init__()
-        if dropout_rate:
-            raise NotImplementedError("dropout_rate > 0 is not ported yet, ROADMAP §A8b")
-        if remat:
-            raise NotImplementedError("remat (activation checkpointing) is not ported yet, "
-                                      "ROADMAP §A8b")
         if mp_axis is not None:
             raise NotImplementedError("mp_axis (tensor-parallel plans) is multi-GPU work, "
                                       "ROADMAP §A12")
         device = resolve_device(device)
-        self.dtype, self.head_dtype = dtype, head_dtype
+        self.dtype, self.head_dtype, self.remat = dtype, head_dtype, remat
+        self.dropout_rate = dropout_rate
+        # the keep masks the trainer draws: per layer and position
+        self.dropout_sites = {f"blocks.{i}.{site}": ((max_len, embed_dim), float(dropout_rate))
+                              for i in range(num_layers) for site in ("attn", "mlp")
+                              } if dropout_rate else {}
         self.tok_embed = nn.Embedding(vocab_size, embed_dim,
                                       _weight=torch.empty(vocab_size, embed_dim, device=device))
         self.pos_embed = nn.Parameter(torch.empty(max_len, embed_dim, device=device))
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, attn_impl=attn_impl, dtype=dtype, block_q=block_q,
-                  block_k=block_k, device=device)
+                  block_k=block_k, device=device, dropout_rate=dropout_rate)
             for _ in range(num_layers)
         )
         self.ln_f = LayerNorm(embed_dim, dtype=dtype, device=device)
@@ -171,11 +243,22 @@ class TransformerLM(nn.Module):
             if isinstance(mod, (Dense, LayerNorm)):
                 mod.reset_parameters(generator)
 
-    def forward(self, x, pos_offset=0):
+    def forward(self, x, pos_offset=0, train: bool = False, dropout=None):
+        """``dropout``: the keep masks of :attr:`dropout_sites`, ``[B,
+        max_len, C]`` each, needed in training (``train``) with dropout."""
         b, t = x.shape
         tok = F.embedding(x, self.tok_embed.weight.to(self.dtype))
         pos_idx = pos_offset + torch.arange(t, device=x.device)
         h = tok + self.pos_embed.index_select(0, pos_idx)[None].to(self.dtype)
-        for block in self.blocks:
-            h = block(h)
+        use_masks = train and bool(self.dropout_sites)
+        if use_masks and dropout is None:
+            raise ValueError("TransformerLM in training with dropout needs its keep masks "
+                             "(fedml_tpu_torch.core.trainer.draw_dropout_masks)")
+        for i, block in enumerate(self.blocks):
+            masks = (tuple(dropout[f"blocks.{i}.{site}"][:, :t] for site in ("attn", "mlp"))
+                     if use_masks else ())
+            if self.remat and torch.is_grad_enabled():
+                h = _remat(block, h, masks)
+            else:
+                h = block(h, *masks)
         return self.head(self.ln_f(h)).float()

@@ -318,8 +318,12 @@ class FedSim:
         aggregator beside them raises)
     device: where the model and the round run, and the dataset with
         on-device staging
-    local_train_fn: the JAX engine's custom round program (the GAN's), not
-        ported (ROADMAP §A13): anything but None raises
+    local_train_fn: a custom round program in place of the trainer's
+        (``fedml_tpu_torch.algorithms.fedgan.make_gan_local_train``'s
+        adversarial loop): called, one client's training with the contract
+        of ``make_local_train`` (the scan mode); its ``vmap`` attribute, the
+        cohort's with that of ``make_vmap_train`` (the vmap mode). A trainer
+        without ``eval_batch`` (the GAN's) skips the server's evaluation.
     """
 
     def __init__(self, trainer: ClientTrainer, train_data: cohortlib.FederatedArrays,
@@ -352,18 +356,24 @@ class FedSim:
         # trains from its own round-(r-1) model instead of a broadcast global
         self._per_client = bool(getattr(self.aggregator, "per_client", False))
         self._check_per_client(config)
-        if config.cohort_execution == "vmap":
-            self._vmap_train = make_vmap_train(trainer, per_client=self._per_client)
+        self._pack = self._check_pack(config, local_train_fn)
+        if local_train_fn is None:
+            if config.cohort_execution == "vmap":
+                self._vmap_train = make_vmap_train(trainer, per_client=self._per_client)
+            else:
+                self._local_train = make_local_train(trainer)
+        elif config.cohort_execution == "vmap":
+            if not callable(getattr(local_train_fn, "vmap", None)):
+                raise TypeError("cohort_execution='vmap' runs local_train_fn.vmap, the "
+                                "cohort form of the round program; this one has none")
+            self._vmap_train = local_train_fn.vmap
         else:
-            self._local_train = make_local_train(trainer)
-        self._local_eval = make_local_eval(trainer)
+            self._local_train = local_train_fn
+        # a trainer without eval_batch (the GAN) skips server-side evaluation
+        self._can_eval = hasattr(trainer, "eval_batch")
+        self._local_eval = make_local_eval(trainer) if self._can_eval else None
         # pin steps-per-epoch to the population max, as the JAX engine does
         self._steps = cohortlib.steps_per_epoch(train_data.max_client_size(), config.batch_size)
-        self._pack = self._check_pack(config, local_train_fn)
-        if local_train_fn is not None:
-            raise NotImplementedError(
-                "local_train_fn (a custom round program, e.g. the GAN's) is not ported to "
-                "fedml_tpu_torch yet: ROADMAP §A13 (fedgan)")
         if self._pack:
             # the lane length, fixed for the FedSim (engine.py:570-590): the
             # population's largest per-client step count, with capacity
@@ -703,7 +713,7 @@ class FedSim:
         client slot c's drawn from
         :func:`~fedml_tpu_torch.ops.augment.round_generator` (so the card and
         the CPU draw the same); None when the trainer does not augment."""
-        aug = self.trainer.augment
+        aug = getattr(self.trainer, "augment", None)
         if aug is None:
             return None
         shape = (self.trainer.epochs, self._steps, self.config.batch_size)
@@ -1255,7 +1265,10 @@ class FedSim:
         pool, ``Test/Acc``/``Test/Loss`` over the test set, each normalised
         by its masked token or example count. Both evals are queued before
         anything is read, and the four values come back in one copy
-        (``engine.py:2013-2039``)."""
+        (``engine.py:2013-2039``). Empty for a trainer without
+        ``eval_batch``."""
+        if not self._can_eval:
+            return {}
         if self._on_device:
             train_batches = self._gather_batches(self._dataset, self._train_eval)
         else:
@@ -1300,7 +1313,10 @@ class FedSim:
         len(ids))``; the last chunk is padded with fully masked rows, and each
         chunk's steps are sized by its largest client. ``data`` defaults to
         the train set: gathered from the resident dataset with on-device
-        staging, else each chunk's stack built on the host and copied."""
+        staging, else each chunk's stack built on the host and copied.
+        Empty for a trainer without ``eval_batch``."""
+        if not self._can_eval:
+            return {}
         cfg = self.config
         resident = data is None and self._on_device
         data = data if data is not None else self.train_data

@@ -58,20 +58,21 @@ from __future__ import annotations
 import torch
 from torch.utils import _pytree as pytree
 
-from fedml_tpu_torch.core.trainer import LaneDropout
+from fedml_tpu_torch.core.trainer import LaneDropout, site_dtype
 from fedml_tpu_torch.ops import attention
 
 
 class StaticDropout:
-    """A round's dropout keep masks in static ``[E * S, C, B, ...]`` buffers,
-    served by :meth:`masks` as :class:`DropoutStream` serves them and filled
-    from the round's stream before each replay."""
+    """A round's dropout keep masks (and the GAN's latent draws) in static
+    ``[E * S, C, B, ...]`` buffers, served by :meth:`masks` as
+    :class:`DropoutStream` serves them and filled from the round's stream
+    before each replay."""
 
     def __init__(self, sites: dict, steps: int, cohort: int, batch: int,
                  device: torch.device):
         self.buffers = {name: torch.empty((steps, cohort, batch) + tuple(shape),
-                                          dtype=torch.bool, device=device)
-                        for name, (shape, _) in sites.items()}
+                                          dtype=site_dtype(rate), device=device)
+                        for name, (shape, rate) in sites.items()}
         self.steps = steps
 
     def masks(self, step: int) -> dict[str, torch.Tensor]:

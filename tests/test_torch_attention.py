@@ -8,6 +8,7 @@ package's own flash tests hold its kernel to its oracle
 (tests/test_longcontext.py:29,36,144); the two differ only in the order of
 f32 sums."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

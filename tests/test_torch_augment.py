@@ -10,6 +10,7 @@ Tolerance: none. The ops move and zero values, they compute none, so the
 port is held bitwise equal to the formula; the same generator seed gives
 bitwise the same batches in both cohort modes."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@
 - the two h5 rows raise, naming ROADMAP §A6b; the Bayes ceiling is a copy.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
 import json
 

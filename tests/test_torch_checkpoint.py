@@ -19,6 +19,7 @@ Every comparison here is bitwise:
   dicts and tuples round-trips with its dtypes.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
 from typing import NamedTuple
 

@@ -17,6 +17,7 @@ or more steps departs from the same steps run one jitted step at a time
 arithmetic (``tests/test_torch_cnn.py::test_cnn_local_training_matches_jax_steps``
 holds it over eight steps)."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
 
 import jax
@@ -111,9 +112,13 @@ def test_unported_flags_raise_with_their_roadmap_item(argv, item):
 
 @pytest.mark.parametrize("algorithm,item", [("fedgan", "§A13")])
 def test_unported_algorithms_raise(tmp_path, algorithm, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_cli.main(["--algorithm", algorithm, "--device", "cpu", "--client_num_in_total",
-                       "4", "--data_dir", str(tmp_path)])
+    """Every ``--algorithm`` choice is ported now: the last one, fedgan
+    (ROADMAP ``item``), runs instead of raising (its parity with the JAX
+    package is ``tests/test_torch_fedgan.py``'s)."""
+    final = port_cli.main(["--algorithm", algorithm, "--device", "cpu", "--client_num_in_total",
+                           "4", "--client_num_per_round", "2", "--comm_round", "1",
+                           "--data_dir", str(tmp_path)])
+    assert np.isfinite(final["Train/Loss"]) and "Test/Acc" not in final
 
 
 SERVER_RULES = {

@@ -17,6 +17,7 @@ Tolerances:
   bitwise-equal masks.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp

@@ -34,6 +34,7 @@ Tolerances:
   ``convert.to_flax`` with equal top-k supports, the byte metrics equal.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -27,6 +27,7 @@ Tolerances:
   uninterrupted run's history and model.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
 import collections
 import dataclasses

@@ -11,6 +11,7 @@ combos completes a round with finite metrics, nothing is written outside
 ``tmp_path``, and the CIFAR-100 and CINIC-10 fixture writers write files
 byte-identical to the JAX package's."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
 import ast
 import json

@@ -16,6 +16,7 @@ Tolerances, fixed before the first run:
 - ``gumbel_hard_weights`` given ``jax.random.gumbel``'s noise: value and
   straight-through gradient, atol 1e-6."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

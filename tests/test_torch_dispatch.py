@@ -17,6 +17,7 @@ Tolerances:
   tests hold them (a few f32 SGD steps summed in other orders).
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ through ``make_local_train`` within 1e-4 of float64; bf16 eval logits
 within 2^-6 + 2^-7 |x|; the converter round trip bitwise. The pure-Python
 tables are copies, compared whole."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import numpy as np
 import pytest

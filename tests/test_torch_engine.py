@@ -12,6 +12,7 @@ Tolerances:
   arithmetic through a small TransformerLM with sums taken in other orders
   (observed differences ~3e-7, relative ~2e-7 on sums)."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

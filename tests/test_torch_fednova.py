@@ -14,6 +14,7 @@ Tolerances:
   1e-5 on parameters, the round loss, ``tau_eff`` and the evals.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

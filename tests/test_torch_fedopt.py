@@ -15,6 +15,7 @@ Tolerances:
   the round's noise and ``extras`` and could ask for the stacked cohort.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,7 @@ package reduces it with ``jnp.vdot``, whose f32 sum on the CPU is off by
 the global model that this puts the JAX round loss 1.0e-4 from the port's
 while the parameters agree to 3e-8; at lr 0.02 both stay inside 1e-5."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

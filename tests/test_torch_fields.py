@@ -13,6 +13,7 @@ augmentation draws, ``draws``. Every other name, position and default is
 compared as it is.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import dataclasses
 import importlib
 import inspect

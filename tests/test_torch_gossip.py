@@ -24,6 +24,7 @@ Tolerances:
   uninterrupted run's history and saved consensus model.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
 
 import jax
@@ -291,9 +292,6 @@ def test_cli_decentralized_runs_every_client_and_resumes_bitwise(tmp_path, monke
     a, b = np.load(tmp_path / "a4.npz"), np.load(tmp_path / "b4.npz")
     for k in a.files:
         np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(NotImplementedError, match="§A13"):
-        port_cli.main(["--algorithm", "fedgan", "--device", "cpu", "--client_num_in_total",
-                       "4", "--data_dir", str(tmp_path / "none")])
 
 
 def test_dsgd_and_pushsum_steps_match_jax(rng):

@@ -7,6 +7,7 @@ the same converted initial variables against the JAX run: atol 1e-5 on the
 final parameters and on every global round's eval record.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import numpy as np
 import optax

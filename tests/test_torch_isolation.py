@@ -5,6 +5,7 @@ digits are read without scikit-learn; the port's modules import without
 JAX and PyYAML. And chip_smoke.py fails, printing no result line, where
 there is no card or no checkout of the repo around it."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import ast
 import os
 import shutil

@@ -5,6 +5,7 @@ bitwise equal for the same arguments and seed — the LEAF fixture's digits
 come from the port's vendored ``digits.csv.gz`` (read with numpy), the JAX
 writer's from scikit-learn."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import json
 
 import numpy as np

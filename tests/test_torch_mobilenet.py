@@ -8,6 +8,7 @@ new BN statistics and one SGD step through ``make_local_train`` within
 1e-4; bf16 eval logits within 2^-6 + 2^-7 |x|; the converter round trip
 bitwise."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax.numpy as jnp
 import pytest
 import torch

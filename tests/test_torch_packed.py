@@ -25,6 +25,7 @@ Tolerances:
   messages, equal.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
 
 import jax
@@ -362,10 +363,18 @@ def test_pack_refuses_a_per_client_aggregator():
 
 
 def test_custom_round_program_is_not_ported():
+    """A custom round program (ROADMAP §A13's fedgan, ported since) is what
+    a scan round runs; the vmap mode runs its cohort form, ``.vmap``, and
+    refuses a program without one (no fallback to scan)."""
     arrays, part, test = _fixture(POWERLAW)
-    with pytest.raises(NotImplementedError, match="§A13"):
-        FedSim(_trainer("lr"), tcohort.FederatedArrays(arrays, part), test,
-               SimConfig(client_num_in_total=6, client_num_per_round=4), device="cpu",
+    data = tcohort.FederatedArrays(arrays, part)
+    cfg = dict(client_num_in_total=6, client_num_per_round=4)
+    sim = FedSim(_trainer("lr"), data, test, SimConfig(**cfg, cohort_execution="scan"),
+                 device="cpu", local_train_fn=_custom_round)
+    with pytest.raises(AssertionError, match="never called"):
+        sim.run_round(0, sim.init_variables())
+    with pytest.raises(TypeError, match="local_train_fn.vmap"):
+        FedSim(_trainer("lr"), data, test, SimConfig(**cfg), device="cpu",
                local_train_fn=_custom_round)
 
 

@@ -6,6 +6,7 @@
 Tolerance: none. They are copies, so every partition, file and array is held
 bitwise (byte-for-byte) equal to the reference's for the same inputs."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import numpy as np
 import pytest
 

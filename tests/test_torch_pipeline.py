@@ -16,6 +16,7 @@ Tolerances:
 - the per-client summary against the pooled train eval: 1e-5.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import threading
 
 import jax

@@ -19,6 +19,7 @@ Tolerances:
 - the constructor's conflict errors: the JAX engine's messages, equal.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import numpy as np
 import optax

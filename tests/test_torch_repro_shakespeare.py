@@ -7,6 +7,7 @@ the round records of ``main`` at atol 1e-4 from the same initial variables
 (four rounds of SGD at lr 1.0 through two LSTM layers over 16 steps, f32,
 products summed in other orders); result keys equal."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import json
 
 import jax

@@ -9,6 +9,7 @@ and packed lanes under a heterogeneous population with norm clipping (the
 JAX engine pads a cohort to its 8-device mesh with zero-weight copies, which
 a mean ignores)."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
 
 import jax

@@ -18,6 +18,7 @@ Tolerances, fixed before the first run:
   at most their two distances summed, bounded by ``3 d_jax`` (triangle
   inequality). Eval and train-mode logits alike."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ logits within 2^-6 + 2^-7 |x| (GroupNorm's statistics in f32, as flax
 takes them under a bf16 compute dtype); the converter round trip bitwise.
 GroupNorm has no state: no ``batch_stats``, no buffers."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ Tolerances, fixed before the first run:
 - the port's ``FedSim`` (vmap) against the JAX ``FedSim`` (vmap), 6 clients,
   3 rounds, small RNN: atol 1e-4 on variables, losses and eval metrics."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import warnings
 
 import jax

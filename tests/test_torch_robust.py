@@ -25,6 +25,7 @@ Tolerances:
   on the CPU.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ two rounds through two LSTM layers over 20 steps). The StackOverflow NWP
 row runs once, port only: its fixture draws a 10004 x 10004 transition
 matrix, and the model's parity is ``tests/test_torch_rnn.py``'s."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

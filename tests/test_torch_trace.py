@@ -17,6 +17,7 @@ experiment loops.
   loop's spans.
 """
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
 import json
 import threading

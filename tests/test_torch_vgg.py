@@ -10,6 +10,7 @@ cross-silo recipe through ``make_local_train`` within 1e-4 of float64;
 bf16 eval logits within 2^-6 + 2^-7 |x|; the converter round trip
 bitwise."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ Tolerances, fixed before the first run:
   the CPU (the plain version under the vmap rule, the blockwise backward
   under vmap): atol 1e-5."""
 
+from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np
