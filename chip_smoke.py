@@ -178,7 +178,31 @@ Phases, each of which exits non-zero on failure:
     3 rounds, one block against per-round dispatch, bitwise) and an
     8-client ring card against CPU within 1e-5. ``[fednas small]`` also
     runs each of its checks twice on the card under deterministic
-    algorithms and prints the largest difference (ROADMAP §C, item 3).
+    algorithms and prints the largest difference (ROADMAP §C, item 3);
+18. federated segmentation, decentralized online learning and the
+    ImageNet/Landmarks fallbacks (no flash launch on any of their paths;
+    after ``[fedgkt]``): ``[fedseg]`` runs ``main_fedseg``'s defaults
+    (``--model unet`` and ``--model deeplab``, 1 round) on the card and on
+    the CPU from the same variables: the f32 logits and one batch's
+    gradients from those variables within 1e-4, each
+    client's confusion matrix bitwise but at pixels whose top two logits
+    lie within 1e-4 (counted), and the round in float64 within 1e-9 (the
+    card's f32 round printed against it);
+    then UNet and DeepLabLite at full width (features 32/64/128, 21
+    classes) on a seeded 128 x 128 fixture with 255 on a border band, 8
+    clients of 16 images, 4 a round, B=8, Adam 3e-3, 2 rounds as one block
+    against per-round dispatch under deterministic cuDNN, bitwise, with
+    s/round, images/s, peak memory and ``evaluate_clients``'s global
+    metrics; ``[vision_fed]`` runs ``main_fedavg --dataset imagenet --model
+    resnet18_gn`` and ``--dataset gld23k --model mobilenet_v3`` on the
+    synthetic fallbacks, 2 rounds; from the same variables card vs CPU in
+    f32 the forwards at the zoo's card tolerance and every layer alone
+    within 1e-5 of float64 or 10x the CPU's error, and round 1 in float64
+    within 1e-9 (the f32 round printed); ``[dol]`` runs ``main_dol``'s
+    defaults (DSGD, and Push-Sum on the time-varying graph) on the card
+    against the CPU, regret
+    within 1e-5 relative, the late half of the stream cheaper than the
+    early half.
 
 Each phase prints its seconds (``[phase]``). It prints a
 ``{"kernels": [...]}`` line, then as its last line
@@ -4110,6 +4134,816 @@ def phase_fedgkt(torch):
     return _flash_launches()
 
 
+# a round in float64, card against CPU: the same arithmetic to the last bits
+# of float64, a check of the card's path that f32's spread cannot blur
+F64_ROUND_ATOL = 1e-9
+# federated segmentation (ROADMAP §A13): main_fedseg's defaults card against
+# CPU, then UNet and DeepLabLite at their full width (features 32/64/128) on a
+# seeded 3-channel 128 x 128 fixture with PASCAL VOC's 21 classes, 255 on a
+# border band: 8 clients of 16 images, 4 a round, B=8, E=1, Adam 3e-3
+FEDSEG = dict(classes=21, clients=8, per_client=16, per_round=4, batch=8, hw=128, band=4,
+              lr=3e-3, rounds=2, eval_batch=16)
+
+
+def _fedseg_fixture(c):
+    """Each image four quadrants of a class each, a class's colour plus
+    noise; labels 255 on a band of ``band`` pixels along the border."""
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+
+    rng = np.random.RandomState(0)
+    n, hw = c["clients"] * c["per_client"], c["hw"]
+    quadrants = rng.randint(0, c["classes"], (n, 2, 2))
+    y = np.repeat(np.repeat(quadrants, hw // 2, axis=1), hw // 2, axis=2).astype(np.int32)
+    palette = rng.rand(c["classes"], 3).astype(np.float32)
+    x = palette[y] + 0.1 * rng.randn(n, hw, hw, 3).astype(np.float32)
+    b = c["band"]
+    y[:, :b], y[:, -b:], y[:, :, :b], y[:, :, -b:] = 255, 255, 255, 255
+    per = c["per_client"]
+    part = {i: np.arange(i * per, (i + 1) * per) for i in range(c["clients"])}
+    return FederatedArrays({"x": x, "y": y}, part), {"x": x[:2 * per], "y": y[:2 * per]}
+
+
+def _fedseg_args(model, device, *extra):
+    """``main_fedseg``'s defaults for ``model``, 1 round with an eval, on
+    ``device``."""
+    from fedml_tpu_torch.exp import main_fedseg
+
+    return main_fedseg.add_args(argparse.ArgumentParser()).parse_args(
+        ["--model", model, "--comm_round", "1", "--frequency_of_the_test", "1", "--device",
+         device, *extra])
+
+
+def _fedseg_logits(torch, sim, variables, x):
+    """``sim``'s model on ``variables`` over the images ``x`` (numpy), on
+    its device, as f64 CPU tensors."""
+    module = sim.trainer.module
+    module.load_state_dict({k: v.to(sim.device) for k, v in variables.items()})
+    module.eval()
+    with torch.no_grad():
+        return module(torch.as_tensor(x, device=sim.device)).double().cpu()
+
+
+def _fedseg_card_vs_cpu(torch, model):
+    """``main_fedseg --model <model>``'s defaults, 1 round, on the card
+    through ``run``; then from that run's initial variables, on the card and
+    on the CPU (``build``): the f32 logits, each client's confusion matrix
+    (bitwise but at pixels whose top two logits lie within 1e-4, counted)
+    and one batch's gradients within 1e-4; and the round itself in float64
+    on both, within 1e-9 (variables, logits, ``evaluate_clients``'s
+    records), its confusion matrices equal. After a round of Adam the f32
+    runs part by f32's own spread (:func:`fedseg_numerics`): the card's f32
+    round is printed against the float64 one."""
+    from fedml_tpu_torch.algorithms import fedseg
+    from fedml_tpu_torch.core.trainer import segmentation_loss
+    from fedml_tpu_torch.exp import main_fedseg
+    from fedml_tpu_torch.models.registry import to_float64
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    inits, evals = [], []
+
+    def capture(original):
+        def init_variables(self):
+            v = original(self)
+            inits.append({k: t.detach().cpu().clone() for k, t in v.items()})
+            return v
+        return init_variables
+
+    def record(original):
+        def evaluate_clients(self, variables, *a, **kw):
+            out = original(self, variables, *a, **kw)
+            evals.append((self, {k: t.detach().cpu().clone() for k, t in variables.items()}))
+            return out
+        return evaluate_clients
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _wrapped(FedSim, "init_variables", capture), \
+            _wrapped(fedseg.FedSegSim, "evaluate_clients", record):
+        card_out = main_fedseg.run(_fedseg_args(model, "cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    init = inits[0]
+    card, card_final = evals[0]
+    cpu = main_fedseg.build(_fedseg_args(model, "cpu"))
+    x, y, part = cpu.train_data.arrays["x"], cpu.train_data.arrays["y"], cpu.train_data.partition
+
+    # f32, from the same variables: logits, confusion matrices, gradients
+    start = {"card": _fedseg_logits(torch, card, init, x),
+             "cpu": _fedseg_logits(torch, cpu, init, x)}
+    f32_after = _fedseg_logits(torch, card, card_final, x)
+    start_err = float((start["card"] - start["cpu"]).abs().max())
+    top2 = start["cpu"].topk(2, dim=-1).values
+    valid = torch.as_tensor((y >= 0) & (y < start["cpu"].shape[-1]))
+    near = ((top2[..., 0] - top2[..., 1]) < E2E_ATOL) & valid
+    flipped = (start["card"].argmax(-1) != start["cpu"].argmax(-1)) & valid
+    confs = {d: np.asarray(s.evaluate_per_client(
+        {k: v.to(s.device) for k, v in init.items()})["confusion"])
+        for d, s in (("card", card), ("cpu", cpu))}
+    moved = [float(np.abs(confs["card"][c] - confs["cpu"][c]).sum()) for c in sorted(part)]
+    allowed = [2 * int(near[part[c]].sum()) for c in sorted(part)]
+    grads = {}
+    for d, s in (("card", card), ("cpu", cpu)):
+        module = s.trainer.module
+        module.load_state_dict({k: v.to(s.device) for k, v in init.items()})
+        module.train()
+        module.zero_grad()
+        batch = {"y": torch.as_tensor(y[:4], device=s.device),
+                 "mask": torch.ones(4, device=s.device)}
+        segmentation_loss(module(torch.as_tensor(x[:4], device=s.device)), batch).backward()
+        grads[d] = {k: p.grad.detach().cpu() for k, p in module.named_parameters()}
+    grad_err = max(float((grads["card"][k] - grads["cpu"][k]).abs().max()) for k in grads["cpu"])
+
+    # the round in float64 on both (the CPU's sim, and the card's built anew:
+    # the card's run may hold its round's CUDA graph)
+    f64 = {}
+    for name, sim in (("card", main_fedseg.build(_fedseg_args(model, "cuda"))), ("cpu", cpu)):
+        to_float64(sim.trainer.module)
+        final, history = sim.run(variables={k: v.to(sim.device, torch.float64)
+                                            for k, v in init.items()})
+        f64[name] = (sim, final, history, sim.evaluate_clients(final),
+                     np.asarray(sim.evaluate_per_client(final)["confusion"]))
+    (c_sim, c_final, c_hist, (c_clients, c_global), c_conf), \
+        (p_sim, p_final, p_hist, (p_clients, p_global), p_conf) = f64["card"], f64["cpu"]
+    after64 = {"card": _fedseg_logits(torch, c_sim, c_final, x),
+               "cpu": _fedseg_logits(torch, p_sim, p_final, x)}
+    f64_err = max([float((after64["card"] - after64["cpu"]).abs().max())]
+                  + [float((c_final[k].cpu() - p_final[k]).abs().max()) for k in p_final]
+                  + [abs(getattr(c_clients[c], f) - getattr(p_clients[c], f))
+                     for c in p_clients for f in ("accuracy", "accuracy_class", "mIoU", "FWIoU",
+                                                  "loss")]
+                  + [abs(c_global[k] - p_global[k]) for k in p_global]
+                  + [abs(c_hist[-1][k] - p_hist[-1][k]) for k in p_hist[-1]
+                     if k not in ("round", "round_time")])
+    f32_spread = float((f32_after - after64["card"]).abs().max())
+    log(f"[fedseg] main_fedseg --model {model} defaults ({len(part)} clients of "
+        f"{len(part[0])} images of {x.shape[1]}x{x.shape[2]}x{x.shape[3]}, "
+        f"{start['cpu'].shape[-1]} classes, B=4, Adam 3e-3), 1 round on the card in "
+        f"{wall:.2f} s of run: {card_out}. From the same variables, card vs CPU in f32: logits "
+        f"{start_err:.3e} (up to {float(start['cpu'].abs().max()):.3f}); pixels whose top two "
+        f"logits lie within {E2E_ATOL}: {int(near.sum())} of {int(valid.sum())}, argmax "
+        f"flipped at {int(flipped.sum())}; per-client confusion counts moved {moved} "
+        f"(allowed {allowed}); one batch's gradients {grad_err:.3e}. The round in float64, "
+        f"card vs CPU: {f64_err:.3e} (variables, logits, records), confusion matrices equal "
+        f"{bool(np.array_equal(c_conf, p_conf))}; the card's f32 round {f32_spread:.3e} from "
+        f"it (logits, printed)")
+    if not max(start_err, grad_err) <= E2E_ATOL:
+        fail(f"fedseg {model}: card and CPU differ in f32 by {start_err:.3e} (logits) / "
+             f"{grad_err:.3e} (gradients) > {E2E_ATOL}")
+    if bool((flipped & ~near).any()) or any(m > a for m, a in zip(moved, allowed)):
+        fail(f"fedseg {model}: the card's confusion matrices differ from the CPU's beyond "
+             f"the near-tie pixels: moved {moved}, allowed {allowed}")
+    if not f64_err <= F64_ROUND_ATOL or not np.array_equal(c_conf, p_conf):
+        fail(f"fedseg {model}: the float64 round on the card and on the CPU differ by "
+             f"{f64_err:.3e} > {F64_ROUND_ATOL}, or in their confusion matrices")
+
+
+def _fedseg_sim(torch, model, device, mode="vmap", f64=False):
+    """``main_fedseg.build`` of its defaults for ``model``, 1 round, on
+    ``device``, in the cohort mode ``mode``, in float64 with ``f64``."""
+    from fedml_tpu_torch.algorithms.fedseg import FedSegSim
+    from fedml_tpu_torch.exp import main_fedseg
+    from fedml_tpu_torch.models.registry import to_float64
+
+    args = _fedseg_args(model, device)
+    sim = main_fedseg.build(args)
+    if mode != sim.config.cohort_execution:
+        sim = FedSegSim(sim.trainer, sim.train_data, main_fedseg._synthetic_seg(args)[1],
+                        dataclasses.replace(sim.config, cohort_execution=mode), device=device)
+    if f64:
+        to_float64(sim.trainer.module)
+    return sim
+
+
+def fedseg_numerics(torch, model="deeplab", devices=("cuda", "cpu")):
+    """Where f32 precision goes in ``main_fedseg``'s round, from the
+    variables its defaults draw on the CPU: one batch's gradients (4 images)
+    of every parameter in f32 on each of ``devices`` against float64 on the
+    first, beside the parameter's largest gradient; then the round (4
+    clients x 4 Adam steps) in float64 on both devices and in f32 on each in
+    the vmap and the scan cohort modes (on the card also vmap under cuDNN's
+    deterministic algorithms): how far the logits on the training images
+    after the round, and the variables, lie from the first device's float64
+    round. ``devices=("cpu", "cpu")`` checks it on a machine without a card.
+    Returns {"grad": ..., "round": ...}."""
+    from fedml_tpu_torch.core.trainer import segmentation_loss
+
+    cpu = _fedseg_sim(torch, model, "cpu")
+    init = {k: v.clone() for k, v in cpu.init_variables().items()}
+    x, y = cpu.train_data.arrays["x"], cpu.train_data.arrays["y"]
+    grads = {}
+    for name, device, f64 in [("float64", devices[0], True)] + [(d, d, False) for d in devices]:
+        module = _fedseg_sim(torch, model, device, f64=f64).trainer.module
+        dtype = torch.float64 if f64 else torch.float32
+        module.load_state_dict({k: v.to(device, dtype) for k, v in init.items()})
+        module.train()
+        batch = {"y": torch.as_tensor(y[:4], device=device),
+                 "mask": torch.ones(4, device=device)}
+        segmentation_loss(module(torch.as_tensor(x[:4], device=device)), batch).backward()
+        grads.setdefault(name, {}).update(
+            {k: p.grad.detach().double().cpu() for k, p in module.named_parameters()})
+    out = {"grad": {}, "round": {}}
+    for k, ref in grads["float64"].items():
+        rec = out["grad"][k] = {"scale": float(ref.abs().max())}
+        rec.update({d: float((grads[d][k] - ref).abs().max()) for d in devices})
+        log(f"[fedseg numerics] {model} one batch's gradient {k}: largest {rec['scale']:.3e}, "
+            f"f32 error " + ", ".join(f"{d} {rec[d]:.3e}" for d in devices))
+    runs = [("float64 " + d, d, True, "vmap", False) for d in devices]
+    runs += [(f"f32 {d} {mode}", d, False, mode, False) for d in devices
+             for mode in ("vmap", "scan")]
+    if devices[0] == "cuda":
+        runs.append(("f32 cuda vmap deterministic", "cuda", False, "vmap", True))
+    ref = None
+    for name, device, f64, mode, deterministic in runs:
+        sim = _fedseg_sim(torch, model, device, mode, f64)
+        dtype = torch.float64 if f64 else torch.float32
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=deterministic, allow_tf32=False):
+            final, _ = sim.run(variables={k: v.to(device, dtype) for k, v in init.items()})
+        logits = _fedseg_logits(torch, sim, final, x)
+        final = {k: v.double().cpu() for k, v in final.items()}
+        ref = ref or (logits, final)
+        rec = out["round"][name] = {
+            "logits": float((logits - ref[0]).abs().max()),
+            "variables": max(float((final[k] - ref[1][k]).abs().max()) for k in final)}
+        log(f"[fedseg numerics] {model} round, {name}: from the {runs[0][0]} round, logits "
+            f"{rec['logits']:.3e}, variables {rec['variables']:.3e}")
+    return out
+
+
+def _fedseg_full_width(torch, smi):
+    """``create_model`` UNet and DeepLabLite at full width on
+    :func:`_fedseg_fixture`: 2 rounds as one block (replays of the round's
+    CUDA graph) against the rounds dispatched one at a time, deterministic
+    cuDNN, bitwise; s/round, images/s, peak memory and
+    ``evaluate_clients``'s global metrics."""
+    from fedml_tpu_torch.algorithms.fedseg import FedSegSim
+    from fedml_tpu_torch.core.trainer import ClientTrainer, adam
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.sim.engine import SimConfig
+
+    c = FEDSEG
+    train, test = _fedseg_fixture(c)
+    images = c["per_round"] * c["per_client"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("unet", "deeplab"):
+            runs, init = {}, None
+            for mode in ("blocks", "per round"):
+                model = create_model(name, c["classes"], device="cuda",
+                                     input_shape=train.arrays["x"].shape[1:])
+                trainer = ClientTrainer(module=model, task="segmentation",
+                                        optimizer=adam(c["lr"]), epochs=1)
+                cfg = SimConfig(client_num_in_total=c["clients"],
+                                client_num_per_round=c["per_round"], batch_size=c["batch"],
+                                comm_round=c["rounds"], epochs=1,
+                                frequency_of_the_test=c["rounds"], seed=0,
+                                eval_batch_size=c["eval_batch"],
+                                block_dispatch=mode == "blocks")
+                sim = FedSegSim(trainer, train, test, cfg, device="cuda")
+                if init is None:
+                    init = {k: v.clone() for k, v in sim.init_variables().items()}
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()  # the graph's pool counts in its peak
+                capture_s = (sim.capture_round_graph(variables=init) if mode == "blocks"
+                             else 0.0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                final, history = sim.run(variables={k: v.clone() for k, v in init.items()})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                per_client, global_m = sim.evaluate_clients(final)
+                runs[mode] = (final, history)
+                times = [rec["round_time"] for rec in history]
+                log(f"[fedseg] {name} ({sum(v.numel() for v in init.values()) / 1e6:.2f}M "
+                    f"parameters, f32), {mode}: s/round "
+                    + ", ".join(f"{t:.4f}" for t in times)
+                    + f" ({images / times[-1]:.1f} images/s in the last round; run "
+                    f"{wall:.2f} s, capture {capture_s:.2f} s); Train/Loss "
+                    + ", ".join(f"{rec['Train/Loss']:.6f}" for rec in history)
+                    + f"; peak device memory {peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} "
+                    f"above the {held / 2**30:.2f} held before it ({smi}); "
+                    f"evaluate_clients over {len(per_client)} clients: "
+                    + ", ".join(f"{k} {v:.6f}" for k, v in global_m.items()))
+                values = [v for rec in history for k, v in rec.items() if k != "round"]
+                if (len(history) != c["rounds"] or not all(np.isfinite(values))
+                        or not all(np.isfinite(list(global_m.values())))):
+                    fail(f"fedseg {name} {mode}: bad history {history} or metrics {global_m}")
+                del sim, model, trainer
+                torch.cuda.empty_cache()
+            _, (diff, where) = _block_gap(torch, [runs["blocks"], runs["per round"]])
+            log(f"[fedseg] {name}: deterministic cuDNN, one block of {c['rounds']} graph "
+                f"replays vs per-round dispatch: largest difference {diff:.3e} ({where}), "
+                f"bitwise equal {diff == 0.0}")
+            if diff != 0.0:
+                fail(f"fedseg {name}: the block and per-round runs differ by {diff:.3e} at "
+                     f"{where}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def phase_fedseg(torch, smi):
+    """Federated segmentation: :func:`_fedseg_card_vs_cpu` for UNet and
+    DeepLabLite, then :func:`_fedseg_full_width`. Returns the flash
+    launches (none)."""
+    _zero_flash_counters()
+    for model in ("unet", "deeplab"):
+        _fedseg_card_vs_cpu(torch, model)
+    torch.cuda.empty_cache()
+    _fedseg_full_width(torch, smi)
+    return _flash_launches()
+
+
+DOL_RTOL = 1e-5
+
+
+def phase_dol(torch):
+    """``main_dol`` at the entry's defaults (SUSY's 18 features, N=15,
+    T=200), DSGD and Push-Sum on the time-varying graph, on the card and on
+    the CPU over the same stream: the regret figures within 1e-5 relative,
+    and the late half of the stream cheaper than the early half. Returns
+    the flash launches (none)."""
+    from fedml_tpu_torch.exp import main_dol
+
+    _zero_flash_counters()
+    for extra in ([], ["--mode", "pushsum", "--time_varying", "1"]):
+        out = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out[device] = main_dol.main(extra + ["--device", device])
+            out[device]["seconds"] = time.perf_counter() - t0
+        card, cpu = out["cuda"], out["cpu"]
+        keys = ("final_regret", "avg_regret", "early_avg_loss", "late_avg_loss")
+        rel = max(abs(card[k] - cpu[k]) / abs(cpu[k]) for k in keys)
+        log(f"[dol] main_dol {card['mode']}{' time-varying' if extra else ''}, N=15, T=200: "
+            f"card {card['seconds']:.2f} s, final_regret {card['final_regret']:.6f}, "
+            f"early_avg_loss {card['early_avg_loss']:.6f}, late_avg_loss "
+            f"{card['late_avg_loss']:.6f}; CPU {cpu['seconds']:.2f} s, final_regret "
+            f"{cpu['final_regret']:.6f}; largest relative difference {rel:.3e}")
+        if not rel <= DOL_RTOL:
+            fail(f"dol {card['mode']}: card and CPU differ by {rel:.3e} relative > {DOL_RTOL}")
+        if not card["late_avg_loss"] < card["early_avg_loss"]:
+            fail(f"dol {card['mode']}: the late half costs {card['late_avg_loss']} >= the "
+                 f"early half's {card['early_avg_loss']}")
+    return _flash_launches()
+
+
+# the vision datasets' synthetic fallbacks (the card's machine has no Pillow)
+# through the CLI, each with a zoo model: 4 clients, all a round, B=10, SGD at
+# lr and weight decay (dataset -> (model, lr, wd)). At the CLI's default lr
+# of 0.03 MobileNet V3's round 1 is NaN on the gld23k fallback, in the JAX
+# package's main_fedavg as in the port's (tests/test_torch_vision_fed.py)
+VISION_FED = {"imagenet": ("resnet18_gn", 0.01, 0.0), "gld23k": ("mobilenet_v3", 1e-3, 1e-3)}
+
+
+# [vision_fed]'s f32 layers alone: the card's error within this multiple of
+# the CPU's for the same layer, or within LAYER_RTOL of the float64 result
+LAYER_RTOL, LAYER_CPU_MULTIPLE = 1e-5, 10.0
+
+
+def _vision_f32_hold(torch, dataset, init):
+    """From ``init``, card against CPU in f32 (:func:`_vision_sim`), at the
+    zoo's card tolerance: the training forward of client 0's first batch
+    of 10 (logits, and a BN model's new statistics) and the eval forward
+    of the test images, each within 1e-4 x max(1, the CPU tensor's largest
+    entry) or, where the CPU's f32 is further off float64, twice the CPU's
+    distance; every layer alone (:func:`_leaf_errors`, from its float64
+    input and output gradient of that batch), plain and vmapped over 4
+    clients: its f32 output, input gradient and parameter gradients within
+    LAYER_RTOL of float64 or LAYER_CPU_MULTIPLE x the CPU's error. The
+    batch's whole gradient is compared, not held: ReLU inputs within
+    rounding of 0 (counted, by layer outputs of another sign on the card
+    than on the CPU) and BatchNorm over near-constant channels move it, on
+    the CPU as on the card (its distance from float64 is printed for
+    both). Returns (failures, a summary line)."""
+    import torch.nn.functional as F
+
+    out, signs = {}, {}
+    for name, device, f64 in (("card", "cuda", False), ("cpu", "cpu", False),
+                              ("float64", "cpu", True)):
+        sim, test = _vision_sim(torch, dataset, device, f64=f64)
+        m = sim.trainer.module
+        m.load_state_dict({k: v.to(device) for k, v in init.items()})
+        arrays, idx = sim.train_data.arrays, sim.train_data.partition[0][:10]
+        m.train()
+        m.zero_grad()
+        rec = signs[name] = {}
+        with _recorded(torch, m, rec):
+            tr = m(torch.as_tensor(arrays["x"][idx], device=device), train=True)
+            tr, stats = tr if isinstance(tr, tuple) else (tr, {})
+            F.cross_entropy(tr, torch.as_tensor(arrays["y"][idx], device=device).long()).backward()
+        m.eval()
+        with torch.no_grad():
+            ev = m(torch.as_tensor(test["x"], device=device))
+        out[name] = ({"train logits": tr, "eval logits": ev,
+                      **{f"statistic {k}": v for k, v in stats.items()}},
+                     {k: p.grad for k, p in m.named_parameters()})
+        if f64:
+            f64_module = m
+
+    def gap(a, b):
+        return float((a.detach().double().cpu() - b.detach().double().cpu()).abs().max())
+
+    failures, parts, stats = [], [], []
+    for k, ref in out["cpu"][0].items():
+        err, scale = gap(out["card"][0][k], ref), float(ref.detach().abs().max())
+        bound = max(E2E_ATOL * max(1.0, scale), 2 * gap(ref, out["float64"][0][k]))
+        if not err <= bound:
+            failures.append(f"{k} {err:.3e} > {bound:.3e}")
+        if k.startswith("statistic"):
+            stats.append((err, k, bound))
+        else:
+            parts.append(f"{k} {err:.3e} (bound {bound:.3e}, largest {scale:.3e})")
+    if stats:
+        parts.append("new BN statistics {:.3e} at {} (bound {:.3e})".format(*max(stats)))
+    grads = {name: g for name, (_, g) in out.items()}
+
+    def grad_gap(a, b):
+        return _tree_rel(grads[a], grads[b])
+
+    flips = sum(int(((signs["card"][n][2].cpu() > 0) != (signs["cpu"][n][2] > 0)).sum())
+                for n in signs["cpu"])
+    f64_module.zero_grad()
+    off = dict(enabled=True, benchmark=False, deterministic=False, allow_tf32=False)
+    layers = _leaf_errors(torch, f64_module, arrays["x"][idx], arrays["y"][idx],
+                          {"cpu": ("cpu", off, False), "card": ("cuda", off, False),
+                           "card vmap": ("cuda", off, True)})
+    worst = (0.0, None)
+    for variant in ("card", "card vmap"):
+        for layer, errs in layers[variant].items():
+            for kind, e, c in zip(("output", "input gradient", "parameter gradient"), errs,
+                                  layers["cpu"][layer]):
+                bound = max(LAYER_RTOL, LAYER_CPU_MULTIPLE * c)
+                worst = max(worst, (e / bound, f"{variant} {layer} {kind} {e:.3e} (CPU {c:.3e})"),
+                            key=lambda w: w[0])
+                if not e <= bound:
+                    failures.append(f"{variant} {layer} {kind} {e:.3e} > {bound:.3e}")
+    parts.append(f"{len(layers['card'])} layers alone, the closest to its bound {worst[1]}")
+    parts.append(f"the batch's whole gradient card vs CPU {grad_gap('card', 'cpu'):.3e} "
+                 f"relative, from float64 card {grad_gap('card', 'float64'):.3e} and CPU "
+                 f"{grad_gap('cpu', 'float64'):.3e} (compared, not held; {flips} layer outputs "
+                 f"of another sign on the card than on the CPU)")
+    return failures, "; ".join(parts)
+
+
+def phase_vision_fed(torch):
+    """``main_fedavg --dataset imagenet --model resnet18_gn`` and ``--dataset
+    gld23k --model mobilenet_v3`` on the registry's synthetic fallbacks, 2
+    rounds on the card with an eval each; from the card run's initial
+    variables, card against CPU in f32 (:func:`_vision_f32_hold`: the
+    forwards and one batch's gradients within 1e-4 x max(1, the tensor's
+    largest entry)) and round 1 in float64 on both, within 1e-9 (the
+    variables, Train/Loss, Train/Acc, Test/Acc, Test/Loss). The card's f32
+    round 1 is printed against the float64 one: f32's second SGD step
+    already parts from float64 on the CPU as on the card, at ReLU inputs
+    within rounding of 0 (:func:`vision_fed_numerics`). Returns the flash
+    launches (none)."""
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    _zero_flash_counters()
+    keys = ("Train/Loss", "Train/Acc", "Test/Acc", "Test/Loss")
+    for dataset, (model, lr, wd) in VISION_FED.items():
+        init = {}
+
+        def capture(original):
+            def init_variables(self):
+                v = original(self)
+                init.setdefault("v", {k: t.detach().cpu().clone() for k, t in v.items()})
+                return v
+            return init_variables
+
+        with _wrapped(FedSim, "init_variables", capture):
+            card, card_s = _cli(torch, _vision_argv(dataset) + ["--comm_round", "2"])
+        start = init["v"]
+        t0 = time.perf_counter()
+        failures, hold = _vision_f32_hold(torch, dataset, start)
+        hold_s = time.perf_counter() - t0
+        f64 = {}
+        for name, device in (("card", "cuda"), ("cpu", "cpu")):
+            sim, _ = _vision_sim(torch, dataset, device, f64=True)
+            t0 = time.perf_counter()
+            final, history = sim.run(variables={
+                k: v.to(device, torch.float64 if v.is_floating_point() else v.dtype)
+                for k, v in start.items()})
+            f64[name] = ({k: v.double().cpu() for k, v in final.items()}, history[-1],
+                           time.perf_counter() - t0)
+        gap64 = max(abs(f64["card"][1][k] - f64["cpu"][1][k]) for k in keys)
+        var64 = max(float((f64["card"][0][k] - v).abs().max()) for k, v in f64["cpu"][0].items())
+        f32_gap = max(abs(card[0][k] - f64["cpu"][1][k]) for k in keys)
+        log(f"[vision_fed] main_fedavg --dataset {dataset} --model {model} (the synthetic "
+            f"fallback), 4 clients, all a round, B=10, SGD {lr} wd {wd}: card 2 rounds in "
+            f"{card_s:.2f} s, s/round " + ", ".join(f"{rec['round_time']:.4f}" for rec in card)
+            + f"; {card}; from the same variables card vs CPU in f32 ({hold_s:.2f} s): "
+            f"{hold}; round 1 in float64 card vs CPU {gap64:.3e} (metrics; variables "
+            f"{var64:.3e}, the head's input rounded to f32 as in the JAX package; card "
+            f"{f64['card'][2]:.2f} s, CPU {f64['cpu'][2]:.2f} s); the card's f32 round 1 "
+            f"metrics {f32_gap:.3e} from it (printed)")
+        values = [v for rec in card for k, v in rec.items() if k != "round"]
+        if len(card) != 2 or not all(np.isfinite(values)):
+            fail(f"vision_fed {dataset}: bad history {card}")
+        if failures:
+            fail(f"vision_fed {dataset}: card and CPU differ in f32 beyond their bounds: "
+                 + ", ".join(failures))
+        if not gap64 <= F64_ROUND_ATOL:
+            fail(f"vision_fed {dataset}: round 1 in float64 on the card and on the CPU differ "
+                 f"by {gap64:.3e} > {F64_ROUND_ATOL}")
+        torch.cuda.empty_cache()
+    return _flash_launches()
+
+
+def _vision_argv(dataset):
+    """``main_fedavg``'s flags for ``[vision_fed]``'s run of ``dataset``."""
+    model, lr, wd = VISION_FED[dataset]
+    return ["--dataset", dataset, "--model", model, "--data_dir",
+            str(BUILD_DIR / f"{dataset}_absent"), "--client_num_in_total", "4",
+            "--client_num_per_round", "4", "--batch_size", "10", "--lr", str(lr), "--wd",
+            str(wd), "--frequency_of_the_test", "1"]
+
+
+def _vision_sim(torch, dataset, device, mode="vmap", f64=False):
+    """``main_fedavg.build`` of ``[vision_fed]``'s run of ``dataset`` for 1
+    round on ``device``, in the cohort mode ``mode``, in float64 with
+    ``f64``: ``(sim, test arrays)``."""
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.exp import main_fedavg as cli
+    from fedml_tpu_torch.models.registry import to_float64
+    from fedml_tpu_torch.sim.engine import FedSim
+
+    args = cli.parse_with_config(cli.add_args(argparse.ArgumentParser()),
+                                 _vision_argv(dataset) + ["--comm_round", "1", "--device", device])
+    sim, cfg = cli.build(args)
+    if f64:
+        to_float64(sim.trainer.module)
+    test = load_partition_data(args.dataset, args.data_dir, args.partition_method,
+                               args.partition_alpha, args.client_num_in_total,
+                               args.seed).test_arrays
+    if mode != cfg.cohort_execution:
+        sim = FedSim(sim.trainer, sim.train_data, test,
+                     dataclasses.replace(cfg, cohort_execution=mode),
+                     aggregator=sim.aggregator, device=device)
+    return sim, test
+
+
+def _leaves(module):
+    """The Conv, GroupNorm, BatchNorm and Dense layers of ``module`` by name."""
+    from fedml_tpu_torch.models.resnet import BatchNorm, Conv, GroupNorm
+    from fedml_tpu_torch.models.transformer import Dense
+
+    return {n: m for n, m in module.named_modules()
+            if isinstance(m, (Conv, GroupNorm, BatchNorm, Dense))}
+
+
+@contextlib.contextmanager
+def _recorded(torch, module, record):
+    """Within the block each layer of :func:`_leaves` keeps, in
+    ``record[name]``, ``[args, kwargs, output, output's gradient]`` of its
+    last call (the gradient once the backward reaches it, else None)."""
+    def hook(name):
+        def keep(mod, args, kwargs, out):
+            out = out[0] if isinstance(out, tuple) else out
+            entry = record[name] = [tuple(a.detach() if torch.is_tensor(a) else a for a in args),
+                                    kwargs, out.detach(), None]
+            if out.requires_grad:
+                out.register_hook(lambda g: entry.__setitem__(3, g.detach()))
+        return keep
+
+    handles = [m.register_forward_hook(hook(n), with_kwargs=True)
+               for n, m in _leaves(module).items()]
+    try:
+        yield record
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _rel(a, b):
+    """The largest of ``|a - b|`` over the largest ``|b|`` (0 for empty)."""
+    if b.numel() == 0:
+        return 0.0
+    return float((a.double().cpu() - b.double().cpu()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-300))
+
+
+def _tree_rel(a, b):
+    """The largest ``|a[k] - b[k]|`` over the largest ``|b[k]|``, over all
+    keys of ``b``."""
+    return (max(float((a[k].double().cpu() - b[k].double().cpu()).abs().max()) for k in b)
+            / max(max(float(v.double().abs().max()) for v in b.values()), 1e-300))
+
+
+def _leaf_errors(torch, module, x, y, variants):
+    """Each layer of :func:`_leaves` of ``module`` (float64, on the CPU)
+    alone, from its own float64 input and output gradient in the forward
+    and backward of one batch ``x, y``: its f32 output, input gradient and
+    parameter gradients under each of ``variants`` (name -> (device, cuDNN
+    flags, vmapped over 4 clients, as grouped convolutions)), each as its
+    largest error over the float64 one's largest entry (the parameters'
+    over all of the layer's). Returns {variant: {layer: (out, dx, dparams)}}."""
+    import copy
+
+    seen = {}
+    module.train()
+    with _recorded(torch, module, seen):
+        logits = module(torch.as_tensor(x, dtype=torch.float64), train=True)
+        logits = logits[0] if isinstance(logits, tuple) else logits
+        torch.nn.functional.cross_entropy(logits, torch.as_tensor(y, dtype=torch.long)).backward()
+    leaves = _leaves(module)
+
+    def local(mod, args, kwargs, g, device, vmapped):
+        """mod on device in f32, or in float64 on the CPU for ``"f64"`` (4
+        clients at once under vmap if asked): (output, input gradient,
+        parameter gradients) as float64 CPU tensors."""
+        dev = "cpu" if device == "f64" else device
+        dt = torch.float64 if device == "f64" else torch.float32
+        m = copy.deepcopy(mod).to(dev, dt)
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dt
+        x0 = args[0].detach().to(dev, dt, copy=True).requires_grad_()
+        rest = args[1:]
+        params = dict(m.named_parameters())
+        if vmapped:
+            stacked = {k: v.detach()[None].repeat(4, *[1] * v.dim()).requires_grad_()
+                       for k, v in params.items()}
+
+            def one(p, xi):
+                out = torch.func.functional_call(m, p, (xi,) + rest, kwargs)
+                return out[0] if isinstance(out, tuple) else out
+            out = torch.func.vmap(one)(stacked, x0[None].repeat(4, *[1] * x0.dim()))
+            (out * g.to(dev, dt)).sum().backward()
+            grads = {k: v.grad[0] for k, v in stacked.items()}
+            out, dx = out[0], x0.grad / 4
+        else:
+            out = m(x0, *rest, **kwargs)
+            out = out[0] if isinstance(out, tuple) else out
+            (out * g.to(dev, dt)).sum().backward()
+            grads, dx = {k: v.grad for k, v in params.items()}, x0.grad
+        return (out.detach().double().cpu(), dx.double().cpu(),
+                {k: v.double().cpu() for k, v in grads.items()})
+
+    out = {name: {} for name in variants}
+    for layer, (args, kwargs, _, g) in seen.items():
+        if g is None:
+            continue
+        ref = local(leaves[layer], args, kwargs, g, "f64", False)
+        scale = max([float(v.abs().max()) for v in ref[2].values()] + [1e-300])
+        for name, (device, flags, vmapped) in variants.items():
+            with torch.backends.cudnn.flags(**flags):
+                got = local(leaves[layer], args, kwargs, g, device, vmapped)
+            out[name][layer] = (_rel(got[0], ref[0]), _rel(got[1], ref[1]),
+                                max([float((got[2][k] - ref[2][k]).abs().max())
+                                     for k in ref[2]] + [0.0]) / scale)
+    return out
+
+
+def _second_step(torch, dataset, init, client, devices):
+    """Client ``client``'s first two SGD steps of ``[vision_fed]``'s run of
+    ``dataset`` (plain module calls on batches of up to 10, half the
+    client's images at most; the CLI's lr and weight decay), from
+    ``init``, in float64 on the CPU and in f32 on each of ``devices``.
+    Returns, for each device, the second step's f32 gradient error over
+    the float64 gradient's largest entry (:func:`_tree_rel`): from the
+    weights f32's own first step left (``own``), from the float64 step's
+    weights rounded to f32 (``rounded``), and of the float64 gradient at
+    f32's weights (``float64``); the first layer, in the backward's order, whose output's
+    gradient is off float64 by more than 1e-3 of its largest entry; and the
+    count of layer outputs whose sign is not float64's (ReLU inputs within
+    rounding of 0: the gradient behind them changes with their side)."""
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.models.registry import to_float64
+
+    _, lr, wd = VISION_FED[dataset]
+    sim, _ = _vision_sim(torch, dataset, "cpu", f64=True)
+    arrays, idx = sim.train_data.arrays, sim.train_data.partition[client]
+    x, y = arrays["x"][idx], torch.as_tensor(arrays["y"][idx]).long()
+
+    def module(device, f64):
+        m = _vision_sim(torch, dataset, device)[0].trainer.module
+        return to_float64(m) if f64 else m
+
+    def grads(m, batch, record=None):
+        p0 = next(m.parameters())
+        m.train()
+        m.zero_grad()
+        with _recorded(torch, m, {} if record is None else record):
+            logits = m(torch.as_tensor(x[batch], device=p0.device, dtype=p0.dtype), train=True)
+            logits = logits[0] if isinstance(logits, tuple) else logits
+            F.cross_entropy(logits, y[batch].to(p0.device)).backward()
+        return {k: p.grad.detach().double().cpu() for k, p in m.named_parameters()}
+
+    def step(m, g):
+        with torch.no_grad():
+            for k, p in m.named_parameters():
+                p -= lr * (g[k].to(p.device, p.dtype) + wd * p)
+
+    b = max(1, min(10, len(idx) // 2))
+    first, second = slice(0, b), slice(b, 2 * b)
+    ref = module("cpu", True)
+    ref.load_state_dict(init)
+    step(ref, grads(ref, first))
+    ref_rec = {}
+    ref_g = grads(ref, second, ref_rec)
+    out = {}
+    for device in devices:
+        m = module(device, False)
+        m.load_state_dict(init)
+        step(m, grads(m, first))
+        rec = {}
+        own = grads(m, second, rec)
+        rounded = module(device, False)
+        rounded.load_state_dict(ref.state_dict())
+        at_f32 = module("cpu", True)
+        at_f32.load_state_dict(m.state_dict())
+        entry = next((n for n in reversed(list(ref_rec)) if ref_rec[n][3] is not None
+                      and rec[n][3] is not None and _rel(rec[n][3], ref_rec[n][3]) > 1e-3), None)
+        flips = {n: int(((rec[n][2].cpu() > 0) != (ref_rec[n][2] > 0)).sum()) for n in ref_rec}
+        out[device] = {"own": _tree_rel(own, ref_g),
+                       "rounded": _tree_rel(grads(rounded, second), ref_g),
+                       "float64": _tree_rel(grads(at_f32, second), ref_g), "enters at": entry,
+                       "sign flips": sum(flips.values()),
+                       "first flip": next((n for n in ref_rec if flips[n]), None)}
+    return out
+
+
+def vision_fed_numerics(torch, devices=("cuda", "cpu")):
+    """Where ``[vision_fed]``'s f32 precision goes, card against CPU, for
+    each of its runs: every layer alone from its own float64 input
+    (:func:`_leaf_errors`) on the CPU and on the card under cuDNN's default,
+    deterministic and disabled algorithms, plain and vmapped over 4 clients
+    (grouped convolutions); then the CLI's round 1 from the CPU's initial
+    variables in f32 on each, in the vmap and the scan cohort modes, against
+    the same round in float64 on the CPU (the variables and the four
+    metrics). ``devices=("cpu", "cpu")`` checks it on a machine without a
+    card. Returns {dataset: {"leaves": ..., "rounds": ...}}."""
+    card, cpu = devices
+    off = dict(enabled=True, benchmark=False, deterministic=False, allow_tf32=False)
+    variants = {"cpu": (cpu, off, False), "cpu vmap": (cpu, off, True),
+                "card": (card, off, False), "card vmap": (card, off, True),
+                "card deterministic vmap": (card, {**off, "deterministic": True}, True),
+                "card no cudnn vmap": (card, {**off, "enabled": False}, True),
+                "card autotuned vmap": (card, {**off, "benchmark": True}, True)}
+    keys = ("Train/Loss", "Train/Acc", "Test/Acc", "Test/Loss")
+    result = {}
+    for dataset in VISION_FED:
+        ref_sim, _ = _vision_sim(torch, dataset, cpu, f64=True)
+        init = {k: v.detach().cpu().clone() for k, v in ref_sim.init_variables().items()}
+        arrays = ref_sim.train_data.arrays
+        idx = ref_sim.train_data.partition[0][:10]
+        ref_sim.trainer.module.load_state_dict(init)
+        leaves = _leaf_errors(torch, ref_sim.trainer.module, arrays["x"][idx],
+                              arrays["y"][idx], variants)
+        for name, layers in leaves.items():
+            for kind, i in (("output", 0), ("input gradient", 1), ("parameter gradient", 2)):
+                worst = sorted(layers, key=lambda n: -layers[n][i])[:3]
+                log(f"[vision_fed numerics] {dataset} {name}: each layer alone, largest "
+                    f"relative f32 {kind} error " + ", ".join(
+                        f"{n} {layers[n][i]:.3e}" for n in worst)
+                    + f"; median {float(np.median([v[i] for v in layers.values()])):.3e}")
+        for client in sorted(ref_sim.train_data.partition):
+            for device, r in _second_step(torch, dataset, init, client, devices).items():
+                log(f"[vision_fed numerics] {dataset} client {client}, {device}: the second SGD "
+                    f"step's f32 gradient off float64 by {r['own']:.3e} from f32's own first "
+                    f"step, {r['rounded']:.3e} from float64's first step rounded to f32; the "
+                    f"float64 gradient at f32's weights {r['float64']:.3e}; the gradient "
+                    f"first off by 1e-3 into {r['enters at']}; {r['sign flips']} layer "
+                    f"outputs of another sign than float64's, the first in {r['first flip']}")
+        ref_final, ref_hist = ref_sim.run(variables={k: v.clone() for k, v in init.items()})
+        rounds = {}
+        for name, device, mode, flags in (
+                ("cpu vmap", cpu, "vmap", off), ("cpu scan", cpu, "scan", off),
+                ("card vmap", card, "vmap", off), ("card scan", card, "scan", off),
+                ("card deterministic vmap", card, "vmap", {**off, "deterministic": True}),
+                ("card no cudnn vmap", card, "vmap", {**off, "enabled": False})):
+            sim, _ = _vision_sim(torch, dataset, device, mode)
+            with torch.backends.cudnn.flags(**flags):
+                final, hist = sim.run(variables={
+                    k: v.to(device, torch.float32 if v.is_floating_point() else v.dtype)
+                    for k, v in init.items()})
+            rounds[name] = (max(float((final[k].double().cpu() - ref_final[k]).abs().max())
+                                for k in ref_final),
+                            max(abs(hist[-1][k] - ref_hist[-1][k]) for k in keys))
+            log(f"[vision_fed numerics] {dataset} round 1 in f32, {name}: from the CPU's "
+                f"float64 round, variables {rounds[name][0]:.3e}, metrics {rounds[name][1]:.3e}")
+        # the float64 round's own response to its start rounded as f32 rounds
+        # a step: each variable times (1 + 2^-24 u), u uniform in [-1, 1]
+        sim, _ = _vision_sim(torch, dataset, card, f64=True)
+        for seed in range(3):
+            u = np.random.RandomState(seed)
+            start = {k: (v * (1 + 2.0 ** -24 * torch.as_tensor(u.uniform(-1, 1, v.shape)))
+                         if v.is_floating_point() else v).to(card) for k, v in init.items()}
+            final, hist = sim.run(variables=start)
+            rounds[f"float64 from a start moved 2^-24, seed {seed}"] = (
+                max(float((final[k].cpu() - ref_final[k]).abs().max()) for k in ref_final),
+                max(abs(hist[-1][k] - ref_hist[-1][k]) for k in keys))
+            log(f"[vision_fed numerics] {dataset} round 1 in float64 on the card from the start "
+                f"moved by 2^-24 relative (seed {seed}): from the CPU's float64 round, variables "
+                f"{rounds[f'float64 from a start moved 2^-24, seed {seed}'][0]:.3e}, metrics "
+                f"{rounds[f'float64 from a start moved 2^-24, seed {seed}'][1]:.3e}")
+        result[dataset] = {"leaves": leaves, "rounds": rounds}
+    return result
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds printed under the phase's name."""
     t0 = time.perf_counter()
@@ -4147,6 +4981,9 @@ def main() -> None:
     cli_launches["cross_silo_zoo"] = _timed("cross_silo zoo", phase_cross_silo_zoo, torch)
     cli_launches["resnet18_gn"] = _timed("resnet18_gn", phase_resnet18_gn, torch)
     cli_launches["fedgkt"] = _timed("fedgkt", phase_fedgkt, torch)
+    cli_launches["fedseg"] = _timed("fedseg", phase_fedseg, torch, smi)
+    cli_launches["vision_fed"] = _timed("vision_fed", phase_vision_fed, torch)
+    cli_launches["dol"] = _timed("dol", phase_dol, torch)
     with _loaded_once(loads):
         cli_launches["repro_mnist_lr"], mnist_dir, records = _timed(
             "repro_mnist_lr", phase_repro_mnist_lr, torch)
@@ -4200,7 +5037,8 @@ def main() -> None:
                  "repro_shakespeare", "so_nwp", "so_lr", "fednas_small", "fednas",
                  "fednas_unrolled", "fedopt", "fednova", "robust", "hierarchical",
                  "checkpoint", "trace", "zoo_small", "cross_silo_zoo", "resnet18_gn",
-                 "compress", "gossip", "fedgan", "split_vertical", "fedgkt"):
+                 "compress", "gossip", "fedgan", "split_vertical", "fedgkt", "fedseg",
+                 "vision_fed", "dol"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

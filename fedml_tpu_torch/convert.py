@@ -2,8 +2,8 @@
 
 :func:`from_flax` turns the JAX package's variables of a TransformerLM, a
 ResNet (CIFAR or ResNet-18, BatchNorm or GroupNorm), MobileNet V1 or V3,
-VGG, EfficientNet, a LogisticRegression, one of the CNNs, one of the RNNs or
-the DARTS search network (nested dicts of numpy arrays: ``{"params":
+VGG, EfficientNet, a LogisticRegression, one of the CNNs, one of the RNNs,
+UNet, DeepLabLite or the DARTS search network (nested dicts of numpy arrays: ``{"params":
 ...}``, with ``"batch_stats"`` beside it for a BatchNorm network, for DARTS
 ``"batch_stats"`` and ``"arch"``, or a bare params tree) into the port's
 flat ``state_dict``;
@@ -23,6 +23,10 @@ flat ``state_dict``;
   the ResNet, the top-level ``Dense_i`` <-> ``dense_i``;
 - LogisticRegression and the CNNs: ``Conv_i`` <-> ``conv_i``, the
   top-level ``Dense_i`` <-> ``dense_i``;
+- UNet and DeepLabLite: ``ConvBlock_3`` <-> ``convblocks.3`` (its
+  ``Conv_j``/``GroupNorm_j`` as in the ResNet), ``ASPP_0`` <-> ``aspp``
+  (its ``ConvBlock_k``, ``Conv_0``, ``Conv_1`` the same way), the
+  top-level biased ``Conv_i`` <-> ``conv_i``;
 - the DARTS search network: ``Cell_3`` <-> ``cells.3``, ``MixedOp_5`` <->
   ``edges.5``, ``_Op_2`` <-> ``ops.2``, ``Conv_i``/``BatchNorm_i`` as in the
   ResNet, the top-level ``Dense_0`` <-> ``dense_0``, and the ``arch``
@@ -70,6 +74,7 @@ _COMPONENTS = {
     "Dense_1": "fc_1",
     "Embed_0": "embed",
     "SqueezeExcite_0": "se",
+    "ASPP_0": "aspp",
 }
 _INVERSE = {v: k for k, v in _COMPONENTS.items()}
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
@@ -93,7 +98,7 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, Any]:
 # a flax component "<prefix>_<n>" is the port's "<list>.<n>"
 _LISTS = {"Cell": "cells", "MixedOp": "edges", "_Op": "ops",
           "DepthwiseSeparable": "separables", "InvertedResidual": "inverted",
-          "MBConv": "mbconvs"}
+          "MBConv": "mbconvs", "ConvBlock": "convblocks"}
 _NORMS = {"BatchNorm": "bn", "GroupNorm": "gn"}
 _LIST_INVERSE = {v: k for k, v in _LISTS.items()}
 

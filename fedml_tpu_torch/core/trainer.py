@@ -128,11 +128,62 @@ def tag_metrics(logits: torch.Tensor, batch: Batch) -> dict[str, torch.Tensor]:
     }
 
 
+def _pixel_mask(batch: Batch, ce: torch.Tensor) -> torch.Tensor:
+    """An example-level ``[B]`` (or pixel-level ``[B, H, W]``) mask broadcast
+    to the per-pixel CE's shape."""
+    m = batch["mask"]
+    while m.ndim < ce.ndim:
+        m = m[..., None]
+    return m.expand(ce.shape)
+
+
+def _masked_seg_ce(logits: torch.Tensor, batch: Batch):
+    """The validity contract the segmentation loss and metrics share: a label
+    outside ``[0, C)`` (the 255 ignore label) leaves the mask, and the CE
+    runs on the clipped label (an out-of-range label's CE times a 0 mask
+    would be NaN). Returns (ce, mask, clipped labels)."""
+    num_classes = logits.shape[-1]
+    y = batch["y"]
+    valid = ((y >= 0) & (y < num_classes)).float()
+    y_safe = torch.clamp(y, 0, num_classes - 1)
+    ce = _cross_entropy(logits, y_safe)
+    return ce, _pixel_mask(batch, ce) * valid, y_safe
+
+
+def segmentation_loss(logits: torch.Tensor, batch: Batch) -> torch.Tensor:
+    """Per-pixel CE of ``[B, H, W, C]`` logits against ``[B, H, W]`` integer
+    labels, averaged over the valid pixels."""
+    ce, m, _ = _masked_seg_ce(logits, batch)
+    return torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def segmentation_metrics(logits: torch.Tensor, batch: Batch) -> dict[str, torch.Tensor]:
+    """Summed pixel counts and the ``[C, C]`` confusion matrix, indexed
+    (true, predicted) and weighted by the mask. The matrix is an
+    out-of-place ``scatter_add``, which ``torch.func.vmap`` maps over the
+    clients of a per-client evaluation; its counts are integers in f32,
+    exact up to 2^24 a cell in any order of addition."""
+    num_classes = logits.shape[-1]
+    pred = torch.argmax(logits, -1)
+    ce, m, y_safe = _masked_seg_ce(logits, batch)
+    correct = (pred == batch["y"]).float()
+    idx = (y_safe.long() * num_classes + pred).reshape(-1)  # in bounds, masked to 0 if ignored
+    conf = torch.zeros(num_classes * num_classes, dtype=torch.float32,
+                       device=logits.device).scatter_add(0, idx, m.reshape(-1).float())
+    return {
+        "test_correct": torch.sum(correct * m),
+        "test_loss": torch.sum(ce * m),  # per-pixel sum; the engine divides by the total
+        "test_total": torch.sum(m),
+        "confusion": conf.reshape(num_classes, num_classes),
+    }
+
+
 TASKS: dict[str, tuple[Callable, Callable]] = {
     "classification": (classification_loss, classification_metrics),
     "nwp": (lm_loss, lm_metrics),
     "char_lm": (lm_loss, lm_metrics),
     "tag": (tag_loss, tag_metrics),
+    "segmentation": (segmentation_loss, segmentation_metrics),
 }
 
 
@@ -432,9 +483,7 @@ class ClientTrainer:
 
     def __post_init__(self):
         if self.task not in TASKS:
-            raise NotImplementedError(
-                f"task {self.task!r} is not ported yet (ported: {sorted(TASKS)}); "
-                "ROADMAP §A3 and the slices that need it")
+            raise ValueError(f"unknown task {self.task!r} (one of {sorted(TASKS)})")
 
     @property
     def loss_and_metrics(self):

@@ -9,9 +9,12 @@ otherwise), ``femnist``, ``shakespeare``, ``fed_shakespeare``,
 fallbacks, ``fed_cifar100`` on its CIFAR-like fallback, and
 ``synthetic[_alpha_beta]``. The branches that read real files with h5py
 raise when those files are present (ROADMAP §A6b: the card's machine has no
-h5py), never falling through to synthetic data; ImageNet and the landmarks
-sets raise (ROADMAP §A13). The synthetic fixtures are copies of the JAX
-package's, bitwise equal for the same arguments.
+h5py), never falling through to synthetic data. ImageNet
+(``imagenet``/``ILSVRC2012``) and the landmarks sets (``gld23k``,
+``gld160k``, ``landmarks``) read image trees with Pillow when both are
+there (``data/vision_fed.py``), else use their synthetic fixtures. The
+synthetic fixtures are copies of the JAX package's, bitwise equal for the
+same arguments.
 """
 
 from __future__ import annotations
@@ -109,9 +112,9 @@ def load_partition_data(
 ) -> FedDataset:
     """Dataset-name dispatch matching the reference experiment scripts'
     ``load_data`` (main_fedavg.py:133-351). Falls back to hermetic synthetic
-    fixtures when real files are absent. ``image_size`` sizes only the
-    unported ImageNet/landmarks decoders; ``limit_per_class`` caps CINIC-10's
-    decode."""
+    fixtures when real files are absent. ``image_size`` / ``limit_per_class``
+    cap the in-memory decode for the large vision datasets (and
+    ``limit_per_class`` CINIC-10's)."""
     data_dir = data_dir or f"./data/{dataset}"
 
     if dataset in ("cifar10", "cifar100", "cinic10"):
@@ -184,11 +187,41 @@ def load_partition_data(
                                                          seed=seed)
         return FedDataset(train, test, 500, test_fed, name=dataset)
 
-    if dataset in ("ILSVRC2012", "ILSVRC2012_hdf5", "imagenet", "gld23k", "gld160k",
-                   "landmarks"):
-        raise NotImplementedError(
-            f"dataset {dataset!r} is not ported to fedml_tpu_torch yet "
-            "(data/vision_fed.py): ROADMAP §A13")
+    if dataset in ("ILSVRC2012", "ILSVRC2012_hdf5", "imagenet"):
+        from fedml_tpu_torch.data import vision_fed
+
+        if (vision_fed.HAS_PIL and (Path(data_dir) / "train").is_dir()
+                and (Path(data_dir) / "val").is_dir()):
+            train, test, class_num = vision_fed.load_imagenet(
+                data_dir, client_number=client_num_in_total,
+                image_size=image_size or 224, limit_per_class=limit_per_class,
+            )
+        else:
+            logging.warning("imagenet: %s/train absent (or Pillow missing); "
+                            "using synthetic fixture", data_dir)
+            train, test, class_num = vision_fed.synthetic_imagenet(
+                client_number=client_num_in_total, seed=seed
+            )
+        return FedDataset(train, test, class_num, name=dataset)
+
+    if dataset in ("gld23k", "gld160k", "landmarks"):
+        from fedml_tpu_torch.data import vision_fed
+
+        size = "gld160k" if dataset == "gld160k" else "gld23k"
+        train_csv = Path(data_dir) / "data_user_dict" / f"{size}_user_dict_train.csv"
+        test_csv = Path(data_dir) / "data_user_dict" / f"{size}_user_dict_test.csv"
+        if vision_fed.HAS_PIL and train_csv.exists() and test_csv.exists():
+            train, test, class_num = vision_fed.load_landmarks(
+                Path(data_dir) / "images", train_csv, test_csv,
+                image_size=image_size or 224,
+            )
+        else:
+            logging.warning("%s: mapping csvs absent (or Pillow missing); "
+                            "using synthetic fixture", dataset)
+            train, test, class_num = vision_fed.synthetic_landmarks(
+                n_clients=client_num_in_total, seed=seed
+            )
+        return FedDataset(train, test, class_num, name=dataset)
 
     if dataset.startswith("synthetic"):
         from fedml_tpu_torch.data.synthetic import synthetic_classification

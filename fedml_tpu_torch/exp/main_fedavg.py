@@ -392,14 +392,14 @@ def run(args) -> list[dict]:
     return run_traced(_run, args)
 
 
-def _run(args) -> list[dict]:
+def build(args):
+    """The dataset, model, trainer, rule and ``FedSim`` that ``args``
+    describe, as :func:`run` builds them: ``(sim, config)``."""
     from fedml_tpu_torch.data.registry import load_partition_data
     from fedml_tpu_torch.models.registry import create_model
-    from fedml_tpu_torch.obs.metrics import MetricsLogger, logging_config
     from fedml_tpu_torch.population import sim_config_fields as population_fields
     from fedml_tpu_torch.sim.engine import FedSim, SimConfig
 
-    logging_config(0)
     _check_flag_combinations(args)
     _check_ported(args, vars(add_args(argparse.ArgumentParser()).parse_args([])))
     ds = load_partition_data(
@@ -441,6 +441,14 @@ def _run(args) -> list[dict]:
     else:
         sim = FedSim(trainer, ds.train, ds.test_arrays, cfg, aggregator=aggregator,
                      device=args.device)
+    return sim, cfg
+
+
+def _run(args) -> list[dict]:
+    from fedml_tpu_torch.obs.metrics import MetricsLogger, logging_config
+
+    logging_config(0)
+    sim, cfg = build(args)
     with MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb)) as metrics:
         if args.algorithm == "hierarchical":
             from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFedAvg, HierConfig

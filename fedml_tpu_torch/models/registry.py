@@ -8,8 +8,9 @@ Ported: ``lr`` (LogisticRegression), the FedAvg-paper CNNs ``cnn``
 ``efficientnet-b0`` ... ``-b8`` (a bare ``efficientnet`` is b0),
 ``vgg<depth>`` (11, 13, 16, 19; a bare ``vgg`` is VGG-16) and ``rnn``
 (``RNNStackOverflow`` on ``stackoverflow_nwp``, ``RNNOriginalFedAvg`` on
-any other dataset). The segmentation models raise, naming their ROADMAP
-item; an unknown name raises ``ValueError``, as in the JAX registry.
+any other dataset), and the segmentation models ``unet`` and ``deeplab``
+(or ``deeplab_lite``) at their full width, features (32, 64, 128); an
+unknown name raises ``ValueError``, as in the JAX registry.
 ``TASK_BY_DATASET`` and :func:`task_for_dataset` are the JAX registry's.
 """
 
@@ -26,15 +27,9 @@ from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.models.mobilenet import MobileNet, MobileNetV3
 from fedml_tpu_torch.models.resnet import resnet18_gn, resnet56, resnet110
 from fedml_tpu_torch.models.rnn import RNNOriginalFedAvg, RNNStackOverflow
+from fedml_tpu_torch.models.segmentation import DeepLabLite, UNet
 from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.models.vgg import VGG
-
-# model names of the JAX registry that a later slice ports (ROADMAP.md §A)
-_NOT_PORTED = {
-    "unet": "§A13 (fedseg: UNet)",
-    "deeplab": "§A13 (fedseg: DeepLabLite)",
-    "deeplab_lite": "§A13 (fedseg: DeepLabLite)",
-}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -45,7 +40,7 @@ _INPUT_SHAPES = {"mnist": (28, 28), "femnist": (28, 28), "cifar10": (32, 32, 3),
                  "fed_cifar100": (32, 32, 3)}
 
 # models whose compute dtype the JAX registry refuses to set
-_NO_DTYPE = ("lr", "rnn")
+_NO_DTYPE = ("lr", "rnn", "unet", "deeplab", "deeplab_lite")
 
 
 # the CIFAR zoo without an input shape, by name
@@ -55,6 +50,9 @@ _ZOO = {
     "mobilenet_v3": lambda class_num, **kw: MobileNetV3(num_classes=class_num, mode="large",
                                                         **kw),
 }
+
+# the segmentation models, which take their input's channel count
+_SEG = {"unet": UNet, "deeplab": DeepLabLite, "deeplab_lite": DeepLabLite}
 
 
 def create_model(model_name: str, output_dim: int, dataset: str = "",
@@ -69,7 +67,9 @@ def create_model(model_name: str, output_dim: int, dataset: str = "",
     than f32 for a model without one (``lr``, ``rnn``) raises; ``rnn``
     ignores ``output_dim`` (its vocabulary is the model's), as there.
     ``input_shape`` is one example's shape (e.g. ``(28, 28)``), which sizes
-    ``lr``'s, the CNNs' and VGG's first Dense; it defaults to the dataset's
+    ``lr``'s, the CNNs' and VGG's first Dense and the segmentation models'
+    first conv (its last axis, the channels; 3 without it); it defaults to
+    the dataset's
     (28 x 28 for ``mnist`` and ``femnist``, 32 x 32 x 3 for the CIFAR
     datasets). ``model_kwargs`` set the model's other fields (for the
     transformer: ``embed_dim``, ``num_layers``, ``num_heads``, ``max_len``,
@@ -78,13 +78,8 @@ def create_model(model_name: str, output_dim: int, dataset: str = "",
     ``drop_connect_rate``; for ``rnn``: ``vocab_size``, ``embedding_dim``,
     ``hidden_size``). The model is built on ``device``, which must be
     available."""
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_name!r} (dataset={dataset!r}) is not ported to "
-            f"fedml_tpu_torch yet: ROADMAP {_NOT_PORTED[model_name]}"
-        )
-    if not (model_name in _ZOO or model_name in ("lr", "cnn", "cnn_original", "lenet",
-                                                 "transformer", "rnn")
+    if not (model_name in _ZOO or model_name in _SEG
+            or model_name in ("lr", "cnn", "cnn_original", "lenet", "transformer", "rnn")
             or model_name.startswith(("efficientnet", "vgg"))):
         raise ValueError(f"unknown model {model_name!r} (dataset={dataset!r})")
     if isinstance(dtype, str):
@@ -96,6 +91,11 @@ def create_model(model_name: str, output_dim: int, dataset: str = "",
     if model_name == "rnn":
         factory = RNNStackOverflow if dataset == "stackoverflow_nwp" else RNNOriginalFedAvg
         return factory(device=device, **model_kwargs)
+    if model_name in _SEG:
+        shape = input_shape or _INPUT_SHAPES.get(dataset)
+        return _SEG[model_name](num_classes=output_dim,
+                                in_channels=shape[-1] if shape and len(shape) == 3 else 3,
+                                device=device, **model_kwargs)
     if model_name == "lr":
         shape = input_shape or _INPUT_SHAPES.get(dataset)
         if shape is None:
@@ -130,6 +130,17 @@ TASK_BY_DATASET = {
     "shakespeare": "char_lm",
     "fed_shakespeare": "char_lm",
 }
+
+
+def to_float64(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` in float64, in place: its parameters, its buffers and
+    every layer's compute ``dtype``, the float64 reference of an f32 run.
+    Returns ``module``."""
+    module.double()
+    for mod in module.modules():
+        if isinstance(getattr(mod, "dtype", None), torch.dtype):
+            mod.dtype = torch.float64
+    return module
 
 
 def task_for_dataset(dataset: str) -> str:

@@ -63,27 +63,30 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 class Conv(nn.Module):
     """Flax ``Conv(features, (k, k), strides, padding="SAME", use_bias=False,
-    feature_group_count=groups, dtype)`` on NCHW input: ``weight [out, in /
-    groups, k, k]`` (flax's HWIO kernel as OIHW), cast with the input to the
-    compute dtype."""
+    feature_group_count=groups, kernel_dilation=dilation, dtype)`` on NCHW
+    input: ``weight [out, in / groups, k, k]`` (flax's HWIO kernel as OIHW),
+    cast with the input to the compute dtype. A dilated kernel pads as its
+    dilated extent ``(k - 1) * dilation + 1`` does, as XLA pads it."""
 
     def __init__(self, in_channels, out_channels, kernel, stride=1, dtype=torch.float32,
-                 device=None, groups=1, bias=False):
+                 device=None, groups=1, bias=False, dilation=1):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kernel,
                                                kernel, device=device))
         self.bias = nn.Parameter(torch.zeros(out_channels, device=device)) if bias else None
         self.kernel, self.stride, self.dtype, self.groups = kernel, stride, dtype, groups
+        self.dilation = dilation
 
     def forward(self, x):
-        (top, bottom), (left, right) = (same_padding(n, self.kernel, self.stride)
+        extent = (self.kernel - 1) * self.dilation + 1
+        (top, bottom), (left, right) = (same_padding(n, extent, self.stride)
                                         for n in x.shape[-2:])
         x = x.to(self.dtype)
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom))
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x, self.weight.to(self.dtype), bias, stride=self.stride,
-                        groups=self.groups)
+                        dilation=self.dilation, groups=self.groups)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         # flax lecun_normal: truncated normal, variance 1 / (k * k * in / groups)

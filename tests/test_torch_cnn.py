@@ -174,8 +174,13 @@ def test_registry_names_and_tasks():
     m = create_model("cnn_original", 62, "femnist", dtype="bfloat16", device="cpu")
     assert all(p.dtype == torch.float32 for p in m.parameters())
     assert m(torch.zeros(2, 28, 28)).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="§A13"):
-        create_model("unet", 10, device="cpu")
+    # the fedseg models build (channels from the input shape) and, as in the
+    # JAX registry, take no compute dtype
+    assert create_model("unet", 10, "mnist", device="cpu",
+                        input_shape=(28, 28, 1))(torch.zeros(2, 28, 28, 1)).shape == (2, 28, 28,
+                                                                                      10)
+    with pytest.raises(ValueError, match="does not take a compute dtype"):
+        create_model("unet", 10, dtype="bfloat16", device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         create_model("alexnet", 10, device="cpu")
     # the CIFAR zoo's names build with the JAX package's parameter shapes

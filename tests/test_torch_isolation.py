@@ -66,6 +66,11 @@ def test_every_port_module_imports_without_jax_sklearn_or_yaml():
                      for f in (ROOT / "fedml_tpu_torch").rglob("*.py"))
     assert "fedml_tpu_torch.exp.main_fedavg" in modules
     assert "fedml_tpu_torch.data.leaf_fixture" in modules
+    assert {"fedml_tpu_torch.models.segmentation", "fedml_tpu_torch.algorithms.fedseg",
+            "fedml_tpu_torch.exp.main_fedseg", "fedml_tpu_torch.exp.main_dol",
+            "fedml_tpu_torch.data.uci", "fedml_tpu_torch.data.vision_fed",
+            "fedml_tpu_torch.schedule.scheduler",
+            "fedml_tpu_torch.algorithms.turboaggregate"} <= set(modules)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in modules if not m.endswith("__main__"))
     proc = _run_blocked(code, BANNED + ("yaml",))

@@ -149,9 +149,14 @@ def test_known_datasets_and_unported_branches(tmp_path):
         (d / name).write_bytes(b"")
         with pytest.raises(NotImplementedError, match="§A6b"):
             registry.load_partition_data(dataset, str(d))
+    # ImageNet and the landmarks sets load the JAX registry's fallbacks
     for dataset in ("imagenet", "gld23k"):
-        with pytest.raises(NotImplementedError, match="§A13"):
-            registry.load_partition_data(dataset, str(tmp_path / "none"))
+        got = registry.load_partition_data(dataset, str(tmp_path / "none"))
+        want = jregistry.load_partition_data(dataset, str(tmp_path / "none"))
+        _same_fed(got.train, want.train)
+        assert got.class_num == want.class_num
+        for k in want.test_arrays:
+            np.testing.assert_array_equal(got.test_arrays[k], want.test_arrays[k])
     with pytest.raises(ValueError, match="unknown dataset"):
         registry.load_partition_data("nope")
 

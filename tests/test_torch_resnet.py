@@ -28,6 +28,7 @@ import torch
 from flax import linen as nn
 
 from fedml_tpu.core.trainer import ClientTrainer as JaxTrainer
+from fedml_tpu.models.registry import create_model as jax_create_model
 from fedml_tpu.models.resnet import CifarResNet as JaxResNet
 from fedml_tpu.models.resnet import resnet18_gn as jax_resnet18_gn
 from fedml_tpu.models.resnet import resnet56 as jax_resnet56
@@ -153,8 +154,9 @@ def test_converter_round_trip_bitwise(rng):
 
 def test_resnet56_shapes_match_jax():
     """The registry's ResNet-56 has the JAX ResNet-56's variables, name for
-    name and shape for shape; ResNet-110 and ResNet-18 with GroupNorm too; a
-    §A13 model raises."""
+    name and shape for shape; ResNet-110 and ResNet-18 with GroupNorm too,
+    and the fedseg UNet, whose ConvBlocks take the ResNet's Conv and
+    GroupNorm."""
     for name, jax_model in (("resnet56", jax_resnet56()), ("resnet110", JaxResNet(depth=110))):
         shapes = jax.eval_shape(jax_model.init, jax.random.key(0), jnp.zeros((1, 32, 32, 3)))
         zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), dict(shapes))
@@ -162,8 +164,11 @@ def test_resnet56_shapes_match_jax():
         assert {k: tuple(v.shape) for k, v in convert.from_flax(zeros).items()} == {
             k: tuple(v.shape) for k, v in model.state_dict().items()}
         assert all(p.dtype == torch.float32 for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="§A13"):
-        create_model("unet", 10, device="cpu")
+    shapes = jax.eval_shape(jax_create_model("unet", 10).init, jax.random.key(0),
+                            jnp.zeros((1, 32, 32, 3)))
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), dict(shapes))
+    assert {k: tuple(v.shape) for k, v in convert.from_flax(zeros).items()} == {
+        k: tuple(v.shape) for k, v in create_model("unet", 10, device="cpu").state_dict().items()}
     # the GroupNorm ResNet-18 builds with the JAX resnet18_gn's shapes
     shapes = jax.eval_shape(jax_resnet18_gn().init, jax.random.key(0),
                             jnp.zeros((1, 32, 32, 3)))

@@ -131,8 +131,11 @@ def test_registry_and_unported_options():
                          num_layers=1, num_heads=H, max_len=T, attn_impl="flash")
     assert model.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("unet", 100, device="cpu")
+    # the fedseg DeepLabLite builds, its variables convert to flax's tree and back
+    deeplab = create_model("deeplab", 100, device="cpu")
+    assert convert.from_flax(convert.to_flax(deeplab.state_dict())).keys() == \
+        deeplab.state_dict().keys()
+    assert "ASPP_0" in convert.to_flax(deeplab.state_dict())["params"]
     for kwargs in ({"attn_impl": "ring"}, {"mp_axis": "model"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_model("transformer", V, device="cpu", embed_dim=D, num_heads=H, **kwargs)
