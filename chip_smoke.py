@@ -202,7 +202,24 @@ Phases, each of which exits non-zero on failure:
     defaults (DSGD, and Push-Sum on the time-varying graph) on the card
     against the CPU, regret
     within 1e-5 relative, the late half of the stream cheaper than the
-    early half.
+    early half;
+19. the message-passing wire path over the loopback fabric (no flash
+    launch on any of its paths; after ``[split and vertical]``,
+    ``[wire]``): ``run_distributed_fedavg_loopback`` on LR against the
+    port's FedSim on the card (rtol 2e-4 / atol 2e-5) and against the same
+    wire run on the CPU (1e-5); the cross-silo flagship over the wire
+    (``main_fedavg --backend loopback``, CIFAR-10 + ResNet-56 bf16, 10
+    silos all in the round, B=64, SGD 0.001 wd 0.001, hetero 0.5, E=1, 1
+    round, cut in depth to a 10k/2k fixture, over an
+    ``OrderedUplinkFabric`` under deterministic algorithms), holding the
+    global bitwise the f64 weighted mean of the captured uploads, rank 1's
+    upload bitwise a direct ``make_local_train`` in the JAX layout and a
+    finite eval, with the round's seconds, its split from the tracer's
+    spans, uplink bytes and peak memory; BASELINE row 1 over the wire, 2
+    rounds, ``--is_mobile 1`` bitwise the native run and top-k + EF and q4
+    streaming bitwise buffered, ``Comm/UplinkBytes`` the static figure;
+    ``run_cross_silo`` card against CPU (1e-5); ``main_turboaggregate`` at
+    its defaults against open FedAvg of the same round (atol 1e-3).
 
 Each phase prints its seconds (``[phase]``). It prints a
 ``{"kernels": [...]}`` line, then as its last line
@@ -4944,6 +4961,462 @@ def vision_fed_numerics(torch, devices=("cuda", "cpu")):
     return result
 
 
+# the message-passing wire path (ROADMAP §A11): the cross-silo
+# flagship over the loopback fabric at full width, cut in depth to 1 round
+# [100] on a CIFAR-10 fixture of 10k/2k images [50k/10k], ~160 eager client
+# steps a round [~790], for the script's time budget
+WIRE = dict(clients=10, batch=64, lr=0.001, wd=0.001, epochs=1, rounds=1,
+            n_train=10_000, n_test=2_000, small_rounds=3,
+            mnist_rounds=2, silo_rounds=2, card_atol=1e-5, sim_rtol=2e-4, sim_atol=2e-5,
+            ta_atol=1e-3)
+
+
+def _wire_run(original, buffered=False, into=None):
+    """A ``_wrapped`` maker for ``run_distributed_fedavg_loopback``: the run
+    over an ``OrderedUplinkFabric`` (the server folds the uploads in sender
+    order, so two runs fold alike), with the buffered tally when asked;
+    ``into`` gets each run's final variables."""
+    from fedml_tpu_torch.algorithms.fedavg_distributed import MyMessage
+    from fedml_tpu_torch.comm.loopback import OrderedUplinkFabric
+
+    def run(*args, **kwargs):
+        workers = kwargs["worker_num"] if "worker_num" in kwargs else args[2]
+        kwargs["fabric"] = OrderedUplinkFabric(workers + 1, workers,
+                                               MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER)
+        if buffered:
+            kwargs["server_kwargs"] = {**(kwargs.get("server_kwargs") or {}),
+                                       "buffered_aggregation": True}
+        out = original(*args, **kwargs)
+        if into is not None:
+            into.append({k: v.clone() for k, v in out.items()})
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """cuDNN's deterministic algorithms, and torch's where it has them (a
+    warning, not an error, for an op without one)."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def _state_gap(torch, a, b):
+    return max(float(torch.max(torch.abs(a[k].cpu().double() - b[k].cpu().double())))
+               for k in a)
+
+
+def _wire_vs_sim(torch):
+    """The wire against the port's FedSim at full participation, full batch,
+    E=1 and no shuffle, both on the card (``tests/test_comm.py``'s bound),
+    and the wire run on the card against the same run on the CPU."""
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+    from fedml_tpu_torch.comm.loopback import OrderedUplinkFabric
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.data.synthetic import gaussian_blobs
+    from fedml_tpu_torch.models.linear import LogisticRegression
+    from fedml_tpu_torch.sim.engine import FedSim, SimConfig
+
+    c = WIRE
+    train, test = gaussian_blobs(n_clients=4, samples_per_client=24, seed=6)
+    batch = train.max_client_size()
+    finals = {}
+    start = ClientTrainer(module=LogisticRegression(num_classes=4, in_features=16, device="cpu")
+                          ).init(rnglib.generator(0, "cpu"))
+    for device in ("cuda", "cpu"):
+        trainer = ClientTrainer(module=LogisticRegression(num_classes=4, in_features=16,
+                                                          device=device),
+                                optimizer=sgd(0.1), epochs=1)
+        fabric = OrderedUplinkFabric(5, 4, tfd.MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER)
+        finals[device] = tfd.run_distributed_fedavg_loopback(
+            trainer, train, 4, c["small_rounds"], batch, fabric=fabric, init_overrides=start)
+        if device == "cuda":
+            cfg = SimConfig(client_num_in_total=4, client_num_per_round=4, batch_size=batch,
+                            comm_round=c["small_rounds"], frequency_of_the_test=100,
+                            shuffle_each_round=False)
+            sim_vars, _ = FedSim(trainer, train, test, cfg, device="cuda").run(
+                variables={k: v.to("cuda") for k, v in start.items()})
+    sim_gap = max(float(np.max(np.abs(finals["cuda"][k].numpy() - sim_vars[k].cpu().numpy())
+                                 - c["sim_rtol"] * np.abs(sim_vars[k].cpu().numpy())))
+                  for k in sim_vars)
+    raw_sim = _state_gap(torch, finals["cuda"], sim_vars)
+    card_cpu = _state_gap(torch, finals["cuda"], finals["cpu"])
+    log(f"[wire] loopback FedAvg (LR, 4 blobs clients, full batch, E=1, {c['small_rounds']} "
+        f"rounds) on the card against the port's FedSim on the card: largest difference "
+        f"{raw_sim:.3e} (bound atol {c['sim_atol']} + rtol {c['sim_rtol']}); against the same "
+        f"wire run on the CPU: {card_cpu:.3e} (bound {c['card_atol']})")
+    if sim_gap > c["sim_atol"]:
+        fail(f"wire vs FedSim on the card: {raw_sim:.3e} beyond atol {c['sim_atol']} + rtol "
+             f"{c['sim_rtol']}")
+    if card_cpu > c["card_atol"]:
+        fail(f"wire run card vs CPU: {card_cpu:.3e} > {c['card_atol']}")
+
+
+def _span_totals(tracer) -> tuple[dict, float]:
+    """Seconds and count of each span name the tracer recorded, and the
+    round's seconds: from the first client's decode of the sync to the end
+    of the round's close (one round)."""
+    out: dict = {}
+    spans = [rec for rec in tracer.events() if rec.get("ph") == "X"]
+    for rec in spans:
+        s, n = out.get(rec["name"], (0.0, 0))
+        out[rec["name"]] = (s + rec["dur"] / 1e6, n + 1)
+    start = min(rec["ts"] for rec in spans if rec["name"] == "client/decode")
+    end = max(rec["ts"] + rec["dur"] for rec in spans if rec["name"] == "round/close")
+    return out, (end - start) / 1e6
+
+
+def _wire_fixture():
+    """The wire flagship's CIFAR-10 fixture (``WIRE``'s size, the
+    ``[cross-silo]`` fixture's seed and signal); returns its directory."""
+    from fedml_tpu_torch.exp.repro_cross_silo import write_cifar10_fixture
+
+    data_dir = BUILD_DIR / "cifar10_wire"
+    write_cifar10_fixture(data_dir, n_train=WIRE["n_train"], n_test=WIRE["n_test"], seed=0,
+                          signal=0.045)
+    return data_dir
+
+
+def _wire_flagship(torch, plain_flagship_s):
+    """The cross-silo flagship over the wire: ``main_fedavg --backend
+    loopback`` with CIFAR-10 + ResNet-56 bf16, 10 silos all in the round,
+    B=64, SGD 0.001 wd 0.001, hetero 0.5, E=1, 1 round, on a CIFAR-10
+    fixture of ``WIRE``'s size written as ``[cross-silo]``'s is (its write
+    timed), over an OrderedUplinkFabric, under deterministic algorithms.
+    Holds (a) the global after the round bitwise the f64 weighted mean of
+    the ten captured uploads in arrival order, (b) rank 1's upload bitwise
+    ``make_local_train`` called directly on the same batches and converted
+    to the JAX layout, (c) a finite eval. Prints the round's seconds, its
+    split from the tracer's spans, uplink bytes and peak memory."""
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+    from fedml_tpu_torch.core.trainer import make_local_train
+    from fedml_tpu_torch.obs import trace
+    from fedml_tpu_torch.sim.cohort import stack_cohort, steps_per_epoch
+
+    c = WIRE
+    t0 = time.perf_counter()
+    data_dir = _wire_fixture()
+    write_s = time.perf_counter() - t0
+    argv = ["--backend", "loopback", "--dataset", "cifar10", "--model", "resnet56",
+            "--model_dtype", "bfloat16", "--data_dir", str(data_dir),
+            "--partition_method", "hetero", "--partition_alpha", "0.5",
+            "--client_num_in_total", str(c["clients"]),
+            "--client_num_per_round", str(c["clients"]), "--batch_size", str(c["batch"]),
+            "--lr", str(c["lr"]), "--wd", str(c["wd"]), "--epochs", str(c["epochs"]),
+            "--comm_round", str(c["rounds"]), "--frequency_of_the_test", str(c["rounds"])]
+    uploads, globals_, rank1 = [], [], {}
+
+    def keep_upload(original):
+        def add(self, index, flat, n):
+            uploads.append((index, np.array(flat), float(n)))
+            return original(self, index, flat, n)
+        return add
+
+    def keep_global(original):
+        def aggregate(self):
+            out = original(self)
+            globals_.append(np.array(out))
+            return out
+        return aggregate
+
+    def keep_rank1(original):
+        def train(trainer, local_train, data, client_idx, batch, round_idx, rng_seed,
+                  variables, exec_lock=None):
+            out = original(trainer, local_train, data, client_idx, batch, round_idx,
+                           rng_seed, variables, exec_lock)
+            if rng_seed == 1 * 100003 + round_idx and round_idx == 0:
+                rank1.update(trainer=trainer, data=data, client_idx=client_idx,
+                             variables={k: v.clone() for k, v in variables.items()},
+                             upload=tfd.pack_state(out[0]))
+            return out
+        return train
+
+    tracer = trace.install(trace.Tracer())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _deterministic(torch), \
+                _wrapped(tfd.FedAvgDistAggregator, "add_local_trained_result", keep_upload), \
+                _wrapped(tfd.FedAvgDistAggregator, "aggregate", keep_global), \
+                _wrapped(tfd, "train_wire_round", keep_rank1), \
+                _wrapped(tfd, "run_distributed_fedavg_loopback", _wire_run):
+            history, wall = _cli(torch, argv)
+            peak = torch.cuda.max_memory_allocated()
+            # (b): the same round called directly, after the run
+            local_train = make_local_train(rank1["trainer"])
+            batches, _ = stack_cohort(rank1["data"], np.asarray([rank1["client_idx"]]),
+                                      c["batch"], rng=np.random.RandomState(1000))
+            direct, _ = local_train(rank1["variables"],
+                                    {k: torch.from_numpy(v[0]).to("cuda")
+                                     for k, v in batches.items()})
+            direct_bytes = tfd.pack_state(direct)
+    finally:
+        trace.uninstall()
+    spans, round_s = _span_totals(tracer)
+    if len(uploads) != c["clients"] or len(globals_) != c["rounds"]:
+        fail(f"wire flagship: {len(uploads)} uploads, {len(globals_)} globals")
+    acc = np.zeros(uploads[0][1].size // 4, np.float64)
+    wsum = 0.0
+    for _, flat, n in uploads:
+        acc += np.multiply(flat.view(np.float32), n, dtype=np.float64)
+        wsum += n
+    mean = (acc / wsum).astype(np.float32).view(np.uint8)
+    if not np.array_equal(mean, globals_[0]):
+        fail("wire flagship (a): the global is not the f64 weighted mean of the uploads")
+    sent1 = next(flat for i, flat, _ in uploads if i == 0)
+    if not (np.array_equal(rank1["upload"], sent1) and np.array_equal(direct_bytes, sent1)):
+        fail("wire flagship (b): rank 1's upload differs from make_local_train called directly "
+             f"({int(np.sum(direct_bytes != sent1))} bytes differ)")
+    last = history[-1]
+    if not all(np.isfinite([last["Test/Acc"], last["Test/Loss"]])):
+        fail(f"wire flagship (c): non-finite eval {last}")
+    uplink = sum(flat.size for _, flat, _ in uploads)
+    steps = sum(steps_per_epoch(int(n), c["batch"]) for _, _, n in uploads) * c["epochs"]
+    split = {k: spans.get(k, (0.0, 0)) for k in (
+        "client/train", "client/decode", "client/encode", "server/decode", "server/fold",
+        "server/aggregate", "round/close", "comm/send", "comm/broadcast")}
+    log(f"[wire] flagship over the wire (CIFAR-10 fixture {c['n_train']}/{c['n_test']}, "
+        f"written in {write_s:.2f} s, + ResNet-56 bf16, {c['clients']} silos x B={c['batch']}, "
+        f"E={c['epochs']}, {c['rounds']} round of {steps} client steps, OrderedUplinkFabric, "
+        f"deterministic): the round {round_s:.3f} s (first sync decoded to the round's "
+        f"close), {wall:.2f} s for the CLI run (data, model, the round, eval); "
+        f"(a) global == f64 mean of the {len(uploads)} uploads in arrival order: bitwise; (b) "
+        f"rank 1's upload == make_local_train direct, JAX layout: bitwise; (c) Test/Acc "
+        f"{last['Test/Acc']:.4f} Test/Loss {last['Test/Loss']:.5f}")
+    log("[wire] flagship split (tracer spans, seconds summed over threads, count): "
+        + ", ".join(f"{k} {s:.3f} s x{n}" for k, (s, n) in split.items()))
+    log(f"[wire] flagship uplink {uplink} bytes ({uplink / len(uploads)} an upload), peak "
+        f"device memory {peak / 2**30:.2f} GiB; {round_s / steps * 1e3:.1f} ms a client step; "
+        f"[cross-silo]'s vmapped sim round on its {CROSS_SILO['n_train']}-image fixture for "
+        f"comparison (printed, not held): {plain_flagship_s[0]:.3f} s")
+    return {"round_s": round_s, "split": split, "uplink": uplink, "peak": peak}
+
+
+def _wire_mnist(torch, mnist_dir):
+    """BASELINE row 1 (MNIST + LR, the LEAF fixture) over the wire, 10
+    clients a round, 2 rounds: ``--is_mobile 1`` bitwise the native run on
+    the card; top-k 0.01 with error feedback and q4, each with the
+    streaming and the buffered tally, bitwise alike, their ``Comm/*``
+    printed and held to the static byte figure (each upload's encoded
+    planes by shape and dtype, plus its descriptor)."""
+    import functools
+
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+    from fedml_tpu_torch.comm.message import pack_encoded_update
+    from fedml_tpu_torch.compress import make_codec
+
+    c = WIRE
+    rounds = c["mnist_rounds"]
+    base = _mnist_argv(mnist_dir, rounds, rounds, "--backend", "loopback")
+    finals, hist = {}, {}
+    for name, extra, buffered in (
+            ("native", [], False), ("mobile", ["--is_mobile", "1"], False),
+            ("topk", ["--compressor", "topk", "--topk_frac", "0.01", "--error_feedback", "1"],
+             False),
+            ("topk buffered", ["--compressor", "topk", "--topk_frac", "0.01",
+                               "--error_feedback", "1"], True),
+            ("q4", ["--compressor", "q4"], False), ("q4 buffered", ["--compressor", "q4"], True)):
+        into = []
+        with _deterministic(torch), _wrapped(tfd, "run_distributed_fedavg_loopback",
+                                             functools.partial(_wire_run, buffered=buffered,
+                                                               into=into)):
+            hist[name], secs = _cli(torch, base + extra)
+        finals[name] = into[0]
+        log(f"[wire] row 1 {name}: {rounds} rounds in {secs:.2f} s, final "
+            f"{json.dumps(hist[name][-1])}")
+    for a, b in (("native", "mobile"), ("topk", "topk buffered"), ("q4", "q4 buffered")):
+        gap = _state_gap(torch, finals[a], finals[b])
+        if gap != 0.0 or hist[a] != hist[b]:
+            fail(f"wire row 1: {a} and {b} differ ({gap:.3e})")
+    log("[wire] row 1: mobile == native, streaming == buffered (top-k + EF, q4): bitwise")
+    shapes = {"params/Dense_0/bias": (10,), "params/Dense_0/kernel": (784, 10)}
+    zeros = {k: torch.zeros(s) for k, s in shapes.items()}
+    for spec in ("topk", "q4"):
+        codec = make_codec(spec, topk_frac=0.01)
+        enc = codec.encode(zeros, _HalfUniforms(torch))
+        flat, desc = pack_encoded_update(enc)
+        static = c["clients"] * (enc.nbytes + len(desc))
+        got = [rec["Comm/UplinkBytes"] for rec in hist[spec]]
+        log(f"[wire] row 1 {spec}: Comm/UplinkBytes a round {got}, "
+            f"Comm/CompressionRatio {[round(r['Comm/CompressionRatio'], 4) for r in hist[spec]]};"
+            f" static figure {static} ({c['clients']} x ({enc.nbytes} plane bytes + "
+            f"{len(desc)} descriptor bytes)), dense {c['clients'] * 4 * (784 * 10 + 10)}")
+        if any(g != static for g in got):
+            fail(f"wire row 1 {spec}: uplink bytes {got} != the static figure {static}")
+
+
+class _HalfUniforms:
+    """Uniforms of 0.5 (the byte figure does not depend on them)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def uniform(self, shape, dtype=None):
+        return self.torch.full(tuple(shape), 0.5)
+
+
+def _wire_families(torch):
+    """``run_cross_silo`` with single-device silos, 2 rounds, card against
+    CPU from the same variables within 1e-5; ``main_turboaggregate`` at its
+    defaults on the card, the secure aggregate within the JAX test's 1e-3 of
+    open FedAvg over the same rounds."""
+    from fedml_tpu_torch.algorithms import cross_silo, turboaggregate_dist
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+    from fedml_tpu_torch.comm.loopback import LoopbackCommManager, OrderedUplinkFabric
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.core.trainer import ClientTrainer, make_local_train, sgd
+    from fedml_tpu_torch.data.synthetic import gaussian_blobs
+    from fedml_tpu_torch.exp import main_turboaggregate
+    from fedml_tpu_torch.models.linear import LogisticRegression
+    from fedml_tpu_torch.sim.cohort import FederatedArrays, stack_cohort
+
+    c = WIRE
+    train, _ = gaussian_blobs(n_clients=2, samples_per_client=48, num_classes=4, seed=9)
+    silos = []
+    for s in range(2):
+        idx = train.partition[s]
+        silos.append(FederatedArrays({k: v[idx] for k, v in train.arrays.items()},
+                                     {0: np.arange(len(idx))}))
+    start = ClientTrainer(module=LogisticRegression(num_classes=4, in_features=16, device="cpu")
+                          ).init(rnglib.generator(0, "cpu"))
+
+    def from_start(original):
+        def init_template(trainer, arrays, batch_size, seed=0, init_overrides=None):
+            return original(trainer, arrays, batch_size, seed, init_overrides=start)
+        return init_template
+
+    finals = {}
+    for device in ("cuda", "cpu"):
+        trainer = ClientTrainer(module=LogisticRegression(num_classes=4, in_features=16,
+                                                          device=device),
+                                optimizer=sgd(0.3), epochs=2)
+        fabric = OrderedUplinkFabric(3, 2, tfd.MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER)
+        with _wrapped(cross_silo, "init_template", from_start):
+            finals[device] = cross_silo.run_cross_silo(
+                trainer, silos, c["silo_rounds"], 16, lambda r: LoopbackCommManager(fabric, r),
+                silo_meshes=[torch.device(device)] * 2)
+    silo_gap = _state_gap(torch, finals["cuda"], finals["cpu"])
+    log(f"[wire] run_cross_silo, 2 single-device silos, {c['silo_rounds']} rounds: card vs "
+        f"CPU {silo_gap:.3e} (bound {c['card_atol']})")
+    if silo_gap > c["card_atol"]:
+        fail(f"wire cross-silo card vs CPU {silo_gap:.3e} > {c['card_atol']}")
+
+    got = {}
+
+    def keep_run(original):
+        def run(trainer, data, workers, rounds, batch, make_comm, **kwargs):
+            got.update(trainer=trainer, data=data, workers=workers, rounds=rounds, batch=batch,
+                       seed=kwargs.get("seed", 0))
+            got["final"] = original(trainer, data, workers, rounds, batch, make_comm, **kwargs)
+            return got["final"]
+        return run
+
+    with _wrapped(turboaggregate_dist, "run_turboaggregate", keep_run):
+        out = main_turboaggregate.main(["--device", "cuda"])
+    trainer, data = got["trainer"], got["data"]
+    local_train = make_local_train(trainer)
+    global_vars = tfd.init_template(trainer, data.arrays, got["batch"], got["seed"])[0]
+    for r in range(got["rounds"]):
+        models, ns = [], []
+        for rank in range(1, got["workers"] + 1):
+            batches, weights = stack_cohort(data, np.asarray([(rank - 1) % data.num_clients]),
+                                            got["batch"], rng=np.random.RandomState(1000 + r))
+            new, _ = local_train(global_vars, {k: torch.from_numpy(v[0]).to("cuda")
+                                               for k, v in batches.items()})
+            models.append(new)
+            ns.append(float(weights[0]))
+        w = np.asarray(ns) / sum(ns)
+        global_vars = {k: sum(float(wi) * m[k] for wi, m in zip(w, models)) for k in models[0]}
+    ta_gap = _state_gap(torch, got["final"], global_vars)
+    log(f"[wire] main_turboaggregate at its defaults ({got['workers']} clients, "
+        f"{got['rounds']} rounds): {json.dumps(out)}; secure aggregate vs open FedAvg "
+        f"{ta_gap:.3e} (bound {c['ta_atol']})")
+    if ta_gap > c["ta_atol"]:
+        fail(f"wire TurboAggregate vs FedAvg {ta_gap:.3e} > {c['ta_atol']}")
+
+
+def wire_client_numerics(torch, device="cuda"):
+    """Where a wire client's local round goes (not run by ``main``): one
+    client of the flagship (ResNet-56 bf16, B=64, client 0 of the wire
+    flagship's CIFAR-10 fixture's hetero split) trained by
+    ``make_local_train`` twice each under cuDNN's deterministic algorithms,
+    its defaults and its benchmark mode, printing the host's enqueue time
+    and the synchronised time; then the deterministic round under
+    ``torch.profiler``: device kernels a step and the device's busy time."""
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.core.trainer import ClientTrainer, make_local_train, sgd
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.sim.cohort import stack_cohort
+
+    c = WIRE
+    data_dir = _wire_fixture()
+    ds = load_partition_data("cifar10", str(data_dir), "hetero", 0.5, c["clients"], 0)
+    model = create_model("resnet56", 10, "cifar10", dtype="bfloat16", device=device,
+                         input_shape=tuple(ds.train.arrays["x"].shape[1:]))
+    trainer = ClientTrainer(module=model, optimizer=sgd(c["lr"], weight_decay=c["wd"]),
+                            epochs=c["epochs"])
+    start = trainer.init(rnglib.generator(0, device))
+    batches, _ = stack_cohort(ds.train, np.asarray([0]), c["batch"],
+                              rng=np.random.RandomState(1000))
+    data = {k: torch.from_numpy(v[0]).to(device) for k, v in batches.items()}
+    local_train = make_local_train(trainer)
+    steps = data["mask"].shape[0]
+    try:
+        for mode in ("deterministic", "default", "benchmark", "deterministic"):
+            torch.backends.cudnn.deterministic = mode == "deterministic"
+            torch.backends.cudnn.benchmark = mode == "benchmark"
+            for rep in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                local_train(start, data)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                log(f"[wire client] {mode} call {rep}: {steps} steps, host enqueue "
+                    f"{t1 - t0:.3f} s, synchronised {t2 - t0:.3f} s "
+                    f"({(t2 - t0) / steps * 1e3:.1f} ms a step)")
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        got = {}
+        _profiled(torch, got, local_train, start, data)
+        log(f"[wire client] deterministic round under torch.profiler: {got['kernels']} device "
+            f"kernels and copies ({got['kernels'] / steps:.0f} a step), device busy "
+            f"{got['union_us'] / 1e6:.3f} s of {got['wall']:.3f} s wall "
+            f"({1 - got['union_us'] / 1e6 / got['wall']:.1%} idle); host CUDA calls "
+            f"{got['api']}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = False
+
+
+def phase_wire(torch, mnist_dir, plain_flagship_s):
+    """The message-passing wire path on the card: the wire against
+    the sim and the CPU, the cross-silo flagship over the wire at full
+    width, row 1's mobile and compressed wire runs, cross-silo and
+    TurboAggregate. Returns the flash launches of each path (each must
+    be 0)."""
+    launches = {}
+    for name, fn, args in (("wire_sim", _wire_vs_sim, ()),
+                           ("wire_flagship", _wire_flagship, (plain_flagship_s,)),
+                           ("wire_mnist", _wire_mnist, (mnist_dir,)),
+                           ("wire_families", _wire_families, ())):
+        _zero_flash_counters()
+        t0 = time.perf_counter()
+        fn(torch, *args)
+        torch.cuda.synchronize()
+        launches[name] = _flash_launches()
+        log(f"[wire] {name}: {time.perf_counter() - t0:.2f} s, flash launches {launches[name]}")
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds printed under the phase's name."""
     t0 = time.perf_counter()
@@ -4998,9 +5471,10 @@ def main() -> None:
         cli_launches["fedgan"] = _timed("fedgan", phase_fedgan, torch, mnist_dir)
         cli_launches["split_vertical"] = _timed("split and vertical", phase_split_and_vertical,
                                                 torch, mnist_dir)
+        cli_launches.update(_timed("wire", phase_wire, torch, mnist_dir, plain_flagship_s))
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
         f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip, fedgan, "
-        f"splitnn)")
+        f"splitnn, wire)")
     femnist_loads = []
     with _loaded_once(femnist_loads):
         cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
@@ -5038,7 +5512,8 @@ def main() -> None:
                  "fednas_unrolled", "fedopt", "fednova", "robust", "hierarchical",
                  "checkpoint", "trace", "zoo_small", "cross_silo_zoo", "resnet18_gn",
                  "compress", "gossip", "fedgan", "split_vertical", "fedgkt", "fedseg",
-                 "vision_fed", "dol"):
+                 "vision_fed", "dol", "wire_sim", "wire_flagship", "wire_mnist",
+                 "wire_families"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

@@ -6,9 +6,12 @@ FedProx, FedOpt, FedNova, robust, hierarchical) so each client's delta is
 encoded (with optional error feedback), decoded, and the inner rule gets the
 *reconstructed* client models: compression is a pure transform on the
 client axis, and the per-round bytes-on-wire metrics ride the ordinary
-agg-metrics channel into the metrics stream. The wire path's host-side
-helpers (``accumulate_encoded``, ``prepare_encoded``, ...) belong to the
-message-passing backends (ROADMAP §A11).
+agg-metrics channel into the metrics stream. The message-passing server's
+host-side folds of an encoded upload into its f64 tally follow
+(:func:`accumulate_encoded`, and :func:`prepare_encoded` with
+:func:`fold_encoded_slice` for the sharded fold plane, the port of
+``fedml_tpu/compress/aggregate.py:121-235``); the tree tiers' partial
+codecs are ROADMAP §A11.
 
 The port's engine streams the cohort's models to a rule that does not ask
 for the stack (the scan mode trains one client at a time), and so does the
@@ -21,13 +24,15 @@ block and packed rounds encode them bitwise alike.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.base import Aggregator, fedavg_aggregator
 from fedml_tpu_torch.compress import error_feedback as ef
-from fedml_tpu_torch.compress.codec import Codec, tree_bytes
+from fedml_tpu_torch.compress.codec import Codec, EncodedUpdate, tree_bytes
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.obs import metrics as metricslib
+from fedml_tpu_torch.obs import trace
 
 
 def compressed_aggregator(codec: Codec, inner: Aggregator | None = None,
@@ -98,3 +103,88 @@ def compressed_aggregator(codec: Codec, inner: Aggregator | None = None,
         return new_global, new_state, {**inner_metrics, **metrics}
 
     return Aggregator(init_state, aggregate, name=f"compressed[{codec.name}]>{inner.name}")
+
+
+# ---------------------------------------------------------------------------
+# Host-side streaming accumulation for the message-passing server
+# ---------------------------------------------------------------------------
+
+
+def _flat_leaves(plane) -> list[np.ndarray]:
+    """A plane's leaves (a state dict in JAX path order, as the wire client
+    encodes the JAX layout) as flat host numpy, bfloat16 widened to f32
+    (exact)."""
+    out = []
+    for t in plane.values():
+        t = t.detach().cpu().reshape(-1)
+        out.append((t.float() if t.dtype == torch.bfloat16 else t).numpy())
+    return out
+
+
+def accumulate_encoded(acc: np.ndarray, enc: EncodedUpdate, weight: float,
+                       codec: Codec) -> None:
+    """``acc += weight * decode(enc)`` into a flat f64 accumulator laid out in
+    the ``pack_pytree`` wire order. Plain top-k updates scatter-add straight
+    from their index/value planes (no dense copy per client); other schemes
+    decode one client at a time."""
+    with trace.span("compress/accumulate", scheme=enc.scheme):
+        if enc.scheme == "topk" and not isinstance(enc.planes.get("values"), EncodedUpdate):
+            vals = _flat_leaves(enc.planes["values"])
+            idxs = _flat_leaves(enc.planes["indices"])
+            off = 0
+            for v, idx, spec in zip(vals, idxs, enc.meta_dict()["leaves"]):
+                n = int(np.prod(spec["shape"])) if spec["shape"] else 1
+                np.add.at(acc, off + idx.astype(np.int64), weight * v.astype(np.float64))
+                off += n
+            return
+        with trace.span("compress/decode", scheme=enc.scheme):
+            dense = _flat_leaves(codec.decode(enc))
+        off = 0
+        for leaf in dense:
+            acc[off : off + leaf.size] += weight * leaf.astype(np.float64)
+            off += leaf.size
+
+
+def prepare_encoded(enc: EncodedUpdate, weight: float, codec: Codec):
+    """One-shot per-upload prep for chunk-partitioned folding: the decode
+    (or top-k's global index sort) of :func:`accumulate_encoded`, so
+    :func:`fold_encoded_slice` can apply any ``[lo, hi)`` slice with the
+    serial fold's arithmetic."""
+    with trace.span("compress/accumulate", scheme=enc.scheme):
+        if enc.scheme == "topk" and not isinstance(enc.planes.get("values"), EncodedUpdate):
+            vals = _flat_leaves(enc.planes["values"])
+            idxs = _flat_leaves(enc.planes["indices"])
+            gidx_parts, contrib_parts = [], []
+            off = 0
+            for v, idx, spec in zip(vals, idxs, enc.meta_dict()["leaves"]):
+                n = int(np.prod(spec["shape"])) if spec["shape"] else 1
+                gidx_parts.append(off + idx.astype(np.int64))
+                contrib_parts.append(weight * v.astype(np.float64))
+                off += n
+            gidx = np.concatenate(gidx_parts) if gidx_parts else np.zeros(0, np.int64)
+            contrib = (np.concatenate(contrib_parts) if contrib_parts
+                       else np.zeros(0, np.float64))
+            order = np.argsort(gidx, kind="stable")
+            return ("topk", gidx[order], contrib[order])
+        with trace.span("compress/decode", scheme=enc.scheme):
+            dense = _flat_leaves(codec.decode(enc))
+        full = (np.concatenate([leaf.astype(np.float64) for leaf in dense])
+                if dense else np.zeros(0, np.float64))
+        return ("dense", float(weight), full)
+
+
+def fold_encoded_slice(acc: np.ndarray, prep, lo: int, hi: int) -> None:
+    """Apply the ``[lo, hi)`` slice of a prepared upload to ``acc``: top-k
+    through a bincount over the chunk's index partition (each element gets
+    at most one contribution, so the sums are the serial ``np.add.at``'s),
+    dense schemes with the serial per-element expression."""
+    kind = prep[0]
+    if kind == "topk":
+        _, sidx, scontrib = prep
+        a, b = np.searchsorted(sidx, (lo, hi))
+        if a == b:
+            return
+        acc[lo:hi] += np.bincount(sidx[a:b] - lo, weights=scontrib[a:b], minlength=hi - lo)
+    else:
+        _, weight, full = prep
+        acc[lo:hi] += weight * full[lo:hi]

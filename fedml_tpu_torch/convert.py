@@ -176,24 +176,24 @@ def _lstm_from_flax(name: str, cell: dict) -> dict[str, torch.Tensor]:
 
 
 def _lstm_to_flax(leaf_name: str, t: torch.Tensor) -> dict:
-    """One of ``lstm_n``'s stacked tensors -> its per-gate flax leaves."""
-    arr = t.detach().cpu().numpy()
+    """One of ``lstm_n``'s stacked tensors -> its per-gate flax leaves
+    (tensors on ``t``'s device)."""
     prefix, leaf = {"weight_ih": ("i", "kernel"), "weight_hh": ("h", "kernel"),
                     "bias_hh": ("h", "bias")}[leaf_name]
-    return {prefix + g: {leaf: np.ascontiguousarray(a.T if a.ndim == 2 else a)}
-            for g, a in zip(_GATES, np.split(arr, 4))}
+    return {prefix + g: {leaf: (a.t() if a.ndim == 2 else a).contiguous()}
+            for g, a in zip(_GATES, torch.chunk(t.detach(), 4))}
 
 
-def to_flax(state_dict: dict[str, torch.Tensor], resnet: bool | None = None) -> dict:
-    """The port's state dict, whole or in part -> ``{"params": ...}`` (and
-    ``"batch_stats"`` for a ResNet, ``"batch_stats"`` and ``"arch"`` for
-    DARTS) nested dicts of numpy arrays in the JAX package's layout; a
-    collection the state dict has no leaf of is left out. ``resnet`` None:
-    :func:`is_resnet`."""
+def to_flax_tensors(state_dict: dict[str, torch.Tensor], resnet: bool | None = None) -> dict:
+    """:func:`to_flax` with the leaves kept as contiguous torch tensors on
+    their own device: the JAX layout (flax's names and nesting, HWIO and
+    ``[in, out]`` kernels) without a trip to the host, which the wire
+    client encodes a compressed update in."""
     nets = {k.split(".", 1)[0] for k in state_dict}
     if nets and nets <= set(_PAIR):
-        return {net: to_flax({k[len(net) + 1:]: v for k, v in state_dict.items()
-                              if k.startswith(net + ".")}, resnet=False) for net in sorted(nets)}
+        return {net: to_flax_tensors({k[len(net) + 1:]: v for k, v in state_dict.items()
+                                      if k.startswith(net + ".")}, resnet=False)
+                for net in sorted(nets)}
     if resnet is None:
         resnet = is_resnet(state_dict)
     out: dict = {}
@@ -205,7 +205,7 @@ def to_flax(state_dict: dict[str, torch.Tensor], resnet: bool | None = None) -> 
             for gate, leaves in _lstm_to_flax(parts[1], t).items():
                 cell.setdefault(gate, {}).update(leaves)
             continue
-        arr = t.detach().cpu().numpy()
+        arr = t.detach()
         path = []
         i = 0
         while i < len(parts) - 1:
@@ -241,10 +241,26 @@ def to_flax(state_dict: dict[str, torch.Tensor], resnet: bool | None = None) -> 
             elif parent in ("tok_embed", "embed"):
                 last = "embedding"
             else:
-                last, arr = "kernel", arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+                last, arr = "kernel", arr.permute(*((2, 3, 1, 0) if arr.ndim == 4
+                                                    else reversed(range(arr.ndim))))
         path.append(last)
         node = out.setdefault(collection, {})
         for comp in path[:-1]:
             node = node.setdefault(comp, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = arr.contiguous()
     return out
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return np.ascontiguousarray(tree.cpu().numpy())
+
+
+def to_flax(state_dict: dict[str, torch.Tensor], resnet: bool | None = None) -> dict:
+    """The port's state dict, whole or in part -> ``{"params": ...}`` (and
+    ``"batch_stats"`` for a ResNet, ``"batch_stats"`` and ``"arch"`` for
+    DARTS) nested dicts of numpy arrays in the JAX package's layout; a
+    collection the state dict has no leaf of is left out. ``resnet`` None:
+    :func:`is_resnet`."""
+    return _to_numpy(to_flax_tensors(state_dict, resnet))

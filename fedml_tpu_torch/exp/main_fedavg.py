@@ -1,5 +1,5 @@
 """The unified experiment entry point, the port of
-``fedml_tpu/exp/main_fedavg.py`` for ``--backend sim``.
+``fedml_tpu/exp/main_fedavg.py`` for ``--backend sim`` and ``loopback``.
 
 Every flag of the JAX CLI is here with the same name, dest and default
 (reference flag names, fedml_experiments/distributed/fedavg/main_fedavg.py:
@@ -30,10 +30,23 @@ checkpoints; with ``--checkpoint_every`` the rounds run one dispatch at a
 time, so every saved round has its exact state), ``--init_from`` /
 ``--save_params_to`` (a params file in the JAX package's layout, read and
 written by either package), ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
-config; it needs PyYAML, imported only when ``--cf`` is given). The JAX
-CLI's own flag-combination errors are kept as they are; after them, a flag
-whose plane is not ported raises ``NotImplementedError`` naming its ROADMAP
-item when it is set away from its default.
+config; it needs PyYAML, imported only when ``--cf`` is given).
+
+``--backend loopback`` runs the message-passing FedAvg protocol
+(``algorithms/fedavg_distributed.py``) in one process: a server and
+``--client_num_per_round`` client managers exchanging the JAX package's wire
+frames over the loopback fabric, the clients training on the card unless
+``--device cpu`` is given; ``--algorithm fedavg`` and ``fedprox`` with
+``--compressor``/``--topk_frac``/``--quantize_bits``/``--error_feedback``,
+``--is_mobile 1`` (the nested-list JSON format), ``--init_from``,
+``--checkpoint_dir``/``--checkpoint_every``/``--resume`` (server round
+checkpoints), ``--send_retries``/``--retry_base_delay``, ``--fleet_stats``
+and ``--run_dir``.
+
+The JAX CLI's own flag-combination errors are kept as they are; after them,
+a flag whose plane is not ported raises ``NotImplementedError`` naming its
+ROADMAP item when it is set away from its default, and so do the wire-path
+features the port does not have yet (:func:`_check_wire_ported`).
 
     python -m fedml_tpu_torch.exp.main_fedavg --model lr --dataset mnist \\
         --client_num_in_total 1000 --client_num_per_round 10 --batch_size 10
@@ -73,12 +86,14 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ci", type=int, default=0)
     parser.add_argument("--is_mobile", type=int, default=0,
-                        help="JSON wire format (message-passing backends, ROADMAP §A11)")
+                        help="every client speaks the reference's nested-list JSON wire "
+                             "format (--backend loopback)")
     parser.add_argument("--backend", type=str, default="sim",
                         choices=["sim", "loopback", "shm", "grpc", "mqtt_s3"],
-                        help="sim = the single-device engine; the message-passing "
-                             "backends are ROADMAP §A11")
-    # message-passing transports (ROADMAP §A11)
+                        help="sim = the single-device engine; loopback = the "
+                             "message-passing protocol in one process; shm, grpc and "
+                             "mqtt_s3 are ROADMAP §A11")
+    # message-passing transports beyond loopback (ROADMAP §A11)
     parser.add_argument("--mqtt_host", type=str, default=None)
     parser.add_argument("--mqtt_port", type=int, default=1883)
     parser.add_argument("--object_store_dir", type=str, default=None)
@@ -116,7 +131,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         choices=["mean", "median", "trimmed_mean", "krum"])
     parser.add_argument("--reservoir_k", type=int, default=0)
     parser.add_argument("--fault_spec", type=str, default=None)
-    # fault-tolerant wire runtime (ROADMAP §A11)
+    # fault-tolerant wire runtime (the heartbeat plane is ROADMAP §A11)
     parser.add_argument("--send_retries", type=int, default=0)
     parser.add_argument("--retry_base_delay", type=float, default=0.05)
     parser.add_argument("--heartbeat_interval", type=float, default=0.0)
@@ -191,7 +206,6 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 # Setting one away from its default raises (checked after the JAX CLI's own
 # flag-combination errors).
 _UNPORTED_FLAGS = {
-    "backend": "§A11 (message-passing backends)",
     "mqtt_host": "§A11", "mqtt_port": "§A11", "object_store_dir": "§A11",
     "offload_threshold_bytes": "§A11", "grpc_send_timeout": "§A11",
     "grpc_send_workers": "§A11",
@@ -200,7 +214,6 @@ _UNPORTED_FLAGS = {
     "tree_fan_ins": "§A11", "tree_transport": "§A11", "tier_timeout": "§A11",
     "tier_compressor": "§A11",
     "reservoir_k": "§A11 (the wire path's reservoir defense)",
-    "retry_base_delay": "§A11",
     "downlink_compressor": "§A11", "downlink_keyframe_every": "§A11",
     "downlink_retention": "§A11",
     "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
@@ -384,6 +397,33 @@ def _check_ported(args, defaults: dict) -> None:
                 f"--{dest}={value!r} is not ported to fedml_tpu_torch yet: ROADMAP {item}")
 
 
+def _check_wire_ported(args) -> None:
+    """Raise for a message-passing feature the port does not have yet,
+    naming its ROADMAP item: the other transports, and on the loopback
+    wire fault injection, heartbeats, the population adapter and the
+    robust wire server (checked after the JAX CLI's own errors)."""
+    if args.backend == "sim":
+        return
+    if args.backend != "loopback":
+        raise NotImplementedError(
+            f"--backend {args.backend} is not ported to fedml_tpu_torch yet: ROADMAP §A11 "
+            "(the shm, grpc and mqtt_s3 transports)")
+    unported = [
+        ("--fault_spec", getattr(args, "fault_spec", None), "§A11 (comm/faults.py)"),
+        ("--heartbeat_interval", getattr(args, "heartbeat_interval", 0.0),
+         "§A11 (comm/status.py's heartbeat sender)"),
+        ("--population", getattr(args, "population", None),
+         "§A11 (the population wire adapter, population/wire.py)"),
+        ("--algorithm fedavg_robust", args.algorithm == "fedavg_robust",
+         "§A11 (the robust wire server, robust_distributed.py)"),
+    ]
+    for flag, value, item in unported:
+        if value:
+            raise NotImplementedError(
+                f"{flag} on the message-passing wire is not ported to fedml_tpu_torch "
+                f"yet: ROADMAP {item}")
+
+
 def run(args) -> list[dict]:
     """Run the experiment ``args`` describe; returns the round history. With
     ``--trace_dir`` the run is traced (``obs/trace.py`` ``run_traced``)."""
@@ -448,6 +488,8 @@ def _run(args) -> list[dict]:
     from fedml_tpu_torch.obs.metrics import MetricsLogger, logging_config
 
     logging_config(0)
+    if args.backend != "sim":
+        return _run_message_passing(args)
     sim, cfg = build(args)
     with MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb)) as metrics:
         if args.algorithm == "hierarchical":
@@ -458,6 +500,144 @@ def _run(args) -> list[dict]:
                 group_comm_round=args.group_comm_round))
             return hier.run(callback=metrics.log)[1]
         return _run_checkpointed(args, sim, cfg, metrics)
+
+
+def _wire_eval_fn(trainer, test_arrays, eval_batch_size: int = 256):
+    """Full-test-set eval of a global model (the message-passing harness's
+    per-round eval, the JAX CLI's ``_make_eval_fn``): ``ev(variables) ->
+    (acc, loss)``, None without a test split. It runs on the trainer's
+    module under the wire clients' ``TRAIN_LOCK``, so a straggler's local
+    round cannot interleave with it."""
+    if test_arrays is None:
+        return None
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg_distributed import TRAIN_LOCK
+    from fedml_tpu_torch.core.trainer import make_local_eval
+    from fedml_tpu_torch.sim.cohort import batch_array
+
+    device = next(trainer.module.parameters()).device
+    batches = {k: torch.from_numpy(v).to(device)
+               for k, v in batch_array(test_arrays, eval_batch_size).items()}
+    local_eval = make_local_eval(trainer)
+
+    def ev(variables):
+        with TRAIN_LOCK:
+            s = local_eval(variables, batches)
+        tot = torch.clamp(s["test_total"], min=1.0)
+        return float(s["test_correct"] / tot), float(s["test_loss"] / tot)
+
+    return ev
+
+
+def _run_message_passing(args) -> list[dict]:
+    """Drive the message-passing FedAvg protocol (typed array messages,
+    server + worker managers) over the loopback fabric (the JAX CLI's
+    ``_run_message_passing``, ``main_fedavg.py:436-733``): rank threads in
+    one process, the clients training on ``--device``."""
+    import json
+    import os
+
+    from fedml_tpu_torch.algorithms.fedavg_distributed import run_distributed_fedavg_loopback
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.obs import checkpoint
+    from fedml_tpu_torch.obs.metrics import MetricsLogger
+
+    _check_flag_combinations(args)
+    _check_ported(args, vars(add_args(argparse.ArgumentParser()).parse_args([])))
+    _check_wire_ported(args)
+    if args.algorithm not in ("fedavg", "fedprox"):
+        raise NotImplementedError(
+            f"--backend {args.backend} runs the message-passing FedAvg "
+            f"protocol; --algorithm {args.algorithm} is sim-engine only"
+        )
+    ds = load_partition_data(
+        args.dataset, args.data_dir, args.partition_method, args.partition_alpha,
+        args.client_num_in_total, args.seed,
+        dataidx_map_path=getattr(args, "dataidx_map_path", None),
+    )
+    model = create_model(args.model, ds.class_num, args.dataset, dtype=args.model_dtype,
+                         device=args.device,
+                         input_shape=tuple(ds.train.arrays["x"].shape[1:]))
+    trainer = build_trainer(args, model, args.dataset)
+    worker_num = min(args.client_num_per_round, ds.train.num_clients)
+    freq = args.frequency_of_the_test if not args.ci else args.comm_round
+    ev = _wire_eval_fn(trainer, ds.test_arrays)
+    comm_stats: dict = {}
+    history: list[dict] = []
+    metrics = MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb))
+
+    def on_round(r, variables):
+        rec = {"round": r}
+        # the server's accountant flushes the round's Comm/* record into
+        # comm_stats just before this callback fires
+        for crec in comm_stats.get("rounds", []):
+            if crec.get("round") == r:
+                rec.update({k: v for k, v in crec.items() if k != "round"})
+        if ev is not None and ((r + 1) % freq == 0 or r == args.comm_round - 1):
+            acc, loss = ev(variables)
+            rec.update({"Test/Acc": acc, "Test/Loss": loss})
+        history.append(rec)
+        metrics.log(rec, round_idx=r)
+
+    kwargs: dict = {}
+    if args.send_retries:
+        from fedml_tpu_torch.comm.retry import RetryPolicy
+
+        kwargs["retry_policy"] = RetryPolicy(max_attempts=1 + args.send_retries,
+                                             base_delay=args.retry_base_delay)
+        kwargs["comm_stats"] = comm_stats
+    if args.checkpoint_dir:
+        kwargs.update(checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=max(1, args.checkpoint_every or 1),
+                      resume=bool(args.resume))
+    if args.compressor != "none":
+        if args.is_mobile:
+            raise NotImplementedError(
+                "--compressor and --is_mobile both redefine the wire format; pick one")
+        from fedml_tpu_torch.compress import make_codec
+
+        kwargs.update(codec=make_codec(args.compressor, topk_frac=args.topk_frac,
+                                       quantize_bits=args.quantize_bits),
+                      error_feedback=bool(args.error_feedback), comm_stats=comm_stats)
+    if args.is_mobile:
+        # every client is a phone: all model payloads cross as JSON
+        from fedml_tpu_torch.algorithms.fedavg_mobile import mobile_runner_kwargs
+
+        kwargs.update(mobile_runner_kwargs(set(range(1, worker_num + 1))))
+    fleet_stats: dict | None = {} if args.fleet_stats else None
+    if fleet_stats is not None:
+        kwargs["fleet_stats"] = fleet_stats
+    overrides = None
+    if args.init_from:
+        overrides = checkpoint.load_params(args.init_from)
+        logging.info("warm-starting from %s", args.init_from)
+    try:
+        final_variables = run_distributed_fedavg_loopback(
+            trainer, ds.train, worker_num=worker_num, round_num=args.comm_round,
+            batch_size=args.batch_size, seed=args.seed, on_round_done=on_round,
+            init_overrides=overrides, **kwargs)
+    finally:
+        metrics.close()
+    if comm_stats.get("totals"):
+        logging.info("bytes on wire: %s", comm_stats["totals"])
+    if fleet_stats is not None:
+        from fedml_tpu_torch.obs.registry import FLEET_JSONL_NAME
+
+        os.makedirs(args.fleet_stats, exist_ok=True)
+        with open(os.path.join(args.fleet_stats, FLEET_JSONL_NAME), "w") as f:
+            for rec in fleet_stats.get("rounds", []):
+                f.write(json.dumps(rec) + "\n")
+        with open(os.path.join(args.fleet_stats, "fleet.json"), "w") as f:
+            json.dump({"totals": fleet_stats.get("totals"),
+                       "registry": fleet_stats.get("registry"),
+                       "rounds_recorded": len(fleet_stats.get("rounds", []))}, f)
+        logging.info("fleet telemetry written to %s", args.fleet_stats)
+    if args.save_params_to:
+        saved = checkpoint.save_params(args.save_params_to, final_variables)
+        logging.info("saved final model variables to %s", saved)
+    return history
 
 
 def _gan_sim(args, ds, cfg, aggregator):

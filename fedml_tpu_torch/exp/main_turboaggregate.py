@@ -1,0 +1,87 @@
+"""TurboAggregate (secure aggregation) experiment entry, the port of
+``fedml_tpu/exp/main_turboaggregate.py``.
+
+Reference: fedml_experiments/distributed/turboaggregate/ — FedAvg where the
+server reconstructs only the SUM of quantized client updates from BGW secret
+shares, never an individual client's plaintext (TA_Aggregator.py:13,
+mpc_function.py:62-110).
+
+Runs the multi-party protocol (``algorithms/turboaggregate_dist.py``) over
+the in-process loopback fabric, the clients training on the card unless
+``--device cpu`` is given; ``--backend shm`` is ROADMAP §A11.
+
+    python -m fedml_tpu_torch.exp.main_turboaggregate [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+
+def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    parser.add_argument("--dataset", type=str, default="synthetic")
+    parser.add_argument("--data_dir", type=str, default=None)
+    parser.add_argument("--partition_method", type=str, default="homo")
+    parser.add_argument("--partition_alpha", type=float, default=0.5)
+    parser.add_argument("--client_num_in_total", type=int, default=4)
+    parser.add_argument("--privacy_threshold", type=int, default=1)
+    parser.add_argument("--backend", type=str, default="loopback",
+                        choices=["loopback", "shm"])
+    parser.add_argument("--batch_size", type=int, default=16)
+    parser.add_argument("--lr", type=float, default=0.1)
+    parser.add_argument("--epochs", type=int, default=1)
+    parser.add_argument("--comm_round", type=int, default=2)
+    parser.add_argument("--seed", type=int, default=0)
+    # the port's own
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (the default; raises without a card) or cpu")
+    return parser
+
+
+def run(args) -> dict:
+    import torch
+
+    from fedml_tpu_torch.algorithms.turboaggregate_dist import run_turboaggregate
+    from fedml_tpu_torch.comm.loopback import LoopbackCommManager, LoopbackFabric
+    from fedml_tpu_torch.core.trainer import ClientTrainer, make_local_eval, sgd
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.obs.metrics import logging_config
+    from fedml_tpu_torch.sim.cohort import batch_array
+
+    if args.backend != "loopback":
+        raise NotImplementedError(
+            f"--backend {args.backend} is not ported to fedml_tpu_torch yet: ROADMAP §A11")
+    logging_config(0)
+    ds = load_partition_data(
+        args.dataset, args.data_dir, args.partition_method, args.partition_alpha,
+        args.client_num_in_total, args.seed,
+    )
+    model = create_model("lr", ds.class_num, args.dataset, device=args.device,
+                         input_shape=tuple(ds.train.arrays["x"].shape[1:]))
+    trainer = ClientTrainer(module=model, optimizer=sgd(args.lr), epochs=args.epochs)
+    workers = ds.train.num_clients
+    fabric = LoopbackFabric(workers + 1)
+    final = run_turboaggregate(
+        trainer, ds.train, workers, args.comm_round, args.batch_size,
+        lambda r: LoopbackCommManager(fabric, r), threshold=args.privacy_threshold,
+        seed=args.seed,
+    )
+    device = next(model.parameters()).device
+    batches = {k: torch.from_numpy(v).to(device)
+               for k, v in batch_array(ds.test_arrays, 256).items()}
+    m = make_local_eval(trainer)(final, batches)
+    acc = float(m["test_correct"] / torch.clamp(m["test_total"], min=1))
+    out = {"rounds": args.comm_round, "test_acc": acc}
+    logging.info("turboaggregate final: %s", out)
+    return out
+
+
+def main(argv=None):
+    args = add_args(argparse.ArgumentParser("fedml_tpu_torch turboaggregate entry")).parse_args(argv)
+    return run(args)
+
+
+if __name__ == "__main__":
+    main()

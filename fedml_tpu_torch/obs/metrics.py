@@ -4,8 +4,9 @@ from ``fedml_tpu/obs/metrics.py``: python logging with a per-process format
 wandb key names (Train/Acc, Train/Loss, Test/Acc, Test/Loss by round),
 writing JSONL locally and forwarding to wandb when asked and available,
 the robust defenses' metric keys and the bytes-on-wire keys of update
-compression (``Comm/*``). ``CommBytesAccountant`` and ``RoundTimer`` (the
-wire path's) are not ported yet (ROADMAP §A11)."""
+compression (``Comm/*``), and the wire path's ``CommBytesAccountant``, the
+per-round byte ledger of the message-passing server. ``RoundTimer`` is not
+ported yet (ROADMAP §A11)."""
 
 from __future__ import annotations
 
@@ -40,6 +41,108 @@ COMM_DOWNLINK_KEYFRAMES = "Comm/DownlinkKeyframes"
 
 # ratio keys are derived, not additive — totals must never sum them
 _RATIO_KEYS = (COMM_RATIO, COMM_DOWNLINK_RATIO)
+
+# retry/backoff send plane (comm/retry.py): how many send attempts were
+# re-tried after a transient failure over the whole run, in comm_stats
+# totals when a RetryPolicy is armed
+COMM_RETRY_COUNT = "Comm/RetryCount"
+# uploads from an already-closed round that the synchronous server
+# discarded, in comm_stats totals
+COMM_STALE_UPLOADS = "Comm/StaleUploads"
+# sharded fold plane (algorithms/fold_plane.py): uploads submitted to the
+# chunk workers and not yet folded (a gauge), and the wall time a quiesce
+# point spent draining the queues (a histogram)
+FOLD_QUEUE_DEPTH = "Fold/QueueDepth"
+FOLD_STALL_MS = "Fold/StallMs"
+
+
+class CommBytesAccountant:
+    """Per-round uplink/downlink byte ledger for the message-passing path.
+
+    The sim engine computes these inside the round program (shapes are
+    static); the wire path counts real payload sizes here instead — one
+    ``record_*`` call per message, ``round_record`` to flush a round's
+    totals into the metrics stream under the canonical keys."""
+
+    def __init__(self):
+        import threading
+
+        # record_* runs on the server's receive thread; round_record can run
+        # on the straggler-timeout timer thread (fedavg_distributed
+        # _round_timed_out -> _complete_round) — counters need the lock or
+        # an interleaved read-add-store loses straggler bytes
+        self._lock = threading.Lock()
+        self.rounds: list[dict] = []  # guarded-by: _lock
+        self._up = 0  # guarded-by: _lock
+        self._up_dense = 0  # guarded-by: _lock
+        self._down = 0  # guarded-by: _lock
+        self._down_dense = 0  # guarded-by: _lock
+        self._keyframes = 0  # guarded-by: _lock
+
+    def record_uplink(self, actual: int, dense: int) -> None:
+        with self._lock:
+            self._up += int(actual)
+            self._up_dense += int(dense)
+
+    def record_downlink(self, actual: int, dense: int) -> None:
+        with self._lock:
+            self._down += int(actual)
+            self._down_dense += int(dense)
+
+    def record_keyframes(self, count: int = 1) -> None:
+        """Receivers served a dense keyframe instead of a delta chain
+        (downlink delta plane only — the key is emitted only when the
+        counter moved, so pre-downlink records are unchanged)."""
+        with self._lock:
+            self._keyframes += int(count)
+
+    def round_record(self, round_idx: int) -> dict:
+        with self._lock:
+            rec = {
+                "round": round_idx,
+                COMM_UPLINK_BYTES: self._up,
+                COMM_UPLINK_DENSE_BYTES: self._up_dense,
+                COMM_DOWNLINK_BYTES: self._down,
+                COMM_DOWNLINK_DENSE_BYTES: self._down_dense,
+            }
+            if self._up:
+                rec[COMM_RATIO] = self._up_dense / self._up
+            if self._down:
+                rec[COMM_DOWNLINK_RATIO] = self._down_dense / self._down
+            if self._keyframes:
+                rec[COMM_DOWNLINK_KEYFRAMES] = self._keyframes
+            self.rounds.append(rec)
+            self._up = self._up_dense = self._down = self._down_dense = 0
+            self._keyframes = 0
+            return rec
+
+    def totals(self) -> dict:
+        out: dict = {}
+        # include traffic recorded since the last round flush (e.g. the
+        # final stop broadcast, which lands after the last round_record)
+        with self._lock:
+            pending = {
+                COMM_UPLINK_BYTES: self._up,
+                COMM_UPLINK_DENSE_BYTES: self._up_dense,
+                COMM_DOWNLINK_BYTES: self._down,
+                COMM_DOWNLINK_DENSE_BYTES: self._down_dense,
+            }
+            if self._keyframes:
+                pending[COMM_DOWNLINK_KEYFRAMES] = self._keyframes
+            rounds = list(self.rounds)
+        for rec in rounds + [pending]:
+            for k, v in rec.items():
+                if k.startswith("Comm/") and k not in _RATIO_KEYS:
+                    out[k] = out.get(k, 0) + v
+        if out.get(COMM_UPLINK_BYTES):
+            out[COMM_RATIO] = (
+                out[COMM_UPLINK_DENSE_BYTES] / out[COMM_UPLINK_BYTES]
+            )
+        if out.get(COMM_DOWNLINK_BYTES):
+            out[COMM_DOWNLINK_RATIO] = (
+                out[COMM_DOWNLINK_DENSE_BYTES] / out[COMM_DOWNLINK_BYTES]
+            )
+        return out
 
 
 def logging_config(process_id: int = 0, level=logging.INFO) -> None:

@@ -91,7 +91,7 @@ def test_main_final_record_matches_jax(monkeypatch, tmp_path, name):
 
 
 UNPORTED = [
-    (["--backend", "loopback"], "§A11"),
+    (["--backend", "shm"], "§A11"),
     (["--jobs", "jobs.json"], "§A11"),
     (["--downlink_compressor", "topk"], "§A11"),
     (["--downlink_retention", "2"], "§A11"),

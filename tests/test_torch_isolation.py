@@ -70,7 +70,16 @@ def test_every_port_module_imports_without_jax_sklearn_or_yaml():
             "fedml_tpu_torch.exp.main_fedseg", "fedml_tpu_torch.exp.main_dol",
             "fedml_tpu_torch.data.uci", "fedml_tpu_torch.data.vision_fed",
             "fedml_tpu_torch.schedule.scheduler",
-            "fedml_tpu_torch.algorithms.turboaggregate"} <= set(modules)
+            "fedml_tpu_torch.algorithms.turboaggregate",
+            "fedml_tpu_torch.comm.message", "fedml_tpu_torch.comm.base",
+            "fedml_tpu_torch.comm.send_pool", "fedml_tpu_torch.comm.retry",
+            "fedml_tpu_torch.comm.loopback", "fedml_tpu_torch.comm.managers",
+            "fedml_tpu_torch.comm.status", "fedml_tpu_torch.obs.registry",
+            "fedml_tpu_torch.obs.sysstats", "fedml_tpu_torch.algorithms.fold_plane",
+            "fedml_tpu_torch.algorithms.fedavg_distributed",
+            "fedml_tpu_torch.algorithms.fedavg_mobile", "fedml_tpu_torch.algorithms.cross_silo",
+            "fedml_tpu_torch.algorithms.turboaggregate_dist", "fedml_tpu_torch.models.export",
+            "fedml_tpu_torch.exp.main_turboaggregate"} <= set(modules)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in modules if not m.endswith("__main__"))
     proc = _run_blocked(code, BANNED + ("yaml",))
