@@ -62,7 +62,7 @@ Phases, each of which exits non-zero on failure:
    resnet18_gn, mobilenet, mobilenet_v3, vgg11 and efficientnet-b0 at full
    width, f32, card against CPU from the same variables, the eval and
    training forwards and one vmapped FedAvg round of 2 clients x 2 steps
-   (``[zoo small]``); ``repro_cross_silo.run`` on the 50k/10k CIFAR-100
+   (``[zoo small]``); ``repro_cross_silo.run`` on a 25k/5k CIFAR-100
    fixture with MobileNet, 1 round in scan (the recipe's rule) with a
    1-epoch fixture ceiling, then the round in vmap, each with s/round,
    images/s and peak memory (``[cross_silo zoo]``); and ``main_fedavg
@@ -219,7 +219,27 @@ Phases, each of which exits non-zero on failure:
     rounds, ``--is_mobile 1`` bitwise the native run and top-k + EF and q4
     streaming bitwise buffered, ``Comm/UplinkBytes`` the static figure;
     ``run_cross_silo`` card against CPU (1e-5); ``main_turboaggregate`` at
-    its defaults against open FedAvg of the same round (atol 1e-3).
+    its defaults against open FedAvg of the same round (atol 1e-3);
+20. the real transports and the failure surface (no flash launch on any
+    of their paths; after ``[wire]``, ``[transports]``): the port's shm
+    ring built with g++ from its own copy of ``shm_ring.cpp`` into
+    ``fedml_tpu_torch/ops/_build/``; the cross-silo flagship (ResNet-56
+    bf16 at full width, B=64, E=1, 1 round, deterministic algorithms, 4
+    silos a round on 1/40 shares of ``[wire]``'s fixture) over ``--backend
+    shm``, ``mqtt_s3`` (the in-process broker, a directory store with
+    offload) and ``grpc``, each holding the global bitwise the f64
+    weighted mean of that run's uploads in arrival order, each rank's
+    upload bitwise the same rank's over shm, a finite eval, with the
+    round's seconds, ``comm/send``/``comm/recv`` seconds, uplink and
+    downlink bytes and the store's blobs; the robust wire server over shm
+    (median, ``--reservoir_k 0``, a clipping norm bound, rank 1's uploads
+    duplicated, rank 2's corrupted): the streaming tally bitwise its
+    buffered replay, the duplicate folded once, the corrupted upload
+    rejected or clipped as the ``Robust/*`` record says; and LR over shm
+    with a round timeout and heartbeats: a rank that drops every send
+    excluded as OFFLINE, a rank whose syncs arrive late but which
+    heartbeats marked SLOW with no miss, a heartbeating run bitwise a
+    silent one.
 
 Each phase prints its seconds (``[phase]``). It prints a
 ``{"kernels": [...]}`` line, then as its last line
@@ -882,13 +902,16 @@ def phase_cross_silo(torch):
 ZOO = {"resnet18_gn": (0.1, 0.0, {}), "mobilenet": (1e-3, 1e-3, {}),
        "mobilenet_v3": (1e-3, 1e-3, {}), "vgg11": (1e-3, 1e-3, {"dropout_rate": 0.0}),
        "efficientnet-b0": (1e-3, 1e-3, {"dropout_rate": 0.0, "drop_connect_rate": 0.0})}
-# repro_cross_silo's recipe on the CIFAR-100 fixture with MobileNet, cut to E=1
-# and 1 round, with a 1-epoch fixture ceiling
-CROSS_SILO_ZOO = dict(CROSS_SILO, rounds=1, classes=100, ceiling_epochs=1)
+# repro_cross_silo's recipe on a CIFAR-100 fixture with MobileNet, cut to E=1
+# and 1 round [100], with a 1-epoch fixture ceiling, on 25k/5k images
+# [50k/10k] (~400 client steps a round in scan, for the script's time budget)
+CROSS_SILO_ZOO = dict(CROSS_SILO, n_train=25_000, n_test=5_000, rounds=1, classes=100,
+                      ceiling_epochs=1)
 # repro_fed_cifar100.py's recipe (10 clients a round, B=20, SGD 0.1, bf16) on
-# the registry's fed_cifar100 fallback, which reads the CIFAR-100 fixture;
-# 500 clients of 100 images (homo), 2 rounds
-RESNET18_GN = dict(clients=500, per_round=10, batch=20, lr=0.1, rounds=2)
+# the registry's fed_cifar100 fallback, which reads a 50k/10k CIFAR-100
+# fixture; 500 clients of 100 images (homo), 2 rounds
+RESNET18_GN = dict(clients=500, per_round=10, batch=20, lr=0.1, rounds=2, n_train=50_000,
+                   n_test=10_000)
 
 
 def _out_and_state(out, stateful):
@@ -1003,7 +1026,7 @@ def phase_zoo_small(torch):
 
 
 def phase_cross_silo_zoo(torch):
-    """``repro_cross_silo.run`` on the 50k/10k CIFAR-100 fixture (its
+    """``repro_cross_silo.run`` on a 25k/5k CIFAR-100 fixture (its
     write timed) with ``--model mobilenet`` at full width: 10 silos, B=64,
     hetero 0.5, bf16, augmentation, E=1, 1 round, in scan (the recipe's
     rule) with ``--ceiling_epochs 1``, then the same round in vmap (the
@@ -1017,7 +1040,7 @@ def phase_cross_silo_zoo(torch):
 
     c = CROSS_SILO_ZOO
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    data_dir = BUILD_DIR / "cifar100"
+    data_dir = BUILD_DIR / "cifar100_zoo"
     t0 = time.perf_counter()
     repro.write_cifar100_fixture(data_dir, n_train=c["n_train"], n_test=c["n_test"],
                                  seed=0, signal=0.045)
@@ -1080,8 +1103,8 @@ def phase_cross_silo_zoo(torch):
 
 def phase_resnet18_gn(torch):
     """``main_fedavg --dataset fed_cifar100 --model resnet18_gn`` on the
-    registry's fallback (the CIFAR-100 fixture of ``[cross_silo zoo]``, 500
-    clients of 100 images) at ``repro_fed_cifar100.py``'s recipe: 10 clients
+    registry's fallback (a 50k/10k CIFAR-100 fixture, 500 clients of 100
+    images) at ``repro_fed_cifar100.py``'s recipe: 10 clients
     a round, B=20, SGD 0.1, bf16, vmapped; 2 rounds as one block (replays of
     the round's CUDA graph) against the same rounds dispatched one at a
     time, under deterministic cuDNN, rtol 1e-6 / atol 1e-7, with s/round in
@@ -1089,9 +1112,8 @@ def phase_resnet18_gn(torch):
     from fedml_tpu_torch.exp import repro_cross_silo as repro
 
     c = RESNET18_GN
-    c_data = CROSS_SILO_ZOO
     data_dir = BUILD_DIR / "cifar100"
-    repro.write_cifar100_fixture(data_dir, n_train=c_data["n_train"], n_test=c_data["n_test"],
+    repro.write_cifar100_fixture(data_dir, n_train=c["n_train"], n_test=c["n_test"],
                                  seed=0, signal=0.045)
     argv = ["--dataset", "fed_cifar100", "--model", "resnet18_gn", "--data_dir", str(data_dir),
             "--partition_method", "homo", "--client_num_in_total", str(c["clients"]),
@@ -5083,6 +5105,92 @@ def _wire_fixture():
     return data_dir
 
 
+def _flagship_argv(backend, data_dir, clients, per_round, rounds):
+    """``main_fedavg``'s argv for the cross-silo flagship over ``backend``:
+    CIFAR-10 + ResNet-56 bf16 at ``WIRE``'s recipe, ``per_round`` of
+    ``clients`` silos a round, evaluated after the last round."""
+    w = WIRE
+    return ["--backend", backend, "--dataset", "cifar10", "--model", "resnet56",
+            "--model_dtype", "bfloat16", "--data_dir", str(data_dir),
+            "--partition_method", "hetero", "--partition_alpha", "0.5",
+            "--client_num_in_total", str(clients), "--client_num_per_round", str(per_round),
+            "--batch_size", str(w["batch"]), "--lr", str(w["lr"]), "--wd", str(w["wd"]),
+            "--epochs", str(w["epochs"]), "--comm_round", str(rounds),
+            "--frequency_of_the_test", str(rounds)]
+
+
+def _captured_run(torch, argv, agg_cls, *wraps):
+    """The CLI run of ``argv`` under deterministic algorithms, with every
+    upload the server's tally takes (index, bytes, weight, in arrival
+    order), the global the round closed with and the global it started
+    from, the model payload bytes every sync carried, the blobs the object
+    store was given, and the tracer's spans; ``wraps`` are more
+    ``(owner, name, make)`` for ``_wrapped``: (history, seconds, capture)."""
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+    from fedml_tpu_torch.comm import object_store
+    from fedml_tpu_torch.obs import trace
+
+    cap = {"uploads": [], "globals": [], "bases": [], "down": 0, "puts": [0, 0]}
+
+    def keep_upload(original):
+        def add(self, index, flat, n):
+            cap["uploads"].append((index, np.array(flat), float(n)))
+            return original(self, index, flat, n)
+        return add
+
+    def keep_global(original):
+        def aggregate(self):
+            if getattr(self, "get_global", None) is not None:
+                cap["bases"].append(np.array(self.get_global()))
+            out = original(self)
+            cap["globals"].append(np.array(out))
+            return out
+        return aggregate
+
+    def keep_sync(original):
+        def decode(self, msg):
+            out = original(self, msg)
+            cap["down"] += int(np.asarray(msg.get(tfd.MyMessage.MSG_ARG_KEY_MODEL_PARAMS)).nbytes)
+            return out
+        return decode
+
+    def keep_put(original):
+        def put(self, key, data):
+            cap["puts"][0] += 1
+            cap["puts"][1] += len(data)
+            return original(self, key, data)
+        return put
+
+    tracer = trace.install(trace.Tracer())
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_deterministic(torch))
+            for owner, name, make in ((agg_cls, "add_local_trained_result", keep_upload),
+                                      (agg_cls, "aggregate", keep_global),
+                                      (tfd.FedAvgClientManager, "_decode_model", keep_sync),
+                                      (object_store.FileSystemStore, "put", keep_put), *wraps):
+                stack.enter_context(_wrapped(owner, name, make))
+            history, wall = _cli(torch, argv)
+    finally:
+        trace.uninstall()
+    cap["spans"], cap["round_s"] = _span_totals(tracer)
+    return history, wall, cap
+
+
+def _f64_mean(uploads):
+    """The f64 weighted mean of the first upload of each rank, in arrival
+    order, as the wire bytes of f32 (the server's streaming fold)."""
+    seen, acc, wsum = set(), None, 0.0
+    for index, flat, n in uploads:
+        if index in seen:
+            continue
+        seen.add(index)
+        x = np.multiply(flat.view(np.float32), n, dtype=np.float64)
+        acc = x if acc is None else acc + x
+        wsum += n
+    return (acc / wsum).astype(np.float32).view(np.uint8)
+
+
 def _wire_flagship(torch, plain_flagship_s):
     """The cross-silo flagship over the wire: ``main_fedavg --backend
     loopback`` with CIFAR-10 + ResNet-56 bf16, 10 silos all in the round,
@@ -5096,34 +5204,14 @@ def _wire_flagship(torch, plain_flagship_s):
     split from the tracer's spans, uplink bytes and peak memory."""
     from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
     from fedml_tpu_torch.core.trainer import make_local_train
-    from fedml_tpu_torch.obs import trace
     from fedml_tpu_torch.sim.cohort import stack_cohort, steps_per_epoch
 
     c = WIRE
     t0 = time.perf_counter()
     data_dir = _wire_fixture()
     write_s = time.perf_counter() - t0
-    argv = ["--backend", "loopback", "--dataset", "cifar10", "--model", "resnet56",
-            "--model_dtype", "bfloat16", "--data_dir", str(data_dir),
-            "--partition_method", "hetero", "--partition_alpha", "0.5",
-            "--client_num_in_total", str(c["clients"]),
-            "--client_num_per_round", str(c["clients"]), "--batch_size", str(c["batch"]),
-            "--lr", str(c["lr"]), "--wd", str(c["wd"]), "--epochs", str(c["epochs"]),
-            "--comm_round", str(c["rounds"]), "--frequency_of_the_test", str(c["rounds"])]
-    uploads, globals_, rank1 = [], [], {}
-
-    def keep_upload(original):
-        def add(self, index, flat, n):
-            uploads.append((index, np.array(flat), float(n)))
-            return original(self, index, flat, n)
-        return add
-
-    def keep_global(original):
-        def aggregate(self):
-            out = original(self)
-            globals_.append(np.array(out))
-            return out
-        return aggregate
+    argv = _flagship_argv("loopback", data_dir, c["clients"], c["clients"], c["rounds"])
+    rank1 = {}
 
     def keep_rank1(original):
         def train(trainer, local_train, data, client_idx, batch, round_idx, rng_seed,
@@ -5137,37 +5225,25 @@ def _wire_flagship(torch, plain_flagship_s):
             return out
         return train
 
-    tracer = trace.install(trace.Tracer())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    try:
-        with _deterministic(torch), \
-                _wrapped(tfd.FedAvgDistAggregator, "add_local_trained_result", keep_upload), \
-                _wrapped(tfd.FedAvgDistAggregator, "aggregate", keep_global), \
-                _wrapped(tfd, "train_wire_round", keep_rank1), \
-                _wrapped(tfd, "run_distributed_fedavg_loopback", _wire_run):
-            history, wall = _cli(torch, argv)
-            peak = torch.cuda.max_memory_allocated()
-            # (b): the same round called directly, after the run
-            local_train = make_local_train(rank1["trainer"])
-            batches, _ = stack_cohort(rank1["data"], np.asarray([rank1["client_idx"]]),
-                                      c["batch"], rng=np.random.RandomState(1000))
-            direct, _ = local_train(rank1["variables"],
-                                    {k: torch.from_numpy(v[0]).to("cuda")
-                                     for k, v in batches.items()})
-            direct_bytes = tfd.pack_state(direct)
-    finally:
-        trace.uninstall()
-    spans, round_s = _span_totals(tracer)
-    if len(uploads) != c["clients"] or len(globals_) != c["rounds"]:
-        fail(f"wire flagship: {len(uploads)} uploads, {len(globals_)} globals")
-    acc = np.zeros(uploads[0][1].size // 4, np.float64)
-    wsum = 0.0
-    for _, flat, n in uploads:
-        acc += np.multiply(flat.view(np.float32), n, dtype=np.float64)
-        wsum += n
-    mean = (acc / wsum).astype(np.float32).view(np.uint8)
-    if not np.array_equal(mean, globals_[0]):
+    history, wall, cap = _captured_run(
+        torch, argv, tfd.FedAvgDistAggregator, (tfd, "train_wire_round", keep_rank1),
+        (tfd, "run_distributed_fedavg_loopback", _wire_run))
+    peak = torch.cuda.max_memory_allocated()
+    with _deterministic(torch):
+        # (b): the same round called directly, after the run
+        local_train = make_local_train(rank1["trainer"])
+        batches, _ = stack_cohort(rank1["data"], np.asarray([rank1["client_idx"]]),
+                                  c["batch"], rng=np.random.RandomState(1000))
+        direct, _ = local_train(rank1["variables"],
+                                {k: torch.from_numpy(v[0]).to("cuda")
+                                 for k, v in batches.items()})
+        direct_bytes = tfd.pack_state(direct)
+    uploads, spans, round_s = cap["uploads"], cap["spans"], cap["round_s"]
+    if len(uploads) != c["clients"] or len(cap["globals"]) != c["rounds"]:
+        fail(f"wire flagship: {len(uploads)} uploads, {len(cap['globals'])} globals")
+    if not np.array_equal(_f64_mean(uploads), cap["globals"][0]):
         fail("wire flagship (a): the global is not the f64 weighted mean of the uploads")
     sent1 = next(flat for i, flat, _ in uploads if i == 0)
     if not (np.array_equal(rank1["upload"], sent1) and np.array_equal(direct_bytes, sent1)):
@@ -5417,6 +5493,302 @@ def phase_wire(torch, mnist_dir, plain_flagship_s):
     return launches
 
 
+# the shm, gRPC and MQTT + object-store transports, fault injection,
+# heartbeats and the robust wire server. The flagship at full width, cut in
+# depth to 1 round [100] of 4 silos taking 1/40 shares of [wire]'s fixture
+# [all 10 silos on their 1/10 shares], ~16 eager client steps a run. The
+# robust run's norm bound lies far above the honest deltas' norms and far
+# below the corrupted upload's, so that only rank 2's upload clips
+TRANSPORTS = dict(clients=40, per_round=4, rounds=1, offload_threshold=1 << 14,
+                  norm_bound=100.0, fault_spec="1:dup=1.0;2:corrupt=1.0",
+                  small_workers=3, small_rounds=3, round_timeout=0.3,
+                  recv_delay=1.0, heartbeat_interval=0.03, heartbeat_timeout=2.0)
+# the card's machine has grpcio (1.80.0 on the H100 host this script was
+# written against), so the gRPC leg runs and its failure fails the script
+TRANSPORTS_OVER = ("shm", "mqtt_s3", "grpc")
+
+
+def _transport_argv(backend, data_dir, store_dir):
+    """The flagship's argv at ``TRANSPORTS``' depth over ``backend``, with
+    the object store's directory and offload threshold for mqtt_s3."""
+    c = TRANSPORTS
+    argv = _flagship_argv(backend, data_dir, c["clients"], c["per_round"], c["rounds"])
+    if backend == "mqtt_s3":
+        argv += ["--object_store_dir", str(store_dir),
+                 "--offload_threshold_bytes", str(c["offload_threshold"])]
+    return argv
+
+
+def _free_port_run(n):
+    """Base of a run of ``n`` consecutive localhost ports the OS finds free
+    (each bound to and released), so that two runs on one machine never
+    meet on a fixed block."""
+    import socket
+
+    for _ in range(64):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n >= 65535:
+            continue
+        try:
+            for port in range(base, base + n):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", port))
+        except OSError:
+            continue
+        return base
+    fail(f"no run of {n} free ports found for the gRPC ranks")
+
+
+def _transports_flagship(torch, data_dir):
+    """(a) The cross-silo flagship over each transport: the global bitwise
+    the f64 weighted mean of that run's uploads in arrival order, each
+    rank's upload bitwise its upload over the first transport, a finite
+    eval. The gRPC ranks listen on a block of free ports, not the runner's
+    fixed 29500. Returns each transport's flash launches."""
+    import functools
+    import shutil
+
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+
+    c = TRANSPORTS
+    launches, first = {}, None
+    for backend in TRANSPORTS_OVER:
+        store = BUILD_DIR / f"transports_store_{backend}"
+        shutil.rmtree(store, ignore_errors=True)
+        wraps = []
+        if backend == "grpc":
+            base = _free_port_run(c["per_round"] + 1)
+            wraps.append((tfd, "run_distributed_fedavg_grpc",
+                          lambda original: functools.partial(original, base_port=base)))
+        _zero_flash_counters()
+        history, wall, cap = _captured_run(torch, _transport_argv(backend, data_dir, store),
+                                           tfd.FedAvgDistAggregator, *wraps)
+        torch.cuda.synchronize()
+        launches[f"transports_{backend}"] = _flash_launches()
+        ups = cap["uploads"]
+        if len(ups) != c["per_round"] or len(cap["globals"]) != c["rounds"]:
+            fail(f"[transports] {backend}: {len(ups)} uploads, {len(cap['globals'])} globals")
+        if not np.array_equal(_f64_mean(ups), cap["globals"][0]):
+            fail(f"[transports] {backend} (1): the global is not the f64 weighted mean of the "
+                 "uploads in arrival order")
+        by_rank = {i: flat for i, flat, _ in ups}
+        if first is None:
+            first = (backend, by_rank)
+        elif by_rank.keys() != first[1].keys() or not all(
+                np.array_equal(by_rank[i], first[1][i]) for i in by_rank):
+            fail(f"[transports] {backend} (2): an upload differs from the same rank's over "
+                 f"{first[0]}")
+        last = history[-1]
+        if not all(np.isfinite([last["Test/Acc"], last["Test/Loss"]])):
+            fail(f"[transports] {backend} (3): non-finite eval {last}")
+        spans = cap["spans"]
+        send, recv = spans.get("comm/send", (0.0, 0)), spans.get("comm/recv", (0.0, 0))
+        held = ""
+        if backend == "grpc":
+            held = f"; ranks 0-{c['per_round']} on ports {base}-{base + c['per_round']}"
+        if backend == "mqtt_s3":
+            left = list(store.iterdir())
+            held = (f"; the store was given {cap['puts'][0]} blobs, {cap['puts'][1]} bytes, "
+                    f"and holds {len(left)} ({sum(p.stat().st_size for p in left)} bytes) "
+                    "after the run (the last broadcast generations)")
+        log(f"[transports] {backend}: {c['per_round']} silos of {c['clients']} x B=64, "
+            f"{len(ups)} uploads in arrival order {[i + 1 for i, _, _ in ups]}; the round "
+            f"{cap['round_s']:.3f} s (first sync decoded to the round's close), the CLI run "
+            f"{wall:.2f} s; comm/send {send[0]:.3f} s x{send[1]}, comm/recv {recv[0]:.3f} s "
+            f"x{recv[1]} (a client's recv span holds its local round); uplink {sum(f.nbytes for _, f, _ in ups)} bytes, downlink "
+            f"{cap['down']} bytes (model payloads of the syncs){held}; (1) global == f64 mean "
+            f"in arrival order: bitwise; (2) uploads == over {first[0]}: bitwise; (3) Test/Acc "
+            f"{last['Test/Acc']:.4f} Test/Loss {last['Test/Loss']:.5f}")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _transports_robust(torch, data_dir):
+    """(b) ``--algorithm fedavg_robust --robust_rule median --reservoir_k 0``
+    over shm, a norm bound between the honest uploads' delta norms and the
+    corrupted one's, rank 1's uploads duplicated and rank 2's corrupted: the
+    streaming tally bitwise the buffered replay of the same uploads, rank
+    2's upload the only one rejected or clipped and the record's clip
+    fraction and filtered count saying so, the duplicate folded once."""
+    from fedml_tpu_torch.algorithms import robust_distributed as trd
+    from fedml_tpu_torch.algorithms.robust import flat_delta_norm, flat_norm_mask
+    from fedml_tpu_torch.comm import faults
+
+    c = TRANSPORTS
+    argv = _transport_argv("shm", data_dir, None) + [
+        "--algorithm", "fedavg_robust", "--robust_rule", "median", "--reservoir_k", "0",
+        "--norm_bound", str(c["norm_bound"]), "--fault_spec", c["fault_spec"]]
+    wrappers, servers = [], []
+
+    def keep_wrapper(original):
+        def init(self, *a, **kw):
+            original(self, *a, **kw)
+            wrappers.append(self)
+        return init
+
+    def keep_server(original):
+        def init(self, *a, **kw):
+            original(self, *a, **kw)
+            servers.append(self)
+        return init
+
+    _zero_flash_counters()
+    with _wrapped(faults.FaultyCommManager, "__init__", keep_wrapper), \
+            _wrapped(trd.RobustFedAvgServerManager, "__init__", keep_server):
+        history, wall, cap = _captured_run(torch, argv, trd.RobustDistAggregator)
+    torch.cuda.synchronize()
+    launches = _flash_launches()
+    server, ups = servers[0], cap["uploads"]
+    replay = trd.BufferedRobustDistAggregator(c["per_round"], server.robust_config,
+                                              model_desc=server.model_desc)
+    replay.get_global = lambda: cap["bases"][0]
+    for index, flat, n in ups:
+        replay.add_local_trained_result(index, flat, n)
+    if not np.array_equal(replay.aggregate(), cap["globals"][0]):
+        fail("[transports] robust (1): the streaming tally differs from the buffered replay")
+    rec = {k: v for k, v in history[-1].items() if k.startswith("Robust/")}
+    if rec != replay.pop_round_stats():
+        fail(f"[transports] robust: the record {rec} differs from the buffered replay's")
+    indices = [i for i, _, _ in ups]
+    if indices.count(0) != 2 or len(set(indices)) != c["per_round"]:
+        fail(f"[transports] robust (3): uploads by rank {[i + 1 for i in indices]}, expected "
+             "rank 1 twice and every rank")
+    # the server's own measures: finiteness on the whole delta, the clip
+    # on its norm without the BatchNorm statistics
+    base, mask = cap["bases"][0].view(np.float32), flat_norm_mask(server.model_desc)
+    deltas = {i + 1: flat.view(np.float32) - base for i, flat, _ in ups}
+    rejected = [r for r, d in deltas.items() if not np.isfinite(np.linalg.norm(d))]
+    norms = {r: flat_delta_norm(d, mask) for r, d in deltas.items() if r not in rejected}
+    clipped = [r for r, v in norms.items() if v > c["norm_bound"]]
+    if rejected + clipped != [2]:
+        fail(f"[transports] robust (2): rank(s) {rejected} rejected and {clipped} clipped "
+             f"(delta norms {norms}, bound {c['norm_bound']}); expected rank 2's corrupted "
+             "upload alone")
+    verdict = "rejected (non-finite)" if rejected else "clipped, the only one"
+    folded = c["per_round"] - len(rejected)
+    if rec["Robust/FilteredClients"] != len(rejected) + folded - 1 or \
+            rec["Robust/ClipFraction"] != len(clipped) / folded:
+        fail(f"[transports] robust (2): the record {rec} does not show {len(rejected)} "
+             f"rejected, {len(clipped)} of {folded} clipped and a median over {folded}")
+    last = history[-1]
+    if not all(np.isfinite([last["Test/Acc"], last["Test/Loss"]])):
+        fail(f"[transports] robust: non-finite eval {last}")
+    log(f"[transports] robust over shm (median, reservoir_k 0, norm_bound {c['norm_bound']}, "
+        f"--fault_spec '{c['fault_spec']}'): the CLI run {wall:.2f} s; uploads by rank "
+        f"{[i + 1 for i in indices]} (rank 1's duplicate folded once); clip norms "
+        f"{ {k: round(v, 5) for k, v in norms.items()} }; rank 2's corrupted upload {verdict}; "
+        f"record {rec}; faults applied "
+        f"{ {w.rank: w.applied_counts() for w in wrappers} }; (1) streaming == buffered replay: "
+        f"bitwise; Test/Acc {last['Test/Acc']:.4f}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _transports_heartbeats(torch):
+    """(c) LR on the blobs over shm through the Python API: with a round
+    timeout, rank 2 dropping every send (uploads and heartbeats) is excluded
+    as OFFLINE after two misses; rank 3, whose syncs arrive late
+    (``recv_delay``, past the timeout) while it heartbeats, is SLOW with no
+    miss. A heartbeating run without faults is bitwise a silent one (two
+    workers: two f64 addends fold alike in either order)."""
+    import uuid
+
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+    from fedml_tpu_torch.comm.shm import ShmCommManager
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.data.synthetic import gaussian_blobs
+    from fedml_tpu_torch.models.linear import LogisticRegression
+
+    c = TRANSPORTS
+    train, _ = gaussian_blobs(n_clients=4, samples_per_client=20, seed=5)
+    trainer = ClientTrainer(module=LogisticRegression(num_classes=4, in_features=16,
+                                                      device="cuda"),
+                            optimizer=sgd(0.2), epochs=1)
+    log_ = {"transitions": [], "misses": []}
+
+    class Judging(tfd.FedAvgServerManager):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.status.on_transition = lambda cid, s: log_["transitions"].append((cid, s))
+
+        def _round_timed_out(self, expected_round):
+            super()._round_timed_out(expected_round)
+            log_["misses"].append(dict(self._miss_counts))
+            log_["excluded"] = [w + 1 for w in self.aggregator.excluded_workers()]
+
+    def over_shm(workers, delay_tail=0.0, **kw):
+        job = f"tr_{uuid.uuid4().hex[:8]}"
+        mgrs = {r: ShmCommManager(job, r, workers + 1) for r in range(workers + 1)}
+        try:
+            return tfd.run_distributed_fedavg(trainer, train, workers, c["small_rounds"], 10,
+                                              lambda r: mgrs[r], **kw)
+        finally:
+            time.sleep(delay_tail)  # the last late syncs land before the rings go
+            for m in mgrs.values():
+                m.cleanup()
+
+    _zero_flash_counters()
+    t0 = time.perf_counter()
+    over_shm(c["small_workers"], delay_tail=c["recv_delay"] + 0.2, server_cls=Judging,
+             round_timeout=c["round_timeout"], heartbeat_interval=c["heartbeat_interval"],
+             heartbeat_timeout=c["heartbeat_timeout"],
+             fault_specs=f"2:drop=1.0;3:recv_delay={c['recv_delay']}")
+    faulted_s = time.perf_counter() - t0
+    trans = log_["transitions"]
+    if log_["misses"] != [{1: 1}, {1: 2}, {1: 2}] or log_.get("excluded") != [2]:
+        fail(f"[transports] heartbeats: misses {log_['misses']}, excluded "
+             f"{log_.get('excluded')}; expected rank 2 to miss twice and go, rank 3 never")
+    if (2, "OFFLINE") not in trans or (3, "SLOW") not in trans or (2, "SLOW") in trans:
+        fail(f"[transports] heartbeats: transitions {trans}")
+    t0 = time.perf_counter()
+    runs = [over_shm(2, **kw) for kw in ({}, {"heartbeat_interval": 0.01})]
+    pair_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if not all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0]):
+        fail("[transports] heartbeats: a heartbeating run differs from a silent one")
+    log(f"[transports] heartbeats over shm (LR on the blobs, {c['small_workers']} workers, "
+        f"{c['small_rounds']} rounds, round_timeout {c['round_timeout']} s, heartbeats every "
+        f"{c['heartbeat_interval']} s, timeout {c['heartbeat_timeout']} s; rank 2 drop=1.0, "
+        f"rank 3 recv_delay={c['recv_delay']}): {faulted_s:.2f} s; misses after each timeout "
+        f"{log_['misses']} (worker index: count), rank 2 excluded as OFFLINE, rank 3 SLOW "
+        f"with no miss; transitions {sorted(set(trans))}; a 10 ms heartbeating run bitwise a "
+        f"silent one (2 workers, {pair_s:.2f} s for both)")
+    return _flash_launches()
+
+
+def phase_transports(torch):
+    """The shm ring built from the repo's copy, then (a) the flagship over
+    shm, mqtt_s3 and gRPC, (b) the robust wire server with faults over shm,
+    (c) heartbeats and a timeout over shm. Returns each path's flash
+    launches (each must be 0)."""
+    from fedml_tpu_torch.comm import shm
+
+    t0 = time.perf_counter()
+    lib = shm.build()
+    build_s = time.perf_counter() - t0
+    port_dir = (Path(__file__).resolve().parent / "fedml_tpu_torch" / "ops" / "_build")
+    if lib.resolve().parent != port_dir.resolve():
+        fail(f"[transports] the shm ring built outside the port's build directory: {lib}")
+    shm._load_lib()
+    log(f"[transports] shm ring built from {shm._SRC.relative_to(Path(__file__).resolve().parent)}"
+        f" with g++ in {build_s:.2f} s: {lib.name}")
+    data_dir = _wire_fixture()
+    launches = {}
+    for name, fn, args in (("flagship", _transports_flagship, (data_dir,)),
+                           ("robust", _transports_robust, (data_dir,)),
+                           ("heartbeats", _transports_heartbeats, ())):
+        t1 = time.perf_counter()
+        out = fn(torch, *args)
+        if name == "flagship":
+            launches.update(out)
+        else:
+            launches[f"transports_{name}"] = out
+        log(f"[transports] {name}: {time.perf_counter() - t1:.2f} s")
+    return launches
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds printed under the phase's name."""
     t0 = time.perf_counter()
@@ -5472,6 +5844,7 @@ def main() -> None:
         cli_launches["split_vertical"] = _timed("split and vertical", phase_split_and_vertical,
                                                 torch, mnist_dir)
         cli_launches.update(_timed("wire", phase_wire, torch, mnist_dir, plain_flagship_s))
+    cli_launches.update(_timed("transports", phase_transports, torch))
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
         f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip, fedgan, "
         f"splitnn, wire)")
@@ -5513,7 +5886,8 @@ def main() -> None:
                  "checkpoint", "trace", "zoo_small", "cross_silo_zoo", "resnet18_gn",
                  "compress", "gossip", "fedgan", "split_vertical", "fedgkt", "fedseg",
                  "vision_fed", "dol", "wire_sim", "wire_flagship", "wire_mnist",
-                 "wire_families"):
+                 "wire_families", "transports_shm", "transports_mqtt_s3", "transports_grpc",
+                 "transports_robust", "transports_heartbeats"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

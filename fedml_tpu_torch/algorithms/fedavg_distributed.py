@@ -7,8 +7,9 @@ FedAvgServerManager.py:18-82 (round loop in the receive handler),
 FedAvgClientManager.py:18-72, FedAVGAggregator.py:13-164.
 
 Server and clients are managers exchanging typed array messages over a comm
-fabric (the in-process loopback here; the shm, grpc and mqtt transports are
-ROADMAP §A11). What crosses the wire is the JAX package's, byte for byte:
+fabric: the in-process loopback, the native shm rings, gRPC, or MQTT with an
+object store for the payloads (the runners below). What crosses the wire is
+the JAX package's, byte for byte:
 the model as ``pack_pytree`` bytes in the JAX layout, so a JAX server folds
 a port client's upload unchanged and a port client trains from a JAX
 server's sync, in one federation.
@@ -38,9 +39,12 @@ server's sync, in one federation.
   quantizer's :class:`~fedml_tpu_torch.core.rng.RoundNoise` with ``(0xC0DEC
   ^ rank, round)``, the same integers and other numbers (ROADMAP §C).
 
-Refused, each naming its ROADMAP item: the robust wire server, fault
-injection, the population adapter, heartbeats, the async server and the
-downlink delta codec (all §A11).
+Fault injection (``comm/faults.py``), the population adapter
+(``population/wire.py``), heartbeats with the server's SLOW judgement
+(``comm/status.py``) and the robust wire server
+(``algorithms/robust_distributed.py``) are the JAX runner's. Refused, each
+naming its ROADMAP item: the async server and the downlink delta codec
+(both §A11).
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ from fedml_tpu_torch.comm.message import (
     unpack_pytree,
 )
 from fedml_tpu_torch.comm.send_pool import BroadcastSendError
-from fedml_tpu_torch.comm.status import ClientStatus, ClientStatusTracker
+from fedml_tpu_torch.comm.status import ClientStatus, ClientStatusTracker, HeartbeatSender
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core.trainer import ClientTrainer, DropoutStream, make_local_train
 from fedml_tpu_torch.obs import jobscope, registry
@@ -499,9 +503,6 @@ class FedAvgServerManager(ServerManager):
                  fold_chunk: int | None = None):
         if downlink_codec is not None:
             raise _unported("the downlink delta codec (compress/downlink.py)")
-        if heartbeat_timeout is not None:
-            raise _unported("heartbeat_timeout= (the heartbeat plane that feeds it, "
-                            "comm/status.py)")
         super().__init__(comm, rank=0, size=worker_num + 1)
         # sharded fold plane (algorithms/fold_plane.py): fold_workers > 0
         # moves upload folding off the receive thread onto that many chunk
@@ -527,6 +528,10 @@ class FedAvgServerManager(ServerManager):
         # the server rejoins later cohorts
         self.exclude_after = exclude_after
         self._miss_counts: dict[int, int] = {}  # guarded-by: _round_lock
+        # liveness plane: a worker missing at the round timeout but heard
+        # from (heartbeat/status) within heartbeat_timeout seconds is SLOW:
+        # alive, dropped from this round, but not marched toward exclusion
+        self.heartbeat_timeout = heartbeat_timeout
         self.readmission = bool(readmission)
         self._pending_readmit: set[int] = set()  # guarded-by: _round_lock
         # crash recovery: a RoundCheckpointer (obs/checkpoint.py) given here
@@ -772,16 +777,25 @@ class FedAvgServerManager(ServerManager):
                 return
             missing = sorted(set(self.aggregator.live_workers()) - set(got))
             excluded = []
+            slow = []
             for w in missing:
+                if (self.heartbeat_timeout is not None
+                        and self.status.seen_within(w + 1, self.heartbeat_timeout)):
+                    # heartbeat fresh: the worker is SLOW, not dead; it
+                    # misses this round's aggregate but accrues no miss
+                    self.status.update(w + 1, ClientStatus.SLOW, touch=False)
+                    slow.append(w + 1)
+                    continue
                 self._miss_counts[w] = self._miss_counts.get(w, 0) + 1
                 if self._miss_counts[w] >= self.exclude_after:
                     self.status.update(w + 1, ClientStatus.OFFLINE, touch=False)
                     self.aggregator.exclude_worker(w)
                     excluded.append(w + 1)
         logging.warning(
-            "round %d timed out: aggregating %d/%d workers, dropping %s%s "
+            "round %d timed out: aggregating %d/%d workers, dropping %s%s%s "
             "(weights renormalized)",
             expected_round, len(got), self.worker_num, [w + 1 for w in missing],
+            f", slow (heartbeat fresh) {slow}" if slow else "",
             f", excluding {excluded} as OFFLINE" if excluded else "",
         )
         if excluded and not self.readmission:
@@ -925,6 +939,10 @@ class FedAvgClientManager(ClientManager):
         self.rng_rank = rank
         # fleet telemetry opt-in (set by the runner when fleet_stats is on)
         self.fleet_telemetry = False
+        # per-rank population profile (population/wire.py; set by the runner
+        # under population=): feeds the predicted-vs-actual step gauges
+        # piggybacked when fleet telemetry is on
+        self.population_profile = None
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(MyMessage.MSG_TYPE_S2C_INIT_CONFIG, self._on_sync)
@@ -985,12 +1003,32 @@ class FedAvgClientManager(ClientManager):
             reg.counter("client/rounds")
             # header-only JSON scalars; "retries" is this manager's count as
             # of the previous send
-            out.add_params(Message.MSG_ARG_KEY_TELEMETRY, {
+            report = {
                 "step_ms": round(step_ms, 3),
                 "sent_at": time.time(),
                 "retries": self.comm_retries,
-            })
+            }
+            if self.population_profile is not None:
+                report["counts"] = self._population_counts(n)
+            out.add_params(Message.MSG_ARG_KEY_TELEMETRY, report)
         self.send_message(out)
+
+    def _population_counts(self, n: float) -> dict:
+        """Cumulative predicted-vs-actual step totals of the population
+        churn (predicted: the speed model's forecast; actual: the steps this
+        client ran, ``stack_cohort``'s one-client S), plus the uploads this
+        client's own fault wrapper dropped."""
+        steps = max(1, -(-int(n) // self.batch_size))
+        actual = int(self.trainer.epochs * steps)
+        predicted = int(np.ceil(self.population_profile["predicted_frac"] * actual))
+        self._pop_predicted = getattr(self, "_pop_predicted", 0) + max(predicted, 1)
+        self._pop_actual = getattr(self, "_pop_actual", 0) + actual
+        counts = {"pop_predicted_steps": self._pop_predicted,
+                  "pop_actual_steps": self._pop_actual}
+        applied = getattr(self.comm, "applied_counts", None)
+        if applied is not None:
+            counts["pop_dropped_uploads"] = applied().get("drop", 0)
+        return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1213,7 +1251,9 @@ def run_distributed_fedavg(
     downlink_codec=None,
     comm_stats: dict | None = None,
     robust_config=None,
+    robust_stats: dict | None = None,
     fault_specs=None,
+    fault_seed: int = 0,
     population=None,
     retry_policy=None,
     heartbeat_interval: float | None = None,
@@ -1236,10 +1276,23 @@ def run_distributed_fedavg(
     (``error_feedback`` toggles per-client residual carryover,
     ``comm_stats`` receives per-round and total bytes-on-wire records).
     ``init_overrides`` is a state dict grafted over the fresh init.
+    ``robust_config`` (a robust_distributed.RobustDistConfig) swaps the
+    server tally for the streaming Byzantine-robust + DP one, composing with
+    ``codec`` (``robust_stats`` receives per-round Robust/* records).
+    ``fault_specs`` (comm/faults.py: a {rank: FaultSpec} map or a spec
+    string) wraps every rank's transport in the seeded fault injector
+    (``fault_seed``); ``population`` (a spec string, PopulationSpec or
+    population/wire.py adapter) schedules per-rank upload delays and drops
+    through the same injector.
 
     Fault tolerance: ``retry_policy`` (comm/retry.py) arms retry/backoff on
-    every rank's send plane; ``round_timeout`` closes a round without its
-    stragglers; ``checkpoint_dir`` snapshots the server round state every
+    every rank's send plane, outside any fault wrapper so each attempt
+    re-rolls its faults; ``round_timeout`` closes a round without its
+    stragglers; ``heartbeat_interval`` starts a per-client heartbeat thread
+    (and defaults ``heartbeat_timeout``, the server's slow-vs-dead window,
+    to 3x the interval); ``readmission`` (default: on iff heartbeats are on)
+    lets an OFFLINE-excluded worker rejoin later cohorts when it
+    re-contacts the server; ``checkpoint_dir`` snapshots the server round state every
     ``checkpoint_every`` round closes and ``resume=True`` restores the
     latest snapshot and re-broadcasts its round, so a restarted run is
     bitwise an uninterrupted one. ``fleet_stats`` (a caller dict) switches
@@ -1248,21 +1301,9 @@ def run_distributed_fedavg(
     the process registry (``registry``); telemetry-on runs are bitwise
     telemetry-off runs. ``fold_workers`` shards the server's fold.
 
-    ``robust_config``, ``fault_specs``, ``population``,
-    ``heartbeat_interval``, ``heartbeat_timeout``, ``server_mode="async"``
-    and ``downlink_codec`` raise ``NotImplementedError`` naming their ROADMAP item. Returns the
-    final global variables (the port's state dict of host tensors)."""
-    if robust_config is not None:
-        raise _unported("robust_config= (the robust wire server, robust_distributed.py)")
-    if fault_specs is not None:
-        raise _unported("fault_specs= (wire fault injection, comm/faults.py)")
-    if population is not None:
-        raise _unported("population= (the population wire adapter, population/wire.py)")
-    if heartbeat_interval is not None:
-        raise _unported("heartbeat_interval= (the heartbeat sender, comm/status.py)")
-    if heartbeat_timeout is not None:
-        raise _unported("heartbeat_timeout= (the heartbeat plane that feeds it, "
-                        "comm/status.py)")
+    ``server_mode="async"`` and ``downlink_codec`` raise
+    ``NotImplementedError`` naming their ROADMAP item. Returns the final
+    global variables (the port's state dict of host tensors)."""
     if server_mode == "async":
         raise _unported("server_mode='async' (the barrier-free server, async_agg/)")
     if server_mode != "sync":
@@ -1274,18 +1315,82 @@ def run_distributed_fedavg(
             "codec= does not compose with custom manager classes "
             "(e.g. is_mobile's JSON wire format)"
         )
+    if robust_config is not None and not robust_config.enabled:
+        robust_config = None  # a no-op defense is exactly plain FedAvg
+    if robust_config is not None and (server_cls is not None
+                                      or client_cls_for_rank is not None):
+        raise ValueError(
+            "robust_config= does not compose with custom manager classes "
+            "(e.g. is_mobile's JSON wire format)"
+        )
+    if population is not None:
+        # per-rank upload delays/drops drawn from the population
+        # distributions, scheduled through the seeded fault machinery
+        from fedml_tpu_torch.population.wire import (
+            PopulationWireAdapter,
+            population_fault_specs,
+        )
+
+        if not isinstance(population, PopulationWireAdapter):
+            population = population_fault_specs(population, worker_num,
+                                                seed=fault_seed or seed)
+        elif population.worker_num != worker_num:
+            raise ValueError(
+                f"population adapter was built for "
+                f"{population.worker_num} workers but this run has "
+                f"{worker_num} — the uncovered ranks would silently run "
+                "un-churned (the trace loader rejects the analogous "
+                "num_clients mismatch for the same reason)"
+            )
+        if fault_specs is not None and population.active:
+            raise ValueError(
+                "population= and fault_specs= both drive the wire fault "
+                "injector — one seeded schedule would silently shift the "
+                "other; configure churn in exactly one place"
+            )
+        if population.drops_uploads:
+            if server_mode != "sync":
+                raise ValueError(
+                    "the population drops uploads but the async server "
+                    "has no timeout/readmission path for a silently lost "
+                    "upload — the dropped rank never receives another "
+                    "downlink and strands forever; run server_mode='sync' "
+                    "with round_timeout=, or model the churn as delays "
+                    "(jitter) instead of drops"
+                )
+            if round_timeout is None:
+                raise ValueError(
+                    "the population drops uploads but the sync round "
+                    "barrier has no round_timeout — the first dropped "
+                    "upload would wedge the round forever; set "
+                    "round_timeout="
+                )
+        if population.active:
+            fault_specs = population.fault_specs
+    if fault_specs is not None:
+        from fedml_tpu_torch.comm.faults import wrap_make_comm
+
+        make_comm = wrap_make_comm(make_comm, fault_specs, seed=fault_seed)
     if retry_policy is not None:
+        # armed on the outermost manager (fault wrappers included): each
+        # retry attempt re-runs the full send path with fresh fault draws
         def make_comm(rank: int, _inner=make_comm):
             mgr = _inner(rank)
             mgr.retry_policy = retry_policy
             return mgr
 
+    if readmission is None:
+        readmission = heartbeat_interval is not None
+    if heartbeat_interval is not None and heartbeat_timeout is None:
+        heartbeat_timeout = 3.0 * heartbeat_interval
     ckptr = None
     ft_kwargs: dict = {}
     if fold_workers:
         ft_kwargs["fold_workers"] = int(fold_workers)
         if fold_chunk is not None:
             ft_kwargs["fold_chunk"] = int(fold_chunk)
+    if heartbeat_timeout is not None:
+        ft_kwargs["heartbeat_timeout"] = heartbeat_timeout
     if readmission:
         ft_kwargs["readmission"] = True
     if checkpoint_dir is not None:
@@ -1308,8 +1413,20 @@ def run_distributed_fedavg(
         server_kwargs = {**ft_kwargs, **(server_kwargs or {})}
     template, flat, desc = init_template(trainer, train_data.arrays, batch_size, seed,
                                          init_overrides=init_overrides)
+    if robust_config is not None:
+        from fedml_tpu_torch.algorithms.robust_distributed import (
+            RobustCompressedFedAvgServerManager,
+            RobustFedAvgServerManager,
+        )
+
+        server_cls = (RobustCompressedFedAvgServerManager if codec is not None
+                      else RobustFedAvgServerManager)
+        server_kwargs = {**(server_kwargs or {}),
+                         "robust_config": robust_config,
+                         "robust_stats": robust_stats}
     if codec is not None:
-        server_cls = CompressedFedAvgServerManager
+        if server_cls is None:
+            server_cls = CompressedFedAvgServerManager
         server_kwargs = {**(server_kwargs or {}), "codec": codec}
 
         def client_cls_for_rank(rank):
@@ -1364,10 +1481,19 @@ def run_distributed_fedavg(
     if fleet_stats is not None:
         for c in clients:
             c.fleet_telemetry = True
+    if population is not None:
+        # per-rank population profile: fleet-telemetry-armed clients
+        # piggyback predicted-vs-actual step gauges from it
+        for c in clients:
+            c.population_profile = population.profiles.get(c.rank)
 
     from fedml_tpu_torch.comm.retry import retry_stats
 
     retries_before = retry_stats()["retries"]
+    # heartbeats never touch aggregation state, so a heartbeating run is
+    # bitwise a silent one
+    heartbeats = [HeartbeatSender(c.comm, c.rank, heartbeat_interval).start()
+                  for c in clients] if heartbeat_interval is not None else []
     # fleet telemetry needs the process registry installed so clients
     # collect + piggyback; reuse an outer scope's registry when one exists
     _installed_registry = None
@@ -1376,6 +1502,8 @@ def run_distributed_fedavg(
     try:
         run_manager_protocol(server, clients)
     finally:
+        for hb in heartbeats:
+            hb.stop()
         if fleet_stats is not None:
             fleet_stats["totals"] = fleet.snapshot()
             reg = registry.get()
@@ -1419,3 +1547,136 @@ def run_distributed_fedavg_loopback(
         on_round_done=on_round_done, init_overrides=init_overrides,
         **runner_kwargs,
     )
+
+
+def run_distributed_fedavg_shm(
+    trainer: ClientTrainer,
+    train_data: FederatedArrays,
+    worker_num: int,
+    round_num: int,
+    batch_size: int,
+    seed: int = 0,
+    job: str | None = None,
+    on_round_done: Callable[[int, Any], None] | None = None,
+    init_overrides=None,
+    **runner_kwargs,
+):
+    """Distributed FedAvg over the native shared-memory rings (the MPI-role
+    single-host transport, comm/shm.py + comm/native/shm_ring.cpp)."""
+    import uuid
+
+    from fedml_tpu_torch.comm.shm import ShmCommManager
+
+    job = job or f"fedavg_{uuid.uuid4().hex[:8]}"
+    mgrs = {r: ShmCommManager(job, r, worker_num + 1) for r in range(worker_num + 1)}
+    try:
+        return run_distributed_fedavg(
+            trainer, train_data, worker_num, round_num, batch_size,
+            lambda r: mgrs[r], seed=seed, on_round_done=on_round_done,
+            init_overrides=init_overrides, **runner_kwargs,
+        )
+    finally:
+        for m in mgrs.values():
+            m.cleanup()
+
+
+def run_distributed_fedavg_grpc(
+    trainer: ClientTrainer,
+    train_data: FederatedArrays,
+    worker_num: int,
+    round_num: int,
+    batch_size: int,
+    seed: int = 0,
+    base_port: int = 29500,
+    send_timeout: float = 600.0,
+    send_workers: int = 4,
+    on_round_done: Callable[[int, Any], None] | None = None,
+    init_overrides=None,
+    **runner_kwargs,
+):
+    """Distributed FedAvg over localhost gRPC (cross-host transport run
+    single-host; an ip_config table generalizes it to a cluster, reference
+    grpc_ipconfig.csv). ``send_timeout``/``send_workers`` plumb the run
+    config into every rank's transport (per-send unary deadline and
+    broadcast send-pool width)."""
+    from fedml_tpu_torch.comm.grpc_backend import GRPCCommManager
+
+    ip_config = {r: ("127.0.0.1", base_port + r) for r in range(worker_num + 1)}
+    mgrs = {
+        r: GRPCCommManager(r, ip_config, send_timeout=send_timeout, send_workers=send_workers)
+        for r in range(worker_num + 1)
+    }
+    try:
+        return run_distributed_fedavg(
+            trainer, train_data, worker_num, round_num, batch_size,
+            lambda r: mgrs[r], seed=seed, on_round_done=on_round_done,
+            init_overrides=init_overrides, **runner_kwargs,
+        )
+    finally:
+        for m in mgrs.values():
+            m.stop_receive_message()
+
+
+def run_distributed_fedavg_mqtt_s3(
+    trainer: ClientTrainer,
+    train_data: FederatedArrays,
+    worker_num: int,
+    round_num: int,
+    batch_size: int,
+    seed: int = 0,
+    store_dir: str | None = None,
+    mqtt_host: str | None = None,
+    mqtt_port: int = 1883,
+    topic: str = "fedml",
+    threshold_bytes: int = 1 << 14,
+    broadcast_generations: int = 2,
+    on_round_done: Callable[[int, Any], None] | None = None,
+    init_overrides=None,
+    **runner_kwargs,
+):
+    """Distributed FedAvg over the production WAN combination: control
+    messages on MQTT topics, model payloads through an object store keyed by
+    reference (the reference's MQTT_S3 backend,
+    mqtt_s3_multi_clients_comm_manager.py:178-249 / client_manager.py:28-50).
+
+    ``mqtt_host=None`` (offline default) runs the real MqttCommManager logic
+    over the in-process broker (comm/inproc_broker.py); a host string
+    connects through real paho. The store is a FileSystemStore under
+    ``store_dir`` (a temporary directory, removed at the end, by default);
+    the S3Store drops in via the same ObjectStore interface.
+    ``broadcast_generations`` is the sender-side shared-blob retention (how
+    many newer fan-outs exist before a broadcast blob is retired)."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.comm.mqtt_backend import MqttCommManager
+    from fedml_tpu_torch.comm.object_store import FileSystemStore, OffloadCommManager
+
+    factory = None
+    if mqtt_host is None:
+        from fedml_tpu_torch.comm.inproc_broker import InProcessBroker
+
+        factory = InProcessBroker().client_factory()
+        mqtt_host = "inproc"
+    tmp_store = tempfile.mkdtemp(prefix="fedml_store_") if store_dir is None else None
+    store_root = store_dir or tmp_store
+
+    def make_comm(rank: int):
+        inner = MqttCommManager(mqtt_host, mqtt_port, topic=topic, client_id=rank,
+                                client_num=worker_num, client_factory=factory)
+        return OffloadCommManager(inner, FileSystemStore(store_root),
+                                  threshold_bytes=threshold_bytes,
+                                  broadcast_generations=broadcast_generations)
+
+    mgrs = {r: make_comm(r) for r in range(worker_num + 1)}
+    try:
+        return run_distributed_fedavg(
+            trainer, train_data, worker_num, round_num, batch_size,
+            lambda r: mgrs[r], seed=seed, on_round_done=on_round_done,
+            init_overrides=init_overrides, **runner_kwargs,
+        )
+    finally:
+        for m in mgrs.values():
+            m.stop_receive_message()
+        if tmp_store is not None:
+            shutil.rmtree(tmp_store, ignore_errors=True)

@@ -27,7 +27,9 @@ stack that median, trimmed mean and Krum read, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import json
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.base import Aggregator
@@ -55,6 +57,40 @@ def delta_norms(global_variables: StateDict, stacked: StateDict
         term = torch.sum(d.reshape(d.shape[0], -1) ** 2, dim=1)
         sq = term if sq is None else sq + term
     return deltas, torch.sqrt(sq)
+
+
+# --- flat-vector (wire payload) defense helpers ------------------------------
+# The message-passing server folds pack_pytree byte vectors of the JAX layout
+# (all-f32 leaves, validated at server init); these apply the same defense
+# statistics to that layout (algorithms/robust_distributed.py).
+
+
+def _is_norm_stat(path: str) -> bool:
+    """BatchNorm statistics filter over a JAX-layout leaf path (the whole
+    ``batch_stats`` collection, as ``treelib.is_model_state`` excludes the
+    port's model state)."""
+    return "batch_stats" in path
+
+
+def flat_norm_mask(model_desc: str) -> np.ndarray | None:
+    """Elementwise bool mask over the ``pack_pytree`` f32 wire layout:
+    False on BatchNorm-statistics leaves, which the robust statistics
+    exclude. None when nothing is excluded (callers skip the masked
+    gather)."""
+    desc = json.loads(model_desc)
+    if not any(_is_norm_stat(d["path"]) for d in desc):
+        return None
+    return np.concatenate([
+        np.full(int(np.prod(d["shape"])) if d["shape"] else 1, not _is_norm_stat(d["path"]))
+        for d in desc
+    ])
+
+
+def flat_delta_norm(delta: np.ndarray, mask: np.ndarray | None) -> float:
+    """L2 norm of a flat f32 delta vector over the non-excluded coordinates
+    (f32 accumulation, numpy's, as in the JAX package)."""
+    v = delta if mask is None else delta[mask]
+    return float(np.linalg.norm(v))
 
 
 def clip_deltas(global_variables: StateDict, stacked: StateDict,

@@ -5,8 +5,8 @@ Reference: fedml_core/distributed/client/client_manager.py:21-102 and
 server/server_manager.py:15-83: backend mux, ``register_message_receive_
 handler`` dict keyed by msg type (:87-88), blocking ``run()``, ``finish()``
 (a graceful stop, where the reference's MPI ``finish`` aborts the world).
-The port's backend mux has the in-process loopback transport; ``shm``,
-``grpc``, ``mqtt`` and an object store (``store_dir``) are ROADMAP §A11.
+The backend mux has the JAX package's transports: loopback, shm, grpc and
+mqtt, each optionally behind an object store (``store_dir``).
 """
 
 from __future__ import annotations
@@ -20,22 +20,45 @@ from fedml_tpu_torch.obs import trace
 
 
 def create_backend(backend: str, rank: int, world_size: int, **kw) -> BaseCommunicationManager:
-    """Backend mux (client_manager.py:28-50 equivalent): ``loopback`` (its
-    ``fabric=`` kwarg shared by every rank). The JAX package's ``shm``,
-    ``grpc`` and ``mqtt`` transports and its object-store offload are not
-    ported yet."""
-    if kw.get("store_dir"):
-        raise NotImplementedError(
-            "the object-store offload (store_dir=) is not ported to "
-            "fedml_tpu_torch yet: ROADMAP §A11")
+    """Backend mux (client_manager.py:28-50 equivalent):
+    loopback | shm | grpc | mqtt, each optionally composed with an object
+    store for large payloads (``store_dir=...`` — the MQTT_S3 production
+    pattern for any transport)."""
     if backend == "loopback":
         from fedml_tpu_torch.comm.loopback import LoopbackCommManager
 
-        return LoopbackCommManager(kw["fabric"], rank)
-    if backend in ("shm", "grpc", "mqtt"):
-        raise NotImplementedError(
-            f"the {backend} backend is not ported to fedml_tpu_torch yet: ROADMAP §A11")
-    raise ValueError(f"unknown backend {backend!r}")
+        mgr = LoopbackCommManager(kw["fabric"], rank)
+    elif backend == "shm":
+        from fedml_tpu_torch.comm.shm import ShmCommManager
+
+        mgr = ShmCommManager(kw.get("job", "fedml"), rank, world_size)
+    elif backend == "grpc":
+        from fedml_tpu_torch.comm.grpc_backend import GRPCCommManager, read_ip_config
+
+        ip_config = kw.get("ip_config") or read_ip_config(kw["ip_config_path"])
+        mgr = GRPCCommManager(
+            rank, ip_config,
+            send_timeout=kw.get("grpc_send_timeout", 600.0),
+            send_workers=kw.get("grpc_send_workers", 4),
+        )
+    elif backend == "mqtt":
+        from fedml_tpu_torch.comm.mqtt_backend import MqttCommManager
+
+        mgr = MqttCommManager(
+            kw.get("mqtt_host", "localhost"), kw.get("mqtt_port", 1883),
+            topic=kw.get("job", "fedml"), client_id=rank,
+            client_num=world_size - 1, client_factory=kw.get("client_factory"),
+        )
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    if kw.get("store_dir"):
+        from fedml_tpu_torch.comm.object_store import FileSystemStore, OffloadCommManager
+
+        mgr = OffloadCommManager(
+            mgr, FileSystemStore(kw["store_dir"]),
+            threshold_bytes=kw.get("store_threshold", 1 << 16),
+        )
+    return mgr
 
 
 class DistributedManager(Observer):

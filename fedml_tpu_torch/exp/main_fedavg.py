@@ -1,5 +1,6 @@
 """The unified experiment entry point, the port of
-``fedml_tpu/exp/main_fedavg.py`` for ``--backend sim`` and ``loopback``.
+``fedml_tpu/exp/main_fedavg.py`` for ``--backend sim``, ``loopback``, ``shm``,
+``grpc`` and ``mqtt_s3``.
 
 Every flag of the JAX CLI is here with the same name, dest and default
 (reference flag names, fedml_experiments/distributed/fedavg/main_fedavg.py:
@@ -32,21 +33,28 @@ time, so every saved round has its exact state), ``--init_from`` /
 written by either package), ``--run_dir``/``--enable_wandb`` and ``--cf`` (a YAML
 config; it needs PyYAML, imported only when ``--cf`` is given).
 
-``--backend loopback`` runs the message-passing FedAvg protocol
-(``algorithms/fedavg_distributed.py``) in one process: a server and
+``--backend loopback|shm|grpc|mqtt_s3`` runs the message-passing FedAvg
+protocol (``algorithms/fedavg_distributed.py``) in one process: a server and
 ``--client_num_per_round`` client managers exchanging the JAX package's wire
-frames over the loopback fabric, the clients training on the card unless
-``--device cpu`` is given; ``--algorithm fedavg`` and ``fedprox`` with
-``--compressor``/``--topk_frac``/``--quantize_bits``/``--error_feedback``,
-``--is_mobile 1`` (the nested-list JSON format), ``--init_from``,
+frames over the in-process loopback fabric, the native shm rings, localhost
+gRPC (``--grpc_send_timeout``, ``--grpc_send_workers``) or MQTT topics with
+the payloads in an object store (``--mqtt_host``/``--mqtt_port``: a broker,
+by default the in-process one; ``--object_store_dir``,
+``--offload_threshold_bytes``, ``--broadcast_generations``), the clients
+training on the card unless ``--device cpu`` is given; ``--algorithm
+fedavg``, ``fedprox`` and ``fedavg_robust`` (the streaming robust server,
+``--reservoir_k``) with ``--compressor``/``--topk_frac``/
+``--quantize_bits``/``--error_feedback``, ``--is_mobile 1`` (the nested-list
+JSON format), ``--fault_spec`` (seeded wire faults), ``--population`` (per-rank
+upload delays and drops), ``--heartbeat_interval``, ``--init_from``,
 ``--checkpoint_dir``/``--checkpoint_every``/``--resume`` (server round
 checkpoints), ``--send_retries``/``--retry_base_delay``, ``--fleet_stats``
 and ``--run_dir``.
 
 The JAX CLI's own flag-combination errors are kept as they are; after them,
-a flag whose plane is not ported raises ``NotImplementedError`` naming its
-ROADMAP item when it is set away from its default, and so do the wire-path
-features the port does not have yet (:func:`_check_wire_ported`).
+a flag whose plane is not ported (the async and tree servers, jobs,
+downlink coding, the multi-GPU mesh) raises ``NotImplementedError`` naming
+its ROADMAP item when it is set away from its default.
 
     python -m fedml_tpu_torch.exp.main_fedavg --model lr --dataset mnist \\
         --client_num_in_total 1000 --client_num_per_round 10 --batch_size 10
@@ -90,10 +98,11 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                              "format (--backend loopback)")
     parser.add_argument("--backend", type=str, default="sim",
                         choices=["sim", "loopback", "shm", "grpc", "mqtt_s3"],
-                        help="sim = the single-device engine; loopback = the "
-                             "message-passing protocol in one process; shm, grpc and "
-                             "mqtt_s3 are ROADMAP §A11")
-    # message-passing transports beyond loopback (ROADMAP §A11)
+                        help="sim = the single-device engine; loopback/shm/grpc/mqtt_s3 = "
+                             "the message-passing protocol in one process over that "
+                             "transport (mqtt_s3: control plane on MQTT topics, model "
+                             "payloads through an object store)")
+    # message-passing transports beyond loopback
     parser.add_argument("--mqtt_host", type=str, default=None)
     parser.add_argument("--mqtt_port", type=int, default=1883)
     parser.add_argument("--object_store_dir", type=str, default=None)
@@ -206,14 +215,10 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 # Setting one away from its default raises (checked after the JAX CLI's own
 # flag-combination errors).
 _UNPORTED_FLAGS = {
-    "mqtt_host": "§A11", "mqtt_port": "§A11", "object_store_dir": "§A11",
-    "offload_threshold_bytes": "§A11", "grpc_send_timeout": "§A11",
-    "grpc_send_workers": "§A11",
     "jobs": "§A11 (multi-tenant job plane)",
     "server_mode": "§A11", "buffer_goal": "§A11", "staleness_weight": "§A11",
     "tree_fan_ins": "§A11", "tree_transport": "§A11", "tier_timeout": "§A11",
     "tier_compressor": "§A11",
-    "reservoir_k": "§A11 (the wire path's reservoir defense)",
     "downlink_compressor": "§A11", "downlink_keyframe_every": "§A11",
     "downlink_retention": "§A11",
     "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
@@ -397,33 +402,6 @@ def _check_ported(args, defaults: dict) -> None:
                 f"--{dest}={value!r} is not ported to fedml_tpu_torch yet: ROADMAP {item}")
 
 
-def _check_wire_ported(args) -> None:
-    """Raise for a message-passing feature the port does not have yet,
-    naming its ROADMAP item: the other transports, and on the loopback
-    wire fault injection, heartbeats, the population adapter and the
-    robust wire server (checked after the JAX CLI's own errors)."""
-    if args.backend == "sim":
-        return
-    if args.backend != "loopback":
-        raise NotImplementedError(
-            f"--backend {args.backend} is not ported to fedml_tpu_torch yet: ROADMAP §A11 "
-            "(the shm, grpc and mqtt_s3 transports)")
-    unported = [
-        ("--fault_spec", getattr(args, "fault_spec", None), "§A11 (comm/faults.py)"),
-        ("--heartbeat_interval", getattr(args, "heartbeat_interval", 0.0),
-         "§A11 (comm/status.py's heartbeat sender)"),
-        ("--population", getattr(args, "population", None),
-         "§A11 (the population wire adapter, population/wire.py)"),
-        ("--algorithm fedavg_robust", args.algorithm == "fedavg_robust",
-         "§A11 (the robust wire server, robust_distributed.py)"),
-    ]
-    for flag, value, item in unported:
-        if value:
-            raise NotImplementedError(
-                f"{flag} on the message-passing wire is not ported to fedml_tpu_torch "
-                f"yet: ROADMAP {item}")
-
-
 def run(args) -> list[dict]:
     """Run the experiment ``args`` describe; returns the round history. With
     ``--trace_dir`` the run is traced (``obs/trace.py`` ``run_traced``)."""
@@ -532,13 +510,20 @@ def _wire_eval_fn(trainer, test_arrays, eval_batch_size: int = 256):
 
 def _run_message_passing(args) -> list[dict]:
     """Drive the message-passing FedAvg protocol (typed array messages,
-    server + worker managers) over the loopback fabric (the JAX CLI's
+    server + worker managers) over the selected transport (the JAX CLI's
     ``_run_message_passing``, ``main_fedavg.py:436-733``): rank threads in
-    one process, the clients training on ``--device``."""
+    one process on loopback queues, native shm rings, localhost gRPC or
+    MQTT + object store, the clients training on ``--device``."""
+    import functools
     import json
     import os
 
-    from fedml_tpu_torch.algorithms.fedavg_distributed import run_distributed_fedavg_loopback
+    from fedml_tpu_torch.algorithms.fedavg_distributed import (
+        run_distributed_fedavg_grpc,
+        run_distributed_fedavg_loopback,
+        run_distributed_fedavg_mqtt_s3,
+        run_distributed_fedavg_shm,
+    )
     from fedml_tpu_torch.data.registry import load_partition_data
     from fedml_tpu_torch.models.registry import create_model
     from fedml_tpu_torch.obs import checkpoint
@@ -546,8 +531,7 @@ def _run_message_passing(args) -> list[dict]:
 
     _check_flag_combinations(args)
     _check_ported(args, vars(add_args(argparse.ArgumentParser()).parse_args([])))
-    _check_wire_ported(args)
-    if args.algorithm not in ("fedavg", "fedprox"):
+    if args.algorithm not in ("fedavg", "fedprox", "fedavg_robust"):
         raise NotImplementedError(
             f"--backend {args.backend} runs the message-passing FedAvg "
             f"protocol; --algorithm {args.algorithm} is sim-engine only"
@@ -565,6 +549,7 @@ def _run_message_passing(args) -> list[dict]:
     freq = args.frequency_of_the_test if not args.ci else args.comm_round
     ev = _wire_eval_fn(trainer, ds.test_arrays)
     comm_stats: dict = {}
+    robust_stats: dict = {}
     history: list[dict] = []
     metrics = MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb))
 
@@ -572,7 +557,7 @@ def _run_message_passing(args) -> list[dict]:
         rec = {"round": r}
         # the server's accountant flushes the round's Comm/* record into
         # comm_stats just before this callback fires
-        for crec in comm_stats.get("rounds", []):
+        for crec in comm_stats.get("rounds", []) + robust_stats.get("rounds", []):
             if crec.get("round") == r:
                 rec.update({k: v for k, v in crec.items() if k != "round"})
         if ev is not None and ((r + 1) % freq == 0 or r == args.comm_round - 1):
@@ -581,7 +566,36 @@ def _run_message_passing(args) -> list[dict]:
         history.append(rec)
         metrics.log(rec, round_idx=r)
 
+    runners = {
+        "loopback": run_distributed_fedavg_loopback,
+        "shm": run_distributed_fedavg_shm,
+        "grpc": functools.partial(run_distributed_fedavg_grpc,
+                                  send_timeout=args.grpc_send_timeout,
+                                  send_workers=args.grpc_send_workers),
+        "mqtt_s3": functools.partial(run_distributed_fedavg_mqtt_s3,
+                                     store_dir=args.object_store_dir,
+                                     mqtt_host=args.mqtt_host, mqtt_port=args.mqtt_port,
+                                     threshold_bytes=args.offload_threshold_bytes,
+                                     broadcast_generations=args.broadcast_generations),
+    }
     kwargs: dict = {}
+    if args.algorithm == "fedavg_robust":
+        from fedml_tpu_torch.algorithms.robust_distributed import RobustDistConfig
+
+        kwargs.update(robust_config=RobustDistConfig(
+            rule=args.robust_rule, norm_bound=args.norm_bound, dp_stddev=args.stddev,
+            dp_seed=args.seed, reservoir_k=args.reservoir_k), robust_stats=robust_stats)
+    if args.fault_spec:
+        kwargs.update(fault_specs=args.fault_spec, fault_seed=args.seed)
+    if args.population:
+        # the spec's distributions become per-rank upload delays/drops
+        from fedml_tpu_torch.population import population_fault_specs
+
+        kwargs["population"] = population_fault_specs(
+            args.population, worker_num,
+            seed=args.seed if args.population_seed is None else args.population_seed)
+    if args.heartbeat_interval:
+        kwargs["heartbeat_interval"] = args.heartbeat_interval
     if args.send_retries:
         from fedml_tpu_torch.comm.retry import RetryPolicy
 
@@ -614,7 +628,7 @@ def _run_message_passing(args) -> list[dict]:
         overrides = checkpoint.load_params(args.init_from)
         logging.info("warm-starting from %s", args.init_from)
     try:
-        final_variables = run_distributed_fedavg_loopback(
+        final_variables = runners[args.backend](
             trainer, ds.train, worker_num=worker_num, round_num=args.comm_round,
             batch_size=args.batch_size, seed=args.seed, on_round_done=on_round,
             init_overrides=overrides, **kwargs)

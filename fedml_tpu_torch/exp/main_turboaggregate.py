@@ -7,8 +7,9 @@ shares, never an individual client's plaintext (TA_Aggregator.py:13,
 mpc_function.py:62-110).
 
 Runs the multi-party protocol (``algorithms/turboaggregate_dist.py``) over
-the in-process loopback fabric, the clients training on the card unless
-``--device cpu`` is given; ``--backend shm`` is ROADMAP §A11.
+the in-process loopback fabric or, with ``--backend shm``, the native shared
+memory rings, the clients training on the card unless ``--device cpu`` is
+given.
 
     python -m fedml_tpu_torch.exp.main_turboaggregate [--device cpu]
 """
@@ -43,16 +44,13 @@ def run(args) -> dict:
     import torch
 
     from fedml_tpu_torch.algorithms.turboaggregate_dist import run_turboaggregate
-    from fedml_tpu_torch.comm.loopback import LoopbackCommManager, LoopbackFabric
+    from fedml_tpu_torch.comm.managers import create_backend
     from fedml_tpu_torch.core.trainer import ClientTrainer, make_local_eval, sgd
     from fedml_tpu_torch.data.registry import load_partition_data
     from fedml_tpu_torch.models.registry import create_model
     from fedml_tpu_torch.obs.metrics import logging_config
     from fedml_tpu_torch.sim.cohort import batch_array
 
-    if args.backend != "loopback":
-        raise NotImplementedError(
-            f"--backend {args.backend} is not ported to fedml_tpu_torch yet: ROADMAP §A11")
     logging_config(0)
     ds = load_partition_data(
         args.dataset, args.data_dir, args.partition_method, args.partition_alpha,
@@ -62,12 +60,30 @@ def run(args) -> dict:
                          input_shape=tuple(ds.train.arrays["x"].shape[1:]))
     trainer = ClientTrainer(module=model, optimizer=sgd(args.lr), epochs=args.epochs)
     workers = ds.train.num_clients
-    fabric = LoopbackFabric(workers + 1)
-    final = run_turboaggregate(
-        trainer, ds.train, workers, args.comm_round, args.batch_size,
-        lambda r: LoopbackCommManager(fabric, r), threshold=args.privacy_threshold,
-        seed=args.seed,
-    )
+    made = []
+    if args.backend == "loopback":
+        from fedml_tpu_torch.comm.loopback import LoopbackCommManager, LoopbackFabric
+
+        fabric = LoopbackFabric(workers + 1)
+        make_comm = lambda r: LoopbackCommManager(fabric, r)  # noqa: E731
+    else:
+        import uuid
+
+        job = f"ta_{uuid.uuid4().hex[:8]}"
+
+        def make_comm(r):
+            m = create_backend("shm", r, workers + 1, job=job)
+            made.append(m)
+            return m
+
+    try:
+        final = run_turboaggregate(
+            trainer, ds.train, workers, args.comm_round, args.batch_size,
+            make_comm, threshold=args.privacy_threshold, seed=args.seed,
+        )
+    finally:
+        for m in made:
+            m.cleanup()
     device = next(model.parameters()).device
     batches = {k: torch.from_numpy(v).to(device)
                for k, v in batch_array(ds.test_arrays, 256).items()}

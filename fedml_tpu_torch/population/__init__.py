@@ -6,13 +6,11 @@
   step-budget mapping);
 - :mod:`fedml_tpu_torch.population.trace`: bit-exact JSONL trace save and
   replay, in the JAX package's format;
+- :mod:`fedml_tpu_torch.population.wire`: the message-passing adapter
+  mapping the population onto per-rank upload delays and drops through
+  ``comm/faults.py``;
 - :mod:`fedml_tpu_torch.population.prng`: the subsystem's single seeded-rng
   funnel.
-
-The JAX package's ``population/wire.py`` (``PopulationWireAdapter``,
-``population_fault_specs``: the population mapped onto per-rank upload
-delays and drops of the message-passing backends) belongs to the wire path,
-ROADMAP §A11, and is not ported; nothing here exports it.
 
 CLI surface (:func:`add_cli_flags` / :func:`sim_config_fields`): one flag
 set shared by the entry points.
@@ -35,11 +33,16 @@ from fedml_tpu_torch.population.trace import (
     load_trace,
     save_trace,
 )
+from fedml_tpu_torch.population.wire import (
+    PopulationWireAdapter,
+    population_fault_specs,
+)
 
 __all__ = [
     "Dist", "Population", "PopulationSpec", "RoundView",
     "parse_dist", "parse_population_spec", "step_budgets",
     "TracePopulation", "capture_trace", "load_trace", "save_trace",
+    "PopulationWireAdapter", "population_fault_specs",
     "add_cli_flags", "sim_config_fields",
 ]
 
@@ -56,7 +59,8 @@ def add_cli_flags(parser):
              "const:v | uniform:lo,hi | lognormal:mu,sigma | zipf:a, e.g. "
              "'speed=lognormal:0,0.5;avail=0.8;dropout=0.05'. Drives cohort "
              "eligibility, per-client step budgets and mid-round dropout on "
-             "the sim backend (jitter is wire-only, ROADMAP §A11). Default "
+             "the sim backend, per-rank upload delays/drops on the "
+             "message-passing backends (jitter is wire-only). Default "
              "off; results with the flag unset are unchanged",
     )
     parser.add_argument(

@@ -91,16 +91,16 @@ def test_main_final_record_matches_jax(monkeypatch, tmp_path, name):
 
 
 UNPORTED = [
-    (["--backend", "shm"], "§A11"),
+    (["--backend", "shm", "--server_mode", "async"], "§A11"),
     (["--jobs", "jobs.json"], "§A11"),
     (["--downlink_compressor", "topk"], "§A11"),
     (["--downlink_retention", "2"], "§A11"),
-    (["--grpc_send_workers", "2"], "§A11"),
+    (["--backend", "grpc", "--downlink_compressor", "q8"], "§A11"),
     (["--mesh_shape", "2x4"], "§A12"),
     (["--shard_rules", "cnn_tp"], "§A12"),
-    (["--reservoir_k", "4"], "§A11"),
+    (["--backend", "mqtt_s3", "--jobs", "jobs.json"], "§A11"),
     (["--downlink_keyframe_every", "4"], "§A11"),
-    (["--mqtt_host", "localhost"], "§A11"),
+    (["--backend", "mqtt_s3", "--downlink_retention", "2"], "§A11"),
 ]
 
 

@@ -438,16 +438,20 @@ def test_mobile_transfer_format_matches_jax():
         texport.nested_lists_to_params({}, jv)
 
 
-def test_create_backend_builds_loopback_and_refuses_the_rest():
+def test_create_backend_builds_loopback_and_refuses_the_rest(tmp_path):
     from fedml_tpu_torch.comm.managers import create_backend
+
+    from fedml_tpu_torch.comm.object_store import OffloadCommManager
 
     fabric = tloopback.LoopbackFabric(2)
     assert isinstance(create_backend("loopback", 1, 2, fabric=fabric),
                       tloopback.LoopbackCommManager)
-    for backend in ("shm", "grpc", "mqtt"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A11"):
-            create_backend(backend, 0, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A11"):
-        create_backend("loopback", 0, 2, fabric=fabric, store_dir="x")
+    # the other arms are ported (tests/test_torch_transports.py builds each);
+    # an object store composes with any of them
+    offload = create_backend("loopback", 0, 2, fabric=fabric, store_dir=str(tmp_path))
+    assert isinstance(offload, OffloadCommManager)
+    assert isinstance(offload.inner, tloopback.LoopbackCommManager)
+    with pytest.raises(ImportError, match="requires paho-mqtt"):
+        create_backend("mqtt", 0, 2)
     with pytest.raises(ValueError, match="unknown backend"):
         create_backend("carrier-pigeon", 0, 2)

@@ -123,3 +123,20 @@ def test_chip_smoke_fails_without_a_card():
 def test_chip_smoke_fails_alone_outside_the_repo(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     _assert_failed_without_result(_run_smoke(tmp_path))
+
+
+def test_port_never_names_the_jax_shm_library():
+    """The port builds its shm ring from its own copy into its own build
+    directory: no file of it (nor chip_smoke.py) names the JAX package's
+    source directory or library, and the library path lies in the port."""
+    from fedml_tpu_torch.comm import shm
+
+    files = [f for f in (ROOT / "fedml_tpu_torch").rglob("*")
+             if f.is_file() and f.suffix in (".py", ".cpp", ".cu", ".h")]
+    files.append(ROOT / "chip_smoke.py")
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if any(s in f.read_text() for s in ("fedml_tpu/ops/native", "libshmring.so"))]
+    assert offenders == []
+    port = (ROOT / "fedml_tpu_torch").resolve()
+    assert shm.library_path().resolve().is_relative_to(port)
+    assert shm._SRC.resolve().is_relative_to(port)
