@@ -239,7 +239,21 @@ Phases, each of which exits non-zero on failure:
     with a round timeout and heartbeats: a rank that drops every send
     excluded as OFFLINE, a rank whose syncs arrive late but which
     heartbeats marked SLOW with no miss, a heartbeating run bitwise a
-    silent one.
+    silent one;
+21. the barrier-free server plane and the job plane (no flash launch on
+    any of their paths; after ``[transports]``, ``[async]``): the flagship
+    at ``[transports]``' depth over loopback under ``--server_mode async``
+    (a full buffer, ``const``, 2 versions; a buffer of 2, ``poly:0.5``, 4
+    versions), each emission bitwise ``replay_async_schedule`` over the
+    arrivals and each version-0 upload bitwise ``[transports]``'; the
+    1-tier tree, the root's global bitwise the f64 mean of the edge's
+    arrivals; the ``(2, 2)`` ladder over 2 rounds (the sync tree, async
+    edges at a buffer of 2 and the none-coded tier uplink bitwise alike
+    per round) and the sync tree over shm bitwise its loopback run;
+    ``--jobs`` with the flagship and row 1 on one wire, each job's global
+    the f64 mean of its arrivals and each upload its solo run's; and
+    ``run_multi_job_sim`` over two row-1 engines, each job's per-round
+    globals bitwise its solo run.
 
 Each phase prints its seconds (``[phase]``). It prints a
 ``{"kernels": [...]}`` line, then as its last line
@@ -2720,10 +2734,12 @@ def phase_so_lr(torch):
 
 
 FEDNAS_SMALL = dict(num_classes=4, channels=4, layers=3, steps=2, hw=8, batch=4)
-# the DARTS search network (Liu et al., ICLR 2019, sec. 3.1) on the CIFAR-10
-# fallback (2,000 images), first order; cut to 4 clients and 1 round
+# the DARTS search network (Liu et al., ICLR 2019, sec. 3.1) on a CIFAR-10
+# fixture of 800/200 images [50k/10k], cut from the registry's 2,000-image
+# fallback for the script's time budget, first order; cut to 4 clients and
+# 1 round
 FEDNAS = dict(dataset="cifar10", channels=16, layers=8, steps=4, batch=64, lr=0.025,
-              arch_lr=3e-4, clients=4, rounds=1, profiled_step=5)
+              arch_lr=3e-4, clients=4, rounds=1, profiled_step=5, n_train=800, n_test=200)
 
 
 def _fednas_err(torch, a, b):
@@ -2844,8 +2860,8 @@ def _profile_call(torch, call_idx, got):
 
 def phase_fednas(torch, smi):
     """The FedNAS path at the DARTS search width through its entry point,
-    ``exp/main_fednas.run``: CIFAR-10 (the registry's fallback of 2,000
-    32x32 images, hetero alpha 0.5) over 4 clients, channels 16, 8 cells, 4
+    ``exp/main_fednas.run``: CIFAR-10 (a fixture of ``FEDNAS``' size in the
+    real batch format, hetero alpha 0.5) over 4 clients, channels 16, 8 cells, 4
     steps, B=64, SGD 0.025 for the weights, Adam 3e-4 for α, first order, 1
     round; one search step of it under ``torch.profiler``. Then one
     unrolled (second-order) ``search_step`` at the same width, timed after a
@@ -2856,7 +2872,11 @@ def phase_fednas(torch, smi):
     from fedml_tpu_torch.exp import main_fednas
     from fedml_tpu_torch.models.darts import DARTSNetwork
 
+    from fedml_tpu_torch.exp.repro_cross_silo import write_cifar10_fixture
+
     c = FEDNAS
+    write_cifar10_fixture(BUILD_DIR / "fednas_cifar10", n_train=c["n_train"],
+                          n_test=c["n_test"], seed=0)
     argv = ["--dataset", c["dataset"], "--data_dir", str(BUILD_DIR / "fednas_cifar10"),
             "--client_number", str(c["clients"]), "--comm_round", str(c["rounds"]),
             "--batch_size", str(c["batch"]), "--lr", str(c["lr"]), "--arch_lr",
@@ -2910,7 +2930,7 @@ def phase_fednas(torch, smi):
             fail(f"fednas: genotype does not decode to 2 x {c['steps']} genes: {g}")
     if str(genotypes[-1].normal) != last["genotype_normal"]:
         fail("fednas: the returned genotype is not the last round's")
-    log(f"[fednas] {smi}: main_fednas --dataset cifar10 (fallback, {images} images of 32x32x3, "
+    log(f"[fednas] {smi}: main_fednas --dataset cifar10 (a fixture of {images} images of 32x32x3, "
         f"hetero 0.5 over {c['clients']} clients: {sizes}) --channels {c['channels']} "
         f"--layers {c['layers']} --steps {c['steps']} --batch_size {c['batch']} --lr {c['lr']} "
         f"--arch_lr {c['arch_lr']}, first order, {c['rounds']} rounds; fixture loaded in "
@@ -5546,7 +5566,9 @@ def _transports_flagship(torch, data_dir):
     the f64 weighted mean of that run's uploads in arrival order, each
     rank's upload bitwise its upload over the first transport, a finite
     eval. The gRPC ranks listen on a block of free ports, not the runner's
-    fixed 29500. Returns each transport's flash launches."""
+    fixed 29500. Returns each transport's flash launches and the first
+    transport's uploads by worker index (``[async]`` holds its runs' uploads
+    to them)."""
     import functools
     import shutil
 
@@ -5602,7 +5624,7 @@ def _transports_flagship(torch, data_dir):
             f"in arrival order: bitwise; (2) uploads == over {first[0]}: bitwise; (3) Test/Acc "
             f"{last['Test/Acc']:.4f} Test/Loss {last['Test/Loss']:.5f}")
         torch.cuda.empty_cache()
-    return launches
+    return launches, first[1]
 
 
 def _transports_robust(torch, data_dir):
@@ -5762,7 +5784,8 @@ def phase_transports(torch):
     """The shm ring built from the repo's copy, then (a) the flagship over
     shm, mqtt_s3 and gRPC, (b) the robust wire server with faults over shm,
     (c) heartbeats and a timeout over shm. Returns each path's flash
-    launches (each must be 0)."""
+    launches (each must be 0) and the flagship's uploads over shm by worker
+    index."""
     from fedml_tpu_torch.comm import shm
 
     t0 = time.perf_counter()
@@ -5775,17 +5798,372 @@ def phase_transports(torch):
     log(f"[transports] shm ring built from {shm._SRC.relative_to(Path(__file__).resolve().parent)}"
         f" with g++ in {build_s:.2f} s: {lib.name}")
     data_dir = _wire_fixture()
-    launches = {}
+    launches, uploads = {}, None
     for name, fn, args in (("flagship", _transports_flagship, (data_dir,)),
                            ("robust", _transports_robust, (data_dir,)),
                            ("heartbeats", _transports_heartbeats, ())):
         t1 = time.perf_counter()
         out = fn(torch, *args)
         if name == "flagship":
-            launches.update(out)
+            launches.update(out[0])
+            uploads = out[1]
         else:
             launches[f"transports_{name}"] = out
         log(f"[transports] {name}: {time.perf_counter() - t1:.2f} s")
+    return launches, uploads
+
+
+# the barrier-free server plane and the job plane (ROADMAP §A11.3): the
+# flagship at TRANSPORTS' depth (40 silos, 4 a round) over loopback; the
+# async runs emit 2 versions at a full buffer and 4 at a buffer of 2, the
+# 1-tier tree runs 1 round, the (2, 2) ladder 2 (the JAX contract's) and
+# its shm run 1, the job plane one round of each job, the sim co-schedule 3
+# rounds of two row-1 engines (MNIST + LR, 10 of the 1000 LEAF clients a
+# round) (each cut for the script's time budget)
+ASYNC = dict(versions_full=2, versions_half=4, half_buffer=2, half_staleness="poly:0.5",
+             tree_rounds=1, ladder_rounds=2, shm_rounds=1, sim_rounds=3)
+
+
+def _async_argv(data_dir, rounds, *extra):
+    """The flagship's argv at ``TRANSPORTS``' depth over loopback, ``rounds``
+    rounds (versions in async mode), plus ``extra``."""
+    c = TRANSPORTS
+    return _flagship_argv("loopback", data_dir, c["clients"], c["per_round"], rounds) + list(extra)
+
+
+def _spanned_cli(torch, argv, *wraps):
+    """The CLI run of ``argv`` under deterministic algorithms and a tracer,
+    with ``wraps`` (``(owner, name, make)`` for ``_wrapped``) in place, its
+    flash launches counted from 0: (history, seconds, spans, launches),
+    ``spans`` the seconds and count of each span name."""
+    from fedml_tpu_torch.obs import trace
+
+    tracer = trace.install(trace.Tracer())
+    _zero_flash_counters()
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_deterministic(torch))
+            for owner, name, make in wraps:
+                stack.enter_context(_wrapped(owner, name, make))
+            history, wall = _cli(torch, argv)
+    finally:
+        trace.uninstall()
+    torch.cuda.synchronize()
+    spans: dict = {}
+    for rec in tracer.events():
+        if rec.get("ph") == "X":
+            t, n = spans.get(rec["name"], (0.0, 0))
+            spans[rec["name"]] = (t + rec["dur"] / 1e6, n + 1)
+    return history, wall, spans, _flash_launches()
+
+
+def _span_line(spans, names):
+    return ", ".join(f"{k} {spans.get(k, (0.0, 0))[0]:.3f} s x{spans.get(k, (0.0, 0))[1]}"
+                     for k in names)
+
+
+def _async_server_run(torch, argv, buffer_goal, staleness):
+    """``argv`` with ``--server_mode async``: every arrival the server's
+    handler took (worker index, upload bytes, n, echoed version, in fold
+    order) and every emitted global, each emission held bitwise to the
+    port's ``replay_async_schedule`` over the arrivals."""
+    from fedml_tpu_torch.async_agg import server as asrv
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.sim.async_oracle import AsyncUpload, replay_async_schedule
+
+    arrivals, emits = [], []
+
+    def keep_arrival(original):
+        def handler(self, msg):
+            arrivals.append((msg.get_sender_id() - 1,
+                             np.array(msg.get(Message.MSG_ARG_KEY_MODEL_PARAMS)),
+                             float(msg.get(Message.MSG_ARG_KEY_NUM_SAMPLES)),
+                             int(msg.get(Message.MSG_ARG_KEY_MODEL_VERSION))))
+            return original(self, msg)
+        return handler
+
+    def keep_emit(original):
+        def emit(self):
+            out = original(self)
+            emits.append(np.array(out))
+            return out
+        return emit
+
+    history, wall, spans, launches = _spanned_cli(
+        torch, argv + ["--server_mode", "async", "--buffer_goal", str(buffer_goal),
+                       "--staleness_weight", staleness],
+        (asrv.AsyncFedAvgServerManager, "_on_model_from_client", keep_arrival),
+        (asrv.AsyncFedAggregator, "emit", keep_emit))
+    models, records = replay_async_schedule(
+        [AsyncUpload(flat.view(np.float32), n, v) for _, flat, n, v in arrivals],
+        buffer_goal, staleness)
+    if len(models) != len(emits) or not emits:
+        fail(f"[async] {staleness} buffer {buffer_goal}: {len(emits)} emissions, the replay "
+             f"of {len(arrivals)} arrivals gives {len(models)}")
+    for k, (model, got) in enumerate(zip(models, emits)):
+        if not np.array_equal(model.view(np.uint8), got):
+            fail(f"[async] {staleness} buffer {buffer_goal}: emission {k} is not bitwise the "
+                 "replay of the arrivals")
+    return history, wall, spans, launches, arrivals, records
+
+
+def _tree_run(torch, argv):
+    """``argv`` (a ``--server_mode tree`` run): every global the root closed
+    a round with, and every upload a tier's tally took (worker index, bytes,
+    n, in its tier's arrival order)."""
+    from fedml_tpu_torch.async_agg import tree
+
+    globals_, uploads = [], []
+
+    def keep_global(original):
+        def aggregate(self):
+            out = original(self)
+            globals_.append(np.array(out))
+            return out
+        return aggregate
+
+    def keep_upload(original):
+        def add(self, index, flat, n):
+            uploads.append((index, np.array(flat), float(n)))
+            return original(self, index, flat, n)
+        return add
+
+    def keep_fold(original):
+        def fold(self, index, payload, weight, upload_version):
+            uploads.append((index, np.array(payload).view(np.uint8), float(weight)))
+            return original(self, index, payload, weight, upload_version)
+        return fold
+
+    history, wall, spans, launches = _spanned_cli(
+        torch, argv, (tree.TierAggregator, "aggregate", keep_global),
+        (tree.TierAggregator, "add_local_trained_result", keep_upload),
+        (tree.TierAggregator, "fold_async", keep_fold))
+    return history, wall, spans, launches, globals_, uploads
+
+
+def _async_jobs(torch, data_dir, mnist_dir, solo_flagship):
+    """(e) ``--jobs`` with the flagship and BASELINE row 1 (MNIST + LR, the
+    LEAF fixture, 10 of 1000 clients) on one loopback wire, 1 round each:
+    each job's global bitwise the f64 weighted mean of its own arrivals,
+    each rank's upload bitwise its solo run's (the flagship's: ``[transports]``'
+    run over shm; row 1's: a solo CLI run here)."""
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+
+    def capture(into_up, into_glob):
+        def keep_upload(original):
+            def add(self, index, flat, n):
+                into_up.append((index, np.array(flat), float(n)))
+                return original(self, index, flat, n)
+            return add
+
+        def keep_global(original):
+            def aggregate(self):
+                out = original(self)
+                into_glob.append(np.array(out))
+                return out
+            return aggregate
+
+        return ((tfd.FedAvgDistAggregator, "add_local_trained_result", keep_upload),
+                (tfd.FedAvgDistAggregator, "aggregate", keep_global))
+
+    m = MNIST
+    solo_up, solo_glob = [], []
+    _, solo_s, _, solo_launch = _spanned_cli(
+        torch, _mnist_argv(mnist_dir, 1, 1, "--backend", "loopback"),
+        *capture(solo_up, solo_glob))
+    jobs = [{"job_id": "flagship"},
+            {"job_id": "mnist_lr", "dataset": "mnist", "model": "lr", "data_dir": str(mnist_dir),
+             "client_num_in_total": m["clients"], "client_num_per_round": m["per_round"],
+             "batch_size": m["batch"], "lr": m["lr"], "wd": 0.0, "epochs": m["epochs"],
+             "comm_round": 1, "frequency_of_the_test": 1, "model_dtype": "float32"}]
+    path = BUILD_DIR / "async_jobs.json"
+    path.write_text(json.dumps(jobs))
+    ups, globs = [], []
+    history, wall, spans, launches = _spanned_cli(
+        torch, _async_argv(data_dir, 1, "--jobs", str(path)), *capture(ups, globs))
+    flag_bytes = next(iter(solo_flagship.values())).nbytes
+    for name, solo in (("flagship", solo_flagship),
+                       ("mnist_lr", {i: flat for i, flat, _ in solo_up})):
+        size = next(iter(solo.values())).nbytes
+        mine = [u for u in ups if u[1].nbytes == size]
+        glob = [g for g in globs if g.nbytes == size]
+        if len(mine) != len(solo) or len(glob) != 1:
+            fail(f"[async] (e) job {name}: {len(mine)} uploads, {len(glob)} globals")
+        if not np.array_equal(_f64_mean(mine), glob[0]):
+            fail(f"[async] (e) job {name}: the global is not the f64 weighted mean of its "
+                 "arrivals")
+        if any(not np.array_equal(flat, solo[i]) for i, flat, _ in mine):
+            fail(f"[async] (e) job {name}: an upload differs from the same rank's solo upload")
+    recs = {rec["job"]: rec for rec in history}
+    if not all(np.isfinite([r["Test/Acc"], r["Test/Loss"]]).all() for r in recs.values()):
+        fail(f"[async] (e) non-finite eval {recs}")
+    log(f"[async] (e) --jobs flagship ({len(solo_flagship)} silos, {flag_bytes} bytes an "
+        f"upload) + row 1 MNIST + LR ({m['per_round']} of {m['clients']} clients) on one "
+        f"loopback wire, 1 round each: {wall:.2f} s (row 1 solo {solo_s:.2f} s); each job's "
+        f"global == the f64 mean of its arrivals, each upload == its solo run's: bitwise; "
+        + "; ".join(f"{j} Test/Acc {r['Test/Acc']:.4f}" for j, r in sorted(recs.items()))
+        + "; " + _span_line(spans, ("comm/send", "comm/recv", "tenancy/dispatch")))
+    return {k: launches[k] + solo_launch[k] for k in launches}
+
+
+def _async_sim(torch, mnist_dir):
+    """(f) ``run_multi_job_sim`` over two FedSim engines on the card, each
+    BASELINE row 1 at full width (MNIST + LR on the LEAF fixture, 10 of 1000
+    clients a round, B=10, the CLI's trainer; seeds 5 and 9 over the row's
+    one partition, each engine with its own model), each round dispatched
+    alone: each job's per-round globals, metric records and final variables
+    bitwise its solo run's (``FedSim.run`` of the same engine, before; the
+    co-schedule starts each job afresh from its seed)."""
+    from fedml_tpu_torch.data import registry
+    from fedml_tpu_torch.exp import main_fedavg
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.sim import engine
+    from fedml_tpu_torch.tenancy import run_multi_job_sim
+
+    m, rounds = MNIST, ASYNC["sim_rounds"]
+    per_round: dict = {}
+
+    def keep_round(original):
+        def run_staged_round(self, staged, variables, server_state=()):
+            out = original(self, staged, variables, server_state)
+            per_round.setdefault(id(self), []).append(
+                {k: v.detach().cpu().clone() for k, v in out[0].items()})
+            return out
+        return run_staged_round
+
+    def build(seed):
+        # the row's partition, read once for the script (``_loaded_once``)
+        ds = registry.load_partition_data("mnist", str(mnist_dir), "hetero", 0.5,
+                                          m["clients"], 0)
+        args = main_fedavg.add_args(argparse.ArgumentParser()).parse_args(
+            _mnist_argv(mnist_dir, rounds, rounds))
+        model = create_model("lr", ds.class_num, "mnist", dtype=args.model_dtype,
+                             device="cuda", input_shape=tuple(ds.train.arrays["x"].shape[1:]))
+        cfg = engine.SimConfig(client_num_in_total=ds.train.num_clients,
+                               client_num_per_round=m["per_round"], batch_size=m["batch"],
+                               comm_round=rounds, epochs=m["epochs"],
+                               frequency_of_the_test=rounds, seed=seed, pipeline_depth=0,
+                               block_dispatch=False)
+        return engine.FedSim(main_fedavg.build_trainer(args, model, "mnist"), ds.train,
+                             ds.test_arrays, cfg, device="cuda")
+
+    specs = {"a": 5, "b": 9}
+    _zero_flash_counters()
+    t0 = time.perf_counter()
+    with _wrapped(engine.FedSim, "run_staged_round", keep_round):
+        sims = {name: build(seed) for name, seed in specs.items()}
+        build_s = time.perf_counter() - t0
+        solo = {}
+        for name, sim in sims.items():
+            final, hist = sim.run()
+            solo[name] = (final, hist, per_round.pop(id(sim)))
+        solo_s = time.perf_counter() - t0 - build_s
+        t1 = time.perf_counter()
+        results = run_multi_job_sim(sims)
+        torch.cuda.synchronize()
+        co_s = time.perf_counter() - t1
+    for name, sim in sims.items():
+        res = results[name]
+        if not res.ok:
+            fail(f"[async] (f) job {name} failed: {res.error!r}")
+        final, hist, rounds_solo = solo[name]
+        rounds_co = per_round.pop(id(sim))
+        if len(rounds_co) != rounds or len(rounds_solo) != rounds or any(
+                not torch.equal(a[k], b[k]) for a, b in zip(rounds_co, rounds_solo) for k in a):
+            fail(f"[async] (f) job {name}: a round's global differs from the solo run's")
+        if any(not torch.equal(final[k].cpu(), res.final[k].cpu()) for k in final):
+            fail(f"[async] (f) job {name}: the final variables differ from the solo run's")
+        solo_recs = [{k: v for k, v in rec.items() if k != "round_time"} for rec in hist]
+        if solo_recs != res.rounds:
+            fail(f"[async] (f) job {name}: the metric records differ from the solo run's")
+    log(f"[async] (f) run_multi_job_sim, two row-1 FedSim engines ({m['per_round']} of "
+        f"{m['clients']} clients a round, {rounds} rounds each, per-round dispatch) on the "
+        f"card: {co_s:.2f} s co-scheduled, {solo_s:.2f} s for both solo runs, {build_s:.2f} s "
+        f"to build both; per-round globals, records and finals == solo: bitwise; final "
+        f"Test/Acc " + ", ".join(
+            f"{n} {results[n].rounds[-1]['Test/Acc']:.4f}" for n in specs))
+    return _flash_launches()
+
+
+def phase_async(torch, mnist_dir, solo_flagship):
+    """The barrier-free server plane and the job plane on the card, the
+    flagship at ``TRANSPORTS``' depth under deterministic algorithms: (a)
+    async at a full buffer, const, 2 versions: every emission bitwise the
+    port's ``replay_async_schedule`` of the arrivals, each version-0 upload
+    bitwise the same rank's in ``[transports]``; (b) a buffer of 2,
+    ``poly:0.5``, 4 versions: every emission bitwise the replay; (c) the
+    1-tier tree ``(1, 4)``: the root's global bitwise the f64 mean of the
+    edge's arrivals, each upload bitwise ``[transports]``'; (d) the ``(2,
+    2)`` ladder: the sync tree, async edges at a buffer of 2 and the
+    none-coded tier uplink bitwise alike per round, and the sync tree over
+    shm bitwise over loopback; (e) ``--jobs``; (f) ``run_multi_job_sim``.
+    Returns each path's flash launches (each must be 0)."""
+    c = ASYNC
+    data_dir = _wire_fixture()
+    launches = {}
+    # (a)
+    hist, wall, spans, launches["async_full"], arrivals, _ = _async_server_run(
+        torch, _async_argv(data_dir, c["versions_full"]), TRANSPORTS["per_round"], "const")
+    v0 = {i: flat for i, flat, _, v in arrivals if v == 0}
+    if v0.keys() != solo_flagship.keys() or any(
+            not np.array_equal(v0[i], solo_flagship[i]) for i in v0):
+        fail("[async] (a) a version-0 upload differs from the same rank's in [transports]")
+    if not all(np.isfinite([hist[-1]["Test/Acc"], hist[-1]["Test/Loss"]])):
+        fail(f"[async] (a) non-finite eval {hist[-1]}")
+    log(f"[async] (a) --server_mode async --buffer_goal {TRANSPORTS['per_round']} "
+        f"--staleness_weight const, {c['versions_full']} versions: {len(arrivals)} arrivals "
+        f"(worker, version) {[(i + 1, v) for i, _, _, v in arrivals]}, {wall:.2f} s; every "
+        f"emission == replay_async_schedule: bitwise; version-0 uploads == [transports]': "
+        f"bitwise; Test/Acc {hist[-1]['Test/Acc']:.4f}; "
+        + _span_line(spans, ("comm/send", "comm/recv", "async/fold", "async/emit")))
+    # (b)
+    hist, wall, spans, launches["async_half"], arrivals, records = _async_server_run(
+        torch, _async_argv(data_dir, c["versions_half"]), c["half_buffer"],
+        c["half_staleness"])
+    log(f"[async] (b) --buffer_goal {c['half_buffer']} --staleness_weight "
+        f"{c['half_staleness']}, {c['versions_half']} versions: {len(arrivals)} arrivals "
+        f"(worker, version) {[(i + 1, v) for i, _, _, v in arrivals]}, {wall:.2f} s; every "
+        f"emission == replay_async_schedule: bitwise; per emission (stale folds, fold "
+        f"weights): {[(r['stale_folds'], r['fold_weights']) for r in records]}; "
+        + _span_line(spans, ("comm/send", "comm/recv", "async/fold", "async/emit")))
+    # (c)
+    per = TRANSPORTS["per_round"]
+    hist, wall, spans, launches["async_tree"], globs, ups = _tree_run(
+        torch, _async_argv(data_dir, c["tree_rounds"], "--server_mode", "tree",
+                           "--tree_fan_ins", f"1,{per}"))
+    if len(globs) != c["tree_rounds"] or not np.array_equal(_f64_mean(ups[:per]), globs[0]):
+        fail("[async] (c) the root's global is not the f64 mean of the edge's arrivals")
+    if any(not np.array_equal(flat, solo_flagship[i]) for i, flat, _ in ups[:per]):
+        fail("[async] (c) a leaf's upload differs from the same rank's in [transports]")
+    log(f"[async] (c) --server_mode tree --tree_fan_ins 1,{per}: {wall:.2f} s, the edge's "
+        f"arrivals {[i + 1 for i, _, _ in ups[:per]]}; root global == f64 mean of them: "
+        f"bitwise; uploads == [transports]': bitwise; Test/Acc {hist[-1]['Test/Acc']:.4f}; "
+        + _span_line(spans, ("comm/send", "comm/recv", "tree/fold", "tree/forward")))
+    # (d)
+    ladder = {}
+    for name, rounds, extra in (
+            ("sync", c["ladder_rounds"], []),
+            ("async edges", c["ladder_rounds"], ["--buffer_goal", "2"]),
+            ("none-coded uplink", c["ladder_rounds"], ["--buffer_goal", "2",
+                                                       "--tier_compressor", "none"]),
+            ("sync over shm", c["shm_rounds"], ["--tree_transport", "shm"])):
+        hist, wall, spans, launch, globs, ups = _tree_run(torch, _async_argv(
+            data_dir, rounds, "--server_mode", "tree", "--tree_fan_ins", "2,2", *extra))
+        launches[f"async_ladder_{name.replace(' ', '_')}"] = launch
+        ladder[name] = globs
+        if len(globs) != rounds:
+            fail(f"[async] (d) {name}: {len(globs)} round closes")
+        log(f"[async] (d) (2, 2) {name}: {rounds} round(s) in {wall:.2f} s, "
+            f"Test/Acc {hist[-1]['Test/Acc']:.4f}; "
+            + _span_line(spans, ("comm/send", "comm/recv", "tree/fold", "tree/forward")))
+    for name, globs in ladder.items():
+        if any(not np.array_equal(a, b) for a, b in zip(globs, ladder["sync"])):
+            fail(f"[async] (d) {name} differs from the sync (2, 2) tree")
+    log("[async] (d) (2, 2) ladder: async edges == none-coded uplink == sync tree, bitwise "
+        "per round and at the end; shm == loopback: bitwise (its round)")
+    torch.cuda.empty_cache()
+    launches["async_jobs"] = _async_jobs(torch, data_dir, mnist_dir, solo_flagship)
+    launches["async_sim"] = _async_sim(torch, mnist_dir)
     return launches
 
 
@@ -5844,10 +6222,12 @@ def main() -> None:
         cli_launches["split_vertical"] = _timed("split and vertical", phase_split_and_vertical,
                                                 torch, mnist_dir)
         cli_launches.update(_timed("wire", phase_wire, torch, mnist_dir, plain_flagship_s))
-    cli_launches.update(_timed("transports", phase_transports, torch))
+        transports_launches, solo_flagship = _timed("transports", phase_transports, torch)
+        cli_launches.update(transports_launches)
+        cli_launches.update(_timed("async", phase_async, torch, mnist_dir, solo_flagship))
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
         f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip, fedgan, "
-        f"splitnn, wire)")
+        f"splitnn, wire, async)")
     femnist_loads = []
     with _loaded_once(femnist_loads):
         cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
@@ -5887,7 +6267,10 @@ def main() -> None:
                  "compress", "gossip", "fedgan", "split_vertical", "fedgkt", "fedseg",
                  "vision_fed", "dol", "wire_sim", "wire_flagship", "wire_mnist",
                  "wire_families", "transports_shm", "transports_mqtt_s3", "transports_grpc",
-                 "transports_robust", "transports_heartbeats"):
+                 "transports_robust", "transports_heartbeats", "async_full", "async_half",
+                 "async_tree", "async_ladder_sync", "async_ladder_async_edges",
+                 "async_ladder_none-coded_uplink", "async_ladder_sync_over_shm", "async_jobs",
+                 "async_sim"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

@@ -42,9 +42,11 @@ server's sync, in one federation.
 Fault injection (``comm/faults.py``), the population adapter
 (``population/wire.py``), heartbeats with the server's SLOW judgement
 (``comm/status.py``) and the robust wire server
-(``algorithms/robust_distributed.py``) are the JAX runner's. Refused, each
-naming its ROADMAP item: the async server and the downlink delta codec
-(both §A11).
+(``algorithms/robust_distributed.py``) are the JAX runner's, and so is the
+buffered-async server (``server_mode="async"``, ``async_agg/server.py``),
+for which the sync carries the model version (``_sync_extra_params``) and
+the client echoes it. Refused, naming its ROADMAP item: the downlink delta
+codec (§A11.4).
 """
 
 from __future__ import annotations
@@ -502,7 +504,7 @@ class FedAvgServerManager(ServerManager):
                  fold_workers: int = 0,
                  fold_chunk: int | None = None):
         if downlink_codec is not None:
-            raise _unported("the downlink delta codec (compress/downlink.py)")
+            raise _unported("the downlink delta codec (compress/downlink.py)", "§A11.4")
         super().__init__(comm, rank=0, size=worker_num + 1)
         # sharded fold plane (algorithms/fold_plane.py): fold_workers > 0
         # moves upload folding off the receive thread onto that many chunk
@@ -604,6 +606,16 @@ class FedAvgServerManager(ServerManager):
         return rnglib.sample_clients(self.round_idx, self.client_num_in_total,
                                      self.worker_num)
 
+    def _sync_extra_params(self) -> dict:
+        """Extra header params stamped on every downlink sync: the async
+        server adds the explicit global-model version here (clients train
+        against a version, not a sync count). Header-only scalars: they ride
+        the per-receiver head, never the shared payload frame. The sync
+        server stamps none (the downlink delta plane, which would stamp the
+        version here too, is ROADMAP §A11.4), so its frames are the JAX
+        sync server's byte for byte."""
+        return {}
+
     def _decode_upload(self, msg: Message) -> np.ndarray:
         """Inverse seam: a client upload back to the flat byte vector."""
         return np.asarray(msg.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS))
@@ -635,6 +647,8 @@ class FedAvgServerManager(ServerManager):
                 # the authoritative round index rides every sync: clients
                 # train AS this round instead of counting received syncs
                 msg.add_params(MyMessage.MSG_ARG_KEY_ROUND_IDX, self.round_idx)
+                for k, v in self._sync_extra_params().items():
+                    msg.add_params(k, v)
                 if include_desc:
                     msg.add_params(MyMessage.MSG_ARG_KEY_MODEL_DESC, self.model_desc)
                 if finished:
@@ -935,6 +949,8 @@ class FedAvgClientManager(ClientManager):
         self.exec_lock = exec_lock or TRAIN_LOCK
         self.device = next(trainer.module.parameters()).device
         self._round = 0
+        # the model version the last sync stamped (the async server's), or None
+        self._model_version: int | None = None
         # rng identity on the wire (flat runs: rng_rank == rank)
         self.rng_rank = rank
         # fleet telemetry opt-in (set by the runner when fleet_stats is on)
@@ -957,7 +973,7 @@ class FedAvgClientManager(ClientManager):
         if desc is not None:
             self._desc = desc
         if msg.get(Message.MSG_ARG_KEY_ENCODED_UPDATE) is not None:
-            raise _unported("a delta-coded sync (the downlink delta codec)")
+            raise _unported("a delta-coded sync (the downlink delta codec)", "§A11.4")
         return unpack_state(np.asarray(msg.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)),
                                    self._desc)
 
@@ -980,6 +996,12 @@ class FedAvgClientManager(ClientManager):
         # is installed, time the local round and piggyback a compact report
         reg = registry.get() if self.fleet_telemetry else None
         t_start = time.perf_counter() if reg is not None else 0.0
+        # the explicit model-version stamp (the async server's): remembered
+        # here and echoed on the upload, so the server's staleness weight is
+        # computed from the version this client verifiably trained against
+        # (sync servers stamp no version and get no echo)
+        version = msg.get(Message.MSG_ARG_KEY_MODEL_VERSION)
+        self._model_version = None if version is None else int(version)
         ridx = msg.get(MyMessage.MSG_ARG_KEY_ROUND_IDX)
         if ridx is not None:
             # train AS the server's round, so a replayed downlink leg
@@ -997,6 +1019,8 @@ class FedAvgClientManager(ClientManager):
         self._fill_upload(out, new_vars, variables)
         out.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, n)
         out.add_params(MyMessage.MSG_ARG_KEY_ROUND_IDX, self._round - 1)
+        if self._model_version is not None:
+            out.add_params(Message.MSG_ARG_KEY_MODEL_VERSION, self._model_version)
         if reg is not None:
             step_ms = (time.perf_counter() - t_start) * 1e3
             reg.observe("client/step_ms", step_ms)
@@ -1263,7 +1287,12 @@ def run_distributed_fedavg(
     checkpoint_every: int = 1,
     resume: bool = False,
     server_mode: str = "sync",
+    buffer_goal: int | None = None,
+    staleness_weight: str = "const",
+    async_stats: dict | None = None,
     fleet_stats: dict | None = None,
+    trace_lanes: str | None = None,
+    trace_wire: bool = False,
     fold_workers: int = 0,
     fold_chunk: int | None = None,
 ):
@@ -1301,15 +1330,44 @@ def run_distributed_fedavg(
     the process registry (``registry``); telemetry-on runs are bitwise
     telemetry-off runs. ``fold_workers`` shards the server's fold.
 
-    ``server_mode="async"`` and ``downlink_codec`` raise
-    ``NotImplementedError`` naming their ROADMAP item. Returns the final
-    global variables (the port's state dict of host tensors)."""
+    ``server_mode="async"`` swaps in the buffered-async server
+    (``async_agg/server.py``): uploads fold on arrival with a
+    ``staleness_weight`` decay (``const`` | ``poly:a`` | ``hinge:a,b``), a
+    new global is emitted every ``buffer_goal`` arrivals (default: the
+    worker count) with no round barrier, and ``round_num`` counts emitted
+    models; ``async_stats`` (a caller dict) receives per-emission Async/*
+    records (``rounds``) and the run's ``totals``. With ``buffer_goal ==
+    worker_num`` and the constant weight the async path is bitwise the sync
+    streaming path. The tree has its own harness
+    (``async_agg.tree.run_tree_fedavg_loopback``). ``downlink_codec``
+    raises ``NotImplementedError`` naming ROADMAP §A11.4, and
+    ``trace_lanes``/``trace_wire`` (the cross-rank trace lanes) naming
+    §A11.5. Returns the final global variables (the port's state dict of
+    host tensors)."""
+    if server_mode not in ("sync", "async"):
+        raise ValueError(
+            f"unknown server_mode {server_mode!r}: expected 'sync' or "
+            "'async' (the hierarchical tree mode runs through "
+            "async_agg.tree.run_tree_fedavg_loopback — its process topology "
+            "is a tree of comm fabrics, not this harness's flat fan-out)"
+        )
     if server_mode == "async":
-        raise _unported("server_mode='async' (the barrier-free server, async_agg/)")
-    if server_mode != "sync":
-        raise ValueError(f"unknown server_mode {server_mode!r}: expected 'sync' or 'async'")
+        if server_cls is not None or client_cls_for_rank is not None:
+            raise ValueError(
+                "server_mode='async' does not compose with custom manager "
+                "classes (e.g. is_mobile's JSON wire format)"
+            )
+        if round_timeout is not None:
+            raise ValueError(
+                "server_mode='async' has no round barrier, so the elastic "
+                "round_timeout does not apply — drop it (slow workers just "
+                "fold late, staleness-weighted)"
+            )
     if downlink_codec is not None:
-        raise _unported("downlink_codec= (downlink delta coding, compress/downlink.py)")
+        raise _unported("downlink_codec= (downlink delta coding, compress/downlink.py)",
+                        "§A11.4")
+    if trace_lanes is not None or trace_wire:
+        raise _unported("trace_lanes=/trace_wire= (cross-rank causal trace lanes)", "§A11.5")
     if codec is not None and (server_cls is not None or client_cls_for_rank is not None):
         raise ValueError(
             "codec= does not compose with custom manager classes "
@@ -1436,6 +1494,37 @@ def run_distributed_fedavg(
 
             return make
 
+    if server_mode == "async":
+        # remap the selected sync server class onto its barrier-free
+        # counterpart: the same wire seams, the async tally
+        from fedml_tpu_torch.async_agg.server import (
+            AsyncCompressedFedAvgServerManager,
+            AsyncFedAvgServerManager,
+            AsyncRobustFedAvgServerManager,
+        )
+
+        async_cls = {
+            None: AsyncFedAvgServerManager,
+            CompressedFedAvgServerManager: AsyncCompressedFedAvgServerManager,
+        }
+        if robust_config is not None:
+            from fedml_tpu_torch.algorithms.robust_distributed import (
+                RobustCompressedFedAvgServerManager,
+                RobustFedAvgServerManager,
+            )
+
+            if server_cls is RobustCompressedFedAvgServerManager:
+                raise NotImplementedError(
+                    "server_mode='async' composes with a codec OR a robust "
+                    "defense, not both at once yet"
+                )
+            async_cls[RobustFedAvgServerManager] = AsyncRobustFedAvgServerManager
+        server_cls = async_cls[server_cls]
+        server_kwargs = {**(server_kwargs or {}),
+                         "buffer_goal": buffer_goal,
+                         "staleness_weight": staleness_weight,
+                         "async_stats": async_stats}
+
     results: dict[str, np.ndarray] = {}
 
     def _done(r, f):
@@ -1519,6 +1608,8 @@ def run_distributed_fedavg(
                 retry_stats()["retries"] - retries_before)
         comm_stats.setdefault("totals", {})[metricslib.COMM_STALE_UPLOADS] = int(
             server.stale_uploads)
+    if async_stats is not None and hasattr(server, "async_totals"):
+        async_stats["totals"] = server.async_totals()
     return unpack_state(results["final"], desc)
 
 

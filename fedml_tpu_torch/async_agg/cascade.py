@@ -1,0 +1,304 @@
+"""Inline-dispatch cascade harness, the port of
+``fedml_tpu/async_agg/cascade.py``: a real aggregation tree (the same
+:class:`~fedml_tpu_torch.async_agg.tree.EdgeAggregatorManager` tiers and
+:class:`~fedml_tpu_torch.async_agg.tree.TreeFedAvgServerManager` root the
+wire path runs) driven by synthesized leaf uploads on one thread.
+
+The wire harness (``run_tree_fedavg``) spends a thread per manager and
+trains real clients: right for protocol fidelity, wrong for scale. Here the
+transports are inline (``send`` is the receiver's dispatch: no queues, no
+serialization), leaf clients are replaced by a synthesizer that fabricates
+uploads against the round global, and churn comes from the seeded
+population machinery the wire path wraps transports with
+(``population_fault_specs``): a dropped upload never arrives, a delayed
+one lands next round as a stale fold.
+
+Everything downstream of the leaf transport is the production code path:
+fold-on-arrival tallies, staleness weighting, clip+DP defense, encoded tier
+uplinks, elastic window flushes, the root's seq/window-complete barrier.
+The report carries uploads/sec, interior (tier-to-tier) bytes raw vs
+encoded, per-tier resident aggregation state and the process peak-RSS
+delta: O(model) per tier, not O(clients). All of it is host numpy; nothing
+runs on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+
+import numpy as np
+
+from fedml_tpu_torch.algorithms.fedavg_distributed import MyMessage
+from fedml_tpu_torch.async_agg.tree import (
+    EdgeAggregatorManager,
+    EdgeAsyncConfig,
+    TreeFedAvgServerManager,
+    TreeTopology,
+)
+from fedml_tpu_torch.comm.base import BaseCommunicationManager
+from fedml_tpu_torch.comm.message import Message, pack_pytree
+
+
+class InlineFabric:
+    """rank -> comm registry for one tree cell. Sends to ranks nobody
+    constructed (the synthesized leaves) are dropped and counted — the
+    cascade has no client processes to receive downlink syncs."""
+
+    def __init__(self, world_size: int):
+        self.world_size = world_size
+        self.comms: dict[int, "InlineCommManager"] = {}
+        self.dropped = 0
+
+
+class InlineCommManager(BaseCommunicationManager):
+    """Zero-queue transport: ``send_message`` dispatches the receiver's
+    observers on the CALLER's stack. Sound for the tree managers because
+    their discipline already forbids sending while holding a lock (fedlint
+    blocking-under-lock) — an inline cascade of fold -> emit -> parent fold
+    never re-enters a held lock."""
+
+    def __init__(self, fabric: InlineFabric, rank: int):
+        super().__init__()
+        self.fabric = fabric
+        self.rank = rank
+        fabric.comms[rank] = self
+
+    def send_message(self, msg: Message) -> None:
+        dst = self.fabric.comms.get(msg.get_receiver_id())
+        if dst is None or not dst._observers:
+            self.fabric.dropped += 1
+            return
+        dst.notify(msg)
+
+    def handle_receive_message(self) -> None:
+        """Nothing to pump — delivery happened inside ``send_message``."""
+
+    def stop_receive_message(self) -> None:
+        pass
+
+
+@dataclasses.dataclass
+class CascadeReport:
+    """What one cascade run measured (the bench/soak acceptance surface)."""
+
+    fan_ins: tuple
+    rounds: int
+    uploads: int
+    dropped_uploads: int
+    delayed_uploads: int
+    elapsed_s: float
+    uploads_per_s: float
+    interior_uplink_bytes: int       # Comm/TierUplinkBytes over all tiers
+    interior_dense_bytes: int        # Comm/TierUplinkDenseBytes (raw-f64 cost)
+    max_tier_state_bytes: int        # peak resident tally per tier, O(model)
+    rss_delta_kb: int                # ru_maxrss growth after the warmup round
+    tier_count: int
+    elastic_emissions: int
+    stale_folds: int
+    clipped_uploads: int
+    tiers: list
+
+
+def run_cascade(
+    fan_ins: tuple,
+    rounds: int,
+    model_size: int = 1000,
+    seed: int = 0,
+    buffer_goal: int | None = None,
+    tier_staleness: str | None = None,
+    tier_uplink_codec=None,
+    tier_defense=None,
+    population: str | None = None,
+    fault_seed: int = 0,
+    upload_scale: float = 0.05,
+    pattern_pool: int = 64,
+    round_span_s: float = 0.2,
+    log_every: int = 0,
+) -> CascadeReport:
+    """Drive a ``fan_ins`` tree for ``rounds`` rounds of full-population
+    synthesized uploads. ``population`` (a population spec string) churns
+    the leaves per round: drops vanish, delays arrive next round stale.
+    Any async knob set arms every edge tier barrier-free; all None runs
+    the legacy sync barrier (then churn must be None — a sync tree wedges
+    on its first lost upload)."""
+    import resource
+
+    topo = TreeTopology(tuple(fan_ins))
+    fan = topo.fan_ins
+    leaf_total = topo.leaf_count
+    if isinstance(tier_uplink_codec, str):
+        from fedml_tpu_torch.compress.codec import make_codec
+
+        tier_uplink_codec = make_codec(tier_uplink_codec)
+    async_cfg = None
+    if any(v is not None for v in (buffer_goal, tier_staleness,
+                                   tier_uplink_codec, tier_defense)):
+        async_cfg = EdgeAsyncConfig(
+            buffer_goal=buffer_goal, staleness_weight=tier_staleness,
+            uplink_codec=tier_uplink_codec, defense=tier_defense,
+        )
+    adapter = None
+    if population is not None:
+        from fedml_tpu_torch.population.wire import population_fault_specs
+
+        adapter = population_fault_specs(population, leaf_total,
+                                         seed=fault_seed)
+        if not adapter.active:
+            adapter = None
+        elif async_cfg is None:
+            raise ValueError(
+                "a churned cascade needs async tiers (any barrier-free "
+                "knob): the sync barrier wedges on the first lost upload"
+            )
+
+    flat, desc = pack_pytree(
+        {"w": np.zeros(model_size, np.float32)})
+    rounds_done: list[int] = []
+    server = TreeFedAvgServerManager(
+        InlineCommManager(InlineFabric(fan[0] + 1), 0), fan[0], rounds,
+        flat, desc, client_num_in_total=leaf_total,
+        on_round_done=lambda r, f: rounds_done.append(r),
+        tier_uplink_codec=tier_uplink_codec,
+    )
+    root_fabric = server.comm.fabric
+
+    edges: list[EdgeAggregatorManager] = []
+    leaf_edges: list[EdgeAggregatorManager] = []
+
+    def build(up_fabric: InlineFabric, up_rank: int, level: int,
+              leaf_base: int) -> int:
+        child_num = fan[level]
+        down = InlineFabric(child_num + 1)
+        is_leaf_tier = level == len(fan) - 1
+        edge = EdgeAggregatorManager(
+            up_comm=InlineCommManager(up_fabric, up_rank), up_rank=up_rank,
+            down_comm=InlineCommManager(down, 0), child_num=child_num,
+            leaf_base=leaf_base, leaf_total=leaf_total,
+            client_num_in_total=leaf_total, children_are_leaves=is_leaf_tier,
+            async_config=async_cfg, model_desc=desc,
+        )
+        edge.register_message_receive_handlers()
+        edges.append(edge)
+        leaves_here = child_num
+        if is_leaf_tier:
+            leaf_edges.append(edge)
+        else:
+            leaves_here = 0
+            for i in range(child_num):
+                leaves_here += build(down, i + 1, level + 1,
+                                     leaf_base + leaves_here)
+        return leaves_here
+
+    leaf_base = 0
+    for i in range(fan[0]):
+        leaf_base += build(root_fabric, i + 1, 1, leaf_base)
+    server.register_message_receive_handlers()
+
+    g32 = np.ascontiguousarray(flat).view(np.float32)
+    rng = np.random.RandomState(seed)
+    uploads = dropped = delayed_n = 0
+    max_state = 0
+    delayed: list[tuple[EdgeAggregatorManager, Message]] = []
+    baseline_kb = None
+
+    def synth_upload(edge: EdgeAggregatorManager, child: int, r: int,
+                     pool: list[np.ndarray]) -> Message:
+        leaf = edge.leaf_base + child
+        x = g32 + pool[leaf % len(pool)]
+        msg = Message(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, child, 0)
+        msg.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS,
+                       np.ascontiguousarray(x).view(np.uint8))
+        msg.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES,
+                       float(8 + leaf % 5))
+        msg.add_params(MyMessage.MSG_ARG_KEY_ROUND_IDX, r)
+        return msg
+
+    t0 = time.perf_counter()
+    server.send_init_msg()  # round-0 sync cascades through every tier
+    for r in range(rounds):
+        # last round's delayed uploads land first — stale by one round
+        carried, delayed = delayed, []
+        for edge, msg in carried:
+            edge.comm.notify(msg)
+        # fresh per-round pattern pool: pool reuse keeps synthesis O(pool)
+        # per round instead of O(leaves) gaussian draws, folds stay real
+        pool = [rng.standard_normal(model_size).astype(np.float32)
+                * upload_scale for _ in range(min(pattern_pool, leaf_total))]
+        mid_li = len(leaf_edges) // 2
+        for li, edge in enumerate(leaf_edges):
+            for child in range(1, edge.child_num + 1):
+                if li == mid_li and child == max(2, edge.child_num // 2 + 1):
+                    # mid-window sample: this leaf edge holds a half-full
+                    # tally and its ancestors hold folded-but-unemitted
+                    # partial mass — the peak the post-delivery sample
+                    # misses when buffer_goal == fan_in drains every
+                    # window inline on its last arrival
+                    max_state = max(
+                        max_state,
+                        max(e.aggregation_state_bytes() for e in edges))
+                leaf = edge.leaf_base + child
+                fate = "send"
+                if adapter is not None and child != 1:
+                    # first child of each cell always lands: a fully-starved
+                    # tier has nothing to flush and only a root round
+                    # timeout (timer-driven, wrong for an inline harness)
+                    # could close the round
+                    fs = adapter.spec_for(leaf)
+                    if fs is not None:
+                        if rng.rand() < fs.drop:
+                            fate = "drop"
+                        elif rng.rand() * round_span_s < fs.delay:
+                            # population-shaped lateness: the bigger this
+                            # leaf's drawn upload delay relative to a round
+                            # span, the more often its upload misses the
+                            # window and lands next round stale
+                            fate = "delay"
+                msg = synth_upload(edge, child, r, pool)
+                if fate == "drop":
+                    dropped += 1
+                    continue
+                uploads += 1
+                if fate == "delay":
+                    delayed_n += 1
+                    delayed.append((edge, msg))
+                    continue
+                edge.comm.notify(msg)
+        # peak resident tally before the windows drain
+        max_state = max(max_state,
+                        max(e.aggregation_state_bytes() for e in edges))
+        if async_cfg is not None:
+            # elastic flush, leaves inward: a flushed leaf tier's complete
+            # emission can auto-complete its parent inline, so upper-tier
+            # flushes are usually no-ops (drained)
+            for edge in reversed(edges):
+                edge.flush_window()
+        if len(rounds_done) != r + 1:
+            raise RuntimeError(
+                f"cascade round {r} failed to close: {len(rounds_done)} "
+                f"rounds done (a tier forwarded nothing?)"
+            )
+        if r == 0:
+            baseline_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        if log_every and (r + 1) % log_every == 0:
+            logging.info("cascade: round %d/%d, %d uploads, %.0f/s",
+                         r + 1, rounds, uploads,
+                         uploads / (time.perf_counter() - t0))
+    elapsed = time.perf_counter() - t0
+    peak_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    tiers = [e.tier_counters() for e in edges]
+    return CascadeReport(
+        fan_ins=fan, rounds=rounds, uploads=uploads,
+        dropped_uploads=dropped, delayed_uploads=delayed_n,
+        elapsed_s=elapsed, uploads_per_s=uploads / max(elapsed, 1e-9),
+        interior_uplink_bytes=sum(t["uplink_bytes"] for t in tiers),
+        interior_dense_bytes=sum(t["uplink_dense_bytes"] for t in tiers),
+        max_tier_state_bytes=max_state,
+        rss_delta_kb=int(peak_kb - (baseline_kb or peak_kb)),
+        tier_count=len(edges),
+        elastic_emissions=sum(t["elastic_emissions"] for t in tiers),
+        stale_folds=sum(t["stale_folds"] for t in tiers),
+        clipped_uploads=sum(t["clipped_uploads"] for t in tiers),
+        tiers=tiers,
+    )

@@ -10,8 +10,8 @@ agg-metrics channel into the metrics stream. The message-passing server's
 host-side folds of an encoded upload into its f64 tally follow
 (:func:`accumulate_encoded`, and :func:`prepare_encoded` with
 :func:`fold_encoded_slice` for the sharded fold plane, the port of
-``fedml_tpu/compress/aggregate.py:121-235``); the tree tiers' partial
-codecs are ROADMAP §A11.
+``fedml_tpu/compress/aggregate.py:121-235``), and the tree tiers' partial
+codecs (:func:`encode_partial`, :func:`decode_partial`, ``:232-277``).
 
 The port's engine streams the cohort's models to a rule that does not ask
 for the stack (the scan mode trains one client at a time), and so does the
@@ -188,3 +188,52 @@ def fold_encoded_slice(acc: np.ndarray, prep, lo: int, hi: int) -> None:
     else:
         _, weight, full = prep
         acc[lo:hi] += weight * full[lo:hi]
+
+
+# ---------------------------------------------------------------------------
+# Tier partials through the codec plane (async_agg/tree.py encoded uplinks)
+# ---------------------------------------------------------------------------
+
+
+def encode_partial(acc64: np.ndarray, weight_sum: float, base64: np.ndarray | None,
+                   codec: Codec, rng) -> EncodedUpdate:
+    """Encode an edge tier's raw partial (the f64 accumulator ``sum_i w_i
+    x_i``) for the tier-to-tier uplink, on the host.
+
+    Delta-domain codecs ship ``acc - weight_sum * base`` as f32 (the parent
+    holds the same round global, so the weighted base mass is
+    reconstructable and only the update mass pays for quantization). The
+    ``none`` codec ships the f64 accumulator itself, a pure passthrough, so
+    a none-coded partial is bitwise the raw-f64 wire payload. ``rng`` serves
+    the quantizer's uniforms (``rng.uniform(shape)``)."""
+    if codec.delta_domain:
+        if base64 is None:
+            raise ValueError(
+                f"delta-domain tier codec {codec.name!r} needs the round "
+                "global as its base (dense downlink only)"
+            )
+        tree = {"acc": torch.from_numpy(
+            (acc64 - float(weight_sum) * base64).astype(np.float32))}
+    else:
+        tree = {"acc": torch.from_numpy(np.ascontiguousarray(acc64))}
+    with trace.span("compress/encode", scheme=codec.name, partial=True):
+        return codec.encode(tree, rng)
+
+
+def decode_partial(enc: EncodedUpdate, weight_sum: float, base64: np.ndarray | None,
+                   codec: Codec) -> np.ndarray:
+    """Inverse of :func:`encode_partial`: recover the f64 accumulator a
+    parent tier folds. The ``none`` path is a dtype-preserving view: no
+    cast touches the bits."""
+    with trace.span("compress/decode", scheme=enc.scheme, partial=True):
+        leaves = _flat_leaves(codec.decode(enc))
+    arr = (np.asarray(leaves[0], np.float64) if len(leaves) == 1
+           else np.concatenate([leaf.astype(np.float64) for leaf in leaves]))
+    if codec.delta_domain:
+        if base64 is None:
+            raise ValueError(
+                f"delta-domain tier codec {codec.name!r} needs the round "
+                "global to reconstruct the partial"
+            )
+        arr = arr + float(weight_sum) * base64
+    return arr

@@ -49,12 +49,17 @@ JSON format), ``--fault_spec`` (seeded wire faults), ``--population`` (per-rank
 upload delays and drops), ``--heartbeat_interval``, ``--init_from``,
 ``--checkpoint_dir``/``--checkpoint_every``/``--resume`` (server round
 checkpoints), ``--send_retries``/``--retry_base_delay``, ``--fleet_stats``
-and ``--run_dir``.
+and ``--run_dir``; ``--server_mode async`` (the buffered-async server:
+``--buffer_goal``, ``--staleness_weight``) and ``--server_mode tree`` (edge
+aggregator tiers: ``--tree_fan_ins``, ``--tree_transport
+loopback|shm|grpc``, ``--buffer_goal``, ``--staleness_weight``,
+``--tier_timeout``, ``--tier_compressor``); ``--jobs FILE`` (N federations
+co-scheduled over one shared loopback wire, ``fedml_tpu_torch/tenancy``).
 
 The JAX CLI's own flag-combination errors are kept as they are; after them,
-a flag whose plane is not ported (the async and tree servers, jobs,
-downlink coding, the multi-GPU mesh) raises ``NotImplementedError`` naming
-its ROADMAP item when it is set away from its default.
+a flag whose plane is not ported (downlink coding, the multi-GPU mesh)
+raises ``NotImplementedError`` naming its ROADMAP item when it is set away
+from its default.
 
     python -m fedml_tpu_torch.exp.main_fedavg --model lr --dataset mnist \\
         --client_num_in_total 1000 --client_num_per_round 10 --batch_size 10
@@ -109,7 +114,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--offload_threshold_bytes", type=int, default=1 << 14)
     parser.add_argument("--grpc_send_timeout", type=float, default=600.0)
     parser.add_argument("--grpc_send_workers", type=int, default=4)
-    # multi-tenant job plane and barrier-free server plane (ROADMAP §A11)
+    # multi-tenant job plane and barrier-free server plane
     parser.add_argument("--jobs", type=str, default=None)
     parser.add_argument("--server_mode", type=str, default="sync",
                         choices=["sync", "async", "tree"])
@@ -215,12 +220,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 # Setting one away from its default raises (checked after the JAX CLI's own
 # flag-combination errors).
 _UNPORTED_FLAGS = {
-    "jobs": "§A11 (multi-tenant job plane)",
-    "server_mode": "§A11", "buffer_goal": "§A11", "staleness_weight": "§A11",
-    "tree_fan_ins": "§A11", "tree_transport": "§A11", "tier_timeout": "§A11",
-    "tier_compressor": "§A11",
-    "downlink_compressor": "§A11", "downlink_keyframe_every": "§A11",
-    "downlink_retention": "§A11",
+    "downlink_compressor": "§A11.4 (downlink delta coding)",
+    "downlink_keyframe_every": "§A11.4 (downlink delta coding)",
+    "downlink_retention": "§A11.4 (downlink delta coding)",
     "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
 }
 
@@ -363,6 +365,39 @@ def _check_flag_combinations(args) -> None:
                 f"and are ignored under --server_mode {server_mode} — pick "
                 "--server_mode tree"
             )
+    if server_mode == "tree":
+        if args.backend != "loopback":
+            raise NotImplementedError(
+                "--server_mode tree builds its own comm fabric per tier "
+                "cell; the cell transport is --tree_transport "
+                "loopback|shm|grpc, not --backend — keep --backend "
+                "loopback"
+            )
+        if args.algorithm == "fedavg_robust":
+            raise NotImplementedError(
+                "--algorithm fedavg_robust's flat-cohort rules "
+                "(median/krum/...) need every upload resident and do not "
+                "compose with streaming tiers; the tree's per-tier "
+                "clip+DP defense is the harness API "
+                "(async_agg.tree.run_tree_fedavg(tier_defense=...)) — "
+                "use --server_mode sync|async for fedavg_robust"
+            )
+        unwired = [
+            flag for flag, val in [
+                ("--fault_spec", getattr(args, "fault_spec", None)),
+                ("--checkpoint_dir", getattr(args, "checkpoint_dir", None)),
+                ("--resume", getattr(args, "resume", 0)),
+            ] if val
+        ]
+        if unwired:
+            raise NotImplementedError(
+                f"{', '.join(unwired)} not wired into --server_mode tree "
+                "yet: the tree branch drives its own per-cell harness "
+                "(async_agg.tree.run_tree_fedavg), which does not take the "
+                "fault-injection/checkpoint planes — use --server_mode "
+                "sync|async, or drive the harness API directly "
+                "(churn rides --population instead)"
+            )
     if (getattr(args, "send_retries", 0)
             or getattr(args, "heartbeat_interval", 0.0)) and args.backend == "sim":
         raise NotImplementedError(
@@ -466,6 +501,14 @@ def _run(args) -> list[dict]:
     from fedml_tpu_torch.obs.metrics import MetricsLogger, logging_config
 
     logging_config(0)
+    if getattr(args, "jobs", None):
+        # the multi-tenant job plane: N federations over one shared wire;
+        # the flag combinations are gated before any data/model work, then
+        # each job builds its own data/model/trainer from its overlaid flags
+        _reject_multijob_conflicts(args)
+        _check_ported(args, vars(add_args(argparse.ArgumentParser()).parse_args([])))
+        with MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb)) as metrics:
+            return _run_multi_job(args, metrics)
     if args.backend != "sim":
         return _run_message_passing(args)
     sim, cfg = build(args)
@@ -550,14 +593,19 @@ def _run_message_passing(args) -> list[dict]:
     ev = _wire_eval_fn(trainer, ds.test_arrays)
     comm_stats: dict = {}
     robust_stats: dict = {}
+    async_stats: dict = {}
+    tier_stats: dict = {}
     history: list[dict] = []
     metrics = MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb))
 
     def on_round(r, variables):
         rec = {"round": r}
         # the server's accountant flushes the round's Comm/* record into
-        # comm_stats just before this callback fires
-        for crec in comm_stats.get("rounds", []) + robust_stats.get("rounds", []):
+        # comm_stats just before this callback fires; ditto the robust
+        # tally's Robust/* record and the async server's per-emission
+        # Async/* record
+        for crec in (comm_stats.get("rounds", []) + robust_stats.get("rounds", [])
+                     + async_stats.get("rounds", [])):
             if crec.get("round") == r:
                 rec.update({k: v for k, v in crec.items() if k != "round"})
         if ev is not None and ((r + 1) % freq == 0 or r == args.comm_round - 1):
@@ -628,14 +676,26 @@ def _run_message_passing(args) -> list[dict]:
         overrides = checkpoint.load_params(args.init_from)
         logging.info("warm-starting from %s", args.init_from)
     try:
-        final_variables = runners[args.backend](
-            trainer, ds.train, worker_num=worker_num, round_num=args.comm_round,
-            batch_size=args.batch_size, seed=args.seed, on_round_done=on_round,
-            init_overrides=overrides, **kwargs)
+        if args.server_mode == "tree":
+            final_variables = _run_tree(args, trainer, ds, worker_num, on_round, overrides,
+                                        kwargs, comm_stats, tier_stats)
+        else:
+            if args.server_mode == "async":
+                kwargs.update(server_mode="async", buffer_goal=args.buffer_goal or None,
+                              staleness_weight=args.staleness_weight,
+                              async_stats=async_stats)
+            final_variables = runners[args.backend](
+                trainer, ds.train, worker_num=worker_num, round_num=args.comm_round,
+                batch_size=args.batch_size, seed=args.seed, on_round_done=on_round,
+                init_overrides=overrides, **kwargs)
     finally:
         metrics.close()
     if comm_stats.get("totals"):
         logging.info("bytes on wire: %s", comm_stats["totals"])
+    if async_stats.get("totals"):
+        logging.info("async server: %s", async_stats["totals"])
+    if tier_stats.get("totals"):
+        logging.info("edge tiers: %s", tier_stats["totals"])
     if fleet_stats is not None:
         from fedml_tpu_torch.obs.registry import FLEET_JSONL_NAME
 
@@ -651,6 +711,272 @@ def _run_message_passing(args) -> list[dict]:
     if args.save_params_to:
         saved = checkpoint.save_params(args.save_params_to, final_variables)
         logging.info("saved final model variables to %s", saved)
+    return history
+
+
+def _run_tree(args, trainer, ds, worker_num, on_round, overrides, kwargs, comm_stats,
+              tier_stats):
+    """``--server_mode tree`` (the JAX CLI's tree branch, ``main_fedavg.py:
+    610-675``): hierarchical aggregation, its process topology a tree of comm
+    cells over ``--tree_transport``; the flat runner's population, retry,
+    heartbeat, codec and fleet planes ride along, the leaves training on
+    ``--device``."""
+    from fedml_tpu_torch.async_agg.tree import (
+        GrpcGroupComm,
+        TreeTopology,
+        run_tree_fedavg_loopback,
+        run_tree_fedavg_shm,
+    )
+
+    fan_ins = (tuple(int(f) for f in args.tree_fan_ins.split(","))
+               if args.tree_fan_ins else (1, worker_num))
+    topo = TreeTopology(fan_ins)
+    if topo.leaf_count != worker_num:
+        raise ValueError(
+            f"--tree_fan_ins {fan_ins} has {topo.leaf_count} leaves but "
+            f"--client_num_per_round is {worker_num}; the "
+            "leaves ARE the per-round cohort"
+        )
+    logging.info("tree mode: fan-ins %s (%d leaves, %d edge tiers)",
+                 fan_ins, topo.leaf_count, topo.tier_count)
+    tree_kwargs: dict = {"tier_stats": tier_stats, "comm_stats": comm_stats}
+    if args.buffer_goal:
+        tree_kwargs["buffer_goal"] = args.buffer_goal
+    if args.staleness_weight != "const":
+        tree_kwargs["tier_staleness"] = args.staleness_weight
+    if args.tier_timeout:
+        tree_kwargs["tier_timeout"] = args.tier_timeout
+    if args.tier_compressor is not None:
+        tree_kwargs["tier_uplink_codec"] = args.tier_compressor
+    if "codec" in kwargs:
+        # the flat runners' client codec, applied at the leaf edges (each
+        # decodes its children's encoded deltas into the model domain)
+        tree_kwargs["client_codec"] = kwargs["codec"]
+        tree_kwargs["client_error_feedback"] = kwargs["error_feedback"]
+    if "population" in kwargs:
+        # one churn trace over the whole hierarchy, by global leaf number
+        tree_kwargs["population"] = kwargs["population"]
+        tree_kwargs["fault_seed"] = kwargs["population"].seed
+    for k in ("retry_policy", "heartbeat_interval", "fleet_stats"):
+        if k in kwargs:
+            tree_kwargs[k] = kwargs[k]
+    if args.tree_transport == "shm":
+        runner = run_tree_fedavg_shm
+    else:
+        runner = run_tree_fedavg_loopback
+        if args.tree_transport == "grpc":
+            tree_kwargs["make_group_comm"] = GrpcGroupComm(
+                base_port=getattr(args, "grpc_base_port", 8890))
+    return runner(trainer, ds.train, topo, args.comm_round, args.batch_size, seed=args.seed,
+                  on_round_done=on_round, init_overrides=overrides, **tree_kwargs)
+
+
+# per-job override keys the --jobs entries may carry (the JAX CLI's): the
+# core training / codec / defense flags; everything else stays single-job
+# and is rejected in _reject_multijob_conflicts, never silently dropped
+_JOBS_OVERRIDE_KEYS = frozenset({
+    "model", "dataset", "data_dir", "partition_method", "partition_alpha",
+    "dataidx_map_path", "client_num_in_total", "client_num_per_round",
+    "batch_size", "client_optimizer", "lr", "wd", "momentum", "epochs",
+    "comm_round", "frequency_of_the_test", "seed", "algorithm",
+    "fedprox_mu", "robust_rule", "norm_bound", "stddev", "reservoir_k",
+    "compressor", "topk_frac", "quantize_bits", "error_feedback",
+    "downlink_compressor", "downlink_keyframe_every", "downlink_retention",
+    "model_dtype",
+})
+
+
+def _reject_multijob_conflicts(args) -> None:
+    """Flag-combination gate for --jobs (the JAX CLI's, ``main_fedavg.py:
+    753-795``): fail before any data/model work."""
+    if args.backend != "loopback":
+        raise NotImplementedError(
+            "--jobs co-schedules every job's federation over ONE shared "
+            "endpoint with job-id demux (fedml_tpu_torch/tenancy); only the "
+            "loopback transport has the shared-fabric wiring — pick "
+            "--backend loopback"
+        )
+    if getattr(args, "server_mode", "sync") != "sync":
+        raise NotImplementedError(
+            f"--server_mode {args.server_mode} reshapes the single server "
+            "plane the jobs share; --jobs runs each job's sync round "
+            "protocol — pick --server_mode sync"
+        )
+    if getattr(args, "is_mobile", 0):
+        raise NotImplementedError(
+            "--is_mobile selects the JSON nested-list wire format, which "
+            "is not wired through the shared job plane; pick one"
+        )
+    unwired = [
+        flag for flag, val in [
+            ("--fault_spec", getattr(args, "fault_spec", None)),
+            ("--population", getattr(args, "population", None)),
+            ("--send_retries", getattr(args, "send_retries", 0)),
+            ("--heartbeat_interval", getattr(args, "heartbeat_interval", 0.0)),
+            ("--checkpoint_dir", getattr(args, "checkpoint_dir", None)),
+            ("--resume", getattr(args, "resume", 0)),
+            ("--init_from", getattr(args, "init_from", None)),
+            ("--save_params_to", getattr(args, "save_params_to", None)),
+        ] if val
+    ]
+    if unwired:
+        raise NotImplementedError(
+            f"{', '.join(unwired)} not wired into --jobs yet: the "
+            "multi-tenant entry wires the training/codec/defense planes "
+            "per job — drive tenancy.run_multi_job(run_kwargs=...) "
+            "directly for the fault/retry/liveness/checkpoint planes"
+        )
+
+
+def _multijob_run_kwargs(overlay):
+    """One job's composition kwargs for run_distributed_fedavg (the --jobs
+    subset of the single-job harness planes: the uplink codec and the robust
+    defense; a job's downlink delta coding raises, naming ROADMAP §A11.4).
+    Returns (run_kwargs, stats_dicts), each stats dict filling with
+    per-round records to merge into the job's metric stream."""
+    run_kwargs: dict = {}
+    comm_stats: dict = {}
+    robust_stats: dict = {}
+    if getattr(overlay, "compressor", "none") != "none":
+        from fedml_tpu_torch.compress import make_codec
+
+        run_kwargs.update(
+            codec=make_codec(overlay.compressor, topk_frac=overlay.topk_frac,
+                             quantize_bits=overlay.quantize_bits),
+            error_feedback=bool(overlay.error_feedback),
+            comm_stats=comm_stats,
+        )
+    if getattr(overlay, "downlink_compressor", "none") != "none":
+        from fedml_tpu_torch.algorithms.fedavg_distributed import _unported
+
+        raise _unported(f"a job's --downlink_compressor {overlay.downlink_compressor!r} "
+                        "(downlink delta coding)", "§A11.4")
+    if overlay.algorithm == "fedavg_robust":
+        from fedml_tpu_torch.algorithms.robust_distributed import RobustDistConfig
+
+        run_kwargs.update(
+            robust_config=RobustDistConfig(
+                rule=overlay.robust_rule, norm_bound=overlay.norm_bound,
+                dp_stddev=overlay.stddev, dp_seed=overlay.seed,
+                reservoir_k=getattr(overlay, "reservoir_k", 0),
+            ),
+            robust_stats=robust_stats,
+        )
+    return run_kwargs, [comm_stats, robust_stats]
+
+
+def _run_multi_job(args, metrics) -> list[dict]:
+    """--jobs harness (the JAX CLI's ``_run_multi_job``, ``main_fedavg.py:
+    845-966``): load the JSON job list, build each job's data/model/trainer
+    from the overlaid flags on ``--device``, and hand the whole set to
+    ``tenancy.run_multi_job``: one shared wire, send pool and scheduler.
+    Each job's per-round records (Comm/*, Robust/*, Test/* at the job's test
+    frequency) are logged tagged with its name; with --fleet_stats DIR the
+    runner writes DIR/<job>/fleet.jsonl + DIR/jobs.json."""
+    import copy
+    import json
+
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.tenancy import JobSpec, job_key, run_multi_job
+
+    with open(args.jobs) as f:
+        entries = json.load(f)
+    if not isinstance(entries, list) or not entries:
+        raise ValueError(
+            f"--jobs {args.jobs}: expected a non-empty JSON list of job "
+            "objects (docs/MULTITENANCY.md 'Job specs')"
+        )
+    specs: list = []
+    hist_by_job: dict[str, list[dict]] = {}
+    for i, entry in enumerate(entries):
+        if not isinstance(entry, dict):
+            raise ValueError(f"--jobs entry {i} is not a JSON object: {entry!r}")
+        entry = dict(entry)
+        # the spec field is spelled like the wire header the name becomes
+        job_id = entry.pop(Message.MSG_ARG_KEY_JOB_ID, None)
+        if job_id is None and len(entries) > 1:
+            raise ValueError(
+                f"--jobs entry {i} has no job_id — with more than one job "
+                "every entry needs a unique name on the shared wire"
+            )
+        unknown = sorted(set(entry) - _JOBS_OVERRIDE_KEYS)
+        if unknown:
+            raise ValueError(
+                f"--jobs entry {i} ({job_key(job_id)}): unknown override "
+                f"keys {unknown}; supported: {sorted(_JOBS_OVERRIDE_KEYS)}"
+            )
+        overlay = copy.copy(args)
+        for k, v in entry.items():
+            setattr(overlay, k, v)
+        if overlay.algorithm not in ("fedavg", "fedprox", "fedavg_robust"):
+            raise NotImplementedError(
+                f"--jobs entry {job_key(job_id)}: --algorithm "
+                f"{overlay.algorithm} is sim-engine only; the job plane "
+                "runs the message-passing protocol (fedavg | fedprox | "
+                "fedavg_robust)"
+            )
+        run_kwargs, stats_dicts = _multijob_run_kwargs(overlay)
+        ds = load_partition_data(
+            overlay.dataset, overlay.data_dir, overlay.partition_method,
+            overlay.partition_alpha, overlay.client_num_in_total, overlay.seed,
+            dataidx_map_path=getattr(overlay, "dataidx_map_path", None),
+        )
+        model = create_model(overlay.model, ds.class_num, overlay.dataset,
+                             dtype=overlay.model_dtype, device=args.device,
+                             input_shape=tuple(ds.train.arrays["x"].shape[1:]))
+        trainer = build_trainer(overlay, model, overlay.dataset)
+        name = job_key(job_id)
+        history = hist_by_job.setdefault(name, [])
+        ev = _wire_eval_fn(trainer, ds.test_arrays)
+        freq = max(overlay.frequency_of_the_test if not overlay.ci else overlay.comm_round, 1)
+        last = overlay.comm_round - 1
+
+        def on_round(r, variables, name=name, history=history, ev=ev,
+                     stats_dicts=stats_dicts, freq=freq, last=last):
+            rec = {"job": name, "round": r}
+            for stats in stats_dicts:
+                for srec in stats.get("rounds", []):
+                    if srec.get("round") == r:
+                        rec.update({k: v for k, v in srec.items() if k != "round"})
+            if ev is not None and ((r + 1) % freq == 0 or r == last):
+                acc, loss = ev(variables)
+                rec.update({"Test/Acc": float(acc), "Test/Loss": float(loss)})
+            history.append(rec)
+
+        specs.append(JobSpec(
+            trainer=trainer, train_data=ds.train,
+            worker_num=min(overlay.client_num_per_round, ds.train.num_clients),
+            round_num=overlay.comm_round, batch_size=overlay.batch_size,
+            job_id=job_id, seed=overlay.seed, on_round=on_round,
+            fleet=bool(getattr(args, "fleet_stats", None)),
+            run_kwargs=run_kwargs,
+        ))
+    out_dir = getattr(args, "fleet_stats", None)
+    logging.info("--jobs: co-scheduling %d jobs (%d workers total) over one shared wire",
+                 len(specs), sum(s.worker_num for s in specs))
+    results = run_multi_job(specs, out_dir=out_dir)
+    history: list[dict] = []
+    failed: dict[str, BaseException] = {}
+    for spec in specs:
+        res = results[spec.name]
+        for rec in hist_by_job.get(spec.name, []):
+            metrics.log(rec)
+            history.append(rec)
+        logging.info("job %s: totals %s", spec.name, res.totals)
+        if res.error is not None:
+            failed[spec.name] = res.error
+    if out_dir:
+        logging.info("per-job telemetry written to %s (jobs.json + <job>/fleet.jsonl)",
+                     out_dir)
+    if failed:
+        # neighbors' results are already logged above; the CLI still exits
+        # nonzero when any tenant failed
+        raise RuntimeError(
+            f"{len(failed)}/{len(specs)} jobs failed: "
+            + "; ".join(f"{n}: {e!r}" for n, e in sorted(failed.items()))
+        )
     return history
 
 

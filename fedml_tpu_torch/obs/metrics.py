@@ -54,6 +54,28 @@ COMM_STALE_UPLOADS = "Comm/StaleUploads"
 # point spent draining the queues (a histogram)
 FOLD_QUEUE_DEPTH = "Fold/QueueDepth"
 FOLD_STALL_MS = "Fold/StallMs"
+# tree mode (async_agg/tree.py): the bytes each edge tier's partials put on
+# the wire toward its parent, and their raw-f64 equivalent, summed over
+# the edges into tier_stats/comm_stats totals
+COMM_TIER_UPLINK_BYTES = "Comm/TierUplinkBytes"
+COMM_TIER_UPLINK_DENSE_BYTES = "Comm/TierUplinkDenseBytes"
+# the buffered-async server (async_agg/server.py), per emission window:
+# uploads folded, how many of them trained an older version, replayed
+# (sender, version) legs absorbed, the mean version lag; ModelsEmitted
+# rides the run totals
+ASYNC_ARRIVALS = "Async/Arrivals"
+ASYNC_STALE_FOLDS = "Async/StaleFolds"
+ASYNC_DUP_UPLOADS = "Async/DuplicateUploads"
+ASYNC_MEAN_STALENESS = "Async/MeanStaleness"
+ASYNC_MODELS_EMITTED = "Async/ModelsEmitted"
+# the multi-tenant job plane (tenancy/): the fair scheduler's per-job bytes,
+# send legs and deficit-round-robin turns, and each job's rounds closed and
+# captured error (0 or 1)
+JOB_SEND_BYTES = "Job/SendBytes"
+JOB_SEND_LEGS = "Job/SendLegs"
+JOB_SCHED_TURNS = "Job/SchedulerTurns"
+JOB_ROUNDS = "Job/Rounds"
+JOB_ERRORS = "Job/Errors"
 
 
 class CommBytesAccountant:

@@ -91,16 +91,15 @@ def test_main_final_record_matches_jax(monkeypatch, tmp_path, name):
 
 
 UNPORTED = [
-    (["--backend", "shm", "--server_mode", "async"], "§A11"),
-    (["--jobs", "jobs.json"], "§A11"),
-    (["--downlink_compressor", "topk"], "§A11"),
-    (["--downlink_retention", "2"], "§A11"),
-    (["--backend", "grpc", "--downlink_compressor", "q8"], "§A11"),
+    (["--downlink_compressor", "topk"], "§A11.4"),
+    (["--downlink_retention", "2"], "§A11.4"),
+    (["--backend", "grpc", "--downlink_compressor", "q8"], "§A11.4"),
     (["--mesh_shape", "2x4"], "§A12"),
     (["--shard_rules", "cnn_tp"], "§A12"),
-    (["--backend", "mqtt_s3", "--jobs", "jobs.json"], "§A11"),
-    (["--downlink_keyframe_every", "4"], "§A11"),
-    (["--backend", "mqtt_s3", "--downlink_retention", "2"], "§A11"),
+    (["--downlink_keyframe_every", "4"], "§A11.4"),
+    (["--backend", "mqtt_s3", "--downlink_retention", "2"], "§A11.4"),
+    (["--backend", "loopback", "--server_mode", "tree", "--downlink_compressor", "q8"],
+     "§A11.4"),
 ]
 
 
@@ -172,7 +171,8 @@ def test_server_rules_match_jax_cli(monkeypatch, tmp_path, name):
 @pytest.mark.parametrize("argv", [["--is_mobile", "1"], ["--server_mode", "async"],
                                   ["--fault_spec", "*:drop=1.0"], ["--buffer_goal", "2"],
                                   ["--tree_fan_ins", "2,2"], ["--send_retries", "2"],
-                                  ["--fleet_stats", "fl"], ["--broadcast_generations", "3"]])
+                                  ["--fleet_stats", "fl"], ["--broadcast_generations", "3"],
+                                  ["--backend", "shm", "--server_mode", "tree"]])
 def test_jax_flag_combination_errors_kept(argv):
     with pytest.raises(NotImplementedError) as theirs:
         jax_cli.main(argv)

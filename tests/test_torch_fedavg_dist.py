@@ -319,9 +319,12 @@ def test_telemetry_and_retries_leave_the_result_unchanged():
 
 
 @pytest.mark.parametrize("kwarg, value", [
-    ("server_mode", "async"), ("downlink_codec", "q8"),
+    ("trace_wire", True), ("downlink_codec", "q8"),
 ])
 def test_unported_kwargs_raise_naming_their_roadmap_item(kwarg, value):
+    """The downlink delta codec (ROADMAP §A11.4) and the cross-rank trace
+    lanes (§A11.5) raise; ``server_mode="async"`` is ported
+    (``tests/test_torch_async_agg.py``)."""
     _, ttr = _lr_pair()
     _, tdata = _blobs()
     with pytest.raises(NotImplementedError, match="ROADMAP §A11"):

@@ -265,9 +265,9 @@ def test_main_fedavg_loopback_checkpoint_resume_and_fleet_stats(tmp_path, init_f
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--server_mode", "async"], "§A11"),
-    (["--server_mode", "tree"], "§A11"), (["--jobs", "a.yaml"], "§A11"),
-    (["--downlink_compressor", "q8"], "§A11"),
+    (["--server_mode", "async", "--downlink_compressor", "q8"], "§A11.4"),
+    (["--downlink_keyframe_every", "4"], "§A11.4"), (["--downlink_retention", "2"], "§A11.4"),
+    (["--downlink_compressor", "q8"], "§A11.4"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v).strip("-"))
 def test_unported_wire_flags_raise_naming_their_roadmap_item(flags, item):
     args = tmain.add_args(argparse.ArgumentParser()).parse_args(
