@@ -253,7 +253,18 @@ Phases, each of which exits non-zero on failure:
     ``--jobs`` with the flagship and row 1 on one wire, each job's global
     the f64 mean of its arrivals and each upload its solo run's; and
     ``run_multi_job_sim`` over two row-1 engines, each job's per-round
-    globals bitwise its solo run.
+    globals bitwise its solo run;
+22. downlink delta coding and the cross-rank trace lanes (no flash launch
+    on any of their paths; after ``[async]``, ``[downlink]``): the flagship
+    at ``[transports]``' depth over loopback with a q8 downlink, 2 rounds,
+    every rank's held model bitwise the server's decoded model at its
+    version, a delta sync's bytes against the dense model's, ``advance``
+    and decode seconds; on row 1, the resolved-none and the q8
+    keyframe-every-1 runs bitwise the dense run, async at a buffer of 1
+    serving cumulative chains, the 1-tier tree delivering chains to its
+    leaves (each held model bitwise decoded), and mqtt_s3 with topk+q8 at
+    least 10x below dense in steady state, under trace lanes whose every
+    receive span has its parent send span in the sender's lane.
 
 Each phase prints its seconds (``[phase]``). It prints a
 ``{"kernels": [...]}`` line, then as its last line
@@ -6167,6 +6178,263 @@ def phase_async(torch, mnist_dir, solo_flagship):
     return launches
 
 
+# downlink delta coding and the cross-rank trace lanes (ROADMAP §A11.4,
+# §A11.5): (a) the flagship at TRANSPORTS' depth (4 of 40 silos a round)
+# over loopback with a q8 downlink, 2 rounds (the second sync is a delta to
+# every rank); on BASELINE row 1 (MNIST + LR, 10 of the 1000 LEAF clients a
+# round): (b) the dense, resolved-none and q8-at-keyframe_every-1 arms, 2
+# rounds each; (c) async at a buffer of 1, 4 versions; (d) the 1-tier tree,
+# 2 rounds; (e) mqtt_s3 with topk+q8 (JAX's tools/downlink_smoke.py recipe:
+# top-k 0.02, >= 10x below dense in steady state), 3 rounds under trace lanes
+DOWNLINK = dict(flagship_rounds=2, arm_rounds=2, async_versions=4, tree_rounds=2,
+                mqtt_rounds=3, topk_frac=0.02, keyframe_every=64, offload_threshold=256,
+                ratio_bar=10.0)
+
+
+def _downlink_recorder():
+    """``_wrapped`` makers that keep every decoded model the server made (by
+    version), every model a client held after a sync (version, bytes), each
+    ``serve``'s kind and chain length, and the seconds of each ``advance``
+    and each chain applied: (record, wraps)."""
+    from fedml_tpu_torch.compress import downlink as dl
+
+    rec = {"decoded": {}, "held": [], "served": [], "advance_s": [], "decode_s": []}
+
+    def keep_decoded(into):
+        def make(original):
+            def f(self, flat, version):
+                t0 = time.perf_counter()
+                out = original(self, flat, version)
+                if into is not None:
+                    into.append(time.perf_counter() - t0)
+                rec["decoded"][int(version)] = np.array(out)
+                return out
+            return f
+        return make
+
+    def keep_held(into):
+        def make(original):
+            def f(self, *args):
+                t0 = time.perf_counter()
+                held = original(self, *args)
+                if into is not None:
+                    into.append(time.perf_counter() - t0)
+                rec["held"].append((self.version, np.array(held).view(np.uint8)))
+                return held
+            return f
+        return make
+
+    def keep_served(original):
+        def serve(self, base):
+            out = original(self, base)
+            steps = len(json.loads(out[2])["steps"]) if out[0] == "delta" else 0
+            rec["served"].append((out[0], steps))
+            return out
+        return serve
+
+    return rec, ((dl.DownlinkCodecState, "reset", keep_decoded(None)),
+                 (dl.DownlinkCodecState, "advance", keep_decoded(rec["advance_s"])),
+                 (dl.DownlinkCodecState, "serve", keep_served),
+                 (dl.DownlinkDecoder, "apply_keyframe", keep_held(None)),
+                 (dl.DownlinkDecoder, "apply_chain", keep_held(rec["decode_s"])))
+
+
+def _held_is_decoded(rec, label, min_held, min_chains):
+    """Every model a client held is bitwise the server's decoded model at
+    its version; at least ``min_held`` syncs, ``min_chains`` of them chains."""
+    if len(rec["held"]) < min_held or len(rec["decode_s"]) < min_chains:
+        fail(f"[downlink] {label}: {len(rec['held'])} syncs held, {len(rec['decode_s'])} "
+             f"chains applied (expected at least {min_held} and {min_chains})")
+    for version, held in rec["held"]:
+        want = rec["decoded"].get(version)
+        if want is None or not np.array_equal(held, want):
+            fail(f"[downlink] {label}: a client's held model at version {version} is not "
+                 "the server's decoded model")
+
+
+def _lane_parents(lanes_dir, ranks):
+    """Each rank's lane file is there, and every received message that
+    carries a wire context names a ``comm/send`` span in its sender's lane:
+    (lanes, linked receives)."""
+    lanes = {}
+    for r in range(ranks):
+        path = Path(lanes_dir) / f"trace_rank{r}.jsonl"
+        if not path.exists():
+            fail(f"[downlink] (e) no trace lane file {path.name}")
+        lanes[f"rank{r}"] = [json.loads(line) for line in path.read_text().splitlines()]
+    sends = {lane: {rec["args"]["span_id"] for rec in recs
+                    if rec["name"] == "comm/send" and "span_id" in rec.get("args", {})}
+             for lane, recs in lanes.items()}
+    linked = 0
+    for lane, recs in lanes.items():
+        for rec in recs:
+            args = rec.get("args", {})
+            if rec["name"] != "comm/recv" or "ctx_lane" not in args:
+                continue
+            if (args["ctx_lane"] == lane or args["ctx_lane"] != f"rank{args['ctx_rank']}"
+                    or args["ctx_span"] not in sends.get(args["ctx_lane"], ())):
+                fail(f"[downlink] (e) a receive in lane {lane} has no parent in its sender's "
+                     f"lane: {args}")
+            linked += 1
+    if not linked:
+        fail("[downlink] (e) no receive span carried a wire context")
+    return len(lanes), linked
+
+
+def _downlink_flagship(torch, data_dir):
+    """(a) The flagship, q8 downlink, 2 rounds: every rank's held model
+    bitwise the decoded one at its version, the delta sync's bytes against
+    the dense model's, the advance and decode seconds."""
+    from fedml_tpu_torch.obs import metrics as metricslib
+
+    c, per = DOWNLINK, TRANSPORTS["per_round"]
+    rec, wraps = _downlink_recorder()
+    hist, wall, spans, launch = _spanned_cli(
+        torch, _async_argv(data_dir, c["flagship_rounds"], "--downlink_compressor", "q8",
+                           "--downlink_keyframe_every", str(c["keyframe_every"])), *wraps)
+    _held_is_decoded(rec, "(a)", per * c["flagship_rounds"], per * (c["flagship_rounds"] - 1))
+    last = hist[-1]
+    delta_b = last[metricslib.COMM_DOWNLINK_BYTES] / per
+    dense_b = last[metricslib.COMM_DOWNLINK_DENSE_BYTES] / per
+    if metricslib.COMM_DOWNLINK_KEYFRAMES in last or not delta_b < dense_b:
+        fail(f"[downlink] (a) the last round's syncs were not all deltas: {last}")
+    if not all(np.isfinite([last["Test/Acc"], last["Test/Loss"]])):
+        fail(f"[downlink] (a) non-finite eval {last}")
+    advance = rec["advance_s"][1:]  # [0] is the version-0 keyframe's
+    log(f"[downlink] (a) flagship --downlink_compressor q8, {per} of {TRANSPORTS['clients']} "
+        f"silos, {c['flagship_rounds']} rounds: {wall:.2f} s; every rank's held model == the "
+        f"server's decoded model at its version: bitwise ({len(rec['held'])} syncs, "
+        f"{len(rec['decode_s'])} chains); a delta sync {delta_b:.0f} bytes against the dense "
+        f"{dense_b:.0f} ({delta_b / dense_b:.4f}x); advance {np.mean(advance):.4f} s a round "
+        f"(x{len(advance)}), chain decode {np.mean(rec['decode_s']):.4f} s a client "
+        f"(x{len(rec['decode_s'])}); Test/Acc {last['Test/Acc']:.4f}; "
+        + _span_line(spans, ("client/decode", "client/train", "round/close", "comm/send")))
+    return launch
+
+
+def _downlink_dense_arms(torch, mnist_dir):
+    """(b) Row 1 over loopback, 2 rounds: the resolved-none run and a q8 run
+    at keyframe_every=1 each bitwise the dense run."""
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+
+    c = DOWNLINK
+    finals, launches, walls = [], [], []
+    arms = {"dense": [], "none": ["--downlink_compressor", "none"],
+            "q8 keyframe_every 1": ["--downlink_compressor", "q8",
+                                    "--downlink_keyframe_every", "1"]}
+    for extra in arms.values():
+        _, wall, _, launch = _spanned_cli(
+            torch, _mnist_argv(mnist_dir, c["arm_rounds"], c["arm_rounds"], "--backend",
+                               "loopback", *extra),
+            (tfd, "run_distributed_fedavg_loopback", lambda o: _wire_run(o, into=finals)))
+        launches.append(launch)
+        walls.append(wall)
+    for name, final in zip(list(arms)[1:], finals[1:]):
+        if any(not torch.equal(final[k], finals[0][k]) for k in finals[0]):
+            fail(f"[downlink] (b) the {name} run is not bitwise the dense run")
+    log(f"[downlink] (b) row 1 over loopback, {c['arm_rounds']} rounds: resolved none and q8 at "
+        f"keyframe_every 1 == the dense run: bitwise ("
+        + ", ".join(f"{n} {w:.2f} s" for n, w in zip(arms, walls)) + ")")
+    return {k: sum(launch[k] for launch in launches) for k in launches[0]}
+
+
+def _downlink_async(torch, mnist_dir):
+    """(c) Row 1, async at a buffer of 1, 4 versions, q8: at least one
+    cumulative chain served, every held model bitwise the decoded one."""
+    c, per = DOWNLINK, MNIST["per_round"]
+    rec, wraps = _downlink_recorder()
+    _, wall, spans, launch = _spanned_cli(
+        torch, _mnist_argv(mnist_dir, c["async_versions"], c["async_versions"], "--backend",
+                           "loopback", "--server_mode", "async", "--buffer_goal", "1",
+                           "--downlink_compressor", "q8"), *wraps)
+    _held_is_decoded(rec, "(c)", per, 1)
+    chains = [n for kind, n in rec["served"] if kind == "delta"]
+    if not any(n > 1 for n in chains):
+        fail(f"[downlink] (c) no cumulative chain served: {rec['served']}")
+    log(f"[downlink] (c) row 1 --server_mode async --buffer_goal 1 --downlink_compressor q8, "
+        f"{c['async_versions']} versions: {wall:.2f} s; chains served (steps) {chains}, "
+        f"keyframes {sum(kind == 'keyframe' for kind, _ in rec['served'])}; every held model "
+        f"== decoded at its version: bitwise ({len(rec['held'])} syncs); "
+        + _span_line(spans, ("async/fold", "async/emit")))
+    return launch
+
+
+def _downlink_tree(torch, mnist_dir):
+    """(d) Row 1, the 1-tier tree, q8, 2 rounds: the leaves' held models
+    bitwise the root's decoded ones."""
+    c, per = DOWNLINK, MNIST["per_round"]
+    rec, wraps = _downlink_recorder()
+    _, wall, spans, launch = _spanned_cli(
+        torch, _mnist_argv(mnist_dir, c["tree_rounds"], c["tree_rounds"], "--backend",
+                           "loopback", "--server_mode", "tree", "--tree_fan_ins", f"1,{per}",
+                           "--downlink_compressor", "q8"), *wraps)
+    _held_is_decoded(rec, "(d)", per * c["tree_rounds"], per * (c["tree_rounds"] - 1))
+    log(f"[downlink] (d) row 1 --server_mode tree --tree_fan_ins 1,{per} --downlink_compressor "
+        f"q8, {c['tree_rounds']} rounds: {wall:.2f} s; the edge re-served the root's chain "
+        f"verbatim; every leaf's held model == the root's decoded model: bitwise "
+        f"({len(rec['decode_s'])} chains); "
+        + _span_line(spans, ("tree/fold", "tree/forward")))
+    return launch
+
+
+def _downlink_mqtt_s3(torch, mnist_dir):
+    """(e) Row 1 over mqtt_s3 with topk+q8, 3 rounds, under trace lanes:
+    the steady-state encoded downlink at least ``ratio_bar`` below dense,
+    every held model bitwise decoded, every lane file there and every
+    receive's parent span in its sender's lane."""
+    import shutil
+
+    from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
+    from fedml_tpu_torch.obs import metrics as metricslib
+
+    c, per = DOWNLINK, MNIST["per_round"]
+    store, lanes_dir = BUILD_DIR / "downlink_store", BUILD_DIR / "downlink_lanes"
+    for d in (store, lanes_dir):
+        shutil.rmtree(d, ignore_errors=True)
+
+    def traced(original):
+        def run(*args, **kwargs):
+            return original(*args, trace_lanes=str(lanes_dir), **kwargs)
+        return run
+
+    rec, wraps = _downlink_recorder()
+    hist, wall, _, launch = _spanned_cli(
+        torch, _mnist_argv(mnist_dir, c["mqtt_rounds"], c["mqtt_rounds"], "--backend",
+                           "mqtt_s3", "--object_store_dir", str(store),
+                           "--offload_threshold_bytes", str(c["offload_threshold"]),
+                           "--downlink_compressor", "topk+q8", "--topk_frac",
+                           str(c["topk_frac"]), "--downlink_keyframe_every",
+                           str(c["keyframe_every"])),
+        (tfd, "run_distributed_fedavg_mqtt_s3", traced), *wraps)
+    _held_is_decoded(rec, "(e)", per * c["mqtt_rounds"], per * (c["mqtt_rounds"] - 1))
+    steady = [r[metricslib.COMM_DOWNLINK_RATIO] for r in hist
+              if metricslib.COMM_DOWNLINK_KEYFRAMES not in r
+              and r.get(metricslib.COMM_DOWNLINK_BYTES)]
+    if not steady or min(steady) < c["ratio_bar"]:
+        fail(f"[downlink] (e) steady-state downlink compression {steady} below "
+             f"{c['ratio_bar']}x")
+    lanes, linked = _lane_parents(lanes_dir, per + 1)
+    log(f"[downlink] (e) row 1 over mqtt_s3 --downlink_compressor topk+q8 --topk_frac "
+        f"{c['topk_frac']}, {c['mqtt_rounds']} rounds: {wall:.2f} s; steady-state downlink "
+        f"{', '.join(f'{x:.2f}' for x in steady)}x below dense (bar {c['ratio_bar']}x); every "
+        f"held model == decoded: bitwise; trace lanes: {lanes} files, {linked} receives each "
+        "with its parent send span in the sender's lane")
+    return launch
+
+
+def phase_downlink(torch, mnist_dir):
+    """Downlink delta coding and the trace lanes on the card, (a)-(e) above
+    (``DOWNLINK``); returns each path's flash launches (each must be 0)."""
+    data_dir = _wire_fixture()
+    launches = {"downlink_flagship": _downlink_flagship(torch, data_dir)}
+    torch.cuda.empty_cache()
+    for name, fn in (("downlink_dense_arms", _downlink_dense_arms),
+                     ("downlink_async", _downlink_async), ("downlink_tree", _downlink_tree),
+                     ("downlink_mqtt_s3", _downlink_mqtt_s3)):
+        launches[name] = fn(torch, mnist_dir)
+    return launches
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds printed under the phase's name."""
     t0 = time.perf_counter()
@@ -6225,9 +6493,10 @@ def main() -> None:
         transports_launches, solo_flagship = _timed("transports", phase_transports, torch)
         cli_launches.update(transports_launches)
         cli_launches.update(_timed("async", phase_async, torch, mnist_dir, solo_flagship))
+        cli_launches.update(_timed("downlink", phase_downlink, torch, mnist_dir))
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
         f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip, fedgan, "
-        f"splitnn, wire, async)")
+        f"splitnn, wire, async, downlink)")
     femnist_loads = []
     with _loaded_once(femnist_loads):
         cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
@@ -6270,7 +6539,8 @@ def main() -> None:
                  "transports_robust", "transports_heartbeats", "async_full", "async_half",
                  "async_tree", "async_ladder_sync", "async_ladder_async_edges",
                  "async_ladder_none-coded_uplink", "async_ladder_sync_over_shm", "async_jobs",
-                 "async_sim"):
+                 "async_sim", "downlink_flagship", "downlink_dense_arms", "downlink_async",
+                 "downlink_tree", "downlink_mqtt_s3"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

@@ -45,8 +45,12 @@ Fault injection (``comm/faults.py``), the population adapter
 (``algorithms/robust_distributed.py``) are the JAX runner's, and so is the
 buffered-async server (``server_mode="async"``, ``async_agg/server.py``),
 for which the sync carries the model version (``_sync_extra_params``) and
-the client echoes it. Refused, naming its ROADMAP item: the downlink delta
-codec (§A11.4).
+the client echoes it. So is the downlink delta plane (``downlink_codec``,
+``compress/downlink.py``): round closes encode the new global once as a
+delta against the previous emitted version, the server's global of record
+becomes the decoded model, fan-outs serve each rank by the version it
+echoed, and every client reconstructs it bitwise. Its codec runs on the
+host CPU on both sides (that module's docstring says why).
 """
 
 from __future__ import annotations
@@ -97,10 +101,6 @@ class MyMessage:
     MSG_ARG_KEY_NUM_SAMPLES = Message.MSG_ARG_KEY_NUM_SAMPLES
     MSG_ARG_KEY_CLIENT_INDEX = Message.MSG_ARG_KEY_CLIENT_INDEX
     MSG_ARG_KEY_ROUND_IDX = Message.MSG_ARG_KEY_ROUND_IDX
-
-
-def _unported(what: str, item: str = "§A11") -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to fedml_tpu_torch yet: ROADMAP {item}")
 
 
 # -- the JAX layout on the wire ------------------------------------------------
@@ -501,10 +501,10 @@ class FedAvgServerManager(ServerManager):
                  checkpoint_every: int = 1,
                  fleet=None,
                  downlink_codec=None,
+                 downlink_keyframe_every: int = 8,
+                 downlink_retention: int = 4,
                  fold_workers: int = 0,
                  fold_chunk: int | None = None):
-        if downlink_codec is not None:
-            raise _unported("the downlink delta codec (compress/downlink.py)", "§A11.4")
         super().__init__(comm, rank=0, size=worker_num + 1)
         # sharded fold plane (algorithms/fold_plane.py): fold_workers > 0
         # moves upload folding off the receive thread onto that many chunk
@@ -562,7 +562,28 @@ class FedAvgServerManager(ServerManager):
         # stale-round uploads from live workers are discarded by the sync
         # protocol, counted here (Comm/StaleUploads in comm_stats totals)
         self.stale_uploads = 0  # guarded-by: _round_lock
-        # the bytes-on-wire ledger (the encoded uplink's subclass arms it)
+        # downlink delta coding (compress/downlink.py): when armed, every
+        # round close encodes the new global ONCE as a delta against the
+        # previous emitted version, the global of record becomes the DECODED
+        # model, and fan-outs serve each rank by the version it last echoed.
+        # None keeps the dense broadcast the JAX sync server's, byte for byte
+        self.downlink = None
+        # rank -> newest model version the rank PROVABLY holds (its upload
+        # echo; monotonic): downlink legs can fail, so only the echo is
+        # trusted as the delta base
+        self._held_versions: dict[int, int] = {}  # guarded-by: _round_lock
+        # cumulative encoded downlink bytes actually sent per rank (the
+        # fleet telemetry gauge)
+        self._downlink_sent: dict[int, int] = {}  # guarded-by: _round_lock
+        if downlink_codec is not None:
+            from fedml_tpu_torch.compress.downlink import DownlinkCodecState
+
+            self.downlink = DownlinkCodecState(
+                downlink_codec, model_desc, keyframe_every=downlink_keyframe_every,
+                retention=downlink_retention)
+            self.global_flat = self.downlink.reset(init_flat, self.round_idx)
+        # the bytes-on-wire ledger: armed by the downlink plane here, by the
+        # encoded uplink's subclass through its _make_accountant override
         self.accountant = self._make_accountant()
         # the ONE aggregator construction: subclasses override
         # _make_aggregator; the fold plane attaches at the same seam
@@ -592,7 +613,7 @@ class FedAvgServerManager(ServerManager):
 
     def _make_accountant(self):
         """The bytes-on-wire ledger, or None when nothing encodes."""
-        return None
+        return None if self.downlink is None else metricslib.CommBytesAccountant()
 
     def _model_payload(self, rank: int):
         """Model payload for ``rank``, the wire-format seam: the packed flat
@@ -610,11 +631,28 @@ class FedAvgServerManager(ServerManager):
         """Extra header params stamped on every downlink sync: the async
         server adds the explicit global-model version here (clients train
         against a version, not a sync count). Header-only scalars: they ride
-        the per-receiver head, never the shared payload frame. The sync
-        server stamps none (the downlink delta plane, which would stamp the
-        version here too, is ROADMAP §A11.4), so its frames are the JAX
+        the per-receiver head, never the shared payload frame. The downlink
+        delta plane stamps the version on the sync protocol too (clients
+        echo it, and the echo is the only trusted delta base); with the
+        plane off the sync server stamps none, so its frames are the JAX
         sync server's byte for byte."""
+        if self.downlink is not None:
+            return {Message.MSG_ARG_KEY_MODEL_VERSION: self.round_idx}
         return {}
+
+    def _note_version_echo(self, sender: int, msg: Message) -> None:  # lock-held: _round_lock
+        """Record the model version a rank echoed on its upload: monotonic,
+        and noted for EVERY upload (stale and duplicate included: the echo
+        proves possession whatever the tally does with the payload). The
+        delta fan-out serves each rank from this base."""
+        if self.downlink is None:
+            return
+        v = msg.get(Message.MSG_ARG_KEY_MODEL_VERSION)
+        if v is None:
+            return
+        prev = self._held_versions.get(sender)
+        if prev is None or int(v) > prev:
+            self._held_versions[sender] = int(v)
 
     def _decode_upload(self, msg: Message) -> np.ndarray:
         """Inverse seam: a client upload back to the flat byte vector."""
@@ -627,23 +665,62 @@ class FedAvgServerManager(ServerManager):
         (the mobile server's per-rank JSON payloads fall back to singleton
         groups); per-rank scalars (the assigned client index) ride
         per-receiver header overrides. ``use_broadcast=False`` replays the
-        per-rank ``send_message`` loop."""
+        per-rank ``send_message`` loop.
+
+        With the downlink delta plane armed, ranks are served by the model
+        version they last echoed: the same gap, the same shared chain blob
+        (one frame or object-store put per distinct gap per fan-out), the
+        base version riding a header-only per-receiver override; ranks
+        without a usable base get the dense keyframe. The init fan-out
+        (``include_desc``) and finished fan-outs are always dense."""
         if not ranks:
             return
         dense_nbytes = len(self.global_flat)
-        payloads = {w: self._model_payload(w) for w in ranks}
+        serves = held = None
+        if self.downlink is not None and not include_desc and not finished:
+            with self._round_lock:
+                held = {w: self._held_versions.get(w) for w in ranks}
+            serves = {w: self.downlink.serve(held[w]) for w in ranks}
+            retired = sorted(w for w, s in serves.items() if s[0] == "keyframe" and s[2])
+            if retired:
+                logging.warning(
+                    "downlink delta base RETIRED for ranks %s (%s): serving "
+                    "the full keyframe instead — raise downlink_retention / "
+                    "broadcast_generations if this recurs",
+                    retired, "; ".join(serves[w][1] for w in retired),
+                )
+        payloads = {
+            w: (serves[w][1] if serves is not None and serves[w][0] == "delta"
+                else self._model_payload(w))
+            for w in ranks
+        }
         groups: dict[int, list[int]] = {}
         for w in ranks:
             groups.setdefault(id(payloads[w]), []).append(w)
+        sent_bytes: dict[int, int] = {}
         for group in groups.values():
+            s = serves[group[0]] if serves is not None else None
+            is_delta = s is not None and s[0] == "delta"
             per_receiver = None
-            if cohort is not None:
-                per_receiver = {w: {MyMessage.MSG_ARG_KEY_CLIENT_INDEX: int(cohort[w - 1])}
-                                for w in group}
+            if cohort is not None or is_delta:
+                per_receiver = {}
+                for w in group:
+                    ov: dict = {}
+                    if cohort is not None:
+                        ov[MyMessage.MSG_ARG_KEY_CLIENT_INDEX] = int(cohort[w - 1])
+                    if is_delta:
+                        # every receiver of the shared frame validates the
+                        # chain against ITS own base (never a payload re-pack)
+                        ov[Message.MSG_ARG_KEY_BASE_VERSION] = int(held[w])
+                    per_receiver[w] = ov
 
             def build(dst: int) -> Message:
                 msg = Message(msg_type, 0, dst)
-                msg.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, payloads[dst])
+                if is_delta:
+                    msg.add_params(Message.MSG_ARG_KEY_ENCODED_UPDATE, s[1])
+                    msg.add_params(Message.MSG_ARG_KEY_ENCODED_DESC, s[2])
+                else:
+                    msg.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, payloads[dst])
                 # the authoritative round index rides every sync: clients
                 # train AS this round instead of counting received syncs
                 msg.add_params(MyMessage.MSG_ARG_KEY_ROUND_IDX, self.round_idx)
@@ -655,9 +732,16 @@ class FedAvgServerManager(ServerManager):
                     msg.add_params(Message.MSG_ARG_KEY_FINISHED, 1)
                 return msg
 
+            # bytes on the wire per receiver: the encoded chain and its
+            # descriptor on the delta path, the dense model otherwise
+            actual = (int(s[1].size) + len(s[2])) if is_delta else dense_nbytes
             if self.accountant is not None:
                 for _w in group:
-                    self.accountant.record_downlink(dense_nbytes, dense_nbytes)
+                    self.accountant.record_downlink(actual, dense_nbytes)
+                if self.downlink is not None and not is_delta:
+                    self.accountant.record_keyframes(len(group))
+            for w in group:
+                sent_bytes[w] = actual
             if self.use_broadcast:
                 try:
                     self.broadcast_message(build(group[0]), group, per_receiver=per_receiver)
@@ -678,6 +762,12 @@ class FedAvgServerManager(ServerManager):
                         errors[w] = e
                 if errors:
                     self._downlink_failed(errors)
+        if self.downlink is not None:
+            with self._round_lock:
+                for w, b in sent_bytes.items():
+                    self._downlink_sent[w] = self._downlink_sent.get(w, 0) + b
+                    if self.fleet is not None:
+                        self.fleet.gauge(w, "downlink_bytes", self._downlink_sent[w])
 
     def _downlink_failed(self, errors: dict[int, BaseException]) -> None:
         """Per-destination fan-out failures are not fatal to the round
@@ -734,6 +824,9 @@ class FedAvgServerManager(ServerManager):
         # round-r model slip into round r+1's tally
         with self._round_lock:
             current = self.round_idx
+            # the version echo is trusted for EVERY upload, stale and
+            # duplicate ones included
+            self._note_version_echo(sender, msg)
             if not self.aggregator.is_live(sender - 1):
                 if self.readmission:
                     self.status.update(sender, ClientStatus.ONLINE)
@@ -838,6 +931,11 @@ class FedAvgServerManager(ServerManager):
             with trace.span("server/aggregate", round=expected_round):
                 self.global_flat = self.aggregator.aggregate()
             self.round_idx += 1
+            if self.downlink is not None:
+                # encode once at round close: the delta joins the serve
+                # chain, and the global of record becomes the decoded model
+                # every client reconstructs
+                self.global_flat = self.downlink.advance(self.global_flat, self.round_idx)
             # readmission boundary: returnees re-enter the expected set
             # here, never mid-round
             if self._pending_readmit:
@@ -924,6 +1022,13 @@ class FedAvgServerManager(ServerManager):
             for cid, st in state.get("status", {}).items():
                 self.status.update(int(cid), st, touch=False)
             self.aggregator.restore_state(state.get("aggregator", {}))
+            if self.downlink is not None:
+                # the delta chain and the held-version table died with the
+                # crashed process: re-anchor on a keyframe (the checkpointed
+                # global IS the decoded model) and let echoes rebuild the
+                # table; every client's first sync after the resume is dense
+                self.global_flat = self.downlink.reset(self.global_flat, self.round_idx)
+                self._held_versions.clear()
         logging.info("restored server round state: resuming as round %d (live workers %s)",
                      self.round_idx, [w + 1 for w in self.aggregator.live_workers()])
         return self.round_idx
@@ -955,6 +1060,12 @@ class FedAvgClientManager(ClientManager):
         self.rng_rank = rank
         # fleet telemetry opt-in (set by the runner when fleet_stats is on)
         self.fleet_telemetry = False
+        # downlink delta coding (compress/downlink.py): the runner arms every
+        # client with the run's downlink codec; the decoder (the held model
+        # and its version) is built at the first keyframe. None keeps
+        # _decode_model the dense path
+        self.downlink_codec = None
+        self._downlink = None
         # per-rank population profile (population/wire.py; set by the runner
         # under population=): feeds the predicted-vs-actual step gauges
         # piggybacked when fleet telemetry is on
@@ -968,14 +1079,45 @@ class FedAvgClientManager(ClientManager):
     def _decode_model(self, msg: Message) -> StateDict:
         """Wire-format seam: a sync payload back to model variables (the
         port's state dict). The mobile client parses the reference's
-        nested-list JSON here instead."""
+        nested-list JSON here instead.
+
+        A sync carrying an encoded-update payload is a downlink delta CHAIN
+        (compress/downlink.py), applied step by step onto this client's
+        held version with the server's f32 adds, on the host, so the
+        reconstruction is bitwise the server's decoded model. Dense syncs
+        are keyframes: with the plane armed they replace the held copy."""
+        from fedml_tpu_torch.compress.downlink import DownlinkDecoder
+
         desc = msg.get(MyMessage.MSG_ARG_KEY_MODEL_DESC)
         if desc is not None:
             self._desc = desc
-        if msg.get(Message.MSG_ARG_KEY_ENCODED_UPDATE) is not None:
-            raise _unported("a delta-coded sync (the downlink delta codec)", "§A11.4")
-        return unpack_state(np.asarray(msg.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)),
-                                   self._desc)
+        chain = msg.get(Message.MSG_ARG_KEY_ENCODED_UPDATE)
+        if chain is None:
+            flat = np.asarray(msg.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS))
+            if self.downlink_codec is not None and self._model_version is not None:
+                if self._downlink is None:
+                    self._downlink = DownlinkDecoder(self.downlink_codec)
+                flat = self._downlink.apply_keyframe(flat, self._model_version).view(np.uint8)
+            return unpack_state(flat, self._desc)
+        if self.downlink_codec is None:
+            raise RuntimeError(
+                "received a delta-coded sync but this client has no "
+                "downlink codec — server and clients must be armed with "
+                "the same --downlink_compressor"
+            )
+        if self._downlink is None:
+            raise RuntimeError(
+                "delta-coded sync before any keyframe: the init sync is "
+                "always dense, so this client missed it (protocol bug)"
+            )
+        held = self._downlink.apply_chain(
+            np.asarray(chain), msg.get(Message.MSG_ARG_KEY_ENCODED_DESC),
+            msg.get(Message.MSG_ARG_KEY_BASE_VERSION), self._model_version)
+        # echo what the decoder RECONSTRUCTED, not the header stamp: an echo
+        # ahead of the held model would make the next delta serve a base
+        # this client does not hold
+        self._model_version = self._downlink.version
+        return unpack_state(held.view(np.uint8), self._desc)
 
     def _encode_model(self, new_vars: StateDict):
         """Inverse seam: trained variables to the upload payload."""
@@ -1273,6 +1415,8 @@ def run_distributed_fedavg(
     codec=None,
     error_feedback: bool = True,
     downlink_codec=None,
+    downlink_keyframe_every: int = 8,
+    downlink_retention: int = 4,
     comm_stats: dict | None = None,
     robust_config=None,
     robust_stats: dict | None = None,
@@ -1305,6 +1449,16 @@ def run_distributed_fedavg(
     (``error_feedback`` toggles per-client residual carryover,
     ``comm_stats`` receives per-round and total bytes-on-wire records).
     ``init_overrides`` is a state dict grafted over the fresh init.
+    ``downlink_codec`` (a codec or a ``--downlink_compressor`` spec; 'none'
+    resolves to the unchanged dense broadcast) arms the downlink delta
+    plane (``compress/downlink.py``): round closes encode the new global
+    once as a delta against the previous emitted version, fan-outs serve
+    each rank by its echoed version (one-step delta, cumulative chain, or
+    every ``downlink_keyframe_every``-th version a dense keyframe; the chain
+    keeps ``downlink_retention`` steps, raised by the async server's
+    staleness p99), and reconstruction is bitwise because the global of
+    record becomes the decoded model. It composes with ``codec``,
+    ``robust_config`` and ``server_mode='async'``.
     ``robust_config`` (a robust_distributed.RobustDistConfig) swaps the
     server tally for the streaming Byzantine-robust + DP one, composing with
     ``codec`` (``robust_stats`` receives per-round Robust/* records).
@@ -1339,11 +1493,12 @@ def run_distributed_fedavg(
     records (``rounds``) and the run's ``totals``. With ``buffer_goal ==
     worker_num`` and the constant weight the async path is bitwise the sync
     streaming path. The tree has its own harness
-    (``async_agg.tree.run_tree_fedavg_loopback``). ``downlink_codec``
-    raises ``NotImplementedError`` naming ROADMAP §A11.4, and
-    ``trace_lanes``/``trace_wire`` (the cross-rank trace lanes) naming
-    §A11.5. Returns the final global variables (the port's state dict of
-    host tensors)."""
+    (``async_agg.tree.run_tree_fedavg_loopback``). ``trace_wire`` arms the
+    cross-rank trace context stamp on every rank's transport;
+    ``trace_lanes`` (a directory) implies it and also installs one tracer
+    per rank lane (``rank0`` the server, ``rank<r>`` each client) and
+    exports each as ``trace_<lane>.jsonl`` there. Returns the final global
+    variables (the port's state dict of host tensors)."""
     if server_mode not in ("sync", "async"):
         raise ValueError(
             f"unknown server_mode {server_mode!r}: expected 'sync' or "
@@ -1363,14 +1518,21 @@ def run_distributed_fedavg(
                 "round_timeout does not apply — drop it (slow workers just "
                 "fold late, staleness-weighted)"
             )
-    if downlink_codec is not None:
-        raise _unported("downlink_codec= (downlink delta coding, compress/downlink.py)",
-                        "§A11.4")
-    if trace_lanes is not None or trace_wire:
-        raise _unported("trace_lanes=/trace_wire= (cross-rank causal trace lanes)", "§A11.5")
     if codec is not None and (server_cls is not None or client_cls_for_rank is not None):
         raise ValueError(
             "codec= does not compose with custom manager classes "
+            "(e.g. is_mobile's JSON wire format)"
+        )
+    if downlink_codec is not None:
+        # a codec or a --downlink_compressor spec string; 'none' resolves
+        # to the unchanged dense broadcast
+        from fedml_tpu_torch.compress.downlink import resolve_downlink_codec
+
+        downlink_codec = resolve_downlink_codec(downlink_codec)
+    if downlink_codec is not None and (server_cls is not None
+                                       or client_cls_for_rank is not None):
+        raise ValueError(
+            "downlink_codec= does not compose with custom manager classes "
             "(e.g. is_mobile's JSON wire format)"
         )
     if robust_config is not None and not robust_config.enabled:
@@ -1494,6 +1656,12 @@ def run_distributed_fedavg(
 
             return make
 
+    if downlink_codec is not None:
+        server_kwargs = {**(server_kwargs or {}),
+                         "downlink_codec": downlink_codec,
+                         "downlink_keyframe_every": downlink_keyframe_every,
+                         "downlink_retention": downlink_retention}
+
     if server_mode == "async":
         # remap the selected sync server class onto its barrier-free
         # counterpart: the same wire seams, the async tally
@@ -1570,11 +1738,27 @@ def run_distributed_fedavg(
     if fleet_stats is not None:
         for c in clients:
             c.fleet_telemetry = True
+    if downlink_codec is not None:
+        # every client decodes with the SAME codec object the server
+        # encodes with
+        for c in clients:
+            c.downlink_codec = downlink_codec
     if population is not None:
         # per-rank population profile: fleet-telemetry-armed clients
         # piggyback predicted-vs-actual step gauges from it
         for c in clients:
             c.population_profile = population.profiles.get(c.rank)
+    # cross-rank causal tracing: ``trace_wire`` arms the context stamp on
+    # every rank's transport; ``trace_lanes`` also installs one job-scoped
+    # tracer per rank lane and exports trace_<lane>.jsonl files
+    client_lanes = None
+    if trace_lanes is not None:
+        trace_wire = True
+        client_lanes = [f"rank{c.rank}" for c in clients]
+    if trace_wire:
+        server.comm.trace_wire = True
+        for c in clients:
+            c.comm.trace_wire = True
 
     from fedml_tpu_torch.comm.retry import retry_stats
 
@@ -1589,7 +1773,12 @@ def run_distributed_fedavg(
     if fleet_stats is not None and registry.get() is None:
         _installed_registry = registry.install()
     try:
-        run_manager_protocol(server, clients)
+        if trace_lanes is not None:
+            with trace.lane_traces(trace_lanes, ["rank0"] + client_lanes):
+                run_manager_protocol(server, clients, client_lanes=client_lanes,
+                                     server_lane="rank0")
+        else:
+            run_manager_protocol(server, clients)
     finally:
         for hb in heartbeats:
             hb.stop()
@@ -1736,7 +1925,10 @@ def run_distributed_fedavg_mqtt_s3(
     ``store_dir`` (a temporary directory, removed at the end, by default);
     the S3Store drops in via the same ObjectStore interface.
     ``broadcast_generations`` is the sender-side shared-blob retention (how
-    many newer fan-outs exist before a broadcast blob is retired)."""
+    many newer fan-outs exist before a broadcast blob is retired); the async
+    server raises it in place from its observed staleness p99 when the
+    downlink delta plane is armed, so a slow client never misses its delta
+    base."""
     import shutil
     import tempfile
 

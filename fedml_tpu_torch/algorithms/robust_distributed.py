@@ -29,7 +29,8 @@ f32 wire layout, as the JAX server does:
 fold in arrival order at round close: the bit-exactness oracle for the
 streaming arm. ``RobustCompressedDistAggregator`` composes with the
 encoded-update uplink: the decoded fold is lifted to the model domain and
-clipped exactly like a dense upload.
+clipped exactly like a dense upload. :func:`run_attack_simulation` drives
+the backdoor attack/defense A-B over the loopback wire.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.fedavg_distributed import (
+    TRAIN_LOCK,
     BufferedFedAvgDistAggregator,
     CompressedFedAvgServerManager,
     FedAvgDistAggregator,
@@ -512,3 +514,95 @@ class RobustCompressedFedAvgServerManager(_RobustServerMixin, CompressedFedAvgSe
             BufferedRobustCompressedDistAggregator if self.buffered_aggregation
             else RobustCompressedDistAggregator
         )(self.worker_num, self.robust_config, self.codec, model_desc=self.model_desc)
+
+
+# ---------------------------------------------------------------------------
+# Loopback attack simulation: poison -> distributed rounds -> ASR
+# ---------------------------------------------------------------------------
+
+
+def eval_accuracy(trainer, variables, arrays: dict, batch_size: int = 64) -> float:
+    """Pooled accuracy of ``variables`` (a port state dict) on ``arrays``
+    ({"x","y"}), on the trainer's device: the clean accuracy and, on a
+    triggered test set (data/poison.py ``backdoor_test_arrays``), the attack
+    success rate. It runs under the wire clients' ``TRAIN_LOCK`` (the
+    trainer's module is their working copy)."""
+    from fedml_tpu_torch.core.trainer import make_local_eval
+    from fedml_tpu_torch.sim.cohort import batch_array
+
+    device = next(trainer.module.parameters()).device
+    batches = {k: torch.from_numpy(v).to(device)
+               for k, v in batch_array(arrays, batch_size).items()}
+    with TRAIN_LOCK:
+        m = make_local_eval(trainer)({k: v.to(device) for k, v in variables.items()}, batches)
+    return float(m["test_correct"]) / max(float(m["test_total"]), 1.0)
+
+
+def run_attack_simulation(
+    trainer,
+    train_data,
+    test_arrays: dict,
+    worker_num: int,
+    round_num: int,
+    batch_size: int,
+    defense: RobustDistConfig,
+    compromised_frac: float = 0.5,
+    sample_frac: float = 1.0,
+    target_label: int = 0,
+    trigger=None,
+    poison_seed: int = 0,
+    fault_specs=None,
+    buffered_aggregation: bool = False,
+    round_timeout: float | None = None,
+    seed: int = 0,
+) -> dict:
+    """End-to-end loopback attack/defense A-B: poison a client fraction
+    (data/poison.py), run the real message-passing FedAvg protocol with the
+    defense ON and OFF (optionally through the fault-injection wrapper,
+    comm/faults.py), and report the backdoor attack success rate plus clean
+    accuracy for both arms. The reference's main_fedavg_robust attack loop,
+    driven over the wire path; the clients train on the trainer's device."""
+    from fedml_tpu_torch.algorithms.fedavg_distributed import run_distributed_fedavg_loopback
+    from fedml_tpu_torch.data.poison import Trigger, backdoor_test_arrays, poison_clients
+
+    trigger = trigger or Trigger()
+    poisoned, bad, counts = poison_clients(
+        train_data, compromised_frac=compromised_frac, sample_frac=sample_frac,
+        target_label=target_label, trigger=trigger, seed=poison_seed,
+    )
+    backdoor = backdoor_test_arrays(test_arrays, target_label=target_label, trigger=trigger)
+
+    def arm(robust_config):
+        stats: dict = {}
+        final = run_distributed_fedavg_loopback(
+            trainer, poisoned, worker_num=worker_num, round_num=round_num,
+            batch_size=batch_size, seed=seed,
+            robust_config=robust_config,
+            robust_stats=stats if robust_config else None,
+            fault_specs=fault_specs,
+            round_timeout=round_timeout,
+            server_kwargs={"buffered_aggregation": buffered_aggregation},
+        )
+        return {
+            "asr": eval_accuracy(trainer, final, backdoor),
+            "clean_acc": eval_accuracy(trainer, final, test_arrays),
+            "robust_rounds": stats.get("rounds", []),
+        }
+
+    on, off = arm(defense), arm(None)
+    result = {
+        "compromised_clients": [int(c) for c in bad],
+        "poisoned_counts": counts,
+        "asr_defended": on["asr"],
+        "asr_undefended": off["asr"],
+        "clean_acc_defended": on["clean_acc"],
+        "clean_acc_undefended": off["clean_acc"],
+        "robust_rounds": on["robust_rounds"],
+    }
+    logging.info(
+        "attack simulation: ASR %.3f defended vs %.3f undefended "
+        "(clean acc %.3f vs %.3f)",
+        result["asr_defended"], result["asr_undefended"],
+        result["clean_acc_defended"], result["clean_acc_undefended"],
+    )
+    return result

@@ -31,8 +31,10 @@ Every downlink stamps the model version it carries
 mid-window arrival counter and idempotence guard through the
 ``RoundCheckpointer`` server-snapshot path. The fold is the JAX package's
 host numpy arithmetic, so the same uploads in the same order give the
-bitwise-same emitted models; the downlink delta branches stay off
-(ROADMAP §A11.4).
+bitwise-same emitted models. With the downlink delta plane armed
+(``compress/downlink.py``) each emission advances the delta chain, the
+observed staleness drives the chain's retention, and an object-store
+transport keeps its broadcast blobs as long as the chain serves them.
 """
 
 from __future__ import annotations
@@ -242,6 +244,9 @@ class AsyncFedAvgServerManager(FedAvgServerManager):
             u = msg.get(MyMessage.MSG_ARG_KEY_ROUND_IDX)
         with self._round_lock:
             current = self.round_idx
+            # downlink delta plane: the echo proves which version this
+            # worker holds, the base its next delta is served from
+            self._note_version_echo(sender, msg)
             if not self.aggregator.is_live(sender - 1):
                 logging.info("ignoring upload from non-live worker %d", sender)
                 return
@@ -255,6 +260,11 @@ class AsyncFedAvgServerManager(FedAvgServerManager):
                 )
                 u = current
             staleness = current - u
+            if self.downlink is not None:
+                # the observed lag distribution drives delta-chain (and
+                # object-store blob) retention: keep p99 + 1 steps so a
+                # deliberately slow client still finds its base
+                self.downlink.observe_staleness(staleness)
             weight = float(self._staleness_fn(staleness)) * n
             with trace.span("async/fold", sender=sender, version=u,
                             staleness=staleness):
@@ -292,6 +302,19 @@ class AsyncFedAvgServerManager(FedAvgServerManager):
                                 arrivals=arrivals):
                     self.global_flat = self.aggregator.emit()
                 self.round_idx += 1
+                if self.downlink is not None:
+                    # per-emission delta against the previous DECODED
+                    # version; the emitted model of record becomes the
+                    # decoded one
+                    self.global_flat = self.downlink.advance(self.global_flat, self.round_idx)
+                    # generational object-store blobs must outlive the
+                    # slowest delta base the chain still serves
+                    gens = self.downlink.retention_effective() + 1
+                    if getattr(self.comm, "broadcast_generations", 0) \
+                            and self.comm.broadcast_generations < gens:
+                        logging.info("raising broadcast_generations to %d from the "
+                                     "staleness p99 floor", gens)
+                        self.comm.broadcast_generations = gens
                 self._totals["emitted"] += 1
                 emitted = True
                 to_send = sorted(self._parked | {sender - 1})

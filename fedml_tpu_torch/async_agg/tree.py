@@ -24,9 +24,9 @@ noise draws from a :class:`~fedml_tpu_torch.core.rng.RoundNoise` seeded with
 the JAX key's integers, ``(dp_seed + leaf_base * 1_000_003, emission)``,
 and a quantizing tier codec draws its uniforms from one seeded with
 ``(0x7EE4 ^ leaf_base, round)`` and the emission's ``seq``; JAX's keys give
-other numbers. Refused, naming their ROADMAP item: the downlink delta codec
-(§A11.4) and the cross-rank trace lanes (``trace_lanes``/``trace_wire``,
-§A11.5).
+other numbers. The downlink delta plane (``downlink_codec``) is encoded at
+the root, re-served verbatim by the edges and decoded by the leaves; the
+cross-rank trace lanes (``trace_lanes``) give every node a lane of its own.
 """
 
 from __future__ import annotations
@@ -48,7 +48,6 @@ from fedml_tpu_torch.algorithms.fedavg_distributed import (
     FedAvgDistAggregator,
     FedAvgServerManager,
     MyMessage,
-    _unported,
     init_template,
     unpack_state,
 )
@@ -1255,6 +1254,9 @@ class TreeFedAvgServerManager(FedAvgServerManager):
                     )
                     return
                 self._tier_windows[sender] = wkey
+            # downlink delta plane: the tier's echoed version is the delta
+            # base for its whole subtree (noted for stale partials too)
+            self._note_version_echo(sender, msg)
             if not self.aggregator.is_live(sender - 1):
                 if self.readmission:
                     # an excluded tier resurfaced WITH a partial: provably
@@ -1422,6 +1424,8 @@ def run_tree_fedavg(
     join_timeout: float = 30.0,
     fleet_stats: dict | None = None,
     downlink_codec=None,
+    downlink_keyframe_every: int = 8,
+    downlink_retention: int = 4,
     comm_stats: dict | None = None,
     buffer_goal: int | None = None,
     tier_staleness: str | None = None,
@@ -1451,10 +1455,12 @@ def run_tree_fedavg(
     TIER rank at the root — per-tier fold/discard counts, window fill
     times, upload latency (docs/OBSERVABILITY.md "Fleet telemetry") — with
     the same ``rounds``/``totals``/``registry`` shape as the flat runner.
-    ``comm_stats`` receives the root accountant's per-round/total Comm/*
-    byte records; ``downlink_codec`` raises, naming ROADMAP §A11.4 (the
-    JAX runner's ``downlink_keyframe_every``/``downlink_retention``, which
-    only tune that codec, are left out with it).
+    ``downlink_codec`` arms the downlink delta plane (compress/downlink.py):
+    the ROOT encodes each round's global once and serves every tier a
+    delta against its echoed version; edge tiers re-serve the chain blob
+    verbatim to their subtree (encode-once per tier, never decoded
+    mid-tree), and leaf clients reconstruct bitwise. ``comm_stats``
+    receives the root accountant's per-round/total Comm/* byte records.
 
     The barrier-free tier knobs (``buffer_goal`` / ``tier_staleness`` /
     ``tier_timeout`` / ``tier_uplink_codec`` / ``tier_defense`` /
@@ -1466,20 +1472,18 @@ def run_tree_fedavg(
     transports wrap in the seeded fault machinery by GLOBAL leaf rank, so
     one churn trace drives the whole hierarchy) compose with everything
     above. ``tier_stats`` (a caller dict) receives per-edge counter dicts
-    plus Comm/TierUplink* byte totals. ``trace_lanes``/``trace_wire`` (the
-    per-node causal trace lanes) raise, naming ROADMAP §A11.5.
+    plus Comm/TierUplink* byte totals. ``trace_lanes`` (a directory path)
+    installs one per-node tracer (lanes ``root`` / ``edge{i}`` (creation
+    order) / ``leaf{r}`` (GLOBAL leaf rank)), exports each node's causal
+    trace as ``trace_<lane>.jsonl``, and arms ``trace_wire`` on every cell
+    comm so contexts propagate across the tiers; ``trace_wire`` alone
+    stamps contexts without installing tracers.
     ``tier_fold_workers`` > 0 attaches a sharded fold plane
     (:mod:`fedml_tpu_torch.algorithms.fold_plane`) to EVERY edge tier's tally —
     chunk-parallel, bit-identical folding off the tier receive threads —
     with ``tier_fold_chunk`` elements per chunk; the ROOT takes the same
     knobs through ``server_kwargs`` (``fold_workers`` / ``fold_chunk``).
     Returns the final global variables (the flat server's return shape)."""
-    if downlink_codec is not None:
-        raise _unported("downlink_codec= (downlink delta coding, compress/downlink.py)",
-                        "§A11.4")
-    if trace_lanes is not None or trace_wire:
-        raise _unported("trace_lanes=/trace_wire= (cross-rank causal trace lanes)",
-                        "§A11.5")
     topo = topology if isinstance(topology, TreeTopology) else TreeTopology(tuple(topology))
     if isinstance(tier_uplink_codec, str):
         from fedml_tpu_torch.compress.codec import make_codec
@@ -1506,6 +1510,22 @@ def run_tree_fedavg(
             tier_timeout=tier_timeout, uplink_codec=tier_uplink_codec,
             defense=tier_defense, client_codec=client_codec,
         )
+        if downlink_codec is not None and async_cfg.needs_base:
+            raise ValueError(
+                "downlink delta coding serves tiers an encoded chain they "
+                "never decode, but this tier discipline needs the dense "
+                "round global (defense clip base / delta-domain codec) — "
+                "drop downlink_codec or the delta-dependent tier knobs"
+            )
+    if downlink_codec is not None:
+        from fedml_tpu_torch.compress.downlink import resolve_downlink_codec
+
+        downlink_codec = resolve_downlink_codec(downlink_codec)
+    if downlink_codec is not None:
+        server_kwargs = {**(server_kwargs or {}),
+                         "downlink_codec": downlink_codec,
+                         "downlink_keyframe_every": downlink_keyframe_every,
+                         "downlink_retention": downlink_retention}
     make_group = make_group_comm or _loopback_group_comm
     fan = topo.fan_ins
     leaf_total = topo.leaf_count
@@ -1635,6 +1655,12 @@ def run_tree_fedavg(
         for m in managers:
             if isinstance(m, EdgeAggregatorManager):
                 m.fleet_telemetry = True
+    if downlink_codec is not None:
+        # every leaf decodes with the codec object the root encodes with
+        # (edges pass the chain through untouched)
+        for m in managers:
+            if isinstance(m, FedAvgClientManager):
+                m.downlink_codec = downlink_codec
     heartbeats: list = []
     if heartbeat_interval is not None and heartbeat_interval > 0:
         from fedml_tpu_torch.comm.status import HeartbeatSender
@@ -1645,41 +1671,70 @@ def run_tree_fedavg(
             HeartbeatSender(m.up_comm, m.up_rank, heartbeat_interval)
             for m in managers if isinstance(m, EdgeAggregatorManager)
         ]
-    threads = [threading.Thread(target=jobscope.wrap_target(m.run), daemon=True)
-               for m in managers]
-    for t in threads:
-        t.start()
-    for hb in heartbeats:
-        hb.start()
-    server.register_message_receive_handlers()
-    _installed_registry = None
-    if fleet_stats is not None and registry.get() is None:
-        _installed_registry = registry.install()
+    # cross-rank causal tracing: one lane (one tracer, one JSONL) per tree
+    # node; edge lanes number in creation (depth-first) order, leaf lanes
+    # carry the GLOBAL leaf rank
+    lane_of: dict[int, str] = {}
+    if trace_lanes is not None:
+        trace_wire = True
+        edge_i = 0
+        for m in managers:
+            if isinstance(m, EdgeAggregatorManager):
+                lane_of[id(m)] = f"edge{edge_i}"
+                edge_i += 1
+            else:
+                lane_of[id(m)] = f"leaf{m.rng_rank}"
+    if trace_wire:
+        # every cell comm stamps outgoing headers
+        server.comm.trace_wire = True
+        for m in managers:
+            m.comm.trace_wire = True
+            if isinstance(m, EdgeAggregatorManager):
+                m.up_comm.trace_wire = True
+    lanes = None
+    if trace_lanes is not None:
+        lanes = trace.lane_traces(trace_lanes, ["root"] + [lane_of[id(m)] for m in managers])
+        lanes.__enter__()
+    threads = [threading.Thread(target=jobscope.wrap_target(m.run, job=lane_of.get(id(m))),
+                                daemon=True) for m in managers]
     try:
-        server.send_init_msg()
-        try:
-            server.comm.handle_receive_message()
-        except BaseException:
-            for m in managers:
-                try:
-                    m.finish()
-                except Exception:  # noqa: BLE001 — best-effort unblock
-                    pass
-            raise
-    finally:
+        for t in threads:
+            t.start()
         for hb in heartbeats:
-            hb.stop()
-        if fleet_stats is not None:
-            if fleet is not None:
-                fleet_stats["totals"] = fleet.snapshot()
-            reg = registry.get()
-            if reg is not None:
-                fleet_stats["registry"] = reg.snapshot()
-            if _installed_registry is not None \
-                    and registry.get() is _installed_registry:
-                registry.uninstall()
-    for t in threads:
-        t.join(timeout=join_timeout)
+            hb.start()
+        server.register_message_receive_handlers()
+        _installed_registry = None
+        if fleet_stats is not None and registry.get() is None:
+            _installed_registry = registry.install()
+        try:
+            with jobscope.bound("root" if trace_lanes is not None else None):
+                server.send_init_msg()
+                try:
+                    server.comm.handle_receive_message()
+                except BaseException:
+                    for m in managers:
+                        try:
+                            m.finish()
+                        except Exception:  # noqa: BLE001 — best-effort unblock
+                            pass
+                    raise
+        finally:
+            for hb in heartbeats:
+                hb.stop()
+            if fleet_stats is not None:
+                if fleet is not None:
+                    fleet_stats["totals"] = fleet.snapshot()
+                reg = registry.get()
+                if reg is not None:
+                    fleet_stats["registry"] = reg.snapshot()
+                if _installed_registry is not None \
+                        and registry.get() is _installed_registry:
+                    registry.uninstall()
+        for t in threads:
+            t.join(timeout=join_timeout)
+    finally:
+        if lanes is not None:
+            lanes.__exit__(None, None, None)
     if comm_stats is not None and server.accountant is not None:
         comm_stats["totals"] = server.accountant.totals()
     if tier_stats is not None or comm_stats is not None:

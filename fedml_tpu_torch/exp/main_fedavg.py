@@ -54,11 +54,13 @@ and ``--run_dir``; ``--server_mode async`` (the buffered-async server:
 aggregator tiers: ``--tree_fan_ins``, ``--tree_transport
 loopback|shm|grpc``, ``--buffer_goal``, ``--staleness_weight``,
 ``--tier_timeout``, ``--tier_compressor``); ``--jobs FILE`` (N federations
-co-scheduled over one shared loopback wire, ``fedml_tpu_torch/tenancy``).
+co-scheduled over one shared loopback wire, ``fedml_tpu_torch/tenancy``);
+``--downlink_compressor`` (downlink delta coding on every wire backend and
+server mode, ``--downlink_keyframe_every``, ``--downlink_retention``; the sim
+engine refuses it in the JAX engine's words).
 
 The JAX CLI's own flag-combination errors are kept as they are; after them,
-a flag whose plane is not ported (downlink coding, the multi-GPU mesh)
-raises ``NotImplementedError`` naming its ROADMAP item when it is set away
+a flag whose plane is not ported (the multi-GPU mesh) raises ``NotImplementedError`` naming its ROADMAP item when it is set away
 from its default.
 
     python -m fedml_tpu_torch.exp.main_fedavg --model lr --dataset mnist \\
@@ -154,7 +156,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     from fedml_tpu_torch.population import add_cli_flags as add_population_cli_flags
 
     add_population_cli_flags(parser)
-    # update compression (fedml_tpu_torch/compress) and downlink coding (§A11)
+    # update compression and downlink delta coding (fedml_tpu_torch/compress)
     parser.add_argument("--compressor", type=str, default="none",
                         help="client->server update codec: none | bf16 | topk | q8 | q4, "
                              "composable with '+' (e.g. topk+q4). 'none' keeps the dense "
@@ -220,9 +222,6 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 # Setting one away from its default raises (checked after the JAX CLI's own
 # flag-combination errors).
 _UNPORTED_FLAGS = {
-    "downlink_compressor": "§A11.4 (downlink delta coding)",
-    "downlink_keyframe_every": "§A11.4 (downlink delta coding)",
-    "downlink_retention": "§A11.4 (downlink delta coding)",
     "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
 }
 
@@ -486,6 +485,7 @@ def build(args):
         compressor=args.compressor,
         topk_frac=args.topk_frac,
         quantize_bits=args.quantize_bits,
+        downlink_compressor=args.downlink_compressor,
         error_feedback=bool(args.error_feedback),
         **population_fields(args),
     )
@@ -663,6 +663,7 @@ def _run_message_passing(args) -> list[dict]:
         kwargs.update(codec=make_codec(args.compressor, topk_frac=args.topk_frac,
                                        quantize_bits=args.quantize_bits),
                       error_feedback=bool(args.error_feedback), comm_stats=comm_stats)
+    kwargs.update(_downlink_kwargs(args, comm_stats))
     if args.is_mobile:
         # every client is a phone: all model payloads cross as JSON
         from fedml_tpu_torch.algorithms.fedavg_mobile import mobile_runner_kwargs
@@ -714,6 +715,22 @@ def _run_message_passing(args) -> list[dict]:
     return history
 
 
+def _downlink_kwargs(args, comm_stats: dict) -> dict:
+    """The runner kwargs of ``--downlink_compressor`` (the JAX CLI's
+    ``downlink_kwargs``): one encode per round close, serve by echoed
+    version; 'none' resolves to the unchanged dense broadcast, no kwargs."""
+    from fedml_tpu_torch.compress.downlink import resolve_downlink_codec
+
+    codec = resolve_downlink_codec(args.downlink_compressor, topk_frac=args.topk_frac,
+                                   quantize_bits=args.quantize_bits)
+    if codec is None:
+        return {}
+    return {"downlink_codec": codec,
+            "downlink_keyframe_every": args.downlink_keyframe_every,
+            "downlink_retention": args.downlink_retention,
+            "comm_stats": comm_stats}
+
+
 def _run_tree(args, trainer, ds, worker_num, on_round, overrides, kwargs, comm_stats,
               tier_stats):
     """``--server_mode tree`` (the JAX CLI's tree branch, ``main_fedavg.py:
@@ -757,7 +774,8 @@ def _run_tree(args, trainer, ds, worker_num, on_round, overrides, kwargs, comm_s
         # one churn trace over the whole hierarchy, by global leaf number
         tree_kwargs["population"] = kwargs["population"]
         tree_kwargs["fault_seed"] = kwargs["population"].seed
-    for k in ("retry_policy", "heartbeat_interval", "fleet_stats"):
+    for k in ("retry_policy", "heartbeat_interval", "fleet_stats", "downlink_codec",
+              "downlink_keyframe_every", "downlink_retention"):
         if k in kwargs:
             tree_kwargs[k] = kwargs[k]
     if args.tree_transport == "shm":
@@ -830,9 +848,8 @@ def _reject_multijob_conflicts(args) -> None:
 
 def _multijob_run_kwargs(overlay):
     """One job's composition kwargs for run_distributed_fedavg (the --jobs
-    subset of the single-job harness planes: the uplink codec and the robust
-    defense; a job's downlink delta coding raises, naming ROADMAP §A11.4).
-    Returns (run_kwargs, stats_dicts), each stats dict filling with
+    subset of the single-job harness planes: the uplink codec, downlink
+    delta coding and the robust defense). Returns (run_kwargs, stats_dicts), each stats dict filling with
     per-round records to merge into the job's metric stream."""
     run_kwargs: dict = {}
     comm_stats: dict = {}
@@ -846,11 +863,7 @@ def _multijob_run_kwargs(overlay):
             error_feedback=bool(overlay.error_feedback),
             comm_stats=comm_stats,
         )
-    if getattr(overlay, "downlink_compressor", "none") != "none":
-        from fedml_tpu_torch.algorithms.fedavg_distributed import _unported
-
-        raise _unported(f"a job's --downlink_compressor {overlay.downlink_compressor!r} "
-                        "(downlink delta coding)", "§A11.4")
+    run_kwargs.update(_downlink_kwargs(overlay, comm_stats))
     if overlay.algorithm == "fedavg_robust":
         from fedml_tpu_torch.algorithms.robust_distributed import RobustDistConfig
 

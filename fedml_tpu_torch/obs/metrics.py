@@ -5,8 +5,8 @@ wandb key names (Train/Acc, Train/Loss, Test/Acc, Test/Loss by round),
 writing JSONL locally and forwarding to wandb when asked and available,
 the robust defenses' metric keys and the bytes-on-wire keys of update
 compression (``Comm/*``), and the wire path's ``CommBytesAccountant``, the
-per-round byte ledger of the message-passing server. ``RoundTimer`` is not
-ported yet (ROADMAP §A11)."""
+per-round byte ledger of the message-passing server, and ``RoundTimer``,
+the reference's comm/compute tick-tock spans."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ import logging
 import time
 from pathlib import Path
 from typing import Any
+
+from fedml_tpu_torch.obs import trace
 
 # Robust-aggregation defense keys (algorithms/robust.py): per-round mean
 # pre-clip update norm, fraction of the cohort whose delta got clipped, and
@@ -234,3 +236,45 @@ class MetricsLogger:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class RoundTimer:
+    """Comm/compute tick-tock instrumentation (reference fedml_core/
+    distributed/communication/utils.py:6-18 log_communication_tick/tock,
+    log_round_start/end): wall-clock spans keyed by tag.
+
+    Every ``tock`` also lands the span in the process tracer's stream
+    (obs/trace.py) when one is installed, so tick/tock call sites show up on
+    the same Perfetto timeline as the engine and wire spans."""
+
+    def __init__(self, tracer=None):
+        # explicit tracer wins; by default the process tracer is resolved at
+        # tock time (so a timer built before trace.install() still exports)
+        self._tracer = tracer
+        self._open: dict[str, float] = {}
+        self.spans: list[tuple[str, float]] = []
+
+    def tick(self, tag: str) -> None:
+        self._open[tag] = time.perf_counter()
+
+    def tock(self, tag: str) -> float:
+        if tag not in self._open:
+            raise ValueError(
+                f"RoundTimer.tock({tag!r}) without a matching tick; "
+                f"currently open tags: {sorted(self._open) or 'none'}"
+            )
+        t0 = self._open.pop(tag)
+        t1 = time.perf_counter()
+        dt = t1 - t0
+        self.spans.append((tag, dt))
+        tracer = self._tracer if self._tracer is not None else trace.get()
+        if tracer is not None:
+            tracer.add_span(tag, t0, t1)
+        logging.debug("--- %s cost: %.4fs", tag, dt)
+        return dt
+
+    def summary(self) -> dict[str, float]:
+        out: dict[str, float] = {}
+        for tag, dt in self.spans:
+            out[tag] = out.get(tag, 0.0) + dt
+        return out

@@ -116,10 +116,9 @@ StateDict = dict[str, torch.Tensor]
 
 # SimConfig fields of the JAX engine that the port does not implement yet:
 # the values the port accepts (the JAX default first) and the ROADMAP item
-# that ports the rest (downlink coding, which the JAX sim engine refuses
-# too, is refused in its words before this table is read).
+# that ports the rest (downlink coding, a wire-path plane, is refused in the
+# JAX sim engine's words before this table is read).
 _NOT_PORTED = {
-    "downlink_compressor": (("none", ""), "§A11"),
     "mesh_shape": ((None,), "§A12"),
     "shard_rules": ((None,), "§A12"),
 }

@@ -86,11 +86,10 @@ def run_multi_job(
     job's fold order for bit-identity assertions. ``join_timeout`` bounds
     the wait on each job thread — a job still running after it gets a
     ``TimeoutError`` result instead of wedging the caller. ``trace_dir``
-    (one causal-trace lane per job) raises, naming ROADMAP §A11.5."""
-    if trace_dir is not None:
-        from fedml_tpu_torch.algorithms.fedavg_distributed import _unported
-
-        raise _unported("trace_dir= (one causal-trace lane per job)", "§A11.5")
+    installs one causal-trace lane PER JOB (the job's threads are already
+    bound to its name, so every rank's spans land in the job's tracer),
+    arms cross-rank context stamping on each job's comm facades, and
+    exports ``trace_<job>.jsonl`` per job: N federations, one lane each."""
     jobs = list(jobs)
     _validate(jobs)
     world = 1 + sum(j.worker_num for j in jobs)
@@ -136,6 +135,8 @@ def run_multi_job(
                 job.on_round(r, unpacked)
 
         run_kwargs = dict(job.run_kwargs)
+        if trace_dir is not None:
+            run_kwargs.setdefault("trace_wire", True)
         try:
             with jobscope.bound(job.name):
                 result.final = run_distributed_fedavg(
@@ -151,6 +152,15 @@ def run_multi_job(
                 registry.uninstall_job(job.name)
         result.fleet_stats = fleet_stats
 
+    lanes = None
+    if trace_dir is not None:
+        from fedml_tpu_torch.obs import trace
+
+        # one lane per job, keyed by the job name the threads are already
+        # bound to: per-rank lanes would collide across jobs in the
+        # process-global job-tracer namespace
+        lanes = trace.lane_traces(trace_dir, [job.name for job in jobs])
+        lanes.__enter__()
     try:
         threads = [
             threading.Thread(target=run_job, args=(job,),
@@ -177,6 +187,8 @@ def run_multi_job(
         router.close()
         scheduler.close()
         pool.close()
+        if lanes is not None:
+            lanes.__exit__(None, None, None)
     if out_dir is not None:
         _write_outputs(out_dir, jobs, results)
     return results

@@ -372,8 +372,12 @@ def test_run_distributed_rejects_bad_async_combinations():
             robust_config=trd.RobustDistConfig(norm_bound=1.0),
             codec=__import__("fedml_tpu_torch.compress", fromlist=["make_codec"]).make_codec(
                 "topk"))
-    with pytest.raises(NotImplementedError, match=r"§A11\.4"):
-        run(ttr, tdata, worker_num=2, round_num=1, batch_size=B, downlink_codec="q8")
+    # downlink delta coding composes with the async server (its runs are
+    # tests/test_torch_downlink.py's); with custom manager classes the port
+    # refuses it in the JAX runner's words
+    with pytest.raises(ValueError, match="downlink_codec= does not compose with custom manager"):
+        run(ttr, tdata, worker_num=2, round_num=1, batch_size=B, downlink_codec="q8",
+            server_cls=tfd.FedAvgServerManager)
 
 
 # -- fault kinds end to end -------------------------------------------------------
@@ -742,22 +746,33 @@ def test_excluded_tier_requeues_readmission_via_partial():
 
 
 def test_tree_rejects_oversized_topology_and_unported_planes():
+    """The planes the tree refuses, in the JAX runner's words: too many
+    leaves, and a downlink delta codec under a tier discipline that needs the
+    dense round global (a delta-domain client codec). The trace context stamp
+    (``trace_wire``) is ported: it leaves the run bitwise the plain run."""
     ttr, tdata = _port_lr()
     with pytest.raises(ValueError, match="leaves"):
         ttree.run_tree_fedavg_loopback(ttr, tdata, (4, 4), 1, B)
-    with pytest.raises(NotImplementedError, match=r"§A11\.4"):
-        ttree.run_tree_fedavg_loopback(ttr, tdata, (2, 2), 1, B, downlink_codec="q8")
-    with pytest.raises(NotImplementedError, match=r"§A11\.5"):
-        ttree.run_tree_fedavg_loopback(ttr, tdata, (2, 2), 1, B, trace_wire=True)
+    with pytest.raises(ValueError) as ours:
+        ttree.run_tree_fedavg_loopback(ttr, tdata, (2, 2), 1, B, downlink_codec="q8",
+                                       client_codec="topk")
+    (jttr, _), (jdata, _) = _lr_pair(), _blobs()
+    with pytest.raises(ValueError) as theirs:
+        jtree.run_tree_fedavg_loopback(jttr, jdata, (2, 2), 1, B, downlink_codec="q8",
+                                       client_codec="topk")
+    assert str(ours.value) == str(theirs.value)
+    _assert_bitwise(ttree.run_tree_fedavg_loopback(ttr, tdata, (2, 2), 1, B),
+                    ttree.run_tree_fedavg_loopback(ttr, tdata, (2, 2), 1, B, trace_wire=True))
 
 
 @pytest.mark.parametrize("kwarg", [("downlink_keyframe_every", 4), ("downlink_retention", 2)])
 def test_tree_runner_refuses_downlink_codec_tuning(kwarg):
-    """The downlink codec's own knobs are not taken in silence while the
-    codec is unported (ROADMAP §A11.4): the runner has no such parameter."""
+    """The downlink codec's own knobs are the JAX runner's keywords now;
+    without a codec they tune nothing, and the run is bitwise the plain run."""
     ttr, tdata = _port_lr()
-    with pytest.raises(TypeError, match=kwarg[0]):
-        ttree.run_tree_fedavg_loopback(ttr, tdata, (2, 2), 1, B, **{kwarg[0]: kwarg[1]})
+    _assert_bitwise(ttree.run_tree_fedavg_loopback(ttr, tdata, (2, 2), 1, B),
+                    ttree.run_tree_fedavg_loopback(ttr, tdata, (2, 2), 1, B,
+                                                   **{kwarg[0]: kwarg[1]}))
 
 
 def test_shm_group_comm_default_prefix_is_fresh_per_group():

@@ -19,6 +19,7 @@ holds it over eight steps)."""
 
 from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import argparse
+import functools
 
 import jax
 import numpy as np
@@ -26,10 +27,13 @@ import pytest
 
 import fedml_tpu.sim.engine as jax_engine
 import fedml_tpu_torch.sim.engine as port_engine
+from fedml_tpu.algorithms import fedavg_distributed as jfd
 from fedml_tpu.exp import main_fedavg as jax_cli
 from fedml_tpu_torch import convert
+from fedml_tpu_torch.algorithms import fedavg_distributed as tfd
 from fedml_tpu_torch.exp import main_fedavg as port_cli
 from fedml_tpu_torch.exp import repro_mnist_lr
+from tests.test_comm import _free_port_run
 
 
 def _table(parser):
@@ -103,10 +107,42 @@ UNPORTED = [
 ]
 
 
+# the small run the downlink cases drive (2 rounds, 4 clients)
+SMALL = ["--dataset", "synthetic", "--client_num_in_total", "4", "--client_num_per_round", "4",
+         "--comm_round", "2", "--frequency_of_the_test", "2", "--batch_size", "16"]
+
+
 @pytest.mark.parametrize("argv,item", UNPORTED)
-def test_unported_flags_raise_with_their_roadmap_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_cli.main(argv + ["--device", "cpu"])
+def test_unported_flags_raise_with_their_roadmap_item(monkeypatch, tmp_path, argv, item):
+    """The multi-GPU flags (§A12) raise naming their ROADMAP item. The
+    downlink delta coding flags (§A11.4) are ported: each case runs on a
+    small federation as the JAX CLI runs it (the same record keys and the
+    same ``Comm/*`` byte counts), or, where the JAX CLI refuses it (a
+    downlink codec on the sim engine), the port refuses it in its words."""
+    if item != "§A11.4":
+        with pytest.raises(NotImplementedError, match=item):
+            port_cli.main(argv + ["--device", "cpu"])
+        return
+    if "grpc" in argv:
+        for mod in (jfd, tfd):
+            monkeypatch.setattr(mod, "run_distributed_fedavg_grpc", functools.partial(
+                mod.run_distributed_fedavg_grpc, base_port=_free_port_run(5)))
+    full = SMALL + argv + ["--data_dir", str(tmp_path / "none")]
+    if "mqtt_s3" in argv:
+        full += ["--object_store_dir", str(tmp_path / "store")]
+    try:
+        want = jax_cli.main(full)
+    except ValueError as theirs:
+        with pytest.raises(ValueError) as ours:
+            port_cli.main(full + ["--device", "cpu"])
+        assert str(ours.value) == str(theirs)
+        return
+    got = port_cli.main(full + ["--device", "cpu"])
+    assert set(got) - {"round_time"} == set(want) - {"round_time", "_ts"}
+    assert got["round"] == want["round"] == 1
+    for k in want:
+        if k.startswith("Comm/"):
+            assert got[k] == want[k], k
 
 
 @pytest.mark.parametrize("algorithm,item", [("fedgan", "§A13")])

@@ -370,6 +370,10 @@ def test_compressed_resume_is_bitwise(tmp_path):
 def test_simconfig_keeps_only_the_unported_fields():
     from fedml_tpu_torch.sim import engine
 
-    assert sorted(engine._NOT_PORTED) == ["downlink_compressor", "mesh_shape", "shard_rules"]
+    assert sorted(engine._NOT_PORTED) == ["mesh_shape", "shard_rules"]
     SimConfig(compressor="topk+q4", topk_frac=0.1, quantize_bits=4, error_feedback=False)
     assert dataclasses.replace(SimConfig(), downlink_compressor="none")
+    # downlink delta coding is a wire-path plane: the sim engine refuses a
+    # real codec in the JAX engine's words (tests/test_torch_downlink.py)
+    with pytest.raises(ValueError, match="downlink delta coding is a wire-path plane"):
+        SimConfig(downlink_compressor="q8")

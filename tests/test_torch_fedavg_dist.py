@@ -55,6 +55,7 @@ from fedml_tpu_torch.compress import codec as tcodec
 from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
 from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.models.resnet import CifarResNet
+from fedml_tpu_torch.obs import metrics as metricslib
 from fedml_tpu_torch.sim.cohort import FederatedArrays
 from fedml_tpu_torch.sim.engine import FedSim, SimConfig
 from tests.test_torch_compress import JaxUniforms, jax_draws
@@ -322,13 +323,26 @@ def test_telemetry_and_retries_leave_the_result_unchanged():
     ("trace_wire", True), ("downlink_codec", "q8"),
 ])
 def test_unported_kwargs_raise_naming_their_roadmap_item(kwarg, value):
-    """The downlink delta codec (ROADMAP §A11.4) and the cross-rank trace
-    lanes (§A11.5) raise; ``server_mode="async"`` is ported
-    (``tests/test_torch_async_agg.py``)."""
+    """The two keywords that raised before their planes were ported run now:
+    the trace context stamp (no tracer installed, so nothing is stamped)
+    leaves the run bitwise the plain run; the q8 downlink codec serves every
+    round after the first as an encoded chain, not the dense model (on this
+    68-parameter model the chain's descriptor outweighs the dense bytes;
+    ``tests/test_torch_downlink.py`` holds the plane to the JAX package)."""
     _, ttr = _lr_pair()
     _, tdata = _blobs()
-    with pytest.raises(NotImplementedError, match="ROADMAP §A11"):
-        tfd.run_distributed_fedavg_loopback(ttr, tdata, W, R, B, **{kwarg: value})
+    template = convert.to_flax(tfd.init_template(ttr, tdata.arrays, B)[0])
+    stats: dict = {}
+    armed = _run_port(ttr, tdata, template, comm_stats=stats, **{kwarg: value})
+    if kwarg == "trace_wire":
+        _assert_bitwise(_run_port(ttr, tdata, template), armed)
+        return
+    assert all(torch.isfinite(v).all() for v in armed.values())
+    first, *later = stats["rounds"]
+    assert first[metricslib.COMM_DOWNLINK_KEYFRAMES] == W
+    for rec in later:
+        assert metricslib.COMM_DOWNLINK_KEYFRAMES not in rec
+        assert rec[metricslib.COMM_DOWNLINK_BYTES] != rec[metricslib.COMM_DOWNLINK_DENSE_BYTES]
 
 
 def _upload(mod, sender, flat, n, round_idx):

@@ -16,7 +16,10 @@ the JAX package's, on the CPU, case by case with ``tests/test_tenancy.py``.
   their neighbors advancing.
 - **The CLI.** ``--jobs`` runs on the port; its flag guards raise the JAX
   CLI's errors (the package path in the message aside); a job's downlink
-  delta coding raises, naming ROADMAP §A11.4.
+  delta coding reaches its server and clients (its parity with the JAX CLI
+  is ``tests/test_torch_downlink.py``'s).
+- **Trace lanes.** ``run_multi_job(trace_dir=)`` writes one lane per job
+  (``tests/test_torch_trace_lanes.py`` holds the lanes to the JAX run's).
 
 Every threaded run has a deadline of its own (``join_timeout``, 60 s).
 """
@@ -246,7 +249,7 @@ def test_jobscope_bound_restores_previous_binding():
 # -- specs and the rank layout ------------------------------------------------------------
 
 
-def test_jobspec_validation_rejects_reserved_kwargs_and_dupes():
+def test_jobspec_validation_rejects_reserved_kwargs_and_dupes(tmp_path):
     trainer, train = _blob_job(seed=0)
     with pytest.raises(ValueError, match="collide"):
         JobSpec(trainer=trainer, train_data=train, worker_num=2, round_num=1, batch_size=4,
@@ -258,8 +261,9 @@ def test_jobspec_validation_rejects_reserved_kwargs_and_dupes():
         run_multi_job([spec, spec])
     with pytest.raises(ValueError, match="world_size"):
         run_multi_job([spec], fabric=tloopback.LoopbackFabric(2))
-    with pytest.raises(NotImplementedError, match=r"§A11\.5"):
-        run_multi_job([spec], trace_dir="traces")
+    # trace_dir= is ported: one causal-trace lane per job
+    res = run_multi_job([spec], trace_dir=str(tmp_path), join_timeout=60)
+    assert res[spec.name].ok and (tmp_path / f"trace_{spec.name}.jsonl").exists()
 
 
 def test_plan_rank_bases_accumulates_workers():
@@ -314,8 +318,7 @@ def test_empty_round_error_mid_run_leaves_others_advancing():
 
 def _hetero_job_matrix():
     """(job_id, workers, classes, seed, run_kwargs factory): models, codecs,
-    defenses and an async server on one wire (the JAX matrix's downlink job
-    is an async one here: downlink coding is ROADMAP §A11.4)."""
+    defenses and a q8 downlink on one wire (the JAX matrix's)."""
     return [
         ("plain-a", 2, 4, 1, dict),
         ("plain-b", 3, 3, 2, dict),
@@ -324,7 +327,7 @@ def _hetero_job_matrix():
         ("robust", 2, 4, 5, lambda: {"robust_config": RobustDistConfig(rule="median")}),
         ("robust-dp", 2, 3, 6, lambda: {"robust_config": RobustDistConfig(
             rule="mean", norm_bound=0.5, dp_stddev=0.01, dp_seed=2)}),
-        ("async", 2, 4, 7, lambda: {"server_mode": "async", "buffer_goal": 2}),
+        ("downlink", 2, 4, 7, lambda: {"downlink_codec": "q8"}),
         ("lr-tiny", 2, 2, 8, dict),
     ]
 
@@ -524,9 +527,19 @@ def test_main_fedavg_jobs_guards_match_the_jax_cli(tmp_path, extra):
 
 
 def test_main_fedavg_job_downlink_raises_naming_its_item(tmp_path):
-    path = _jobs_file(tmp_path, [{"job_id": "a", "downlink_compressor": "q8"}])
-    with pytest.raises(NotImplementedError, match=r"§A11\.4"):
-        tmain.main(JOBS_BASE + ["--jobs", path, "--device", "cpu"])
+    """A job's ``--downlink_compressor`` is ported: the job's server serves
+    the first round's dense keyframes and chains after it, and only that
+    job's records carry Comm/* bytes. An unknown override still raises."""
+    path = _jobs_file(tmp_path, [{"job_id": "a", "downlink_compressor": "q8"},
+                                 {"job_id": "b"}])
+    args = tmain.parse_with_config(tmain.add_args(argparse.ArgumentParser()),
+                                   JOBS_BASE + ["--jobs", path, "--device", "cpu"])
+    recs = tmain.run(args)
+    a = [r for r in recs if r["job"] == "a"]
+    assert [r["round"] for r in a] == [0, 1]
+    assert a[0][metricslib.COMM_DOWNLINK_KEYFRAMES] == 4
+    assert metricslib.COMM_DOWNLINK_KEYFRAMES not in a[1] and a[1][metricslib.COMM_DOWNLINK_BYTES]
+    assert not any(k.startswith("Comm/") for r in recs if r["job"] == "b" for k in r)
     bad = _jobs_file(tmp_path, [{"job_id": "a", "no_such_key": 1}])
     with pytest.raises(ValueError, match="unknown override"):
         tmain.main(JOBS_BASE + ["--jobs", bad, "--device", "cpu"])
