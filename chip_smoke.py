@@ -264,7 +264,24 @@ Phases, each of which exits non-zero on failure:
     serving cumulative chains, the 1-tier tree delivering chains to its
     leaves (each held model bitwise decoded), and mqtt_s3 with topk+q8 at
     least 10x below dense in steady state, under trace lanes whose every
-    receive span has its parent send span in the sender's lane.
+    receive span has its parent send span in the sender's lane;
+23. the split-learning families as parties over the comm layer and the
+    deployment artifact (no flash launch on any of their paths; after
+    ``[downlink]``, ``[families wire]`` and ``[export]``): ``main_splitnn
+    --backend loopback`` on row 1's fixture, its first 100 clients, 1
+    epoch, bitwise ``run_splitnn_relay_stepwise`` on the card from the same
+    start, within 1e-5 of the fused relay and of the same wire run on the
+    CPU, and ``--backend shm`` bitwise the loopback run; ``main_vfl
+    --backend loopback`` at its defaults bitwise ``run_vfl_stepwise`` on
+    the card and within 1e-5 of the CPU; ``main_fedgkt --backend loopback``
+    at its defaults bitwise ``run_fedgkt`` on the card; the full-width GKT
+    pair (ResNet-8 client, ResNet-56 server) over loopback on ``[wire]``'s
+    10k/2k CIFAR-10 fixture, 10 clients, B=64, 1 round, bitwise
+    ``run_fedgkt`` under deterministic algorithms, with the round's
+    seconds, the feature bytes uploaded and the seconds moving them; and
+    the flagship ResNet-56's evaluation forward exported with
+    ``models/export.export_program``, loaded and called on a batch on the
+    card, bitwise the eager forward.
 
 Each phase prints its seconds (``[phase]``). It prints a
 ``{"kernels": [...]}`` line, then as its last line
@@ -6435,6 +6452,294 @@ def phase_downlink(torch, mnist_dir):
     return launches
 
 
+FAMILIES_WIRE = dict(split_clients=100, gkt_clients=10, gkt_batch=64, export_batch=64)
+
+
+def _keeping(into):
+    """A ``_wrapped`` maker that appends each call's return value to
+    ``into``."""
+    def make(original):
+        def call(*args, **kwargs):
+            out = original(*args, **kwargs)
+            into.append(out)
+            return out
+        return call
+    return make
+
+
+def _tensors(tree):
+    """The tensors of nested lists, tuples and dicts (keys sorted), in
+    order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+def _runs_gap(torch, a, b):
+    """``(largest difference, bitwise equal)`` between two runs' outputs
+    (nested state dicts, tensors and floats, moved to the host)."""
+    ta, tb = _tensors(a), _tensors(b)
+    if len(ta) != len(tb):
+        fail(f"two runs returned {len(ta)} and {len(tb)} leaves")
+    ta = [torch.as_tensor(t).detach().cpu().double() for t in ta]
+    tb = [torch.as_tensor(t).detach().cpu().double() for t in tb]
+    gap = max(float((x - y).abs().max()) for x, y in zip(ta, tb))
+    return gap, all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def _host_copy(variables):
+    return type(variables)({k: v.detach().cpu().clone() for k, v in sd.items()}
+                           for sd in variables)
+
+
+def _on(torch, variables, device):
+    return type(variables)({k: v.to(device) for k, v in sd.items()} for sd in variables)
+
+
+def _families_split(torch, mnist_dir):
+    """(a): ``main_splitnn`` over loopback and shm on the card, its first
+    ``split_clients`` clients of row 1, against the stepwise oracle and the
+    fused relay on the card and the wire run on the CPU."""
+    from fedml_tpu_torch.algorithms import splitnn, splitnn_dist
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.exp import main_splitnn
+
+    n = FAMILIES_WIRE["split_clients"]
+    argv = ["--dataset", "mnist", "--data_dir", str(mnist_dir), "--client_number",
+            str(MNIST["clients"]), "--epochs", "1", "--partition_method", "hetero"]
+
+    def first_clients(original):
+        def build(args, ds, device):
+            split, batches = original(args, ds, device)
+            return split, batches[:n]
+        return build
+
+    def cli(backend, device, start):
+        args = main_splitnn.add_args(argparse.ArgumentParser()).parse_args(
+            argv + ["--backend", backend, "--device", device])
+        outs, secs = [], []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_wrapped(main_splitnn, "build", first_clients))
+            stack.enter_context(_wrapped(splitnn_dist, "run_distributed_splitnn",
+                                         _keeping(outs)))
+            stack.enter_context(_wrapped(splitnn_dist, "run_distributed_splitnn",
+                                         _timing(secs, torch.cuda.synchronize)))
+            stack.enter_context(_starting_from(torch, splitnn.SplitNN, _on(torch, start, device)))
+            metrics = main_splitnn.run(args)
+        return metrics, outs[0], secs[0]
+
+    args = main_splitnn.add_args(argparse.ArgumentParser()).parse_args(argv)
+    ds = load_partition_data(args.dataset, args.data_dir, args.partition_method,
+                             args.partition_alpha, args.client_number, args.seed)
+    split, batches = main_splitnn.build(args, ds, torch.device("cuda"))
+    batches = batches[:n]
+    start = _host_copy(split.init(rnglib.generator(args.seed, torch.device("cuda"))))
+    metrics, wire, wire_s = cli("loopback", "cuda", start)
+    steps = sum(int(b["x"].shape[0]) for b in batches)
+    with _starting_from(torch, splitnn.SplitNN, _on(torch, start, "cuda")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stepwise = splitnn_dist.run_splitnn_relay_stepwise(split, batches, 1, None)
+        torch.cuda.synchronize()
+        stepwise_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused = splitnn.run_splitnn_relay(split, batches, 1, None)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+    _, shm, shm_s = cli("shm", "cuda", start)
+    _, cpu, cpu_s = cli("loopback", "cpu", start)
+    gaps = {"stepwise": _runs_gap(torch, wire, stepwise), "shm": _runs_gap(torch, wire, shm),
+            "fused": _runs_gap(torch, wire, fused), "cpu wire": _runs_gap(torch, wire, cpu)}
+    log(f"[families wire] (a) main_splitnn --backend loopback, the first {n} of row 1's "
+        f"clients ({steps} steps), 1 epoch, on the card: the relay {wire_s:.2f} s over "
+        f"loopback, {shm_s:.2f} s over shm, {cpu_s:.2f} s over loopback on the CPU; the "
+        f"stepwise oracle {stepwise_s:.2f} s and the fused relay {fused_s:.2f} s on the card; "
+        f"{metrics}; against the loopback run (largest difference, bitwise): "
+        + ", ".join(f"{k} {g:.3e} {same}" for k, (g, same) in gaps.items()))
+    if not (gaps["stepwise"][1] and gaps["shm"][1]):
+        fail(f"families wire: the split wire run is not bitwise the stepwise oracle / shm run: "
+             f"{gaps}")
+    if not max(gaps["fused"][0], gaps["cpu wire"][0]) <= SPLIT_ATOL:
+        fail(f"families wire: the split wire run is beyond {SPLIT_ATOL} of the fused relay or "
+             f"the CPU: {gaps}")
+
+
+def _families_vfl(torch):
+    """(b): ``main_vfl --backend loopback`` at its defaults on the card,
+    against the stepwise oracle there and the same run on the CPU, all from
+    one start."""
+    from fedml_tpu_torch.algorithms import vertical, vertical_dist
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.core.trainer import sgd
+    from fedml_tpu_torch.exp import main_vfl
+
+    args = main_vfl.add_args(argparse.ArgumentParser()).parse_args(["--backend", "loopback"])
+    tr, y_tr, _, _ = main_vfl.load(args)
+    vfl = vertical.VerticalFL([vertical.PartyModel(s.shape[1], hidden=args.hidden,
+                                                   device="cuda") for s in tr], sgd(args.lr))
+    start = _host_copy(vfl.init(rnglib.generator(args.seed, torch.device("cuda"))))
+    runs = {}
+    for key, device in (("card", "cuda"), ("cpu", "cpu")):
+        args.device = device
+        outs = []
+        with _wrapped(vertical_dist, "run_distributed_vfl", _keeping(outs)), \
+                _starting_from(torch, vertical.VerticalFL, _on(torch, start, device)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = main_vfl.run(args)
+            torch.cuda.synchronize()
+            runs[key] = (metrics, outs[0], time.perf_counter() - t0)
+    put = lambda a: torch.as_tensor(np.asarray(a), device="cuda")  # noqa: E731
+    with _starting_from(torch, vertical.VerticalFL, _on(torch, start, "cuda")):
+        oracle = vertical_dist.run_vfl_stepwise(vfl, [put(s) for s in tr], put(y_tr),
+                                                args.epochs, args.batch_size, None)
+    g_oracle = _runs_gap(torch, runs["card"][1], oracle)
+    g_cpu = _runs_gap(torch, runs["card"][1], runs["cpu"][1])
+    log(f"[families wire] (b) main_vfl --backend loopback at its defaults ({args.party_num} "
+        f"parties, {args.epochs} epochs): card {runs['card'][2]:.2f} s, CPU "
+        f"{runs['cpu'][2]:.2f} s; card {runs['card'][0]}; against run_vfl_stepwise on the card "
+        f"{g_oracle[0]:.3e} (bitwise {g_oracle[1]}), against the CPU {g_cpu[0]:.3e}")
+    if not g_oracle[1] or not g_cpu[0] <= SPLIT_ATOL:
+        fail(f"families wire: vfl wire run against the oracle {g_oracle}, the CPU {g_cpu}")
+
+
+def _families_gkt_small(torch):
+    """(c): ``main_fedgkt --backend loopback`` at its defaults on the card
+    against ``run_fedgkt`` there from the same start, deterministic
+    algorithms."""
+    from fedml_tpu_torch.algorithms import fedgkt, fedgkt_dist
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.exp import main_fedgkt
+
+    args = main_fedgkt.add_args(argparse.ArgumentParser()).parse_args(["--backend", "loopback"])
+    gkt, _ = main_fedgkt.build(args, torch.device("cuda"))
+    start = _on(torch, _host_copy(gkt.init(rnglib.generator(0, torch.device("cuda")))), "cuda")
+    wire, oracle = [], []
+    with _deterministic(torch), _starting_from(torch, fedgkt.FedGKT, start):
+        with _wrapped(fedgkt_dist, "run_distributed_fedgkt", _keeping(wire)):
+            got = main_fedgkt.run(args)
+        args.backend = "inprocess"
+        with _wrapped(fedgkt, "run_fedgkt", _keeping(oracle)):
+            want = main_fedgkt.run(args)
+    gap = _runs_gap(torch, wire[0], oracle[0][:2])
+    log(f"[families wire] (c) main_fedgkt --backend loopback at its defaults: {got} against "
+        f"run_fedgkt's {want}; largest difference {gap[0]:.3e}, bitwise {gap[1]}")
+    if not gap[1] or got != want:
+        fail(f"families wire: the small GKT wire run is not bitwise run_fedgkt: {gap}")
+
+
+def _families_gkt_full(torch):
+    """(d): the full-width GKT pair over loopback on ``[wire]``'s fixture
+    against ``run_fedgkt`` on the same batches, deterministic algorithms."""
+    from fedml_tpu_torch.algorithms import fedgkt, fedgkt_dist
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.exp import main_fedgkt
+
+    c = FAMILIES_WIRE
+    args = main_fedgkt.add_args(argparse.ArgumentParser()).parse_args(
+        ["--dataset", "cifar10", "--data_dir", str(_wire_fixture()), "--client_number",
+         str(c["gkt_clients"]), "--batch_size", str(c["gkt_batch"]), "--comm_round", "1"])
+    gkt, batches = main_fedgkt.build(args, torch.device("cuda"))
+    gkt = fedgkt.FedGKT(type(gkt.client_module)(num_classes=10),
+                        type(gkt.server_module)(num_classes=10), gkt.client_opt, gkt.server_opt,
+                        gkt.temperature, gkt.alpha)
+    start = _host_copy(gkt.init(rnglib.generator(0, torch.device("cuda"))))
+    stats = {}
+    with _deterministic(torch):
+        with _starting_from(torch, fedgkt.FedGKT, _on(torch, start, "cuda")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wire = fedgkt_dist.run_distributed_fedgkt_loopback(gkt, batches, 1, 1, 1, None,
+                                                               stats=stats)
+            torch.cuda.synchronize()
+            wire_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            oracle = fedgkt.run_fedgkt(gkt, batches, 1, 1, 1, None)
+            torch.cuda.synchronize()
+            oracle_s = time.perf_counter() - t0
+    gap = _runs_gap(torch, wire, oracle[:2])
+    rnd = stats["rounds"][0]
+    images = sum(int(b["mask"].sum()) for b in batches)
+    log(f"[families wire] (d) FedGKT ResNet-8 / ResNet-56 over loopback, {c['gkt_clients']} "
+        f"clients, B={c['gkt_batch']}, {images} images of [wire]'s fixture, 1 round: "
+        f"{wire_s:.2f} s (the server's round {rnd['seconds']:.2f} s) against run_fedgkt "
+        f"{oracle_s:.2f} s; features uploaded {rnd['feature_bytes']} bytes, moved in "
+        f"{stats['client_move_seconds']:.3f} s to the hosts (the clients' permute and copy) and "
+        f"{rnd['server_move_seconds']:.3f} s to the server's card; largest difference "
+        f"{gap[0]:.3e}, bitwise {gap[1]}")
+    if not gap[1]:
+        fail(f"families wire: the full-width GKT wire run is not bitwise run_fedgkt: {gap}")
+
+
+def phase_families_wire(torch, mnist_dir):
+    """SplitNN, vertical FL and FedGKT as parties over the comm layer on the
+    card, (a)-(d) above; returns each path's flash launches (each must be
+    0)."""
+    launches = {}
+    for name, parts in (("families_wire_split", [lambda: _families_split(torch, mnist_dir)]),
+                        ("families_wire_vfl", [lambda: _families_vfl(torch)]),
+                        ("families_wire_gkt", [lambda: _families_gkt_small(torch),
+                                               lambda: _families_gkt_full(torch)])):
+        _zero_flash_counters()
+        for part in parts:
+            part()
+        launches[name] = _flash_launches()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_export(torch):
+    """The flagship ResNet-56's evaluation forward through the deployment
+    artifact: exported on the card with ``export_program``, saved, loaded
+    and called on a batch, bitwise the eager forward (deterministic
+    algorithms). Prints the seconds and the artifact's bytes; returns the
+    flash launches."""
+    from fedml_tpu_torch.models.export import Functional, export_program, load_program
+    from fedml_tpu_torch.models.resnet import resnet56
+
+    _zero_flash_counters()
+    torch.manual_seed(0)
+    net = resnet56(class_num=10, device="cuda")
+    variables = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    x = torch.as_tensor(np.random.RandomState(0).rand(FAMILIES_WIRE["export_batch"], 32, 32, 3)
+                        .astype(np.float32), device="cuda")
+    path = BUILD_DIR / "export" / "resnet56.pt2"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with _deterministic(torch):
+        fn = Functional(net)
+        t0 = time.perf_counter()
+        blob = export_program(fn, (variables, x), path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_program(path)
+        load_s = time.perf_counter() - t0
+        with torch.no_grad():
+            eager = fn(variables, x)
+            got = loaded.call(variables, x)
+            torch.cuda.synchronize()
+            times = {}
+            for name, call in (("eager", lambda: fn(variables, x)),
+                               ("loaded", lambda: loaded.call(variables, x))):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                for _ in range(10):
+                    call()
+                end.record()
+                torch.cuda.synchronize()
+                times[name] = start.elapsed_time(end) / 10
+    gap, same = _runs_gap(torch, [eager], [got])
+    log(f"[export] ResNet-56 eval forward, batch {x.shape[0]}: exported in {export_s:.2f} s, "
+        f"{len(blob)} bytes, loaded in {load_s:.2f} s; a call {times['loaded']:.3f} ms against "
+        f"{times['eager']:.3f} ms eager; largest difference {gap:.3e}, bitwise {same}")
+    if not same or not torch.isfinite(got).all():
+        fail(f"export: the loaded program differs from the eager forward by {gap:.3e}")
+    return _flash_launches()
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds printed under the phase's name."""
     t0 = time.perf_counter()
@@ -6494,9 +6799,11 @@ def main() -> None:
         cli_launches.update(transports_launches)
         cli_launches.update(_timed("async", phase_async, torch, mnist_dir, solo_flagship))
         cli_launches.update(_timed("downlink", phase_downlink, torch, mnist_dir))
+        cli_launches.update(_timed("families wire", phase_families_wire, torch, mnist_dir))
+    cli_launches["export"] = _timed("export", phase_export, torch)
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
         f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip, fedgan, "
-        f"splitnn, wire, async, downlink)")
+        f"splitnn, wire, async, downlink, families wire)")
     femnist_loads = []
     with _loaded_once(femnist_loads):
         cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
@@ -6540,7 +6847,8 @@ def main() -> None:
                  "async_tree", "async_ladder_sync", "async_ladder_async_edges",
                  "async_ladder_none-coded_uplink", "async_ladder_sync_over_shm", "async_jobs",
                  "async_sim", "downlink_flagship", "downlink_dense_arms", "downlink_async",
-                 "downlink_tree", "downlink_mqtt_s3"):
+                 "downlink_tree", "downlink_mqtt_s3", "families_wire_split",
+                 "families_wire_vfl", "families_wire_gkt", "export"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

@@ -17,8 +17,9 @@ CUDA graph of the step (:class:`_Replay`): the server's step is ~2,000
 small kernels, which the host would otherwise launch one by one. Features stay
 on the device they were made on: the server's phase reads the clients'
 stacks there, concatenated in client order. The features are NCHW (the port's
-ResNet layout, :mod:`fedml_tpu_torch.models.resnet_gkt`). The JAX package's
-``fedgkt_dist.py`` (the same exchange over the comm layer) is ROADMAP §A11.
+ResNet layout, :mod:`fedml_tpu_torch.models.resnet_gkt`). ``fedgkt_dist.py``
+runs the same exchange over the comm layer, the features in the JAX layout
+on the wire.
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ take turns against one server half in a relay ring.
 Variables are the port's flat state dicts, one per half; the optimizers are
 the port's functional ones (:func:`~fedml_tpu_torch.core.trainer.sgd`'s
 ``init``/``update``), so a step is a pure function of its inputs. This is
-the single-process simulation path; the JAX package's ``splitnn_dist.py``
-(the same protocol over the comm layer) is ROADMAP §A11.
+the single-process simulation path; ``splitnn_dist.py`` runs the same
+protocol over the comm layer, its step factored into three programs.
 """
 
 from __future__ import annotations

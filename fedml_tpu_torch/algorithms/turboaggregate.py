@@ -1,7 +1,7 @@
 """Secure aggregation: finite-field MPC primitives (TurboAggregate), a copy
 of ``fedml_tpu/algorithms/turboaggregate.py`` (bitwise equal for the same
-arguments and seeds). The protocol that runs them between parties
-(``turboaggregate_dist``) waits for the comm layer, ROADMAP §A11.
+arguments and seeds). ``turboaggregate_dist`` runs them between parties
+over the comm layer.
 
 Reference: fedml_api/distributed/turboaggregate/mpc_function.py (275 LoC of
 field math): modular inverse (:62), Lagrange coefficients, BGW secret-sharing

@@ -7,9 +7,8 @@ guest sums them, takes the BCE loss and returns the loss's gradient in the
 sum to every party, and each party steps its own model through its own
 ``torch.func.vjp`` (the JAX ``jax.vjp``). Variables are the port's flat
 state dicts, one per party; the optimizer is the port's functional one.
-This is the single-process simulation path; the JAX package's
-``vertical_dist.py`` (the same protocol over the comm layer) is ROADMAP
-§A11.
+This is the single-process simulation path; ``vertical_dist.py`` runs the
+same protocol over the comm layer.
 """
 
 from __future__ import annotations

@@ -4,12 +4,13 @@ the dataset-name dispatch of :func:`load_partition_data`.
 
 Ported: ``cifar10``, ``cifar100`` and ``cinic10`` (``data/cv.py``),
 ``mnist`` (LEAF JSON when present, the ``synthetic_leaf_mnist`` fixture
-otherwise), ``femnist``, ``shakespeare``, ``fed_shakespeare``,
-``stackoverflow_nwp`` and ``stackoverflow_lr`` on their synthetic
-fallbacks, ``fed_cifar100`` on its CIFAR-like fallback, and
-``synthetic[_alpha_beta]``. The branches that read real files with h5py
-raise when those files are present (ROADMAP §A6b: the card's machine has no
-h5py), never falling through to synthetic data. ImageNet
+otherwise), ``shakespeare`` (LEAF JSON), the TFF h5 sets ``femnist``,
+``fed_cifar100``, ``fed_shakespeare``, ``stackoverflow_nwp``
+(``data/tff_h5.py``) and ``stackoverflow_lr`` (``data/stackoverflow.py``),
+each on its synthetic fallback without its files, and
+``synthetic[_alpha_beta]``. An h5 branch whose files are present reads them
+with h5py, imported then; without h5py (the card's machine) it raises,
+never falling through to synthetic data. ImageNet
 (``imagenet``/``ILSVRC2012``) and the landmarks sets (``gld23k``,
 ``gld160k``, ``landmarks``) read image trees with Pillow when both are
 there (``data/vision_fed.py``), else use their synthetic fixtures. The
@@ -86,17 +87,18 @@ KNOWN_DATASETS = (
     "gld23k", "gld160k", "landmarks", "synthetic",
 )
 
-_H5_ITEM = "ROADMAP §A6b (the h5 readers; the card's machine has no h5py)"
-
-
-def _h5_present(dataset: str, files: list[Path]) -> None:
-    """Raise when the real files of an h5-backed branch are present: the port
-    does not read them yet, and must not stand synthetic data in for them."""
+def _h5_needs_reader(dataset: str, files: list[Path]) -> None:
+    """Raise when the real files of an h5-backed branch are present but
+    h5py is not: synthetic data must not stand in for them."""
     present = [str(f) for f in files if f.exists()]
     if present:
-        raise NotImplementedError(
-            f"{dataset}: real files {present} are present but their reader is not ported "
-            f"to fedml_tpu_torch yet: {_H5_ITEM}")
+        from fedml_tpu_torch.data.tff_h5 import _h5py
+
+        try:
+            _h5py()
+        except RuntimeError as e:
+            raise RuntimeError(f"{dataset}: real files {present} are present but "
+                               "h5py, their reader, is not installed") from e
 
 
 def load_partition_data(
@@ -139,11 +141,11 @@ def load_partition_data(
         return FedDataset(train, test, 10, test_fed, name=dataset)
 
     if dataset in ("shakespeare", "fed_shakespeare"):
-        from fedml_tpu_torch.data import leaf
+        from fedml_tpu_torch.data import leaf, tff_h5
 
-        if dataset == "fed_shakespeare":
-            _h5_present(dataset, [Path(data_dir) / "shakespeare_train.h5"])
-        if (Path(data_dir) / "train").is_dir():
+        if dataset == "fed_shakespeare" and (Path(data_dir) / "shakespeare_train.h5").exists():
+            train, test, test_fed = tff_h5.load_fed_shakespeare(data_dir)
+        elif (Path(data_dir) / "train").is_dir():
             train, test, test_fed = leaf.load_leaf_shakespeare(
                 Path(data_dir) / "train", Path(data_dir) / "test"
             )
@@ -153,18 +155,26 @@ def load_partition_data(
         return FedDataset(train, test, 90, test_fed, name=dataset)
 
     if dataset == "femnist":
-        from fedml_tpu_torch.data import leaf
+        from fedml_tpu_torch.data import tff_h5
 
-        _h5_present(dataset, [Path(data_dir) / "fed_emnist_train.h5"])
-        logging.warning("femnist: h5 absent; using synthetic fixture")
-        train, test, test_fed = leaf.synthetic_leaf_mnist(n_clients=client_num_in_total,
-                                                          seed=seed)
+        if (Path(data_dir) / "fed_emnist_train.h5").exists():
+            train, test, test_fed = tff_h5.load_federated_emnist(data_dir)
+        else:
+            from fedml_tpu_torch.data import leaf
+
+            logging.warning("femnist: h5 absent; using synthetic fixture")
+            train, test, test_fed = leaf.synthetic_leaf_mnist(n_clients=client_num_in_total,
+                                                              seed=seed)
         return FedDataset(train, test, 62, test_fed, name=dataset)
 
     if dataset == "fed_cifar100":
+        from fedml_tpu_torch.data import tff_h5
+
+        if (Path(data_dir) / "fed_cifar100_train.h5").exists():
+            train, test, test_fed = tff_h5.load_fed_cifar100(data_dir)
+            return FedDataset(train, test, 100, test_fed, name=dataset)
         from fedml_tpu_torch.data.cv import load_cifar
 
-        _h5_present(dataset, [Path(data_dir) / "fed_cifar100_train.h5"])
         logging.warning("fed_cifar100: h5 absent; using synthetic cifar-like fixture")
         train, test, class_num = load_cifar(
             "cifar100", data_dir, partition_method, partition_alpha, client_num_in_total, seed
@@ -172,16 +182,28 @@ def load_partition_data(
         return FedDataset(train, test, class_num, name=dataset)
 
     if dataset == "stackoverflow_nwp":
-        _h5_present(dataset, [Path(data_dir) / "stackoverflow_train.h5"])
-        logging.warning("stackoverflow_nwp: h5 absent; using synthetic fixture")
-        train, test, test_fed = synthetic_char_lm(
-            n_clients=client_num_in_total, vocab=10004, seq_len=20, seed=seed
-        )
+        from fedml_tpu_torch.data import tff_h5
+
+        if (Path(data_dir) / "stackoverflow_train.h5").exists():
+            train, test, test_fed = tff_h5.load_stackoverflow_nwp(data_dir)
+        else:
+            logging.warning("stackoverflow_nwp: h5 absent; using synthetic fixture")
+            train, test, test_fed = synthetic_char_lm(
+                n_clients=client_num_in_total, vocab=10004, seq_len=20, seed=seed
+            )
         return FedDataset(train, test, 10004, test_fed, name=dataset)
 
     if dataset == "stackoverflow_lr":
-        d = Path(data_dir)
-        _h5_present(dataset, [d / "stackoverflow_train.h5", d / "stackoverflow_test.h5"])
+        from fedml_tpu_torch.data import stackoverflow
+
+        if stackoverflow.has_real_files(data_dir):
+            train, test, test_fed, output_dim = stackoverflow.load_stackoverflow_lr(
+                data_dir, limit_clients=client_num_in_total or None
+            )
+            return FedDataset(train, test, output_dim, test_fed, name=dataset)
+        # has_real_files is False without h5py: refuse rather than fall back
+        _h5_needs_reader(dataset, [Path(data_dir) / stackoverflow.TRAIN_FILE,
+                                   Path(data_dir) / stackoverflow.TEST_FILE])
         logging.warning("stackoverflow_lr: h5/vocab files absent; using synthetic fixture")
         train, test, test_fed = synthetic_tag_prediction(n_clients=client_num_in_total,
                                                          seed=seed)

@@ -7,10 +7,13 @@ the features with bidirectional temperature-scaled KL distillation
 The JAX CLI's flags with the same names and defaults, plus ``--device``
 (default ``cuda``, which raises without a card; ``--device cpu`` runs on
 the CPU). ``synthetic_cv`` is the JAX CLI's numpy draw, copied; any other
-dataset comes from the port's registry. ``--backend inprocess`` only:
-``loopback`` runs the server and the clients as separate parties over the
-comm layer, ROADMAP §A11, and raises. Returns ``{"Train/Acc": ...}``, the
-train accuracy through the whole client-to-server pipeline::
+dataset comes from the port's registry. ``--backend inprocess`` runs the
+rounds in this process; ``loopback`` runs the server and the clients as
+separate parties over the in-process comm fabric
+(``algorithms/fedgkt_dist.py``), with the features, logits and labels as
+wire payloads; identical arguments give identical models either way.
+Returns ``{"Train/Acc": ...}``, the train accuracy through the whole
+client-to-server pipeline::
 
     python -m fedml_tpu_torch.exp.main_fedgkt --device cpu
 """
@@ -40,8 +43,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--backend", type=str, default="inprocess",
                         choices=["inprocess", "loopback"],
-                        help="inprocess only; loopback (the parties over the comm layer) is "
-                             "ROADMAP §A11")
+                        help="inprocess: orchestrated in this process; loopback: server + "
+                             "clients as separate parties with features/logits as wire "
+                             "payloads")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     return parser
@@ -99,16 +103,20 @@ def run(args) -> dict:
     from fedml_tpu_torch.obs.metrics import logging_config
 
     logging_config(0)
-    if args.backend != "inprocess":
-        raise NotImplementedError(
-            f"--backend {args.backend} (the server and clients as parties over the comm "
-            "layer) is not ported to fedml_tpu_torch yet: ROADMAP §A11")
     device = resolve_device(args.device)
     gkt, client_batches = build(args, device)
-    cvars_list, svars, _ = run_fedgkt(gkt, client_batches, rounds=args.comm_round,
-                                      client_epochs=args.epochs_client,
-                                      server_epochs=args.epochs_server,
-                                      generator=rnglib.generator(args.seed, device))
+    generator = rnglib.generator(args.seed, device)
+    if args.backend == "loopback":
+        from fedml_tpu_torch.algorithms.fedgkt_dist import run_distributed_fedgkt_loopback
+
+        cvars_list, svars = run_distributed_fedgkt_loopback(
+            gkt, client_batches, args.comm_round, args.epochs_client, args.epochs_server,
+            generator, key_seed=args.seed)
+    else:
+        cvars_list, svars, _ = run_fedgkt(gkt, client_batches, rounds=args.comm_round,
+                                          client_epochs=args.epochs_client,
+                                          server_epochs=args.epochs_server,
+                                          generator=generator)
     return _final_metrics(gkt, cvars_list, svars, client_batches)
 
 

@@ -5,8 +5,11 @@ ring (:func:`~fedml_tpu_torch.algorithms.splitnn.run_splitnn_relay`).
 
 The JAX CLI's flags with the same names and defaults, plus ``--device``
 (default ``cuda``, which raises without a card; ``--device cpu`` runs on
-the CPU). ``--backend inprocess`` only: ``loopback`` and ``shm`` run the
-halves as separate parties over the comm layer, ROADMAP §A11, and raise.
+the CPU). ``--backend inprocess`` runs the relay in one program;
+``loopback`` and ``shm`` run the server and the clients as separate parties
+over the comm layer (``algorithms/splitnn_dist.py``: the in-process
+loopback fabric, or the port's native shared-memory rings, cleaned up
+afterwards), with the activations and their gradients as wire payloads.
 Returns ``{"Train/Loss": last turn's loss, "Test/Acc": ...}`` (the latter
 when the dataset has a test set, client 0's half with the server's)::
 
@@ -41,8 +44,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--backend", type=str, default="inprocess",
                         choices=["inprocess", "loopback", "shm"],
-                        help="inprocess only; loopback/shm (the halves over the comm "
-                             "layer) are ROADMAP §A11")
+                        help="inprocess: the relay in one program; loopback/shm: "
+                             "server + clients as separate parties with "
+                             "activations/grads as wire payloads")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     return parser
@@ -97,6 +101,7 @@ def build(args, ds, device):
 
 def run(args) -> dict:
     """The run ``args`` describe."""
+    from fedml_tpu_torch.algorithms import splitnn_dist
     from fedml_tpu_torch.algorithms.splitnn import run_splitnn_relay, splitnn_eval
     from fedml_tpu_torch.core import rng as rnglib
     from fedml_tpu_torch.data.registry import load_partition_data
@@ -105,16 +110,19 @@ def run(args) -> dict:
     from fedml_tpu_torch.sim.cohort import batch_array
 
     logging_config(0)
-    if args.backend != "inprocess":
-        raise NotImplementedError(
-            f"--backend {args.backend} (the split halves as parties over the comm layer) is "
-            "not ported to fedml_tpu_torch yet: ROADMAP §A11")
     device = resolve_device(args.device)
     ds = load_partition_data(args.dataset, args.data_dir, args.partition_method,
                              args.partition_alpha, args.client_number, args.seed)
     split, client_batches = build(args, ds, device)
-    cvars, svars, losses = run_splitnn_relay(split, client_batches, args.epochs,
-                                             rnglib.generator(args.seed, device))
+    generator = rnglib.generator(args.seed, device)
+    if args.backend == "loopback":
+        cvars, svars, losses = splitnn_dist.run_distributed_splitnn_loopback(
+            split, client_batches, args.epochs, generator, key_seed=args.seed)
+    elif args.backend == "shm":
+        cvars, svars, losses = splitnn_dist.run_distributed_splitnn_shm(
+            split, client_batches, args.epochs, generator, key_seed=args.seed)
+    else:
+        cvars, svars, losses = run_splitnn_relay(split, client_batches, args.epochs, generator)
     out = {"Train/Loss": float(losses[-1])}
     if ds.test_arrays is not None:
         test_b = {k: torch.as_tensor(v, device=device)

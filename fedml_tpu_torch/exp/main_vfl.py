@@ -6,9 +6,10 @@ and each host's gradient flows back
 
 The JAX CLI's flags with the same names and defaults, plus ``--device``
 (default ``cuda``, which raises without a card; ``--device cpu`` runs on
-the CPU). ``--backend inprocess`` only: ``loopback`` runs the guest and the
-hosts as separate parties over the comm layer, ROADMAP §A11, and raises.
-Returns ``{"Train/Loss": the last step's loss, "Test/Acc": ...}``::
+the CPU). ``--backend inprocess`` runs the protocol in one program;
+``loopback`` runs the guest and the hosts as separate parties over the
+in-process comm fabric (``algorithms/vertical_dist.py``), with the logits
+and their gradient as wire payloads. Returns ``{"Train/Loss": the last step's loss, "Test/Acc": ...}``::
 
     python -m fedml_tpu_torch.exp.main_vfl --device cpu
 """
@@ -34,8 +35,8 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--backend", type=str, default="inprocess",
                         choices=["inprocess", "loopback"],
-                        help="inprocess only; loopback (the parties over the comm layer) is "
-                             "ROADMAP §A11")
+                        help="inprocess: a single program; loopback: guest + hosts as "
+                             "separate parties over the comm layer")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     return parser
@@ -53,24 +54,31 @@ def load(args):
 
 def run(args) -> dict:
     """The run ``args`` describe."""
-    from fedml_tpu_torch.algorithms.vertical import run_vfl
+    from fedml_tpu_torch.algorithms.vertical import PartyModel, VerticalFL, run_vfl
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.core.trainer import sgd
     from fedml_tpu_torch.device import resolve_device
     from fedml_tpu_torch.obs.metrics import logging_config
 
     logging_config(0)
-    if args.backend != "inprocess":
-        raise NotImplementedError(
-            f"--backend {args.backend} (the guest and hosts as parties over the comm layer) "
-            "is not ported to fedml_tpu_torch yet: ROADMAP §A11")
     device = resolve_device(args.device)
     tr_splits, y_tr, te_splits, y_te = load(args)
 
     def put(a):
         return torch.as_tensor(np.asarray(a), device=device)
 
-    vfl, pvars, losses = run_vfl([put(s) for s in tr_splits], put(y_tr), epochs=args.epochs,
-                                 batch_size=args.batch_size, lr=args.lr, hidden=args.hidden,
-                                 seed=args.seed)
+    if args.backend == "loopback":
+        from fedml_tpu_torch.algorithms.vertical_dist import run_distributed_vfl_loopback
+
+        vfl = VerticalFL([PartyModel(s.shape[1], hidden=args.hidden, device=device)
+                          for s in tr_splits], sgd(args.lr))
+        pvars, losses = run_distributed_vfl_loopback(
+            vfl, [put(s) for s in tr_splits], put(y_tr), args.epochs, args.batch_size,
+            rnglib.generator(args.seed, device))
+    else:
+        vfl, pvars, losses = run_vfl([put(s) for s in tr_splits], put(y_tr),
+                                     epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+                                     hidden=args.hidden, seed=args.seed)
     pred = vfl.predict(pvars, [put(s) for s in te_splits]).cpu().numpy() > 0.5
     out = {"Train/Loss": float(losses[-1]),
            "Test/Acc": float((pred == np.asarray(y_te)).mean())}

@@ -13,15 +13,17 @@ Departures from the JAX entry point:
 
 - ``--store`` and ``--out`` default to no file: the JAX defaults are the
   JAX package's own ``repro_ceilings.json`` and ``REPRO.md``;
-- the ``femnist_cnn`` and ``fed_cifar100`` rows need the TFF h5 fixtures
-  and raise (ROADMAP §A6b), so ``--rows`` defaults to the four others;
+- the ``femnist_cnn`` and ``fed_cifar100`` rows write and read the TFF h5
+  fixtures (``data/tff_fixture.py``, ``data/tff_h5.py``) and need h5py,
+  which the card's machine lacks, so ``--rows`` defaults to the four
+  others;
 - ``--device`` (default ``cuda``) names the device; with no card the run
   raises unless ``--device cpu``;
 - the randomness of an epoch (augmentation draws, dropout masks) comes
   from the port's seeded streams, not from JAX keys.
 
 Usage:
-  python -m fedml_tpu_torch.exp.repro_ceilings                 # the ported rows
+  python -m fedml_tpu_torch.exp.repro_ceilings                 # the rows without h5py
   python -m fedml_tpu_torch.exp.repro_ceilings --rows shakespeare mnist_lr --device cpu
 """
 
@@ -144,15 +146,33 @@ def _row_synthetic(args):
 
 
 def _row_femnist(args):
-    raise NotImplementedError(
-        "the femnist_cnn ceiling row reads the TFF-schema h5 fixture, not ported to "
-        "fedml_tpu_torch yet: ROADMAP §A6b")
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.data.tff_fixture import write_femnist_h5_fixture
+    from fedml_tpu_torch.models.cnn import CNNDropOut
+
+    d = Path(args.data_root) / "femnist"
+    write_femnist_h5_fixture(d, n_clients=3400, seed=0)
+    ds = load_partition_data("femnist", str(d), client_num_in_total=3400)
+    tr = ClientTrainer(module=CNNDropOut(num_classes=ds.class_num, device=args.device),
+                       optimizer=sgd(0.1), epochs=1)
+    return [("femnist_cnn", "TFF-schema sklearn-writer fixture (10-class)",
+             tr, ds.train.arrays, ds.test_arrays, 20, 15, None)]
 
 
 def _row_fed_cifar100(args):
-    raise NotImplementedError(
-        "the fed_cifar100 ceiling row reads the TFF-schema h5 fixture, not ported to "
-        "fedml_tpu_torch yet: ROADMAP §A6b")
+    from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
+    from fedml_tpu_torch.data.registry import load_partition_data
+    from fedml_tpu_torch.data.tff_fixture import write_fed_cifar100_h5_fixture
+    from fedml_tpu_torch.models.resnet import resnet18_gn
+
+    d = Path(args.data_root) / "fed_cifar100"
+    write_fed_cifar100_h5_fixture(d, n_train_clients=500, seed=0)
+    ds = load_partition_data("fed_cifar100", str(d))
+    tr = ClientTrainer(module=resnet18_gn(class_num=ds.class_num, device=args.device),
+                       optimizer=sgd(0.1), epochs=1)
+    return [("fed_cifar100", "TFF-schema class-blob fixture", tr,
+             ds.train.arrays, ds.test_arrays, 20, 8, None)]
 
 
 def _row_shakespeare(args):
@@ -201,7 +221,7 @@ BUILDERS = {
     "shakespeare": _row_shakespeare,
     "cross_silo": _row_cross_silo,
 }
-# the rows that run on the port's fixtures (the h5 rows wait for §A6b)
+# the rows that run without h5py (the card's machine has none)
 PORTED_ROWS = ["mnist_lr", "synthetic", "shakespeare", "cross_silo"]
 
 

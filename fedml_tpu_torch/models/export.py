@@ -1,17 +1,22 @@
-"""Model-transfer formats, the port of ``fedml_tpu/models/export.py:44-116``:
-the aligned flat weight list and the reference's ``is_mobile`` nested-list
-wire dict (fedavg/utils.py:7-16).
+"""Model-transfer formats, the port of ``fedml_tpu/models/export.py``: the
+aligned flat weight list and the reference's ``is_mobile`` nested-list wire
+dict (fedavg/utils.py:7-16), and the deployment artifact.
 
-Both work on the JAX layout, a nested dict of arrays (``convert.to_flax``
-of a state dict, or what ``unpack_pytree`` gives), so a port peer and a JAX
-peer exchange the same dicts: leaves go in the order of JAX's
-``keystr``-sorted paths and are keyed by their ``/``-joined path. The JAX
-package's ``export_stablehlo``/``load_stablehlo`` deployment artifacts have
-no counterpart here yet (ROADMAP §A11).
+The two formats work on the JAX layout, a nested dict of arrays
+(``convert.to_flax`` of a state dict, or what ``unpack_pytree`` gives), so a
+port peer and a JAX peer exchange the same dicts: leaves go in the order of
+JAX's ``keystr``-sorted paths and are keyed by their ``/``-joined path.
+
+The artifact (:func:`export_program` / :func:`load_program`) stands in for
+the JAX package's StableHLO one: a ``torch.export`` program saved with
+``torch.export.save``. As in JAX the variables are an input of the exported
+function (``fwd(variables, x)``): :class:`Functional` makes a module's
+forward one.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -107,3 +112,59 @@ def nested_lists_to_params(obj: dict[str, list], template: Pytree) -> Pytree:
             raise ValueError(f"parameter {key!r} has shape {arr.shape}, expected {want}")
         leaves.append(arr.astype(_numpy(tmpl).dtype))
     return _rebuild([p for p, _ in paths], leaves)
+
+
+# -- the deployment artifact ---------------------------------------------------
+
+
+class Functional(torch.nn.Module):
+    """``module`` with its variables as an input: ``forward(variables, x)``
+    is ``torch.func.functional_call(module, variables, (x,), kwargs)``, the
+    ``fwd(variables, x)`` that JAX's ``model.apply`` is."""
+
+    def __init__(self, module: torch.nn.Module, **kwargs):
+        super().__init__()
+        self.module, self.kwargs = module, kwargs
+
+    def forward(self, variables: dict, x):
+        return torch.func.functional_call(self.module, variables, (x,), self.kwargs)
+
+
+class _Call(torch.nn.Module):
+    """A plain callable as a module, for ``torch.export``."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+class LoadedProgram:
+    """A loaded artifact; ``.call(*args)`` runs it, as JAX's ``Exported``."""
+
+    def __init__(self, program):
+        self.program = program
+        self._module = program.module()
+
+    def call(self, *args):
+        return self._module(*args)
+
+
+def export_program(fn, example_args: tuple, path: str | Path) -> bytes:
+    """The counterpart of ``fedml_tpu.models.export.export_stablehlo``:
+    ``torch.export.export`` of ``fn`` (a module, e.g. :class:`Functional`,
+    or a callable) on ``example_args``, saved to ``path`` with
+    ``torch.export.save``. Returns the artifact's bytes."""
+    module = fn if isinstance(fn, torch.nn.Module) else _Call(fn)
+    program = torch.export.export(module, tuple(example_args))
+    torch.export.save(program, str(path))
+    return Path(path).read_bytes()
+
+
+def load_program(path: str | Path) -> LoadedProgram:
+    """The counterpart of ``fedml_tpu.models.export.load_stablehlo``: the
+    artifact at ``path`` (``torch.export.load``); ``.call(*args)`` runs
+    it."""
+    return LoadedProgram(torch.export.load(str(path)))

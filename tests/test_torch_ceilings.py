@@ -8,7 +8,8 @@
   same best and the same early stop;
 - ``run`` merges its rows into ``--store`` and writes the report section;
   ``ceiling_lookup`` reads a written store as the JAX one does;
-- the two h5 rows raise, naming ROADMAP §A6b; the Bayes ceiling is a copy.
+- the two h5 rows build the JAX rows from their TFF fixtures (cut to a few
+  clients), the arrays bitwise; the Bayes ceiling is a copy.
 """
 
 from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
@@ -129,11 +130,35 @@ def test_run_writes_the_store_and_lookup_reads_it(tmp_path, monkeypatch):
     assert defaults.rows == ["mnist_lr", "synthetic", "shakespeare", "cross_silo"]
 
 
+# the h5 rows' writers, cut to a few clients for the test
+_SMALL_WRITERS = {"femnist_cnn": ("write_femnist_h5_fixture", {"n_clients": 6}),
+                  "fed_cifar100": ("write_fed_cifar100_h5_fixture",
+                                   {"n_train_clients": 3, "n_test_clients": 2,
+                                    "samples_per_client": 6})}
+
+
 @pytest.mark.parametrize("row", ["femnist_cnn", "fed_cifar100"])
-def test_h5_rows_raise(row):
-    with pytest.raises(NotImplementedError, match="§A6b"):
-        tceil.BUILDERS[row](argparse.Namespace(data_root="unused", device="cpu"))
+def test_h5_rows_build_the_jax_rows(monkeypatch, tmp_path, row):
+    """Each h5 row writes its TFF fixture (cut to a few clients here) and
+    reads it back: the same label, fixture, batch size, epochs and model
+    family as the JAX row, its arrays bitwise."""
+    from fedml_tpu.data import tff_fixture as jfix
+    from fedml_tpu_torch.data import tff_fixture as tfix
+
+    name, small = _SMALL_WRITERS[row]
+    for mod in (jfix, tfix):
+        writer = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda d, _w=writer, **kw: _w(d, **{**kw, **small}))
     assert set(tceil.BUILDERS) == set(jceil.BUILDERS)
+    (got,) = tceil.BUILDERS[row](argparse.Namespace(data_root=str(tmp_path / "port"),
+                                                    device="cpu"))
+    (want,) = jceil.BUILDERS[row](argparse.Namespace(data_root=str(tmp_path / "jax")))
+    assert got[:2] == want[:2] and got[5:] == want[5:]
+    assert type(got[2].module).__name__ == type(want[2].module).__name__
+    for g, w in ((got[3], want[3]), (got[4], want[4])):
+        assert g.keys() == w.keys()
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k])
 
 
 def test_markov_bayes_ceiling_is_a_copy():

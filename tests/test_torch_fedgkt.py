@@ -23,8 +23,9 @@ Tolerances:
   features and logits, the server model and the server's logits per client
   atol 1e-4;
 - the ``synthetic_cv`` copy: bitwise; ``main_fedgkt``'s ``Train/Acc`` from
-  the JAX CLI's initial variables: equal to the JAX CLI's (f32 both);
-- the §A11 refusal: ``NotImplementedError`` naming the item.
+  the JAX CLI's initial variables: equal to the JAX CLI's (f32 both).
+
+The CLI's loopback arm is ``tests/test_torch_families_wire.py``'s.
 """
 
 from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
@@ -218,8 +219,3 @@ def test_synthetic_cv_copy_and_cli_match_jax(jax_gkt):
     with mock.patch.object(fedgkt.FedGKT, "init", lambda self, generator: start):
         got = main_fedgkt.run(args)
     assert got == want
-
-
-def test_fedgkt_loopback_is_refused():
-    with pytest.raises(NotImplementedError, match="§A11"):
-        main_fedgkt.main(["--backend", "loopback", "--device", "cpu"])

@@ -1,8 +1,9 @@
 """The port stands alone: no module of fedml_tpu_torch/, and not
 chip_smoke.py, imports JAX, flax, optax, the JAX package or scikit-learn
 (the machine with the card has none of them); the LEAF fixture's vendored
-digits are read without scikit-learn; the port's modules import without
-JAX and PyYAML. And chip_smoke.py fails, printing no result line, where
+digits are read without scikit-learn; the port's modules and chip_smoke.py
+import without JAX, PyYAML and h5py (the TFF h5 readers import it when they
+run). And chip_smoke.py fails, printing no result line, where
 there is no card or no checkout of the repo around it."""
 
 from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
@@ -79,10 +80,17 @@ def test_every_port_module_imports_without_jax_sklearn_or_yaml():
             "fedml_tpu_torch.algorithms.fedavg_distributed",
             "fedml_tpu_torch.algorithms.fedavg_mobile", "fedml_tpu_torch.algorithms.cross_silo",
             "fedml_tpu_torch.algorithms.turboaggregate_dist", "fedml_tpu_torch.models.export",
-            "fedml_tpu_torch.exp.main_turboaggregate"} <= set(modules)
+            "fedml_tpu_torch.exp.main_turboaggregate",
+            "fedml_tpu_torch.algorithms.splitnn_dist", "fedml_tpu_torch.algorithms.vertical_dist",
+            "fedml_tpu_torch.algorithms.fedgkt_dist", "fedml_tpu_torch.data.tff_h5",
+            "fedml_tpu_torch.data.tff_fixture", "fedml_tpu_torch.data.stackoverflow",
+            "fedml_tpu_torch.exp.repro_femnist_cnn", "fedml_tpu_torch.exp.repro_femnist_lr",
+            "fedml_tpu_torch.exp.repro_fed_cifar100",
+            "fedml_tpu_torch.exp.repro_stackoverflow_nwp"} <= set(modules)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in modules if not m.endswith("__main__"))
-    proc = _run_blocked(code, BANNED + ("yaml",))
+    code += "import chip_smoke\n"
+    proc = _run_blocked(code, BANNED + ("yaml", "h5py"))
     assert proc.returncode == 0, proc.stderr
 
 

@@ -7,6 +7,9 @@ writer's from scikit-learn."""
 
 from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
 import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -137,18 +140,50 @@ def test_load_partition_data_leaf_mnist_files(tmp_path):
     assert got.train.num_clients == 5
 
 
+_H5_BRANCHES = (("femnist", "fed_emnist_train.h5"), ("fed_cifar100", "fed_cifar100_train.h5"),
+                ("stackoverflow_nwp", "stackoverflow_train.h5"),
+                ("stackoverflow_lr", "stackoverflow_train.h5"),
+                ("fed_shakespeare", "shakespeare_train.h5"))
+
+
 def test_known_datasets_and_unported_branches(tmp_path):
+    """The JAX dispatch's names; each h5 branch reads its files when they
+    are present (a file that is no h5 archive fails in h5py, the same
+    error the JAX registry meets) and never stands synthetic data in for
+    them, nor without h5py (a process where it cannot be imported:
+    ``RuntimeError``); the synthetic fallbacks otherwise (here ImageNet's
+    and the landmarks')."""
     assert registry.KNOWN_DATASETS == jregistry.KNOWN_DATASETS
-    for dataset, name in (("femnist", "fed_emnist_train.h5"),
-                          ("fed_cifar100", "fed_cifar100_train.h5"),
-                          ("stackoverflow_nwp", "stackoverflow_train.h5"),
-                          ("stackoverflow_lr", "stackoverflow_train.h5"),
-                          ("fed_shakespeare", "shakespeare_train.h5")):
+    files = {}
+    for dataset, name in _H5_BRANCHES:
         d = tmp_path / dataset
         d.mkdir()
-        (d / name).write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="§A6b"):
-            registry.load_partition_data(dataset, str(d))
+        (d / name).write_bytes(b"not an h5 archive")
+        if dataset == "stackoverflow_lr":
+            (d / "stackoverflow_test.h5").write_bytes(b"not an h5 archive")
+            (d / "stackoverflow.word_count").write_text("a 1\n")
+            (d / "stackoverflow.tag_count").write_text('{"t": 1}')
+        files[dataset] = str(d)
+        for reg in (registry, jregistry):
+            with pytest.raises(OSError):
+                reg.load_partition_data(dataset, str(d))
+    code = ("import sys\n"
+            "class _Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] == 'h5py':\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, _Block())\n"
+            "from fedml_tpu_torch.data import registry\n"
+            f"for dataset, d in {sorted(files.items())!r}:\n"
+            "    try:\n"
+            "        registry.load_partition_data(dataset, d)\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'h5py' in str(e), e\n"
+            "    else:\n"
+            "        raise SystemExit(dataset + ' fell back to synthetic data')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).parents[1],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
     # ImageNet and the landmarks sets load the JAX registry's fallbacks
     for dataset in ("imagenet", "gld23k"):
         got = registry.load_partition_data(dataset, str(tmp_path / "none"))

@@ -15,8 +15,9 @@ Tolerances:
 - VFL, ``run_vfl`` from the JAX run's initial variables: every step's loss,
   one ``train_step`` and every party's model atol 1e-5, the predictions
   atol 1e-6; ``main_vfl``'s metrics: the loss atol 1e-5, ``Test/Acc``
-  exactly;
-- the §A11 refusals: ``NotImplementedError`` naming the item.
+  exactly.
+
+The comm-layer arms of both CLIs are ``tests/test_torch_families_wire.py``'s.
 """
 
 from tests import test_torch_threads  # noqa: F401  (one torch thread per worker)
@@ -133,12 +134,6 @@ def test_splitnn_train_step_and_eval_match_jax(jax_split):
     assert splitnn.splitnn_eval(port, tc, ts, test) == want
 
 
-@pytest.mark.parametrize("backend", ["loopback", "shm"])
-def test_splitnn_comm_backends_are_refused(backend):
-    with pytest.raises(NotImplementedError, match="§A11"):
-        main_splitnn.main(["--backend", backend, "--device", "cpu"])
-
-
 def test_vertical_tabular_copy_is_bitwise(tmp_path):
     for kw in ({}, {"n_samples": 80, "dims": (3, 5, 2), "seed": 4, "test_frac": 0.5}):
         for a, b in zip(tab.synthetic_vertical(**kw), jtab.synthetic_vertical(**kw)):
@@ -220,8 +215,3 @@ def test_vfl_run_and_cli_match_jax(jax_vfl):
     np.testing.assert_allclose(float(t_loss), float(j_loss), atol=ATOL)
     for p in range(2):
         _close(_np(j_new[p]), t_new[p], msg=f"step party {p}")
-
-
-def test_vfl_loopback_is_refused():
-    with pytest.raises(NotImplementedError, match="§A11"):
-        main_vfl.main(["--backend", "loopback", "--device", "cpu"])
