@@ -281,7 +281,28 @@ Phases, each of which exits non-zero on failure:
     seconds, the feature bytes uploaded and the seconds moving them; and
     the flagship ResNet-56's evaluation forward exported with
     ``models/export.export_program``, loaded and called on a batch on the
-    card, bitwise the eager forward.
+    card, bitwise the eager forward;
+24. the data-parallel mesh (after ``[families wire]``, ``[mesh]``; the
+    ranks are processes of ``parallel/launch.py`` running
+    ``parallel/rehearsal.py``'s programs, the card shared by the gloo
+    ranks, their collectives staged through the host): (a) this process
+    as an NCCL world of one rank, one NCCL all-reduce on the card, and row
+    1's 3 rounds on its client mesh bitwise the mesh-less FedSim; (b) the
+    same rounds on a client mesh of two gloo ranks, held to (a); (c) the
+    flagship's recipe
+    through ``repro_cross_silo.run`` on the ``1 x 2`` clients x silo mesh
+    two ranks make, 1 round on ``[wire]``'s 10k/2k fixture in bf16, its
+    metrics' gap to the one-rank run gated at the bound stated in
+    ``MESH``, its seconds beside the one-rank round's, and the same recipe
+    in float64 on a cut of the fixture within 1e-9 of one rank; (d) the
+    vmapped small f32 LM with the flash path on a client mesh of two, each
+    rank's f32 launches predicted from the shapes, the rounds held to one
+    rank; (e) ``main_multihost`` with two ranks on the card over gloo,
+    both npz files bitwise equal and equal to one rank's; (f)
+    ``SyncBatchNorm``'s forward and backward on two ranks, held to one
+    rank on the whole batch; each leg's seconds and the bytes each
+    collective moved, host-staged bytes included; no flash launch on any
+    leg but (d).
 
 Each phase prints its seconds (``[phase]``). It prints a
 ``{"kernels": [...]}`` line, then as its last line
@@ -6740,6 +6761,309 @@ def phase_export(torch):
     return _flash_launches()
 
 
+# the [mesh] legs: row 1's rounds (a, b, e), the flagship's f64 cut (c),
+# the bounds stated before the first run on the card: (b) LR f32 against
+# (a); (c) float64 and (f) as the CPU tests hold them; (d) the f32 LM at
+# E2E_ATOL; (c) the bf16 round's metrics against one rank. ResNet-56 at its
+# initialisation amplifies a change of summation order through its 55
+# BatchNorms: on the CPU a 1 x 2 silo is bitwise one rank in float64, 2.4e-4
+# from it in f32 (the variables) and 0.09-0.11 in bf16 (Train/Loss ~4.7),
+# where a depth-8 ResNet stays within 5e-10 in bf16. So the bf16 bound is
+# bf16's amplified rounding, 0.25 on the losses and 0.05 on Test/Acc (100
+# of 2,000 images), and the float64 leg is the one held tight.
+MESH = dict(rounds=3, f64_images=128, timeout_s=600.0, lr_atol=1e-6, bf16_loss_gap=0.25,
+            bf16_test_loss_gap=0.25, bf16_acc_gap=0.05, f64_atol=1e-9, bn_tol=1e-6)
+
+
+def _mesh_gap(a, b):
+    """Worst difference of two run_sim results' variables and metrics."""
+    err = float(np.max(np.abs(a["flat"] - b["flat"])))
+    for ra, rb in zip(a["history"], b["history"]):
+        if set(ra) != set(rb):
+            fail(f"[mesh] two runs' records differ in keys: {ra} {rb}")
+        err = max([err] + [abs(ra[k] - rb[k]) for k in ra])
+    return err
+
+
+def _traffic_line(traffic):
+    return ", ".join(f"{op} {t['calls']} calls {t['bytes'] / 2**20:.3f} MiB "
+                     f"({t['host_staged'] / 2**20:.3f} MiB host-staged)"
+                     for op, t in traffic.items()) or "no collective"
+
+
+def _mesh_row1(torch, mnist_dir):
+    """Row 1 (``MNIST``'s recipe, ``MESH["rounds"]`` rounds) as a
+    ``run_sim`` spec, its data saved once for the ranks."""
+    from fedml_tpu_torch.data import registry
+    from fedml_tpu_torch.parallel import rehearsal
+
+    c = MNIST
+    ds = registry.load_partition_data("mnist", str(mnist_dir), "hetero", 0.5, c["clients"], 0,
+                                      dataidx_map_path=None)
+    path = BUILD_DIR / "mesh_row1.npz"
+    rehearsal.save_federated(path, ds.train, ds.test_arrays)
+    return dict(data=str(path),
+                model=("lr", ds.class_num, {"input_shape": tuple(ds.train.arrays["x"].shape[1:])}),
+                trainer=dict(optimizer=("sgd", c["lr"]), epochs=c["epochs"]),
+                config=dict(client_num_in_total=c["clients"], client_num_per_round=c["per_round"],
+                            batch_size=c["batch"], comm_round=MESH["rounds"], epochs=c["epochs"],
+                            frequency_of_the_test=MESH["rounds"], seed=0))
+
+
+def _mesh_flagship(wire_dir, metrics):
+    """The flagship recipe's ``repro_cross_silo`` argv on ``[wire]``'s
+    fixture, 1 round, metrics to ``metrics``."""
+    w = WIRE
+    return ["--data_dir", str(wire_dir), "--fixture_train_n", str(w["n_train"]),
+            "--fixture_test_n", str(w["n_test"]), "--fixture_signal", "0.045",
+            "--partition_method", "hetero", "--partition_alpha", "0.5",
+            "--client_num_in_total", str(w["clients"]), "--batch_size", str(w["batch"]),
+            "--lr", str(w["lr"]), "--wd", str(w["wd"]), "--epochs", str(w["epochs"]),
+            "--ceiling_epochs", "0", "--round_sleep", "0", "--device", "cuda",
+            "--cohort_execution", "vmap", "--comm_round", "1", "--frequency_of_the_test", "1",
+            "--metrics_out", str(metrics)]
+
+
+def _mesh_f64_spec(wire_dir):
+    """The flagship recipe in float64 on a cut of ``[wire]``'s fixture: each
+    silo's first ``MESH["f64_images"]`` images of its hetero shard."""
+    from fedml_tpu_torch.data.cv import load_cifar
+    from fedml_tpu_torch.parallel import rehearsal
+    from fedml_tpu_torch.sim.cohort import FederatedArrays
+
+    w = WIRE
+    train, test, class_num = load_cifar("cifar10", wire_dir, "hetero", 0.5, w["clients"], 0,
+                                        allow_synthetic=False)
+    cut = FederatedArrays(train.arrays, {c: ix[:MESH["f64_images"]]
+                                         for c, ix in train.partition.items()})
+    path = BUILD_DIR / "mesh_f64.npz"
+    rehearsal.save_federated(path, cut, test)
+    return dict(data=str(path), model=("resnet56", class_num, {"dtype": "float64"}),
+                trainer=dict(optimizer=("sgd", w["lr"], 0.0, w["wd"]), epochs=w["epochs"],
+                             augment=True),
+                config=dict(client_num_in_total=w["clients"], client_num_per_round=w["clients"],
+                            batch_size=w["batch"], comm_round=1, epochs=w["epochs"],
+                            frequency_of_the_test=1, seed=0, block_dispatch=False),
+                silo=2)
+
+
+def _mesh_lm_spec():
+    """``[e2e vmap]``'s small f32 LM (flash path), per-round dispatch, and
+    the f32 kernel's launches one rank of a client mesh of 2 makes: L x
+    (rounds x E x S + eval batches), each rank evaluating the whole model."""
+    from fedml_tpu_torch.sim.cohort import steps_per_epoch
+
+    v, t, n_clients, per, layers = 64, 96, 4, 12, 2
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, v, (n_clients * per + 8, t)).astype(np.int32)
+    y = np.roll(x, -1, axis=1)
+    mask = np.ones_like(x, dtype=np.float32)
+    mask[::3, 80:] = 0.0
+    part = {c: np.arange(c * per, (c + 1) * per - c) for c in range(n_clients)}
+    n = n_clients * per
+    cfg = dict(client_num_in_total=n_clients, client_num_per_round=2, batch_size=4,
+               comm_round=2, epochs=1, frequency_of_the_test=1, eval_batch_size=4, seed=0,
+               block_dispatch=False)
+    spec = dict(data=({"x": x[:n], "y": y[:n], "mask": mask[:n]}, part,
+                      {"x": x[n:], "y": y[n:], "mask": mask[n:]}),
+                model=("transformer", v, {"embed_dim": 64, "num_layers": layers,
+                                          "num_heads": 2, "max_len": t, "attn_impl": "flash"}),
+                trainer=dict(task="nwp", optimizer=("sgd", 0.1, 0.9), epochs=1), config=cfg)
+    steps = steps_per_epoch(max(len(p) for p in part.values()), cfg["batch_size"])
+    evals = cfg["comm_round"] * (steps_per_epoch(n, 4) + steps_per_epoch(8, 4))
+    return spec, layers * (cfg["comm_round"] * steps + evals)
+
+
+def _mesh_bn_spec():
+    rng = np.random.RandomState(3)  # tests/test_torch_syncbn.py's batch
+    x = (rng.randn(8, 3, 4, 4) * 2.0 + 0.5).astype(np.float32)
+    dy = rng.randn(8, 3, 4, 4).astype(np.float32)
+    return dict(x=x, dy=dy, scale=(1.0 + 0.1 * rng.randn(3)).astype(np.float32),
+                bias=(0.1 * rng.randn(3)).astype(np.float32), momentum=0.9)
+
+
+def _launch_counts(results):
+    """The flash launches of rank results, summed, by kernel name."""
+    f32 = sum(r["flash"][0] for r in results)
+    bf16 = sum(r["flash"][1] for r in results)
+    return {name: f32 if spec["dtype"] == "float32" else bf16 for name, spec in KERNELS.items()}
+
+
+def phase_mesh(torch, mnist_dir):
+    """The data-parallel mesh, (a)-(f) above; returns each leg's flash
+    launches (the LM's, (d), as predicted; every other leg's 0)."""
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.exp import main_multihost
+    from fedml_tpu_torch.parallel import launch, multihost, rehearsal
+
+    cuda = torch.device("cuda")
+    timeout = MESH["timeout_s"]
+    cli_out = BUILD_DIR / "mesh_cli.npz"
+    for r in range(2):
+        cli_out.with_name(f"mesh_cli.rank{r}.npz").unlink(missing_ok=True)
+    row1 = _mesh_row1(torch, mnist_dir)
+    plain = rehearsal.run_sim(cuda, row1)
+    # (a) an NCCL world of one rank: this process, for the leg's length
+    t0 = time.perf_counter()
+    multihost.init_multihost(f"localhost:{launch.free_port()}", 1, 0, backend="nccl",
+                             platform="cuda", timeout_s=timeout)
+    try:
+        probe, nccl = rehearsal.run_jobs(cuda, [("world_probe", {}), ("run_sim", row1)])
+    finally:
+        dist.destroy_process_group()
+    a_wall = time.perf_counter() - t0
+    if probe != {"backend": "nccl", "world": 1, "sum": 1.0, "gather": [1.0], "broadcast": 1.0}:
+        fail(f"[mesh] (a) the NCCL probe gave {probe}")
+    if nccl["mesh"] != {"clients": 1} or not np.array_equal(nccl["flat"], plain["flat"]) \
+            or nccl["history"] != plain["history"]:
+        fail(f"[mesh] (a) row 1 on an NCCL world of one is not the mesh-less FedSim: "
+             f"gap {_mesh_gap(nccl, plain):.3e}")
+    log(f"[mesh] (a) NCCL world of 1 on the card: one NCCL all-reduce {probe}; row 1 "
+        f"({MNIST['clients']} clients, {MNIST['per_round']} a round, B={MNIST['batch']}), "
+        f"{MESH['rounds']} rounds on its client mesh bitwise the mesh-less FedSim (Test/Acc "
+        f"{nccl['history'][-1]['Test/Acc']:.4f}); run {nccl['seconds']:.3f} s (mesh-less "
+        f"{plain['seconds']:.3f} s), the leg {a_wall:.2f} s (NCCL init included); "
+        f"{_traffic_line(nccl['traffic'])}")
+    # the one-rank references of (c), (d), (f), then (e)'s
+    wire_dir = _wire_fixture()
+    one_metrics = BUILD_DIR / "mesh_flagship_one.jsonl"
+    flagship_one = rehearsal.cross_silo_entry(cuda, _mesh_flagship(wire_dir, one_metrics))
+    f64 = _mesh_f64_spec(wire_dir)
+    f64_one = rehearsal.run_sim(cuda, f64)
+    lm, lm_expected = _mesh_lm_spec()
+    lm_one = rehearsal.run_sim(cuda, lm)
+    bn = _mesh_bn_spec()
+    bn_one = rehearsal.sync_batchnorm(cuda, bn)
+    cli_args = ["--comm_round", "3", "--frequency_of_the_test", "3", "--timeout_s",
+                str(timeout)]
+    _zero_flash_counters()
+    t0 = time.perf_counter()
+    main_multihost.main(["--platform", "cuda", "--out", str(BUILD_DIR / "mesh_cli_one.npz")]
+                        + cli_args)
+    e_one = time.perf_counter() - t0
+    e_launches = _flash_launches()
+    torch.cuda.empty_cache()
+    # (e)'s two CLI ranks beside the launch of (b), (d), (f) and the float64
+    # leg; the launch runs (c)'s timed bf16 round last, after (e) has ended
+    flagship_metrics = BUILD_DIR / "mesh_flagship_two.jsonl"
+    jobs = [("run_sim", row1), ("run_sim", lm), ("sync_batchnorm", bn), ("run_sim", f64),
+            ("cross_silo_entry", _mesh_flagship(wire_dir, flagship_metrics))]
+    t0 = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "fedml_tpu_torch.exp.main_multihost", "--local_device_count",
+         "2", "--platform", "cuda", "--dist_backend", "gloo", "--share_device", "1",
+         "--out", str(cli_out)] + cli_args,
+        cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        ranks = launch.launch(rehearsal.run_jobs, 2, jobs, backend="gloo", platform="cuda",
+                              share_device=True, timeout_s=timeout)
+        two_wall = time.perf_counter() - t0
+        out, _ = cli.communicate(timeout=timeout)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    if cli.returncode != 0:
+        fail(f"[mesh] (e) main_multihost with two ranks failed ({cli.returncode}):\n"
+             f"{out[-4000:]}")
+    e_ended = max(cli_out.with_name(f"mesh_cli.rank{r}.npz").stat().st_mtime for r in range(2))
+    npz = [np.load(cli_out.with_name(f"mesh_cli.rank{r}.npz")) for r in range(2)]
+    one = np.load(BUILD_DIR / "mesh_cli_one.npz")
+    keys = [k for k in one.files if k != "round_time"]
+    if sorted(npz[0].files) != sorted(one.files) or not all(
+            np.array_equal(z[k], one[k]) for z in npz for k in keys):
+        fail(f"[mesh] (e) main_multihost's npz files differ: two ranks' flat gap "
+             f"{np.max(np.abs(npz[0]['flat'] - npz[1]['flat'])):.3e}, rank 0 to one rank "
+             f"{np.max(np.abs(npz[0]['flat'] - one['flat'])):.3e}")
+    c_started = min(r[4]["started_at"] for r in ranks)
+    log(f"[mesh] (e) main_multihost --local_device_count 2 --platform cuda --dist_backend gloo "
+        f"(synthetic, 16 clients, 8 a round, 3 rounds): both ranks' npz bitwise equal and "
+        f"equal to one rank's (Test/Acc {float(one['Test_Acc']):.4f}); its npz written "
+        f"{c_started - e_ended:.2f} s before (c)'s timed round began (negative: overlapping "
+        f"it); one rank in this process {e_one:.2f} s")
+    lr_two, lm_two, bn_two, f64_two, flagship_two = zip(*ranks)
+    # (b)
+    gap = _mesh_gap(lr_two[0], nccl)
+    if lr_two[0]["mesh"] != {"clients": 2} or not np.array_equal(lr_two[0]["flat"],
+                                                                   lr_two[1]["flat"]):
+        fail(f"[mesh] (b) the two ranks' row-1 models differ: {lr_two[0]['mesh']}")
+    if not gap <= MESH["lr_atol"]:
+        fail(f"[mesh] (b) row 1 on two gloo ranks is {gap:.3e} from (a) > {MESH['lr_atol']}")
+    log(f"[mesh] (b) row 1 on a client mesh of two gloo ranks on the card: "
+        f"{'bitwise' if gap == 0 else f'{gap:.3e} from'} (a) (bound {MESH['lr_atol']}); run "
+        f"{lr_two[0]['seconds']:.3f} s; {_traffic_line(lr_two[0]['traffic'])}")
+    # (c)
+    rec_one = json.loads(one_metrics.read_text().splitlines()[-1])
+    rec_two = json.loads(flagship_metrics.read_text().splitlines()[-1])
+    if flagship_two[0]["result"]["mesh"] != {"clients": 1, "silo": 2} \
+            or flagship_one["result"]["mesh"] != {"clients": 1, "silo": 1}:
+        fail(f"[mesh] (c) meshes {flagship_two[0]['result']['mesh']}, "
+             f"{flagship_one['result']['mesh']}")
+    gaps = {k: abs(rec_two[k] - rec_one[k]) for k in ("Train/Loss", "Test/Loss", "Test/Acc")}
+    bounds = {"Train/Loss": MESH["bf16_loss_gap"], "Test/Loss": MESH["bf16_test_loss_gap"],
+              "Test/Acc": MESH["bf16_acc_gap"]}
+    values = [v for rec in (rec_one, rec_two) for v in rec.values()]
+    if not all(np.isfinite(values)) or any(gaps[k] > bounds[k] for k in gaps):
+        fail(f"[mesh] (c) the bf16 flagship round on 1 x 2 is off the one-rank round: gaps "
+             f"{gaps}, bounds {bounds}; {rec_two} vs {rec_one}")
+    f64_gap = _mesh_gap(f64_two[0], f64_one)
+    if f64_two[0]["mesh"] != {"clients": 1, "silo": 2} or not np.array_equal(
+            f64_two[0]["flat"], f64_two[1]["flat"]) or not f64_gap <= MESH["f64_atol"]:
+        fail(f"[mesh] (c) float64 flagship on 1 x 2 is {f64_gap:.3e} from one rank "
+             f"(bound {MESH['f64_atol']}), or its ranks differ")
+    log(f"[mesh] (c) the flagship (ResNet-56 bf16, {WIRE['clients']} silos, B={WIRE['batch']}, "
+        f"E=1, augmentation) through repro_cross_silo.run on the 1 x 2 clients x silo mesh of "
+        f"two gloo ranks, 1 round on [wire]'s {WIRE['n_train']}/{WIRE['n_test']} fixture: "
+        f"round {rec_two['round_time']:.3f} s against {rec_one['round_time']:.3f} s on one "
+        f"rank; run() {flagship_two[0]['seconds']:.2f} s against "
+        f"{flagship_one['seconds']:.2f} s; gaps to one rank {gaps} (bounds {bounds}); "
+        f"Train/Loss {rec_two['Train/Loss']:.5f} vs {rec_one['Train/Loss']:.5f}, Test/Acc "
+        f"{rec_two['Test/Acc']:.4f} vs {rec_one['Test/Acc']:.4f}; rank 0 "
+        f"{_traffic_line(flagship_two[0]['traffic'])}")
+    log(f"[mesh] (c) float64, each silo's first {MESH['f64_images']} images "
+        f"({WIRE['clients'] * MESH['f64_images']} of {WIRE['n_train']}): 1 x 2 within "
+        f"{f64_gap:.3e} of one rank (bound {MESH['f64_atol']}); run "
+        f"{f64_two[0]['seconds']:.2f} s against {f64_one['seconds']:.2f} s; rank 0 "
+        f"{_traffic_line(f64_two[0]['traffic'])}")
+    # (d)
+    lm_gap = _mesh_gap(lm_two[0], lm_one)
+    counts = [r["flash"] for r in lm_two]
+    if lm_one["flash"] != (lm_expected, 0) or counts != [(lm_expected, 0)] * 2:
+        fail(f"[mesh] (d) f32 flash launches: ranks {counts}, one rank {lm_one['flash']}, "
+             f"predicted {lm_expected} each")
+    if not lm_gap <= E2E_ATOL:
+        fail(f"[mesh] (d) the small LM on two ranks is {lm_gap:.3e} from one rank > {E2E_ATOL}")
+    log(f"[mesh] (d) vmapped small f32 LM (flash) on a client mesh of two gloo ranks: each "
+        f"rank's f32 kernel launches {counts[0][0]}, bf16 {counts[0][1]} (predicted "
+        f"{lm_expected} = L x (rounds x E x S + eval batches), as one rank's "
+        f"{lm_one['flash'][0]}); {'bitwise' if lm_gap == 0 else f'{lm_gap:.3e} from'} one "
+        f"rank (bound {E2E_ATOL}); run {lm_two[0]['seconds']:.3f} s against "
+        f"{lm_one['seconds']:.3f} s; {_traffic_line(lm_two[0]['traffic'])}")
+    # (f): each rank's rows of y and dx, and the silo's statistics and
+    # parameter gradients on every rank
+    tol = MESH["bn_tol"]
+    pairs = [(np.concatenate([h[k] for h in bn_two]), bn_one[k], k) for k in ("y", "dx")]
+    pairs += [(h[k], bn_one[k], k) for h in bn_two for k in ("mean", "var", "dscale", "dbias")]
+    for got, want, k in pairs:
+        if not np.allclose(got, want, rtol=tol, atol=tol):
+            fail(f"[mesh] (f) SyncBatchNorm {k} on two ranks: "
+                 f"{np.max(np.abs(got - want)):.3e} from one rank")
+    worst = max(float(np.max(np.abs(got - want))) for got, want, _ in pairs)
+    log(f"[mesh] (f) SyncBatchNorm forward and backward ([8, 3, 4, 4] f32) on two ranks: "
+        f"outputs, statistics and gradients at most {worst:.3e} from one rank on the whole "
+        f"batch (bound {tol} + {tol} relative)")
+    log(f"[mesh] two-rank launch of (b), (c), (d), (f): {two_wall:.2f} s (spawns, loads and "
+        f"builds included; beside (e)'s command)")
+    return {"mesh_nccl": _launch_counts([nccl, plain]), "mesh_gloo_lr": _launch_counts(lr_two),
+            "mesh_flagship": _launch_counts(list(flagship_two) + list(f64_two)
+                                            + [flagship_one, f64_one]),
+            "mesh_multihost": e_launches,
+            "mesh_syncbn": _launch_counts(list(bn_two) + [bn_one]),
+            "mesh_lm": _launch_counts(list(lm_two))}
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds printed under the phase's name."""
     t0 = time.perf_counter()
@@ -6800,10 +7124,11 @@ def main() -> None:
         cli_launches.update(_timed("async", phase_async, torch, mnist_dir, solo_flagship))
         cli_launches.update(_timed("downlink", phase_downlink, torch, mnist_dir))
         cli_launches.update(_timed("families wire", phase_families_wire, torch, mnist_dir))
+        cli_launches.update(_timed("mesh", phase_mesh, torch, mnist_dir))
     cli_launches["export"] = _timed("export", phase_export, torch)
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
         f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip, fedgan, "
-        f"splitnn, wire, async, downlink, families wire)")
+        f"splitnn, wire, async, downlink, families wire, mesh)")
     femnist_loads = []
     with _loaded_once(femnist_loads):
         cli_launches["femnist_cnn"] = _timed("femnist_cnn", phase_femnist_cnn, torch)
@@ -6848,7 +7173,8 @@ def main() -> None:
                  "async_ladder_none-coded_uplink", "async_ladder_sync_over_shm", "async_jobs",
                  "async_sim", "downlink_flagship", "downlink_dense_arms", "downlink_async",
                  "downlink_tree", "downlink_mqtt_s3", "families_wire_split",
-                 "families_wire_vfl", "families_wire_gkt", "export"):
+                 "families_wire_vfl", "families_wire_gkt", "export", "mesh_nccl",
+                 "mesh_gloo_lr", "mesh_flagship", "mesh_multihost", "mesh_syncbn"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

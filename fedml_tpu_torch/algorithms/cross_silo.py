@@ -1,13 +1,17 @@
 """Cross-silo FL, the port of ``fedml_tpu/algorithms/cross_silo.py``: WAN
-federation between silos, each silo one device here.
+federation between silos, data parallelism within.
 
 Reference: fedml_api/distributed/fedavg_cross_silo/ — each silo runs a
 master process (ClientMasterManager.py:32) plus DDP slave processes over the
 silo's GPUs, and masters talk to the FL server over the WAN transport. The
 JAX package runs a silo's local epochs as one program over the silo's
-device mesh; the port runs a silo on one device (the trainer's, the card
-unless the module lives on the CPU), and a silo of more than one device, a
-data-parallel silo, is ROADMAP §A12. The server is the unmodified
+device mesh, its batch axis sharded. The port runs a silo over the ranks of
+a silo mesh (``parallel/mesh.py`` ``silo_mesh``, one rank per card): each
+rank trains on its rows of every batch, and the silo's ranks sum their
+gradients and BatchNorm moments in each step, as DDP does
+(:func:`make_silo_local_train`). :func:`run_cross_silo` runs each silo on
+one device; a multi-rank silo there needs the silo's other ranks to follow
+its master over the wire (ROADMAP §A12b). The server is the unmodified
 distributed FedAvg server: cross-silo is a client-side composition.
 """
 
@@ -27,25 +31,43 @@ from fedml_tpu_torch.algorithms.fedavg_distributed import (
 )
 from fedml_tpu_torch.comm.base import BaseCommunicationManager
 from fedml_tpu_torch.core.trainer import ClientTrainer, make_local_train
+from fedml_tpu_torch.parallel import collectives
+from fedml_tpu_torch.parallel import mesh as meshlib
 from fedml_tpu_torch.sim.cohort import FederatedArrays
 
 
 def make_silo_local_train(trainer: ClientTrainer, silo_mesh=None) -> Callable:
-    """The in-silo round program: the port's ``make_local_train`` on the
-    silo's one device. ``silo_mesh`` is None (the trainer's device), a
-    device, or a sequence of devices; more than one device, or a device
-    other than the trainer's, raises."""
+    """The in-silo data-parallel round program (``cross_silo.py:42-66``):
+    ``make_local_train``'s contract, each rank called with its rows of the
+    ``[S, B, ...]`` batches and the same variables. ``silo_mesh`` is a
+    :class:`~fedml_tpu_torch.parallel.mesh.RankMesh` (its ``silo`` axis, or
+    its only axis, is the silo's ranks: they sum their gradients and
+    BatchNorm moments in each step, and every rank gets the silo's model),
+    None or one device (the trainer's: a silo of one rank). Several devices
+    of one process raise: the port runs one rank per device."""
     device = next(trainer.module.parameters()).device
+    local_train = make_local_train(trainer)
+    if isinstance(silo_mesh, meshlib.RankMesh):
+        axis = (meshlib.SILO_AXIS if meshlib.SILO_AXIS in silo_mesh.axis_names
+                else silo_mesh.axis_names[0])
+        group = silo_mesh.group(axis)
+
+        def silo_train(*args, **kwargs):
+            with collectives.bind(meshlib.SILO_AXIS, group):
+                return local_train(*args, **kwargs)
+
+        return silo_train
     devices = ([] if silo_mesh is None
                else list(silo_mesh) if isinstance(silo_mesh, (list, tuple)) else [silo_mesh])
     if len(devices) > 1:
         raise NotImplementedError(
-            f"a silo over {len(devices)} devices (in-silo data parallelism) is not "
-            "ported to fedml_tpu_torch yet: ROADMAP §A12")
+            f"a silo over {len(devices)} devices of one process: the port runs a "
+            "data-parallel silo over the ranks of a silo mesh (parallel.mesh.silo_mesh, one "
+            "rank per device); a multi-rank silo in run_cross_silo is ROADMAP §A12b")
     want = torch.device(devices[0]) if devices else device
     if want.type != device.type or want.index not in (None, device.index):
         raise ValueError(f"silo device {want} is not the trainer's device {device}")
-    return make_local_train(trainer)
+    return local_train
 
 
 def run_cross_silo(

@@ -36,6 +36,14 @@ Two local-training programs, one per cohort mode of the engine:
 (``SimConfig.pack_lanes``): a lane resets its carry to the global model at
 each client boundary, and :class:`LaneDropout` serves each lane the masks
 its client would draw in the padded round.
+
+In a data-parallel silo (the ``silo`` axis bound to a process group,
+``parallel/collectives.py`` :func:`~fedml_tpu_torch.parallel.collectives.bind`)
+each rank trains on its rows of every batch: its loss is its rows' share
+of the whole batch's masked mean, a step runs where any rank's rows hold
+data, and the ranks' gradients, loss shares and mask counts are summed in
+one reduce before the optimizer's update (BatchNorm reduces its moments
+itself, ``ops/syncbn.py``). Without a bound silo nothing changes, bitwise.
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fedml_tpu_torch.parallel import collectives
+from fedml_tpu_torch.parallel.mesh import SILO_AXIS
+
 Batch = dict[str, torch.Tensor]
 StateDict = dict[str, torch.Tensor]
 
@@ -56,8 +67,11 @@ StateDict = dict[str, torch.Tensor]
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The masked mean over the whole batch: in a data-parallel silo (a
+    bound ``silo`` axis) each rank's total over the count of every rank's
+    rows, its share of the mean (the silo sums the shares)."""
     total = torch.sum(values * mask)
-    count = torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.clamp(collectives.axis_sum(torch.sum(mask), SILO_AXIS), min=1.0)
     return total / count
 
 
@@ -154,7 +168,8 @@ def segmentation_loss(logits: torch.Tensor, batch: Batch) -> torch.Tensor:
     """Per-pixel CE of ``[B, H, W, C]`` logits against ``[B, H, W]`` integer
     labels, averaged over the valid pixels."""
     ce, m, _ = _masked_seg_ce(logits, batch)
-    return torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(ce * m) / torch.clamp(collectives.axis_sum(torch.sum(m), SILO_AXIS),
+                                           min=1.0)
 
 
 def segmentation_metrics(logits: torch.Tensor, batch: Batch) -> dict[str, torch.Tensor]:
@@ -461,6 +476,33 @@ class LaneDropout:
 
 
 # ---------------------------------------------------------------------------
+# In-silo data parallelism
+# ---------------------------------------------------------------------------
+
+
+def silo_size() -> int:
+    """The rank count of the bound ``silo`` axis (1 outside a silo)."""
+    return collectives.group_size(collectives.bound(SILO_AXIS))
+
+
+def silo_sum(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each tensor summed over the bound ``silo`` axis, in one reduce of
+    their concatenation (in their promoted dtype), each cast back: a silo
+    step's gradients, loss and mask count. Under ``torch.func.vmap`` the
+    cohort's ``[C_local, ...]`` tensors go in the same one call."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    total = collectives.axis_sum(torch.cat([t.reshape(-1).to(dtype) for t in tensors]),
+                                 SILO_AXIS)
+    out, at = [], 0
+    for t in tensors:
+        out.append(total[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # ClientTrainer
 # ---------------------------------------------------------------------------
 
@@ -557,7 +599,7 @@ class ClientTrainer:
                                 f"step_where (the port's sgd or adam), not {type(optimizer)}")
             has_data = True
         if has_data is None:
-            has_data = bool(torch.sum(batch["mask"]) > 0)
+            has_data = bool(collectives.axis_sum(torch.sum(batch["mask"]), SILO_AXIS) > 0)
         if not has_data:
             return torch.zeros((), dtype=torch.float32, device=batch["mask"].device)
         self.module.train()
@@ -565,9 +607,18 @@ class ClientTrainer:
         logits, new_state = self.forward_train(batch["x"], masks)
         loss = self.loss_and_metrics[0](logits, batch)
         del logits  # backward keeps what it needs; the LM's [B, T, V] logits are ~1 GiB
+        n_silo = silo_size()
         if self.prox_mu > 0.0:
-            loss = loss + self.prox_term(dict(self.module.named_parameters()), global_params)
+            prox = self.prox_term(dict(self.module.named_parameters()), global_params)
+            # in a silo each rank adds its share: the shares' gradients sum
+            loss = loss + (prox if n_silo == 1 else prox / n_silo)
         loss.backward()
+        if n_silo > 1:
+            # the silo's gradient is the sum of its ranks' (DDP's all-reduce)
+            params = [p for p in self.module.parameters() if p.grad is not None]
+            *grads, loss = silo_sum([p.grad for p in params] + [loss.detach()])
+            for p, g in zip(params, grads):
+                p.grad = g
         if active is None:
             optimizer.step()
         else:
@@ -646,7 +697,8 @@ def make_local_train(trainer: ClientTrainer):
                          if trainer.prox_mu > 0.0 else None)
         S, E = data["mask"].shape[0], trainer.epochs
         device = data["mask"].device
-        has_data = data["mask"].reshape(S, -1).sum(1) > 0
+        # a step runs where any of a silo's ranks has data in it
+        has_data = collectives.axis_sum(data["mask"].reshape(S, -1).sum(1), SILO_AXIS) > 0
         masked = isinstance(num_steps, torch.Tensor)
         if masked:
             active = has_data & (torch.arange(E * S, device=device).reshape(E, S) < num_steps)
@@ -709,13 +761,22 @@ def _functional_step(trainer: ClientTrainer):
                                                 batch.get("dropout"))
         loss = loss_of(logits, batch)
         if trainer.prox_mu > 0.0:
-            loss = loss + trainer.prox_term(params, global_params)
+            prox = trainer.prox_term(params, global_params)
+            n_silo = silo_size()
+            loss = loss + (prox if n_silo == 1 else prox / n_silo)
         return loss, new_state
 
     def step(params, state, opt_state, batch, global_params):
         grads, (loss, new_state) = torch.func.grad_and_value(loss_fn, has_aux=True)(
             params, state, batch, global_params)
-        has_data = torch.sum(batch["mask"]) > 0
+        count = torch.sum(batch["mask"])
+        if silo_size() > 1:
+            # a silo's step: its ranks' gradients, loss shares and mask
+            # counts summed in one reduce before the update
+            names = list(grads)
+            *summed, loss, count = silo_sum([grads[k] for k in names] + [loss, count])
+            grads = dict(zip(names, summed))
+        has_data = count > 0
         new_params, new_opt_state = opt.update(grads, opt_state, params)
 
         def keep(new, old):

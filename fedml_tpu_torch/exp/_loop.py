@@ -30,7 +30,7 @@ At the start the loop logs the sim's packed-lane and population summaries
 with packed lanes on the card it captures the lane pass's CUDA graph before
 the prefetch thread starts. Each round runs in a ``loop/round`` span and the
 salvage of drained rounds in ``loop/salvage_flush`` (``obs/trace.py``, the
-JAX loop's); its sharded summary comes with that plane (§A12).
+JAX loop's); its sharded summary comes with that plane (§A12b).
 """
 
 from __future__ import annotations

@@ -222,7 +222,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 # Setting one away from its default raises (checked after the JAX CLI's own
 # flag-combination errors).
 _UNPORTED_FLAGS = {
-    "mesh_shape": "§A12 (multi-GPU)", "shard_rules": "§A12 (multi-GPU)",
+    "mesh_shape": "§A12b (the model axis)", "shard_rules": "§A12b (the model axis)",
 }
 
 

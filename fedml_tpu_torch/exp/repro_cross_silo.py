@@ -10,8 +10,13 @@ non-IID Dirichlet alpha=0.5 (published, IID/non-IID: 93.19/87.12,
 trains in bf16 compute with f32 parameters, BatchNorm statistics federated
 with the weights, and crop/flip/cutout augmentation on the device. The
 cohort trains in ``cohort_execution="vmap"``, MobileNet in ``"scan"``
-(:func:`resolve_cohort_execution`). The JAX clients x silo mesh is 1 x 1 on
-one card, so the run is ``FedSim`` on one device.
+(:func:`resolve_cohort_execution`). The run is a ``FedSim`` over the JAX
+recipe's clients x silo mesh (``:253-260``) laid over the ranks of the
+``torch.distributed`` world (one rank per card): ``silo = 2`` when the rank
+count is even and above 1, so each silo's batch splits over two ranks. On
+one rank, with no world, the mesh is 1 x 1 and the run is ``FedSim`` on one
+device. Under several ranks only rank 0 writes the fixture, the metrics
+and the report.
 
 Data: the real files when ``--data_dir`` holds them; otherwise an offline
 fixture in the dataset's exact on-disk format (CIFAR-10 and CIFAR-100
@@ -205,6 +210,7 @@ def resolve_cohort_execution(model: str, explicit: str | None) -> str:
 
 def run(args) -> dict:
     import torch
+    import torch.distributed as dist
 
     from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
     from fedml_tpu_torch.data.cv import load_cifar
@@ -212,16 +218,23 @@ def run(args) -> dict:
     from fedml_tpu_torch.exp._loop import run_rounds
     from fedml_tpu_torch.models.registry import create_model
     from fedml_tpu_torch.ops.augment import ImageAugment
+    from fedml_tpu_torch.parallel import mesh as meshlib
     from fedml_tpu_torch.sim.engine import FedSim, SimConfig
 
     device = resolve_device(args.device)
     args.cohort_execution = resolve_cohort_execution(args.model, args.cohort_execution)
+    # the JAX recipe's clients x silo mesh over whatever ranks the world has
+    # (1 rank -> 1 x 1)
+    ranks = meshlib.world_ranks()
+    silo = 2 if len(ranks) % 2 == 0 and len(ranks) > 1 else 1
+    mesh = meshlib.silo_mesh(len(ranks) // silo, ranks)
+    lead = mesh.rank == 0
     data_dir = Path(args.data_dir) if args.data_dir else Path(f"./data/{args.dataset}")
     # real = data exists in a layout the reader accepts and no fixture
     # marker claims it
     real = (any((data_dir / p).exists() for p in _PROBES[args.dataset])
             and not fixture_util.is_fixture(data_dir, args.dataset))
-    if not real:
+    if not real and lead:
         logging.info("no real %s under %s — using offline fixture", args.dataset, data_dir)
         if args.dataset == "cinic10":
             write_cinic10_fixture(
@@ -233,6 +246,8 @@ def run(args) -> dict:
                 args.dataset](data_dir, n_train=args.fixture_train_n,
                               n_test=args.fixture_test_n, seed=args.seed,
                               signal=args.fixture_signal)
+    if mesh.size > 1:  # the other ranks read the fixture rank 0 wrote
+        dist.barrier()
 
     train, test, class_num = load_cifar(
         args.dataset, data_dir, args.partition_method, args.partition_alpha,
@@ -256,7 +271,7 @@ def run(args) -> dict:
         block_dispatch=False,
         cohort_execution=args.cohort_execution,
     )
-    sim = FedSim(trainer, train, test, cfg, device=device)
+    sim = FedSim(trainer, train, test, cfg, device=device, mesh=mesh)
 
     saturation_stop = {"fired": False}
 
@@ -271,8 +286,8 @@ def run(args) -> dict:
             return True
         return False
 
-    records, wall = run_rounds(sim, cfg, args.metrics_out, round_sleep=args.round_sleep,
-                               stop_when=_saturated)
+    records, wall = run_rounds(sim, cfg, args.metrics_out if lead else None,
+                               round_sleep=args.round_sleep, stop_when=_saturated)
     evals = [r for r in records if "Test/Acc" in r]
     if not evals:
         raise RuntimeError("no completed eval rounds — nothing to report")
@@ -295,7 +310,7 @@ def run(args) -> dict:
         "final_test_acc": round(evals[-1]["Test/Acc"], 4),
         "rounds_per_sec": round(len(records) / wall, 4),
         "wall_clock_sec": round(wall, 1),
-        "mesh": {"clients": 1, "silo": 1},
+        "mesh": {meshlib.CLIENT_AXIS: len(ranks) // silo, meshlib.SILO_AXIS: silo},
         "fixture_signal": None if real else args.fixture_signal,
     }
     if not real and args.ceiling_epochs > 0:
@@ -309,7 +324,7 @@ def run(args) -> dict:
         result["fixture_ceiling"] = round(ceiling, 4)
         result["ceiling_epochs"] = ce
         result["pct_of_ceiling"] = round(100 * best / max(ceiling, 1e-9), 1)
-    if args.out:
+    if args.out and lead:
         device_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                        else "the CPU")
         _write_report(Path(args.out), args, result, evals, real, device_name)

@@ -29,7 +29,7 @@ Departures from the JAX entry point:
 - ``--device`` (default ``cuda``) names the device; with no card the run
   raises unless ``--device cpu``;
 - ``--mesh_shape`` and ``--shard_rules`` (sharded client models over a
-  device mesh) are refused by ``SimConfig``: multi-GPU is ROADMAP §A12.
+  device mesh) are refused by ``SimConfig``: the model axis is ROADMAP §A12b.
 
 Usage: python -m fedml_tpu_torch.exp.repro_stackoverflow_nwp [--comm_round 1500] [--out REPORT.md]
 """
@@ -266,9 +266,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--frequency_of_the_test", type=int, default=50)
     add_pack_flags(parser)
     parser.add_argument("--mesh_shape", type=str, default=None,
-                        help="'CLIENTSxMODEL' device mesh (multi-GPU, ROADMAP §A12: refused)")
+                        help="'CLIENTSxMODEL' device mesh (ROADMAP §A12b: refused)")
     parser.add_argument("--shard_rules", type=str, default=None,
-                        help="partition-rule set over the mesh (ROADMAP §A12: refused)")
+                        help="partition-rule set over the mesh (ROADMAP §A12b: refused)")
     add_trace_cli_flag(parser)
     add_robust_cli_flags(parser)
     add_population_cli_flags(parser)

@@ -51,6 +51,8 @@ from torch import nn
 
 from fedml_tpu_torch.device import resolve_device
 from fedml_tpu_torch.models.transformer import _LECUN_STD, Dense
+from fedml_tpu_torch.parallel import collectives
+from fedml_tpu_torch.parallel.mesh import SILO_AXIS
 
 StateDict = dict[str, torch.Tensor]
 
@@ -96,12 +98,38 @@ class Conv(nn.Module):
             nn.init.zeros_(self.bias)
 
 
+def batch_moments(xf: torch.Tensor, dims: tuple[int, ...], axis_name: str | None = SILO_AXIS):
+    """``(mean, var)`` of ``xf`` over ``dims`` and, where ``axis_name`` is
+    bound (``parallel/collectives.py`` :func:`~fedml_tpu_torch.parallel.collectives.bind`),
+    over the ranks of its group: the sums of ``x`` and ``x²`` and the
+    element count reduced in one call, flax's ``E[x²] − E[x]²`` clamped at 0.
+    Unbound (or ``axis_name`` None): the mean of ``x`` and of ``x²`` on this
+    rank's rows alone, as a single-device flax BatchNorm computes them."""
+    group = collectives.bound(axis_name) if axis_name is not None else None
+    if group is None:
+        mean = xf.mean(dims)
+        return mean, torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    count = 1
+    for d in dims:
+        count *= xf.shape[d]
+    s1 = xf.sum(dims)
+    local = torch.stack([s1, (xf * xf).sum(dims), torch.full_like(s1, float(count)).detach()])
+    total = collectives.axis_sum(local, axis_name)
+    mean, mean2 = total[0] / total[2], total[1] / total[2]
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
 class BatchNorm(nn.Module):
     """Flax ``BatchNorm(momentum=0.9, epsilon=1e-5, dtype)`` over the N, H, W
-    axes of NCHW input. ``forward(x, train)`` returns ``(y, new_stats)``:
-    ``new_stats`` is ``(running_mean, running_var)`` after the update in
-    training and None in evaluation, which normalises with the running
-    statistics."""
+    axes of NCHW input (N of ``[N, F]`` input). ``forward(x, train)`` returns
+    ``(y, new_stats)``: ``new_stats`` is ``(running_mean, running_var)``
+    after the update in training and None in evaluation, which normalises
+    with the running statistics. In a data-parallel silo (the ``axis_name``
+    axis bound) the training moments are the whole batch's, every rank's
+    rows (:func:`batch_moments`), as GSPMD's BatchNorm sees the whole
+    sharded batch in the JAX package."""
+
+    axis_name: str | None = SILO_AXIS
 
     def __init__(self, features, dtype=torch.float32, momentum=0.9, eps=1e-5, device=None):
         super().__init__()
@@ -113,15 +141,15 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool = False):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims, shape = ((0,), (1, -1)) if xf.dim() == 2 else ((0, 2, 3), (1, -1, 1, 1))
         if train:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            mean, var = batch_moments(xf, dims, self.axis_name)
             new = (self.momentum * self.running_mean + (1 - self.momentum) * mean,
                    self.momentum * self.running_var + (1 - self.momentum) * var)
         else:
             mean, var, new = self.running_mean, self.running_var, None
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(self.dtype), new
 
     def reset_parameters(self, generator: torch.Generator | None = None):

@@ -33,7 +33,7 @@ the replay launches the flash forward again: 2L launches a training step in
 place of L.
 
 Not ported here: ``attn_impl="ring"`` and ``mp_axis`` (multi-GPU, ROADMAP
-§A12); each raises.
+§A12b); each raises.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ class MultiHeadSelfAttention(nn.Module):
             if attn_impl == "ring":
                 raise NotImplementedError(
                     "attn_impl='ring' (ring attention over a sequence-parallel "
-                    "mesh) is multi-GPU work, ROADMAP §A12")
+                    "mesh) is multi-GPU work, ROADMAP §A12b")
             raise ValueError(f"unknown attn_impl {attn_impl!r} (expected 'xla' or 'flash')")
         self.num_heads, self.attn_impl = num_heads, attn_impl
         # tiles of the plain version and the backward's key blocks; the CUDA
@@ -212,7 +212,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         if mp_axis is not None:
             raise NotImplementedError("mp_axis (tensor-parallel plans) is multi-GPU work, "
-                                      "ROADMAP §A12")
+                                      "ROADMAP §A12b")
         device = resolve_device(device)
         self.dtype, self.head_dtype, self.remat = dtype, head_dtype, remat
         self.dropout_rate = dropout_rate

@@ -80,6 +80,16 @@ give bitwise-equal histories: staging is a pure function of (seed, round).
 At eval rounds it runs the pooled eval and, with ``eval_on_clients``, the
 per-client server eval (:meth:`FedSim.evaluate_per_client`). ``profile_dir``
 records a ``torch.profiler`` Chrome trace of the rounds after the first.
+
+Over a rank mesh (``mesh=``, ``parallel/mesh.py``; ``engine.py:317-348``,
+``:880-984``) every rank stages the same round from (seed, round), pads the
+cohort to a multiple of the ``clients`` axis with fully masked, zero-weight
+slots, trains its block of slots (on a ``silo`` axis, its rows of every
+batch, the silo's ranks summing gradients and BatchNorm moments each step)
+and all-gathers the trained stack, weights, step counts and losses in slot
+order; every rank then runs the server rule on the whole stack and
+evaluates the replicated model. Such rounds dispatch one at a time,
+eagerly: blocks and graphs are one rank's.
 """
 
 from __future__ import annotations
@@ -108,6 +118,8 @@ from fedml_tpu_torch.core.trainer import (ClientTrainer, DropoutStream, LaneDrop
 from fedml_tpu_torch.device import resolve_device
 from fedml_tpu_torch.obs import trace
 from fedml_tpu_torch.ops import augment as augmentlib
+from fedml_tpu_torch.parallel import collectives
+from fedml_tpu_torch.parallel import mesh as meshlib
 from fedml_tpu_torch.sim import cohort as cohortlib
 from fedml_tpu_torch.sim.graphs import PassGraph, RoundGraph
 from fedml_tpu_torch.sim.prefetch import MetricsDrain, Prefetcher
@@ -117,10 +129,11 @@ StateDict = dict[str, torch.Tensor]
 # SimConfig fields of the JAX engine that the port does not implement yet:
 # the values the port accepts (the JAX default first) and the ROADMAP item
 # that ports the rest (downlink coding, a wire-path plane, is refused in the
-# JAX sim engine's words before this table is read).
+# JAX sim engine's words before this table is read). The data-parallel mesh
+# (FedSim's mesh=) is ported; the model axis and its plans are not.
 _NOT_PORTED = {
-    "mesh_shape": ((None,), "§A12"),
-    "shard_rules": ((None,), "§A12"),
+    "mesh_shape": ((None,), "§A12b"),
+    "shard_rules": ((None,), "§A12b"),
 }
 
 
@@ -203,22 +216,24 @@ class SimConfig:
                     f"(ROADMAP {item}); leave it at {accepted[0]!r}")
 
 
-def resolve_dispatch(config: SimConfig, nbytes: int, platform: str) -> tuple[bool, bool]:
+def resolve_dispatch(config: SimConfig, nbytes: int, platform: str,
+                     ranks: int = 1) -> tuple[bool, bool]:
     """``(on_device, block_dispatch)`` for training arrays of ``nbytes`` on a
-    device of type ``platform`` (``"cuda"``, ``"cpu"``): the JAX engine's rule
-    (``fedml_tpu/sim/engine.py:681-691``). The dataset stays on the device as
-    ``config.stage_on_device`` says, by default when it takes at most 2 GiB;
-    rounds run in blocks as ``config.block_dispatch`` says, by default with
-    the dataset on the device and a device that is not the CPU, never with
-    the dataset on the host and never under packed lanes (``pack_lanes`` >
-    0: a packed round dispatches one pass at a time). The JAX rule also
-    turns blocks off under sharded rounds (``shard_rules``), which
-    ``SimConfig`` still refuses in the port (§A12)."""
+    device of type ``platform`` (``"cuda"``, ``"cpu"``) in a mesh of
+    ``ranks`` ranks: the JAX engine's rule (``fedml_tpu/sim/engine.py:681-691``).
+    The dataset stays on the device as ``config.stage_on_device`` says, by
+    default when it takes at most 2 GiB; rounds run in blocks as
+    ``config.block_dispatch`` says, by default with the dataset on the device
+    and a device that is not the CPU, never with the dataset on the host,
+    never under packed lanes (``pack_lanes`` > 0: a packed round dispatches
+    one pass at a time) and never over more than one rank, where each round
+    dispatches alone and eagerly, its collectives between the ranks' steps
+    (as the JAX rule turns blocks off for its sharded plans)."""
     on_device = (config.stage_on_device if config.stage_on_device is not None
                  else nbytes <= 2 << 30)
     block = (config.block_dispatch if config.block_dispatch is not None
              else on_device and platform != "cpu")
-    return on_device, bool(block and on_device and config.pack_lanes <= 0)
+    return on_device, bool(block and on_device and config.pack_lanes <= 0 and ranks == 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,7 +242,8 @@ class Staged:
     device: the cohort, its ``[C, S, B]`` index map into the resident
     dataset (on-device staging) or its ``[C, S, B, ...]`` batch stack
     (host staging), ``[C]`` weights and step budgets, and the augmentation
-    draws. The budgets are also on the host (the scan mode skips there),
+    draws; over several ranks, this rank's block of slots (and of batch
+    rows) of each, the cohort whole. The budgets are also on the host (the scan mode skips there),
     except in a captured round (None: the scan mode masks on the device)."""
 
     round_idx: int
@@ -323,12 +339,23 @@ class FedSim:
         of ``make_local_train`` (the scan mode); its ``vmap`` attribute, the
         cohort's with that of ``make_vmap_train`` (the vmap mode). A trainer
         without ``eval_batch`` (the GAN's) skips the server's evaluation.
+    mesh: a :class:`~fedml_tpu_torch.parallel.mesh.RankMesh` (JAX's
+        ``mesh=``), by default the client mesh over the initialised world
+        (one rank without one). Its ``clients`` axis shards the cohort, padded
+        to a multiple of it with zero-weight, fully masked slots: each rank
+        trains its block of slots, then the ranks all-gather the trained
+        ``[C, ...]`` stack, weights, losses and step counts in slot order and
+        every rank runs the server rule on them, so a round does not depend
+        on the rank count. A ``silo`` axis splits each batch's rows over the
+        silo's ranks, which sum their gradients (and BatchNorm's moments) in
+        each step. Every rank must build the same FedSim and run the same
+        rounds; each evaluates the replicated global model.
     """
 
     def __init__(self, trainer: ClientTrainer, train_data: cohortlib.FederatedArrays,
                  test_arrays: dict[str, np.ndarray] | None, config: SimConfig,
                  aggregator: Aggregator | None = None, device: str | torch.device = "cuda",
-                 local_train_fn=None):
+                 local_train_fn=None, mesh: meshlib.RankMesh | None = None):
         self.device = resolve_device(device)
         self.trainer = trainer
         self.train_data = train_data
@@ -349,6 +376,7 @@ class FedSim:
             aggregator = robust_aggregator(RobustConfig(
                 norm_bound=config.norm_bound, stddev=config.dp_stddev, rule=config.robust_rule))
         self.aggregator = aggregator or fedavg_aggregator()
+        self._init_mesh(config, mesh)
         if config.compressor and config.compressor != "none":
             self.aggregator = self._compressed(config, self.aggregator)
         # per-client persistent models (decentralized/gossip FL): each client
@@ -391,7 +419,8 @@ class FedSim:
                                               in_dims=(0, 0, 0, None, None, 0, 0, None))
         nbytes = sum(np.asarray(a).nbytes for a in train_data.arrays.values())
         self._on_device, self._block_dispatch = resolve_dispatch(config, nbytes,
-                                                                 self.device.type)
+                                                                 self.device.type,
+                                                                 self.mesh.size)
         # on-device staging: the training arrays live on the device and each
         # round (and the pooled train eval) gathers from them through an
         # index map; host staging keeps them on the host and copies each
@@ -446,7 +475,43 @@ class FedSim:
             make_codec(config.compressor, topk_frac=config.topk_frac,
                        quantize_bits=config.quantize_bits),
             inner=inner, error_feedback=config.error_feedback,
-            num_slots=config.client_num_per_round)
+            num_slots=self._slots(config.client_num_per_round))
+
+    def _init_mesh(self, config: SimConfig, mesh) -> None:
+        """The rank mesh the rounds run over (``engine.py:317-348``), with
+        the JAX engine's conflict error and padding warning; the model axis
+        (the sharded plans) is refused."""
+        if config.mesh_shape is not None and mesh is not None:
+            raise ValueError(
+                "SimConfig.mesh_shape and an explicit mesh= were both "
+                "given — one of them would silently win; configure the "
+                "mesh in exactly one place"
+            )
+        self.mesh = mesh if mesh is not None else meshlib.client_mesh()
+        if meshlib.MODEL_AXIS in self.mesh.axis_names:
+            raise NotImplementedError(
+                f"a mesh with a '{meshlib.MODEL_AXIS}' axis (the sharded model plans) is not "
+                "ported to fedml_tpu_torch yet: ROADMAP §A12b")
+        self._shards = self.mesh.shape[meshlib.CLIENT_AXIS]
+        if config.robust_rule != "mean":
+            # order-statistic rules run over the padded cohort stack; any
+            # padding slots are zero-delta phantoms that bias the statistic
+            # toward the current global — name it loudly
+            c_pad = self._slots(config.client_num_per_round)
+            if c_pad != config.client_num_per_round:
+                logging.warning(
+                    "robust rule %r runs over a padded cohort stack: %d real "
+                    "clients + %d zero-delta padding slots (cohort not "
+                    "divisible by the %d-way client mesh) — the order "
+                    "statistic is biased toward the current global; prefer "
+                    "client_num_per_round divisible by the mesh",
+                    config.robust_rule, config.client_num_per_round,
+                    c_pad - config.client_num_per_round, self._shards,
+                )
+
+    def _slots(self, n: int) -> int:
+        """``n`` cohort slots padded to a multiple of the client axis."""
+        return -(-n // self._shards) * self._shards
 
     def _check_per_client(self, config: SimConfig) -> None:
         """The per-client mode's preconditions, with the JAX engine's
@@ -528,6 +593,11 @@ class FedSim:
                 "0 disables packing")
         if config.pack_lanes == 0:
             return False
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                f"pack_lanes={config.pack_lanes} over a mesh of {self.mesh.size} ranks: the "
+                "JAX engine bins the lanes per client shard, which is not ported to "
+                "fedml_tpu_torch yet: ROADMAP §A12b")
         if self._per_client:
             raise ValueError(
                 f"aggregator={self.aggregator.name!r} (per-client) "
@@ -619,7 +689,8 @@ class FedSim:
             v[k] = torch.as_tensor(t).to(self.device, v[k].dtype)
         if not self._per_client:
             return v
-        n = self.config.client_num_in_total
+        # the stack of every slot, padded to the client mesh (engine.py:1447-1453)
+        n = self._slots(self.config.client_num_in_total)
         return {k: t.unsqueeze(0).repeat((n,) + (1,) * t.dim()) for k, t in v.items()}
 
     def consensus(self, variables: StateDict) -> StateDict:
@@ -759,6 +830,8 @@ class FedSim:
                 return self._stage_packed_round(cohort, round_idx)
             idx, weights, num_steps = self._host_cohort_indices(cohort, round_idx)
             draws = self._round_draws(round_idx, len(cohort))
+            if self.mesh.size > 1:
+                idx, weights, num_steps, draws = self._local_block(idx, weights, num_steps, draws)
             if self._on_device:
                 idx_t, batches = self._stage_put(idx), None
             else:
@@ -770,12 +843,36 @@ class FedSim:
                 self._stage_put(num_steps), num_steps,
                 None if draws is None else {k: self._stage_put(d) for k, d in draws.items()})
 
+    def _local_block(self, idx, weights, num_steps, draws):
+        """This rank's block of a round's host arrays (the JAX engine's
+        padding, ``engine.py:1597-1612``, then ``stage_global``): the cohort
+        padded to a multiple of the client axis with fully masked,
+        zero-weight slots, then this rank's slots and, on a silo mesh, its
+        rows of every batch (``mesh.cohort_batch_slices``)."""
+        pad = self._slots(len(weights)) - len(weights)
+        if pad:
+            idx = np.concatenate([idx, np.full((pad,) + idx.shape[1:], -1, np.int32)])
+            weights = np.concatenate([weights, np.zeros(pad, np.float32)])
+            num_steps = np.concatenate([num_steps, np.zeros(pad, np.int32)])
+            if draws is not None:
+                draws = {k: torch.cat([d, torch.zeros((pad,) + d.shape[1:], dtype=d.dtype)])
+                         for k, d in draws.items()}
+        rows, cols = meshlib.cohort_batch_slices(self.mesh, len(weights), self.config.batch_size)
+        if draws is not None:  # [C, E, S, B]
+            draws = {k: d[rows][..., cols].contiguous() for k, d in draws.items()}
+        return (np.ascontiguousarray(idx[rows][:, :, cols]), weights[rows], num_steps[rows],
+                draws)
+
     def stage_block(self, start_round: int, n_rounds: int) -> BlockStaged:
         """Host staging for an ``n_rounds`` block (``engine.py:1308-1333``):
         each round's index map, weights and budgets stacked ``[R, ...]``,
         and the rounds' augmentation draws, copied to the device. Pure in
         (config, rounds), so the prefetch thread can stage the next block
-        while the current one runs."""
+        while the current one runs. One rank only: over more, each round
+        dispatches alone."""
+        if self.mesh.size > 1:
+            raise ValueError(f"a block of rounds runs on one rank; over {self.mesh.size} ranks "
+                             "each round dispatches alone (stage_round)")
         with trace.span("engine/stage", round=start_round, n_rounds=n_rounds, block=True):
             rounds = range(start_round, start_round + n_rounds)
             cohorts = [self._sample_cohort(r) for r in rounds]
@@ -1004,6 +1101,12 @@ class FedSim:
         tau = epochs_i * torch.ceil(torch.clamp(weights.float(), min=1.0)
                                     / self.config.batch_size)
         extras = {"tau": tau, "max_tau": self.trainer.epochs * self._steps}
+        if self._per_client:
+            # this rank's block of output rows, which a rule may compute
+            # alone (engine.py:951-972)
+            n_local = len(weights) // self._shards
+            extras["shard_start"] = self.mesh.coord(meshlib.CLIENT_AXIS) * n_local
+            extras["shard_size"] = n_local
         # the per-client mode's rule maps the previous stack and the trained
         # one to the next stack (engine.py:951-972); broadcast mode's the
         # global model and the clients' to the next global model
@@ -1012,8 +1115,30 @@ class FedSim:
                 clients = _stack_as_they_come(clients, len(weights))
         elif isinstance(clients, dict):
             clients = iter(treelib.unstack(clients, len(weights)))
-        return self.aggregator.aggregate(global_variables, clients, weights, server_state,
-                                         noise, extras)
+        new, server_state, metrics = self.aggregator.aggregate(
+            global_variables, clients, weights, server_state, noise, extras)
+        if self._per_client and next(iter(new.values())).shape[0] < len(weights):
+            # the rule returned this rank's block: every rank keeps the stack
+            (new,) = self._gather_slots(new)
+        return new, server_state, metrics
+
+    def _gather_slots(self, stacked: StateDict, *vectors: torch.Tensor) -> tuple:
+        """Every rank's ``[C_local, ...]`` block of ``stacked`` and of each
+        ``[C_local]`` vector, all-gathered over the client axis in slot order
+        (JAX's tiled ``all_gather`` of the cohort stack): their bytes in one
+        buffer, one call, so the gathered values are the ranks' bitwise."""
+        names = list(stacked)
+        tensors = [stacked[k] for k in names] + list(vectors)
+        n = tensors[0].shape[0]
+        raw = [t.reshape(n, -1).contiguous().view(torch.uint8) for t in tensors]
+        full = collectives.all_gather(torch.cat(raw, dim=1),
+                                      self.mesh.group(meshlib.CLIENT_AXIS))
+        out, at = [], 0
+        for t, r in zip(tensors, raw):
+            block = full[:, at:at + r.shape[1]].contiguous().view(t.dtype)
+            out.append(block.reshape((full.shape[0],) + t.shape[1:]))
+            at += r.shape[1]
+        return (dict(zip(names, out[:len(names)])), *out[len(names):])
 
     def _run_packed(self, staged: PackedStaged, global_variables: StateDict, server_state):
         """One packed round (``engine.py:1829-1856``): zeroed buffers, the
@@ -1090,9 +1215,14 @@ class FedSim:
 
     def _dropout(self, round_idx: int, n_clients: int) -> DropoutStream | None:
         cfg = self.config
-        return (DropoutStream(self.trainer.dropout_sites, cfg.seed, round_idx, n_clients,
-                              cfg.batch_size, self.device)
-                if self.trainer.dropout_sites else None)
+        if not self.trainer.dropout_sites:
+            return None
+        stream = DropoutStream(self.trainer.dropout_sites, cfg.seed, round_idx, n_clients,
+                               cfg.batch_size, self.device)
+        if self.mesh.size == 1:
+            return stream
+        return _BlockDropout(stream, *meshlib.cohort_batch_slices(
+            self.mesh, self._slots(n_clients), cfg.batch_size))
 
     def run_staged_round(self, staged: Staged | PackedStaged, global_variables: StateDict,
                          server_state=()):
@@ -1133,8 +1263,13 @@ class FedSim:
         cfg = self.config
         if noise is None:
             noise = self._round_noise(staged.round_idx)
-        n = len(staged.cohort)
-        weights, draws = staged.weights, staged.draws
+        n = staged.weights.shape[0]  # the slots this rank trains
+        weights, draws, num_steps = staged.weights, staged.draws, staged.num_steps
+        multirank = self.mesh.size > 1
+        # the slots' own models in the per-client mode: this rank's rows
+        first = self.mesh.coord(meshlib.CLIENT_AXIS) * n if multirank else 0
+        start_stack = ({k: v[first:first + n] for k, v in global_variables.items()}
+                       if self._per_client and multirank else global_variables)
 
         def client_batches(c=None):
             if staged.batches is not None:
@@ -1143,18 +1278,18 @@ class FedSim:
             return self._gather_batches(self._dataset,
                                         staged.idx if c is None else staged.idx[c])
 
+        silo = collectives.bind(meshlib.SILO_AXIS, self.mesh.group(meshlib.SILO_AXIS))
         if cfg.cohort_execution == "vmap":
-            stacked, train_metrics = self._vmap_train(
-                global_variables, client_batches(), staged.num_steps, draws, dropout)
-            new_global, server_state, agg_metrics = self._aggregate(
-                global_variables, stacked, weights, staged.num_steps, server_state, noise)
+            with silo:
+                clients, train_metrics = self._vmap_train(
+                    start_stack, client_batches(), num_steps, draws, dropout)
             losses_t = train_metrics["train_loss"]
         else:
             losses: list[torch.Tensor] = []
 
             def trained_clients():
                 for c in range(n):
-                    start = ({k: v[c] for k, v in global_variables.items()}
+                    start = ({k: v[c] for k, v in start_stack.items()}
                              if self._per_client else global_variables)
                     variables, metrics = self._local_train(
                         start, client_batches(c),
@@ -1165,9 +1300,18 @@ class FedSim:
                     losses.append(metrics["train_loss"])
                     yield variables
 
-            new_global, server_state, agg_metrics = self._aggregate(
-                global_variables, trained_clients(), weights, staged.num_steps, server_state,
-                noise)
+            if multirank:  # the rank's block, stacked in its silo for the gather
+                with silo:
+                    clients = _stack_as_they_come(trained_clients(), n)
+                losses_t = torch.stack(losses)
+            else:  # folded into the server rule as each client finishes
+                clients = trained_clients()
+        if multirank:
+            clients, weights, num_steps, losses_t = self._gather_slots(
+                clients, weights, num_steps, losses_t)
+        new_global, server_state, agg_metrics = self._aggregate(
+            global_variables, clients, weights, num_steps, server_state, noise)
+        if cfg.cohort_execution != "vmap" and not multirank:
             losses_t = torch.stack(losses)
         metrics = {"Train/Loss": torch.sum(losses_t * weights / torch.sum(weights)),
                    **agg_metrics}
@@ -1202,6 +1346,9 @@ class FedSim:
         calls it first keeps the capture out of the rounds it times."""
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
+        if self.mesh.size > 1:
+            raise ValueError(f"a round over {self.mesh.size} ranks runs eagerly, its "
+                             "collectives between the ranks' steps: no CUDA graph of it")
         if not self._on_device:
             raise ValueError("block dispatch needs the on-device dataset (stage_on_device): "
                              "a block's rounds gather from it")
@@ -1518,6 +1665,26 @@ class FedSim:
             if profiler is not None:
                 self._stop_profiler(profiler)
         return variables, history
+
+
+class _BlockDropout:
+    """A rank's block of a round's :class:`DropoutStream`: each step's ``[C,
+    B, ...]`` masks drawn for the whole cohort (as on one rank, so each
+    client's masks stay keyed by its global slot), padded to the mesh's
+    slots and cut to this rank's ``rows`` and ``cols``."""
+
+    def __init__(self, stream: DropoutStream, rows: slice, cols: slice):
+        self.stream, self.rows, self.cols = stream, rows, cols
+
+    def masks(self, step: int) -> dict[str, torch.Tensor]:
+        out = {}
+        for k, m in self.stream.masks(step).items():
+            pad = self.rows.stop - m.shape[0]
+            if pad > 0:
+                m = torch.cat([m, torch.zeros((pad,) + m.shape[1:], dtype=m.dtype,
+                                              device=m.device)])
+            out[k] = m[self.rows, self.cols]
+        return out
 
 
 def _stack_as_they_come(clients, n: int) -> StateDict:

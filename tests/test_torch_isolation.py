@@ -86,7 +86,11 @@ def test_every_port_module_imports_without_jax_sklearn_or_yaml():
             "fedml_tpu_torch.data.tff_fixture", "fedml_tpu_torch.data.stackoverflow",
             "fedml_tpu_torch.exp.repro_femnist_cnn", "fedml_tpu_torch.exp.repro_femnist_lr",
             "fedml_tpu_torch.exp.repro_fed_cifar100",
-            "fedml_tpu_torch.exp.repro_stackoverflow_nwp"} <= set(modules)
+            "fedml_tpu_torch.exp.repro_stackoverflow_nwp",
+            "fedml_tpu_torch.parallel.__init__", "fedml_tpu_torch.parallel.mesh",
+            "fedml_tpu_torch.parallel.collectives", "fedml_tpu_torch.parallel.multihost",
+            "fedml_tpu_torch.parallel.launch", "fedml_tpu_torch.parallel.rehearsal",
+            "fedml_tpu_torch.ops.syncbn", "fedml_tpu_torch.exp.main_multihost"} <= set(modules)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in modules if not m.endswith("__main__"))
     code += "import chip_smoke\n"
