@@ -6882,6 +6882,272 @@ def _mesh_bn_spec():
                 bias=(0.1 * rng.randn(3)).astype(np.float32), momentum=0.9)
 
 
+# the [shard] legs (the model axis and the sequence axis, ROADMAP
+# §A12b.1-.3), run inside [mesh]'s NCCL world of one and its two-rank gloo
+# launch; the bounds, stated before the first run on the card: (a) and (b)'s
+# FSDP round bitwise; (b)'s tensor-parallel round's update (new global -
+# initial) within tp_rel_update of one rank's, relative L2 (bf16 partial
+# sums summed over the model axis: 0.86% on the CPU at D=256, where bf16
+# itself is 1.04% from f32), its losses within tp_loss_gap; (c) E2E_ATOL;
+# (d) the CPU tests' tolerances: ring out 1e-5 and gradients 1e-4 against
+# attention_reference, the SP step's parameters 1e-4 and its loss 1e-4 (10x
+# the CPU's, at full width); (e) PR 9's packed-lane LR bounds. (b) runs 4
+# of MAIN's 8 layers and one eval batch of each set: at 8 layers and two
+# its tensor-parallel round took 56 s and [mesh] 219 s on an H100 (the gloo
+# ranks stage every collective through the host), past [shard]'s share of
+# the script's time
+SHARD = dict(main_layers=4, main_clients=2, main_batch=8, held_out=8, tp_rel_update=0.10,
+             tp_loss_gap=0.05, ring_heads=16, ring_dim=128, ring_seq=2048, ring_out_atol=1e-5,
+             ring_grad_atol=1e-4, sp_layers=2, sp_batch=2, sp_loss_atol=1e-4,
+             sp_param_atol=1e-4, pack_lanes=2)
+
+
+def _with_config(spec, **config):
+    return {**spec, "config": {**spec["config"], **config}}
+
+
+def _shard_main_spec(prefix):
+    """(b): the ``MAIN`` LM at full width (``SHARD["main_layers"]`` deep),
+    bf16, flash, ``cohort_execution="scan"``: 1 round of 2 clients x 1
+    step, eval on ``SHARD["held_out"]`` held-out and as many train
+    sequences; its flat view to ``prefix``."""
+    c = MAIN
+    n = SHARD["main_clients"] * SHARD["main_batch"]
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, c["vocab"], (n + SHARD["held_out"], c["seq"])).astype(np.int32)
+    y = rng.randint(0, c["vocab"], (n + SHARD["held_out"], c["seq"])).astype(np.int32)
+    mask = np.ones_like(x, dtype=np.float32)
+    b = SHARD["main_batch"]
+    part = {i: np.arange(i * b, (i + 1) * b) for i in range(SHARD["main_clients"])}
+    return dict(data=({"x": x[:n], "y": y[:n], "mask": mask[:n]}, part,
+                      {"x": x[n:], "y": y[n:], "mask": mask[n:]}),
+                model=("transformer", c["vocab"], {
+                    "embed_dim": c["embed_dim"], "num_layers": SHARD["main_layers"],
+                    "num_heads": c["num_heads"], "max_len": c["seq"], "attn_impl": "flash",
+                    "dtype": c["dtype"]}),
+                trainer=dict(task="nwp", optimizer=("sgd", 0.01, 0.9), epochs=1),
+                config=dict(client_num_in_total=SHARD["main_clients"],
+                            client_num_per_round=SHARD["main_clients"], batch_size=b,
+                            comm_round=1, epochs=1, frequency_of_the_test=1, eval_batch_size=b,
+                            seed=0, shuffle_each_round=False, train_eval_samples=SHARD["held_out"],
+                            cohort_execution="scan", pipeline_depth=0, block_dispatch=False),
+                flat_file=str(BUILD_DIR / prefix))
+
+
+def _shard_head_parallel_spec():
+    """(b)'s attention on its own: ``flash_attention_head_parallel`` at the
+    ``MAIN`` LM's shape (B = ``SHARD["main_batch"]``, 16 heads of 128, T =
+    1024), bf16, causal, on a 1 x 2 model mesh, its inputs seeded draws."""
+    c = MAIN
+    return dict(seed=3, dtype=c["dtype"], mesh_shape=(1, 2), causal=True,
+                shape=(SHARD["main_batch"], c["num_heads"], c["seq"],
+                       c["embed_dim"] // c["num_heads"]))
+
+
+def _shard_three_heads_spec():
+    """(c): ``[mesh]`` (d)'s small f32 LM with 3 heads (embed 96) on a 1 x 2
+    tensor-parallel mesh."""
+    spec, _ = _mesh_lm_spec()
+    name, v, kwargs = spec["model"]
+    return {**spec, "model": (name, v, {**kwargs, "embed_dim": 96, "num_heads": 3})}
+
+
+def _shard_ring_spec(causal):
+    rng = np.random.RandomState(7)
+    shape = (1, SHARD["ring_heads"], SHARD["ring_seq"], SHARD["ring_dim"])
+    return {**{k: rng.randn(*shape).astype(np.float32) for k in ("q", "k", "v", "dy")},
+            "causal": causal}
+
+
+def _shard_sp_spec():
+    """(d): the full-width LM, 2 layers, f32, one SGD step on a batch of 2
+    sequences of 1024 tokens, its initialisation the model's own (seeded)."""
+    c = MAIN
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, c["vocab"], (SHARD["sp_batch"], c["seq"]))
+    batch = {"x": x.astype(np.int32), "y": np.roll(x, -1, axis=1).astype(np.int32),
+             "mask": np.ones(x.shape, np.float32)}
+    return dict(model=dict(vocab_size=c["vocab"], embed_dim=c["embed_dim"],
+                           num_layers=SHARD["sp_layers"], num_heads=c["num_heads"],
+                           max_len=c["seq"]), init=None, batch=batch, lr=0.1)
+
+
+def _ring_reference(torch, spec):
+    """attention_reference on one rank (this process) over the whole
+    sequence, and its gradients of ``sum(out * dy)``."""
+    from fedml_tpu_torch.ops.attention import attention_reference
+
+    q, k, v = (torch.as_tensor(spec[n]).cuda().requires_grad_(True) for n in ("q", "k", "v"))
+    out = attention_reference(q, k, v, causal=spec["causal"])
+    torch.sum(out * torch.as_tensor(spec["dy"]).cuda()).backward()
+    return {"out": out.detach().cpu().numpy(),
+            **{f"d{n}": t.grad.cpu().numpy() for n, t in (("q", q), ("k", k), ("v", v))}}
+
+
+def _flat(result):
+    return np.load(result["flat_file"]) if "flat_file" in result else result["flat"]
+
+
+def _shard_head_parallel_check(torch, ranks):
+    """(b)'s kernel on each rank's heads, held against its plain version:
+    each rank's output block from ``flash_attention_head_parallel`` (one
+    bf16 launch on ``H/2`` heads, q, k and v split from the rank's qkv
+    output) against ``flash_attention_plain`` on the same heads, here, at
+    the kernel's tolerance (``_check``). These launches compare the kernel
+    with its plain version and are not counted as the main path's."""
+    from fedml_tpu_torch.ops import attention as attn
+    from fedml_tpu_torch.parallel import rehearsal
+
+    spec = _shard_head_parallel_spec()
+    q, k, v = rehearsal.attention_inputs(spec, torch.device("cuda"))
+    b, h, t, d = q.shape
+    local = h // 2
+    worst = 0.0
+    for r in ranks:
+        heads = slice(r["rank"] * local, (r["rank"] + 1) * local)
+        if r["ranks"] != 2 or r["flash"] != (0, 1) or r["heads_per_launch"] != {local: 1} \
+                or r["q_stride"][1] != 3 * h * d // 2 or r["warnings"]:
+            fail(f"[shard] (b) head-parallel rank {r['rank']}: launches {r['flash']}, heads "
+                 f"per launch {r['heads_per_launch']}, q strides {r['q_stride']} (row stride "
+                 f"predicted {3 * h * d // 2}), warnings {r['warnings']}")
+        out = torch.as_tensor(r["out"]).cuda().reshape(b, t, local, d).transpose(1, 2)
+        ref = attn.flash_attention_plain(q[:, heads], k[:, heads], v[:, heads], True,
+                                         d ** -0.5)
+        torch.cuda.synchronize()
+        worst = max(worst, _check(torch, f"hp rank{r['rank']}", out, ref, torch.bfloat16,
+                                  True, t, t))
+    log(f"[shard] (b) flash_attention_head_parallel at the MAIN LM's shape [{b}, {h}, {t}, "
+        f"{d}] bf16 causal on 1 x 2 gloo ranks: one bf16 launch a rank on its {local} heads, "
+        f"q, k, v views of row stride {3 * h * d // 2} split from the rank's qkv output; "
+        f"max_abs_err {worst:.3e} against flash_attention_plain on the same heads; "
+        f"{ranks[0]['seconds']:.3f} s on rank 0")
+    return worst
+
+
+def _shard_checks(torch, one, two, tp11, lm_one):
+    """(a)-(e) of ``[shard]`` from the one-rank references ``one`` (this
+    process), the two gloo ranks' results ``two`` (``{leg: [rank 0, rank
+    1]}``) and (a)'s NCCL run ``tp11``; returns each leg's flash launches
+    (both ranks summed) and the worst error of the bf16 kernel on a rank's
+    heads against its plain version."""
+    L = SHARD["main_layers"]
+    # (a)
+    if tp11["mesh"] != {"clients": 1, "model": 1} or not np.array_equal(
+            tp11["flat"], lm_one["flat"]) or tp11["history"] != lm_one["history"] \
+            or tp11["flash"] != lm_one["flash"]:
+        fail(f"[shard] (a) transformer_tp on a 1 x 1 mesh of an NCCL world of one is not the "
+             f"unsharded FedSim: gap {_mesh_gap(tp11, lm_one):.3e}, launches {tp11['flash']} "
+             f"against {lm_one['flash']}")
+    log(f"[shard] (a) transformer_tp, mesh 1 x 1 in an NCCL world of one: bitwise the "
+        f"unsharded small f32 LM (the 1-way model axis resolves to the plain kernel path), "
+        f"f32 launches {tp11['flash'][0]} as unsharded; {tp11['shard_summary']}")
+    # (b)
+    init, ref = np.load(one["main_init"]["flat_file"]), np.load(one["main"]["flat_file"])
+    steps = SHARD["main_clients"] + 2 * -(-SHARD["held_out"] // SHARD["main_batch"])
+    if one["main"]["flash"] != (0, L * steps):
+        fail(f"[shard] (b) one rank's bf16 launches {one['main']['flash']}, predicted "
+             f"{L * steps}")
+    for plan, heads in (("fsdp", MAIN["num_heads"]), ("tp", MAIN["num_heads"] // 2)):
+        ranks = two[f"main_{plan}"]
+        flats = [np.load(r["flat_file"]) for r in ranks]
+        counts = [r["flash"] for r in ranks]
+        if counts != [(0, L * steps)] * 2 or any(
+                r["heads_per_launch"] != {heads: L * steps} for r in ranks):
+            fail(f"[shard] (b) {plan}: bf16 launches per rank {counts}, heads per launch "
+                 f"{[r['heads_per_launch'] for r in ranks]}; predicted {L * steps} on "
+                 f"{heads} heads each")
+        if not np.array_equal(flats[0], flats[1]):
+            fail(f"[shard] (b) {plan}: the two ranks' gathered models differ")
+        rel = float(np.linalg.norm((flats[0] - init) - (ref - init))
+                    / np.linalg.norm(ref - init))
+        gaps = {k: abs(ranks[0]["history"][-1][k] - one["main"]["history"][-1][k])
+                for k in ("Train/Loss", "Test/Loss", "Test/Acc")}
+        exact = np.array_equal(flats[0], ref) and ranks[0]["history"] == one["main"]["history"]
+        if plan == "fsdp" and not exact:
+            fail(f"[shard] (b) transformer_fsdp on 1 x 2 is not bitwise one rank: update "
+                 f"{rel:.3e} relative, gaps {gaps}")
+        if plan == "tp" and (not rel <= SHARD["tp_rel_update"]
+                             or max(gaps.values()) > SHARD["tp_loss_gap"]):
+            fail(f"[shard] (b) transformer_tp on 1 x 2: update {rel:.3e} from one rank's "
+                 f"(bound {SHARD['tp_rel_update']}), gaps {gaps} (bound {SHARD['tp_loss_gap']})")
+        log(f"[shard] (b) MAIN LM V={MAIN['vocab']} D={MAIN['embed_dim']} L={L} "
+            f"H={MAIN['num_heads']} T={MAIN['seq']} bf16 flash, scan, 1 round of "
+            f"{SHARD['main_clients']} clients x 1 step, transformer_{plan} on 1 x 2 gloo ranks "
+            f"sharing the card: {'bitwise' if exact else 'not bitwise'}; update {rel:.3e} "
+            f"relative to one rank's, gaps {gaps}; Train/Loss "
+            f"{ranks[0]['history'][-1]['Train/Loss']:.5f} against "
+            f"{one['main']['history'][-1]['Train/Loss']:.5f}; bf16 launches per rank "
+            f"{counts[0][1]} on {heads} heads each (predicted {L} x {steps}); run "
+            f"{ranks[0]['seconds']:.2f} s against {one['main']['seconds']:.2f} s on one rank; "
+            f"rank 0 {_traffic_line(ranks[0]['traffic'])}")
+    head_parallel_err = _shard_head_parallel_check(torch, two["head_parallel"])
+    # (c)
+    three = two["three_heads"]
+    gap = max(_mesh_gap(r, one["three_heads"]) for r in three)
+    warned = [any("3 heads do not divide" in w for w in r["warnings"]) for r in three]
+    if [r["flash"] for r in three] != [(0, 0)] * 2 or not all(warned) or not gap <= E2E_ATOL:
+        fail(f"[shard] (c) 3 heads under transformer_tp on 1 x 2: launches "
+             f"{[r['flash'] for r in three]}, warned {warned}, gap {gap:.3e} (bound {E2E_ATOL})")
+    log(f"[shard] (c) the small f32 LM with 3 heads under transformer_tp on 1 x 2: JAX's "
+        f"warning on both ranks, 0 launches, {gap:.3e} from one rank (bound {E2E_ATOL}); "
+        f"one rank's f32 launches {one['three_heads']['flash'][0]}")
+    # (d)
+    t_loc = SHARD["ring_seq"] // 2
+    for causal in (True, False):
+        ref = one[f"ring_{causal}"]
+        worst = {}
+        for r in two[f"ring_{causal}"]:
+            rows = slice(r["rank"] * t_loc, (r["rank"] + 1) * t_loc)
+            for k in ("out", "dq", "dk", "dv"):
+                worst[k] = max(worst.get(k, 0.0),
+                               float(np.max(np.abs(r[k] - ref[k][:, :, rows]))))
+        if worst["out"] > SHARD["ring_out_atol"] or max(
+                worst[k] for k in ("dq", "dk", "dv")) > SHARD["ring_grad_atol"]:
+            fail(f"[shard] (d) ring attention ({'causal' if causal else 'full'}) over 2 ranks: "
+                 f"{worst} from attention_reference")
+        r0 = two[f"ring_{causal}"][0]
+        log(f"[shard] (d) ring_attention over 2 gloo ranks, H={SHARD['ring_heads']} "
+            f"D={SHARD['ring_dim']} T={SHARD['ring_seq']} f32 "
+            f"{'causal' if causal else 'full'}: forward and gradients within {worst} of "
+            f"attention_reference on one rank (bounds {SHARD['ring_out_atol']}, "
+            f"{SHARD['ring_grad_atol']}); {r0['seconds']:.3f} s, "
+            f"{_traffic_line(r0['traffic'])}")
+    sp, sp_one = two["sp_step"], one["sp_step"]
+    loss_gap = max(abs(r["loss"] - sp_one["loss"]) for r in sp)
+    param_gap = max(float(np.max(np.abs(r["params"][k] - v)))
+                    for r in sp for k, v in sp_one["params"].items())
+    if loss_gap > SHARD["sp_loss_atol"] or param_gap > SHARD["sp_param_atol"]:
+        fail(f"[shard] (d) the SP step over 2 ranks: loss {loss_gap:.3e}, parameters "
+             f"{param_gap:.3e} from one rank")
+    log(f"[shard] (d) make_sp_lm_train_step, V={MAIN['vocab']} D={MAIN['embed_dim']} "
+        f"L={SHARD['sp_layers']} H={MAIN['num_heads']} T={MAIN['seq']} f32, B="
+        f"{SHARD['sp_batch']}, over 2 ranks: loss {sp[0]['loss']:.6f} ({loss_gap:.3e} from one "
+        f"rank's, bound {SHARD['sp_loss_atol']}), parameters within {param_gap:.3e} (bound "
+        f"{SHARD['sp_param_atol']}); step {sp[0]['seconds']:.2f} s against "
+        f"{sp_one['seconds']:.2f} s; rank 0 {_traffic_line(sp[0]['traffic'])}")
+    # (e)
+    packed = two["packed"]
+    pk_one = one["packed"]
+    err = max(float(np.max(np.abs(r["flat"] - pk_one["flat"]))) for r in packed)
+    tol = PACKED_LR_ATOL + PACKED_LR_RTOL * float(np.max(np.abs(pk_one["flat"])))
+    hist_gap = max(abs(a[k] - b[k]) for r in packed for a, b in zip(r["history"],
+                                                                  pk_one["history"]) for k in a)
+    if not err <= tol or not hist_gap <= tol or packed[0]["mesh"] != {"clients": 2}:
+        fail(f"[shard] (e) row 1 packed on a client mesh of 2: {err:.3e} / {hist_gap:.3e} "
+             f"from one rank (bound {tol:.3e}), mesh {packed[0]['mesh']}")
+    log(f"[shard] (e) row 1 ({MNIST['clients']} clients, {MNIST['per_round']} a round) "
+        f"packed into {SHARD['pack_lanes']} lanes per client shard on a client mesh of two "
+        f"gloo ranks: {'bitwise' if err == 0 and hist_gap == 0 else f'{err:.3e} from'} one "
+        f"rank's packed rounds (bound {tol:.3e}: PR 9's LR packed bounds); run "
+        f"{packed[0]['seconds']:.3f} s against {pk_one['seconds']:.3f} s")
+    return {"shard_nccl_tp": _launch_counts([tp11]),
+            "shard_main_fsdp": _launch_counts(two["main_fsdp"]),
+            "shard_main_tp": _launch_counts(two["main_tp"]),
+            "shard_three_heads": _launch_counts(list(three)),
+            "shard_ring": _launch_counts(two["ring_True"] + two["ring_False"] + sp),
+            "shard_packed": _launch_counts(list(packed))}, head_parallel_err
+
+
 def _launch_counts(results):
     """The flash launches of rank results, summed, by kernel name."""
     f32 = sum(r["flash"][0] for r in results)
@@ -6890,8 +7156,10 @@ def _launch_counts(results):
 
 
 def phase_mesh(torch, mnist_dir):
-    """The data-parallel mesh, (a)-(f) above; returns each leg's flash
-    launches (the LM's, (d), as predicted; every other leg's 0)."""
+    """The data-parallel mesh, (a)-(f) above, with ``[shard]``'s legs;
+    returns each leg's flash launches (the LM's, (d), and ``[shard]`` (a)
+    and (b)'s as predicted; every other leg's 0) and the worst error of the
+    bf16 kernel on a rank's heads against its plain version."""
     import torch.distributed as dist
 
     from fedml_tpu_torch.exp import main_multihost
@@ -6904,12 +7172,16 @@ def phase_mesh(torch, mnist_dir):
         cli_out.with_name(f"mesh_cli.rank{r}.npz").unlink(missing_ok=True)
     row1 = _mesh_row1(torch, mnist_dir)
     plain = rehearsal.run_sim(cuda, row1)
-    # (a) an NCCL world of one rank: this process, for the leg's length
+    lm, lm_expected = _mesh_lm_spec()
+    # (a) an NCCL world of one rank: this process, for the leg's length;
+    # [shard] (a) beside it: the small LM's tensor-parallel plan on 1 x 1
     t0 = time.perf_counter()
     multihost.init_multihost(f"localhost:{launch.free_port()}", 1, 0, backend="nccl",
                              platform="cuda", timeout_s=timeout)
     try:
-        probe, nccl = rehearsal.run_jobs(cuda, [("world_probe", {}), ("run_sim", row1)])
+        probe, nccl, tp11 = rehearsal.run_jobs(cuda, [
+            ("world_probe", {}), ("run_sim", row1),
+            ("run_sim", _with_config(lm, mesh_shape=(1, 1), shard_rules="transformer_tp"))])
     finally:
         dist.destroy_process_group()
     a_wall = time.perf_counter() - t0
@@ -6931,10 +7203,37 @@ def phase_mesh(torch, mnist_dir):
     flagship_one = rehearsal.cross_silo_entry(cuda, _mesh_flagship(wire_dir, one_metrics))
     f64 = _mesh_f64_spec(wire_dir)
     f64_one = rehearsal.run_sim(cuda, f64)
-    lm, lm_expected = _mesh_lm_spec()
     lm_one = rehearsal.run_sim(cuda, lm)
     bn = _mesh_bn_spec()
     bn_one = rehearsal.sync_batchnorm(cuda, bn)
+    # [shard]'s one-rank references, in this process
+    t0 = time.perf_counter()
+    packed_row1 = _with_config(row1, pack_lanes=SHARD["pack_lanes"])
+    shard_one = {
+        "main_init": rehearsal.run_sim(cuda, _with_config(_shard_main_spec("shard_main_init"),
+                                                          comm_round=0)),
+        "main": rehearsal.run_sim(cuda, _shard_main_spec("shard_main_one")),
+        "three_heads": rehearsal.run_sim(cuda, _shard_three_heads_spec()),
+        "ring_True": _ring_reference(torch, _shard_ring_spec(True)),
+        "ring_False": _ring_reference(torch, _shard_ring_spec(False)),
+        "sp_step": rehearsal.sp_lm_step(cuda, _shard_sp_spec()),
+        "packed": rehearsal.run_sim(cuda, packed_row1)}
+    torch.cuda.empty_cache()
+    log(f"[shard] the one-rank references (the full-width LM's init and round, the 3-head LM, "
+        f"attention_reference, the SP step, row 1 packed) in {time.perf_counter() - t0:.2f} s")
+    shard_jobs = [
+        ("main_fsdp", ("run_sim", _with_config(_shard_main_spec("shard_main_fsdp"),
+                                               mesh_shape=(1, 2),
+                                               shard_rules="transformer_fsdp"))),
+        ("main_tp", ("run_sim", _with_config(_shard_main_spec("shard_main_tp"),
+                                             mesh_shape=(1, 2), shard_rules="transformer_tp"))),
+        ("head_parallel", ("head_parallel", _shard_head_parallel_spec())),
+        ("three_heads", ("run_sim", _with_config(_shard_three_heads_spec(), mesh_shape=(1, 2),
+                                                 shard_rules="transformer_tp"))),
+        ("ring_True", ("ring_attention_check", _shard_ring_spec(True))),
+        ("ring_False", ("ring_attention_check", _shard_ring_spec(False))),
+        ("sp_step", ("sp_lm_step", _shard_sp_spec())),
+        ("packed", ("run_sim", packed_row1))]
     cli_args = ["--comm_round", "3", "--frequency_of_the_test", "3", "--timeout_s",
                 str(timeout)]
     _zero_flash_counters()
@@ -6949,6 +7248,7 @@ def phase_mesh(torch, mnist_dir):
     flagship_metrics = BUILD_DIR / "mesh_flagship_two.jsonl"
     jobs = [("run_sim", row1), ("run_sim", lm), ("sync_batchnorm", bn), ("run_sim", f64),
             ("cross_silo_entry", _mesh_flagship(wire_dir, flagship_metrics))]
+    jobs += [job for _, job in shard_jobs]  # [shard]'s legs, after (c)'s timed round
     t0 = time.perf_counter()
     cli = subprocess.Popen(
         [sys.executable, "-m", "fedml_tpu_torch.exp.main_multihost", "--local_device_count",
@@ -6983,7 +7283,8 @@ def phase_mesh(torch, mnist_dir):
         f"equal to one rank's (Test/Acc {float(one['Test_Acc']):.4f}); its npz written "
         f"{c_started - e_ended:.2f} s before (c)'s timed round began (negative: overlapping "
         f"it); one rank in this process {e_one:.2f} s")
-    lr_two, lm_two, bn_two, f64_two, flagship_two = zip(*ranks)
+    lr_two, lm_two, bn_two, f64_two, flagship_two = zip(*(r[:5] for r in ranks))
+    shard_two = {name: [r[5 + i] for r in ranks] for i, (name, _) in enumerate(shard_jobs)}
     # (b)
     gap = _mesh_gap(lr_two[0], nccl)
     if lr_two[0]["mesh"] != {"clients": 2} or not np.array_equal(lr_two[0]["flat"],
@@ -7054,14 +7355,18 @@ def phase_mesh(torch, mnist_dir):
     log(f"[mesh] (f) SyncBatchNorm forward and backward ([8, 3, 4, 4] f32) on two ranks: "
         f"outputs, statistics and gradients at most {worst:.3e} from one rank on the whole "
         f"batch (bound {tol} + {tol} relative)")
-    log(f"[mesh] two-rank launch of (b), (c), (d), (f): {two_wall:.2f} s (spawns, loads and "
-        f"builds included; beside (e)'s command)")
-    return {"mesh_nccl": _launch_counts([nccl, plain]), "mesh_gloo_lr": _launch_counts(lr_two),
+    log(f"[mesh] two-rank launch of (b), (c), (d), (f) and [shard]'s legs: {two_wall:.2f} s "
+        f"(spawns, loads and builds included; beside (e)'s command); [shard]'s legs on rank 0 "
+        f"{sum(r[0]['seconds'] for r in shard_two.values()):.2f} s")
+    shard_launches, head_parallel_err = _shard_checks(torch, shard_one, shard_two, tp11,
+                                                      lm_one)
+    return {**shard_launches,
+            "mesh_nccl": _launch_counts([nccl, plain]), "mesh_gloo_lr": _launch_counts(lr_two),
             "mesh_flagship": _launch_counts(list(flagship_two) + list(f64_two)
                                             + [flagship_one, f64_one]),
             "mesh_multihost": e_launches,
             "mesh_syncbn": _launch_counts(list(bn_two) + [bn_one]),
-            "mesh_lm": _launch_counts(list(lm_two))}
+            "mesh_lm": _launch_counts(list(lm_two))}, head_parallel_err
 
 
 def _timed(name, fn, *args):
@@ -7124,7 +7429,11 @@ def main() -> None:
         cli_launches.update(_timed("async", phase_async, torch, mnist_dir, solo_flagship))
         cli_launches.update(_timed("downlink", phase_downlink, torch, mnist_dir))
         cli_launches.update(_timed("families wire", phase_families_wire, torch, mnist_dir))
-        cli_launches.update(_timed("mesh", phase_mesh, torch, mnist_dir))
+        mesh_launches, head_parallel_err = _timed("mesh", phase_mesh, torch, mnist_dir)
+        cli_launches.update(mesh_launches)
+        # [shard] (b)'s kernel on a rank's heads against its plain version
+        bf16 = next(name for name, spec in KERNELS.items() if spec["dtype"] == "bfloat16")
+        errors[bf16] = max(errors[bf16], head_parallel_err)
     cli_launches["export"] = _timed("export", phase_export, torch)
     log(f"[mnist] the row's 1000-client LEAF JSON loaded once in {loads[0]:.2f} s for its "
         f"runs (repro, four CLI, FedProx, FedNova, hierarchical, trace, gossip, fedgan, "
@@ -7174,7 +7483,8 @@ def main() -> None:
                  "async_sim", "downlink_flagship", "downlink_dense_arms", "downlink_async",
                  "downlink_tree", "downlink_mqtt_s3", "families_wire_split",
                  "families_wire_vfl", "families_wire_gkt", "export", "mesh_nccl",
-                 "mesh_gloo_lr", "mesh_flagship", "mesh_multihost", "mesh_syncbn"):
+                 "mesh_gloo_lr", "mesh_flagship", "mesh_multihost", "mesh_syncbn",
+                 "shard_three_heads", "shard_ring", "shard_packed"):
         if any(cli_launches[path].values()):
             fail(f"the {path} path launched the flash kernels: {cli_launches[path]}")
     kernels = [{

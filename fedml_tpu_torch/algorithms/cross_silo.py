@@ -11,7 +11,7 @@ rank trains on its rows of every batch, and the silo's ranks sum their
 gradients and BatchNorm moments in each step, as DDP does
 (:func:`make_silo_local_train`). :func:`run_cross_silo` runs each silo on
 one device; a multi-rank silo there needs the silo's other ranks to follow
-its master over the wire (ROADMAP §A12b). The server is the unmodified
+its master over the wire (ROADMAP §A12b.4). The server is the unmodified
 distributed FedAvg server: cross-silo is a client-side composition.
 """
 
@@ -63,7 +63,7 @@ def make_silo_local_train(trainer: ClientTrainer, silo_mesh=None) -> Callable:
         raise NotImplementedError(
             f"a silo over {len(devices)} devices of one process: the port runs a "
             "data-parallel silo over the ranks of a silo mesh (parallel.mesh.silo_mesh, one "
-            "rank per device); a multi-rank silo in run_cross_silo is ROADMAP §A12b")
+            "rank per device); a multi-rank silo in run_cross_silo is ROADMAP §A12b.4")
     want = torch.device(devices[0]) if devices else device
     if want.type != device.type or want.index not in (None, device.index):
         raise ValueError(f"silo device {want} is not the trainer's device {device}")

@@ -28,9 +28,10 @@ time up to the synchronisation, eval excluded), as ``FedSim.run`` reports it.
 At the start the loop logs the sim's packed-lane and population summaries
 (``FedSim.pack_summary``, ``population_summary``), as the JAX loop does;
 with packed lanes on the card it captures the lane pass's CUDA graph before
-the prefetch thread starts. Each round runs in a ``loop/round`` span and the
+the prefetch thread starts, and the sharded-model summary
+(``FedSim.shard_summary``). Each round runs in a ``loop/round`` span and the
 salvage of drained rounds in ``loop/salvage_flush`` (``obs/trace.py``, the
-JAX loop's); its sharded summary comes with that plane (§A12b).
+JAX loop's).
 """
 
 from __future__ import annotations
@@ -64,9 +65,15 @@ def run_rounds(sim, cfg, metrics_out: str | None, round_sleep: float = 0.0,
         # packed lanes (SimConfig.pack_lanes): the lane geometry beside the
         # run, so a reader can tell which execution mode made the curve
         logging.info("packed-lane execution: %s", pack)
-        if sim.device.type == "cuda" and cfg.comm_round > 0:
+        if sim.device.type == "cuda" and sim.mesh.size == 1 and cfg.comm_round > 0:
             # a capture may not overlap the prefetch thread's pinned copies
             sim.capture_pass_graph(0, variables=variables)
+    shard = getattr(sim, "shard_summary", lambda: {})()
+    if shard:
+        # sharded client models (SimConfig.shard_rules): the rule set, the
+        # mesh and the program beside the run, so a reader can tell which
+        # parallelism made the curve
+        logging.info("shard_summary: %s", shard)
     pop = getattr(sim, "population_summary", lambda: {})()
     if pop:
         # a heterogeneous population (SimConfig.population): the spec or

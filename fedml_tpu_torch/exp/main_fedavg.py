@@ -57,11 +57,13 @@ loopback|shm|grpc``, ``--buffer_goal``, ``--staleness_weight``,
 co-scheduled over one shared loopback wire, ``fedml_tpu_torch/tenancy``);
 ``--downlink_compressor`` (downlink delta coding on every wire backend and
 server mode, ``--downlink_keyframe_every``, ``--downlink_retention``; the sim
-engine refuses it in the JAX engine's words).
+engine refuses it in the JAX engine's words); ``--mesh_shape`` and
+``--shard_rules`` (the sim engine's ``clients x model`` rank mesh and its
+tensor-parallel or FSDP plan, over the ``torch.distributed`` world the run
+is started in: ``parallel/launch.py``, ``main_multihost``; without enough
+ranks ``shard_mesh``'s count error).
 
-The JAX CLI's own flag-combination errors are kept as they are; after them,
-a flag whose plane is not ported (the multi-GPU mesh) raises ``NotImplementedError`` naming its ROADMAP item when it is set away
-from its default.
+The JAX CLI's own flag-combination errors are kept as they are.
 
     python -m fedml_tpu_torch.exp.main_fedavg --model lr --dataset mnist \\
         --client_num_in_total 1000 --client_num_per_round 10 --batch_size 10
@@ -193,8 +195,19 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--pack_capacity_factor", type=float, default=1.25,
                         help="lane-length head room over the expected cohort load; "
                              "overflow draws spill to an extra sequential pass")
-    parser.add_argument("--mesh_shape", type=str, default=None)
-    parser.add_argument("--shard_rules", type=str, default=None)
+    parser.add_argument("--mesh_shape", type=str, default=None,
+                        help="2-D rank mesh 'CLIENTSxMODEL' (e.g. 2x4) over the "
+                             "torch.distributed world the run is started in "
+                             "(parallel/launch.py, main_multihost): cohort parallelism "
+                             "across the client axis, tensor/FSDP model parallelism "
+                             "within a client across the model axis; validated against "
+                             "the rank count")
+    parser.add_argument("--shard_rules", type=str, default=None,
+                        help="partition-rule set sharding the client model over the "
+                             "mesh's model axis: transformer_tp | transformer_fsdp | "
+                             "cnn_tp | cnn_fsdp (fedml_tpu_torch.parallel.rules); unset = "
+                             "every client model lives whole on one rank. Requires "
+                             "--backend sim")
     parser.add_argument("--pipeline_depth", type=int, default=-1,
                         help="pipelined round driver: -1 auto (depth 1: staging on a "
                              "background thread, metrics fetched a round behind), 0 serial "
@@ -216,14 +229,6 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default; raises without a card) or cpu")
     return parser
-
-
-# flags whose plane the port does not implement yet: dest -> ROADMAP item.
-# Setting one away from its default raises (checked after the JAX CLI's own
-# flag-combination errors).
-_UNPORTED_FLAGS = {
-    "mesh_shape": "§A12b (the model axis)", "shard_rules": "§A12b (the model axis)",
-}
 
 
 def build_trainer(args, model, dataset_name: str):
@@ -426,16 +431,6 @@ def _check_flag_combinations(args) -> None:
         )
 
 
-def _check_ported(args, defaults: dict) -> None:
-    """Raise for a flag of a plane the port does not implement yet, set away
-    from its default, naming its ROADMAP item."""
-    for dest, item in _UNPORTED_FLAGS.items():
-        value = getattr(args, dest)
-        if value != defaults[dest]:
-            raise NotImplementedError(
-                f"--{dest}={value!r} is not ported to fedml_tpu_torch yet: ROADMAP {item}")
-
-
 def run(args) -> list[dict]:
     """Run the experiment ``args`` describe; returns the round history. With
     ``--trace_dir`` the run is traced (``obs/trace.py`` ``run_traced``)."""
@@ -449,11 +444,11 @@ def build(args):
     describe, as :func:`run` builds them: ``(sim, config)``."""
     from fedml_tpu_torch.data.registry import load_partition_data
     from fedml_tpu_torch.models.registry import create_model
+    from fedml_tpu_torch.parallel.mesh import parse_mesh_shape
     from fedml_tpu_torch.population import sim_config_fields as population_fields
     from fedml_tpu_torch.sim.engine import FedSim, SimConfig
 
     _check_flag_combinations(args)
-    _check_ported(args, vars(add_args(argparse.ArgumentParser()).parse_args([])))
     ds = load_partition_data(
         args.dataset, args.data_dir, args.partition_method, args.partition_alpha,
         args.client_num_in_total, args.seed,
@@ -487,6 +482,8 @@ def build(args):
         quantize_bits=args.quantize_bits,
         downlink_compressor=args.downlink_compressor,
         error_feedback=bool(args.error_feedback),
+        mesh_shape=parse_mesh_shape(args.mesh_shape),
+        shard_rules=args.shard_rules,
         **population_fields(args),
     )
     if args.algorithm == "fedgan":
@@ -506,7 +503,6 @@ def _run(args) -> list[dict]:
         # the flag combinations are gated before any data/model work, then
         # each job builds its own data/model/trainer from its overlaid flags
         _reject_multijob_conflicts(args)
-        _check_ported(args, vars(add_args(argparse.ArgumentParser()).parse_args([])))
         with MetricsLogger(run_dir=args.run_dir, use_wandb=bool(args.enable_wandb)) as metrics:
             return _run_multi_job(args, metrics)
     if args.backend != "sim":
@@ -573,7 +569,6 @@ def _run_message_passing(args) -> list[dict]:
     from fedml_tpu_torch.obs.metrics import MetricsLogger
 
     _check_flag_combinations(args)
-    _check_ported(args, vars(add_args(argparse.ArgumentParser()).parse_args([])))
     if args.algorithm not in ("fedavg", "fedprox", "fedavg_robust"):
         raise NotImplementedError(
             f"--backend {args.backend} runs the message-passing FedAvg "

@@ -28,8 +28,10 @@ Departures from the JAX entry point:
   files of the JAX package's own runs;
 - ``--device`` (default ``cuda``) names the device; with no card the run
   raises unless ``--device cpu``;
-- ``--mesh_shape`` and ``--shard_rules`` (sharded client models over a
-  device mesh) are refused by ``SimConfig``: the model axis is ROADMAP §A12b.
+- ``--mesh_shape`` and ``--shard_rules`` lay the ``clients x model`` mesh
+  over the ranks of the ``torch.distributed`` world the run is started in
+  (one rank without one: a mesh of more raises ``shard_mesh``'s count
+  error).
 
 Usage: python -m fedml_tpu_torch.exp.repro_stackoverflow_nwp [--comm_round 1500] [--out REPORT.md]
 """
@@ -48,11 +50,6 @@ def run(args) -> dict:
     return run_traced(_run, args)
 
 
-def _mesh_shape(spec: str | None) -> tuple | None:
-    """``'CLIENTSxMODEL'`` as a tuple of ints (``SimConfig`` refuses one)."""
-    return tuple(int(d) for d in spec.lower().split("x")) if spec else None
-
-
 def _run(args) -> dict:
     from fedml_tpu_torch.algorithms.robust import sim_config_fields as robust_fields
     from fedml_tpu_torch.core.trainer import ClientTrainer, sgd
@@ -66,6 +63,7 @@ def _run(args) -> dict:
     from fedml_tpu_torch.exp._loop import run_rounds
     from fedml_tpu_torch.models.rnn import RNNStackOverflow
     from fedml_tpu_torch.obs.metrics import logging_config
+    from fedml_tpu_torch.parallel.mesh import parse_mesh_shape
     from fedml_tpu_torch.population import sim_config_fields as population_fields
     from fedml_tpu_torch.sim.engine import FedSim, SimConfig
 
@@ -132,7 +130,7 @@ def _run(args) -> dict:
         seed=args.seed,
         pack_lanes=args.pack_lanes,
         pack_capacity_factor=args.pack_capacity_factor,
-        mesh_shape=_mesh_shape(args.mesh_shape),
+        mesh_shape=parse_mesh_shape(args.mesh_shape),
         shard_rules=args.shard_rules or None,
         **robust_fields(args),
         **population_fields(args),
@@ -266,9 +264,13 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--frequency_of_the_test", type=int, default=50)
     add_pack_flags(parser)
     parser.add_argument("--mesh_shape", type=str, default=None,
-                        help="'CLIENTSxMODEL' device mesh (ROADMAP §A12b: refused)")
+                        help="2-D 'CLIENTSxMODEL' rank mesh for sharded client models "
+                             "over the torch.distributed world the run is started in; "
+                             "unset = 1-D client mesh")
     parser.add_argument("--shard_rules", type=str, default=None,
-                        help="partition-rule set over the mesh (ROADMAP §A12b: refused)")
+                        help="partition-rule set sharding the client model over the "
+                             "mesh's model axis (e.g. transformer_fsdp); unset = "
+                             "unsharded")
     add_trace_cli_flag(parser)
     add_robust_cli_flags(parser)
     add_population_cli_flags(parser)

@@ -340,3 +340,86 @@ def flash_attention(q, k, v, causal: bool = False, sm_scale: float | None = None
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, causal, sm_scale, block_q, block_k)
+
+
+def _head_parallel(attend, q, k, v, axis, num_heads, warn):
+    """``attend`` over this rank's heads of a tensor-parallel attention.
+
+    ``q``, ``k``, ``v`` are this rank's ``[B, T, C/M]`` blocks of the
+    projected features (the column-parallel qkv output, whole heads when
+    the heads divide the ``M``-way ``axis``); the result is this rank's
+    ``[B, T, C/M]`` block of the attention output, the row-parallel proj's
+    input. Resolution: ``axis`` None or not bound to a group of more than
+    one rank (``collectives.bind``) -> all ``num_heads`` heads here; heads
+    that divide the axis -> ``attend`` on this rank's ``num_heads / M``
+    heads ``[B, H/M, T, D]``; else the blocks gathered to every head,
+    :func:`attention_reference` on them and this rank's block of its
+    output (with JAX's warning when ``warn``)."""
+    from fedml_tpu_torch.parallel import collectives
+
+    group = None if axis is None else collectives.bound(axis)
+    n = collectives.group_size(group)
+    b, t, c_local = q.shape
+    head_dim = c_local * n // num_heads
+
+    def heads(a, h):  # [B, T, h * D] -> [B, h, T, D]
+        return a.reshape(b, t, h, head_dim).transpose(1, 2)
+
+    if num_heads % n == 0:
+        h = num_heads // n
+        o = attend(heads(q, h), heads(k, h), heads(v, h))
+        return o.transpose(1, 2).reshape(b, t, c_local)
+    if warn:
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "flash attention under a %d-way %r model axis: %d heads do not "
+            "divide the axis, so the pallas kernel cannot run per-rank — "
+            "falling back to gathered xla attention for this program; pick "
+            "num_heads divisible by the model axis to keep the kernel on "
+            "the sharded path",
+            n, axis, num_heads,
+        )
+    q, k, v = (heads(collectives.gather_axis(a, -1, group), num_heads) for a in (q, k, v))
+    o = attention_reference(q, k, v, causal=attend.keywords["causal"],
+                            sm_scale=attend.keywords["sm_scale"])
+    return collectives.scatter_axis(o.transpose(1, 2).reshape(b, t, c_local * n), -1, group)
+
+
+def flash_attention_head_parallel(q, k, v, *, axis: str | None, num_heads: int,
+                                  causal: bool = False, sm_scale: float | None = None,
+                                  block_q: int = 128, block_k: int = 128):
+    """:func:`flash_attention` on a tensor-parallel plan: each ``axis`` rank
+    runs the kernel on its LOCAL heads (``fedml_tpu/ops/attention.py:230``).
+
+    The port's tensor parallelism is explicit, so the inputs are this rank's
+    ``[B, T, C/M]`` blocks of the projected q, k and v features and the
+    output is its block of the attention output (the JAX function takes and
+    gives the global ``[B, H, T, D]`` view, which GSPMD lays out). Resolution
+    order, JAX's:
+
+    - no ``axis``, no world, ``axis`` not bound (``collectives.bind``), or a
+      1-way axis -> the kernel on all ``num_heads`` heads (the unsharded
+      module's bits);
+    - heads divide the axis -> the kernel on this rank's ``[B, H/M, T, D]``
+      heads (attention is head-local: the same bits as the full-head kernel
+      on those heads), one launch a rank;
+    - heads do NOT divide the axis -> JAX's warning, and
+      :func:`attention_reference` over the gathered heads (no launch).
+
+    The last is chosen by shape alone; a kernel that fails to build or to
+    launch raises, on every path. The backward is :func:`_blockwise_bwd`
+    per rank."""
+    attend = functools.partial(flash_attention, causal=causal, sm_scale=sm_scale,
+                               block_q=block_q, block_k=block_k)
+    return _head_parallel(attend, q, k, v, axis, num_heads, warn=True)
+
+
+def attention_head_parallel(q, k, v, *, axis: str | None, num_heads: int,
+                            causal: bool = False, sm_scale: float | None = None):
+    """:func:`flash_attention_head_parallel`'s resolution for the plain
+    materialised attention (``attn_impl="xla"``), which gathers the heads
+    without a warning where they do not divide the axis (GSPMD partitions
+    the JAX einsums on any split)."""
+    attend = functools.partial(attention_reference, causal=causal, sm_scale=sm_scale)
+    return _head_parallel(attend, q, k, v, axis, num_heads, warn=False)

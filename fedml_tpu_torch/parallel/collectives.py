@@ -13,7 +13,15 @@ axis:
   training step reduces over: differentiable (the backward of a sum over
   ranks is a sum over ranks of the gradients) and batched under
   ``torch.func.vmap`` (the whole ``[C_local, ...]`` batch in one call, c10d
-  ops having no batching rule). It is the identity where no group is bound.
+  ops having no batching rule). It is the identity where no group is bound;
+- :func:`ring_shift` is JAX's ``ppermute`` around the group's ring (ring
+  attention's hop);
+- tensor parallelism's autograd pairs, each with a vmap rule:
+  :func:`gather_axis` (concatenate along a dimension forward, this rank's
+  block of the gradient backward), its transpose :func:`scatter_axis`,
+  :func:`copy_to_axis` (identity forward, sum backward: a column-parallel
+  layer's input) and :func:`reduce_from_axis` (sum forward, identity
+  backward: a row-parallel layer's output).
 
 The backend is the world's, which the caller named when it formed it
 (``parallel/multihost.py``): NCCL moves CUDA tensors in place; gloo moves
@@ -161,3 +169,145 @@ def axis_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
     itself where none is bound."""
     group = bound(axis)
     return x if group is None else _AxisSum.apply(x, group)
+
+
+def ring_shift(t: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """JAX's ``ppermute`` over the ring of ``group``'s ranks: group rank r's
+    ``t`` lands on rank ``(r + shift) % n``, so each rank returns the tensor of
+    rank ``(r - shift) % n`` (one send and one receive a rank, batched with
+    ``dist.batch_isend_irecv``). ``t`` itself for a group of one."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    buf = _to_wire("ppermute", t, group)
+    out = torch.empty_like(buf)
+    me = dist.get_rank(group)
+    ops = [dist.P2POp(dist.isend, buf, dist.get_global_rank(group, (me + shift) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (me - shift) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return _from_wire("ppermute", out, t)
+
+
+def _own_block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (``n`` equal blocks in group
+    rank order)."""
+    n = group_size(group)
+    size = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * size, size)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group rank order."""
+    full = all_gather(x.movedim(dim, 0), group)
+    return full.movedim(0, dim)
+
+
+class _GatherAxis(torch.autograd.Function):
+    """Concatenate over the group along ``dim`` forward; this rank's block of
+    the gradient backward (Megatron's gather of a column-parallel output)."""
+
+    @staticmethod
+    def forward(x, dim, group):
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.group = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ScatterAxis.apply(grad, ctx.dim, ctx.group), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, group):
+        x = x.movedim(in_dims[0], 0)
+        return _GatherAxis.apply(x, dim % (x.dim() - 1) + 1, group), 0
+
+
+class _ScatterAxis(torch.autograd.Function):
+    """This rank's block along ``dim`` forward; the blocks concatenated over
+    the group backward (the transpose of :class:`_GatherAxis`)."""
+
+    @staticmethod
+    def forward(x, dim, group):
+        return _own_block(x, dim, group).clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.group = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherAxis.apply(grad, ctx.dim, ctx.group), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, group):
+        x = x.movedim(in_dims[0], 0)
+        return _ScatterAxis.apply(x, dim % (x.dim() - 1) + 1, group), 0
+
+
+class _CopyToAxis(torch.autograd.Function):
+    """The identity forward, a sum over the group backward: the input of a
+    column-parallel layer (Megatron's ``f``), whose every rank's partial
+    input gradient adds up to the whole."""
+
+    @staticmethod
+    def forward(x, group):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ReduceFromAxis.apply(grad, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _CopyToAxis.apply(x, group), in_dims[0]
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    """A sum over the group forward, the identity backward: the output of a
+    row-parallel layer (Megatron's ``g``)."""
+
+    @staticmethod
+    def forward(x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _CopyToAxis.apply(grad, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _ReduceFromAxis.apply(x, group), in_dims[0]
+
+
+def gather_axis(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Differentiable all-gather along ``dim`` (concatenation forward, this
+    rank's block of the gradient backward); ``x`` itself for a group of
+    one."""
+    return x if group_size(group) == 1 else _GatherAxis.apply(x, dim, group)
+
+
+def scatter_axis(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Differentiable cut of a replicated ``x`` to this rank's block along
+    ``dim`` (the blocks' gradients concatenated backward)."""
+    return x if group_size(group) == 1 else _ScatterAxis.apply(x, dim, group)
+
+
+def copy_to_axis(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, gradient summed over ``group`` backward."""
+    return x if group_size(group) == 1 else _CopyToAxis.apply(x, group)
+
+
+def reduce_from_axis(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group`` forward, identity backward."""
+    return x if group_size(group) == 1 else _ReduceFromAxis.apply(x, group)

@@ -124,8 +124,7 @@ def shard_mesh(mesh_shape, ranks=None) -> RankMesh:
     """2-D mesh [clients, model]: cohort parallelism x within-client model
     parallelism. ``mesh_shape`` is ``(n_client_shards, n_model_shards)``;
     the product must divide the rank count evenly, and a proper divisor
-    takes the first ``clients * model`` ranks. The engine refuses the
-    ``model`` axis until the model plans are ported (ROADMAP §A12b)."""
+    takes the first ``clients * model`` ranks."""
     ranks = list(ranks if ranks is not None else world_ranks())
     try:
         clients, model = (int(x) for x in mesh_shape)

@@ -17,12 +17,24 @@ smoke script compare the two:
 - :func:`cross_silo_entry` — the cross-silo flagship through its entry
   point, ``exp/repro_cross_silo.run``, which lays its mesh over the world;
 - :func:`world_probe` — one all-reduce over the world's own backend;
+- :func:`shard_roundtrip` — ``dispatch.shard`` and ``unshard`` of a state
+  dict by a rule set;
+- :func:`head_parallel` — ``ops.attention.flash_attention_head_parallel``
+  on this rank's heads of a ``clients x model`` mesh's model axis;
+- :func:`ring_attention_check` — ``parallel.ring_attention`` on this
+  rank's block of a sequence, forward and gradients;
+- :func:`sp_lm_step` — ``parallel.sequence.make_sp_lm_train_step``, one
+  step of a ring-attention LM on this rank's block of the tokens;
 - :func:`run_jobs` — several of these in one launch, in order.
+
+:func:`run_sim` takes the sharded plans too (``config``'s ``mesh_shape``
+and ``shard_rules``: the engine lays the mesh over the world).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import numpy as np
@@ -104,21 +116,43 @@ def _numpy(tree: dict) -> dict:
 
 def _counted(device, fn, *args):
     """``fn(*args)`` timed to the device's end, with what the collectives
-    moved and the flash kernels' launches in it; ``started_at`` is the
-    start on the host's wall clock (to order it against other processes)."""
+    moved and the flash kernels' launches in it (and, beside the kernels'
+    own counters, the head count of each launch on the card), the warnings
+    it logged (each text once); ``started_at`` is the start on the host's
+    wall clock (to order it against other processes)."""
+    import collections
+    import logging
+
     from fedml_tpu_torch.ops import attention
 
     collectives.TRAFFIC.reset()
     attention.FLASH_FWD_F32_LAUNCHES = attention.FLASH_FWD_BF16_LAUNCHES = 0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    started_at, t0 = time.time(), time.perf_counter()
-    out = fn(*args)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    heads: collections.Counter = collections.Counter()
+    launch_kernel = attention.flash_fwd_cuda
+
+    def recorded(q, *rest):
+        heads[int(q.shape[1])] += 1
+        return launch_kernel(q, *rest)
+
+    warnings: list[str] = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    logging.getLogger().addHandler(handler)
+    attention.flash_fwd_cuda = recorded
+    try:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        started_at, t0 = time.time(), time.perf_counter()
+        out = fn(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        attention.flash_fwd_cuda = launch_kernel
+        logging.getLogger().removeHandler(handler)
     return out, {"seconds": time.perf_counter() - t0, "started_at": started_at,
                  "traffic": collectives.TRAFFIC.snapshot(),
-                 "flash": (attention.FLASH_FWD_F32_LAUNCHES, attention.FLASH_FWD_BF16_LAUNCHES)}
+                 "flash": (attention.FLASH_FWD_F32_LAUNCHES, attention.FLASH_FWD_BF16_LAUNCHES),
+                 "heads_per_launch": dict(heads), "warnings": sorted(set(warnings))}
 
 
 def run_sim(device, spec: dict) -> dict:
@@ -127,8 +161,11 @@ def run_sim(device, spec: dict) -> dict:
     ``spec["init"]`` (a state dict of numpy arrays) or from the seed.
     ``spec["data"]``: an npz path (:func:`save_federated`) or ``(train
     arrays, partition, test arrays)``; ``spec["config"]``: ``SimConfig``
-    fields; ``spec["gossip_ring"]``: the per-client mode, gossip over a ring
-    of the config's clients."""
+    fields (``mesh_shape`` and ``shard_rules`` too); ``spec["gossip_ring"]``:
+    the per-client mode, gossip over a ring of the config's clients;
+    ``spec["flat_file"]``: a path prefix, under which the rank saves the
+    flat view (``<prefix>.rank<r>.npy``) in place of returning the
+    variables."""
     from fedml_tpu_torch.parallel.multihost import flatten_variables
     from fedml_tpu_torch.sim.cohort import FederatedArrays
     from fedml_tpu_torch.sim.engine import FedSim, SimConfig
@@ -147,16 +184,22 @@ def run_sim(device, spec: dict) -> dict:
         from fedml_tpu_torch.topology.topology import ring_topology
 
         aggregator = gossip_aggregator(ring_topology(cfg.client_num_in_total))
-    sim = FedSim(trainer, train, test, cfg, aggregator=aggregator, device=device,
-                 mesh=_mesh(spec))
+    # a sharded plan lays its clients x model mesh over the world itself
+    mesh = None if cfg.mesh_shape is not None or cfg.shard_rules else _mesh(spec)
+    sim = FedSim(trainer, train, test, cfg, aggregator=aggregator, device=device, mesh=mesh)
     init = spec.get("init")
     variables = sim.init_round_variables(
         None if init is None else {k: torch.as_tensor(v) for k, v in init.items()})
     (final, history), counted = _counted(device, sim.run, None, variables)
-    return {"variables": _numpy(final), "flat": flatten_variables(final),
-            "history": [{k: v for k, v in rec.items() if k != "round_time"} for rec in history],
-            "round_times": [rec["round_time"] for rec in history], "mesh": sim.mesh.shape,
-            **counted}
+    out = {"history": [{k: v for k, v in rec.items() if k != "round_time"} for rec in history],
+           "round_times": [rec["round_time"] for rec in history], "mesh": sim.mesh.shape,
+           "shard_summary": sim.shard_summary(), **counted}
+    if spec.get("flat_file"):
+        # a large model's flat view goes to a file, not through the launch
+        path = f"{spec['flat_file']}.rank{sim.mesh.rank}.npy"
+        np.save(path, flatten_variables(final))
+        return {**out, "flat_file": path}
+    return {**out, "variables": _numpy(final), "flat": flatten_variables(final)}
 
 
 def silo_local_train(device, spec: dict) -> dict:
@@ -236,6 +279,121 @@ def world_probe(device, spec: dict) -> dict:
     return {"backend": dist.get_backend(), "world": world, "sum": float(t[0]),
             "gather": collectives.all_gather(mine, group).tolist(),
             "broadcast": float(collectives.broadcast(mine, world - 1, group))}
+
+
+def attention_inputs(spec: dict, device):
+    """An attention job's ``q``, ``k``, ``v`` (``[B, H, T, D]``) on
+    ``device`` in ``spec["dtype"]`` (default float32): ``spec["q"]``,
+    ``["k"]``, ``["v"]`` (numpy), or else three standard normal draws of
+    ``spec["shape"]`` on the host from a generator seeded with
+    ``spec["seed"]``."""
+    if "q" in spec:
+        arrays = [torch.as_tensor(spec[k]) for k in ("q", "k", "v")]
+    else:
+        gen = torch.Generator().manual_seed(spec["seed"])
+        arrays = [torch.randn(spec["shape"], generator=gen) for _ in range(3)]
+    return [a.to(device, _DTYPES[spec.get("dtype", "float32")]) for a in arrays]
+
+
+def head_parallel(device, spec: dict) -> dict:
+    """``flash_attention_head_parallel`` on this rank's heads of
+    :func:`attention_inputs`, on the model axis of
+    ``shard_mesh(spec["mesh_shape"])``, causal as ``spec["causal"]``. The
+    inputs are laid out as a tensor-parallel ``MultiHeadSelfAttention``
+    gives them: this rank's ``[B, T, 3C/M]`` column-parallel qkv output
+    split into q, k and v, views of row stride ``3C/M``. Returns this
+    rank's block of the output (``[B, T, C/M]``), the strides of its q
+    view, the flash launches, the heads of each launch and the warnings the
+    call logged."""
+    from fedml_tpu_torch.ops import attention
+
+    mesh = meshlib.shard_mesh(spec["mesh_shape"])
+    group = mesh.group(meshlib.MODEL_AXIS)
+    n = collectives.group_size(group)
+    r = mesh.coord(meshlib.MODEL_AXIS)
+    qkv = attention_inputs(spec, device)
+    b, h, t, d = qkv[0].shape
+    c = h * d
+    local = torch.cat([a.transpose(1, 2).reshape(b, t, c)[..., r * c // n:(r + 1) * c // n]
+                       for a in qkv], dim=-1)
+    blocks = local.split(c // n, dim=-1)
+    with collectives.bind(meshlib.MODEL_AXIS, group):
+        out, counted = _counted(device, functools.partial(
+            attention.flash_attention_head_parallel, axis=meshlib.MODEL_AXIS, num_heads=h,
+            causal=spec["causal"]), *blocks)
+    return {"out": out.float().cpu().numpy(), "rank": r, "ranks": n,
+            "q_stride": tuple(blocks[0].stride()), **counted}
+
+
+def shard_roundtrip(device, spec: dict) -> dict:
+    """``spec["state"]`` (a state dict of numpy arrays) cut to this rank's
+    blocks by the rule set ``spec["rules"]`` on ``shard_mesh(
+    spec["mesh_shape"])`` (``dispatch.shard``) and gathered back
+    (``dispatch.unshard``): the blocks and the gathered state."""
+    from fedml_tpu_torch.parallel import dispatch, rules
+
+    mesh = meshlib.shard_mesh(spec["mesh_shape"])
+    ruleset = rules.rule_set(spec["rules"])
+    state = {k: torch.as_tensor(v).to(device) for k, v in spec["state"].items()}
+    specs = rules.match_partition_rules(ruleset.rules, state)
+    blocks = dispatch.shard_tree(state, specs, mesh, ruleset.groups_of)
+    full = dispatch.unshard_tree(blocks, specs, mesh, ruleset.groups_of)
+    return {"blocks": _numpy(blocks), "full": _numpy(full),
+            "coord": mesh.coord(meshlib.MODEL_AXIS)}
+
+
+def ring_attention_check(device, spec: dict) -> dict:
+    """``ring_attention`` over the world's ``sp`` mesh on this rank's block
+    of the sequence of ``spec["q"]``, ``["k"]``, ``["v"]`` (``[B, H, T,
+    D]`` numpy), causal as ``spec["causal"]``, with the gradients of
+    ``sum(out * spec["dy"])``: this rank's blocks of the output and of dq,
+    dk and dv."""
+    from fedml_tpu_torch.parallel import sequence
+    from fedml_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = sequence.sequence_mesh()
+    group = mesh.group(sequence.SP_AXIS)
+    n = collectives.group_size(group)
+    r = mesh.coord(sequence.SP_AXIS) if n > 1 else 0
+    t = spec["q"].shape[2] // n
+    q, k, v = (a[:, :, r * t:(r + 1) * t].contiguous().requires_grad_(True)
+               for a in attention_inputs(spec, device))
+    dy = torch.as_tensor(spec["dy"][:, :, r * t:(r + 1) * t]).to(device, q.dtype)
+
+    def forward_backward():
+        with collectives.bind(sequence.SP_AXIS, group):
+            out = ring_attention(q, k, v, sequence.SP_AXIS, causal=spec["causal"])
+            torch.sum(out.float() * dy.float()).backward()
+        return out
+
+    out, counted = _counted(device, forward_backward)
+    return {"out": out.detach().float().cpu().numpy(), "rank": r,
+            **{f"d{name}": a.grad.float().cpu().numpy() for name, a in
+               (("q", q), ("k", k), ("v", v))}, **counted}
+
+
+def sp_lm_step(device, spec: dict) -> dict:
+    """One ``make_sp_lm_train_step`` step over the world's ``sp`` mesh:
+    ``spec["model"]`` (``TransformerLM`` kwargs, ``attn_impl`` forced to
+    ``"ring"``), ``spec["init"]`` (its parameters, numpy; None: the model's
+    own seeded initialisation), ``spec["batch"]`` (``x``, ``y``, ``mask``
+    ``[B, T]`` numpy) and ``spec["lr"]`` (SGD): the new parameters and the
+    loss."""
+    from fedml_tpu_torch.core.trainer import sgd
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.parallel import sequence
+
+    kwargs = dict(spec["model"])
+    kwargs["dtype"] = _DTYPES[kwargs.get("dtype", "float32")]
+    model = TransformerLM(**{**kwargs, "attn_impl": "ring"}, device=device)
+    mesh = sequence.sequence_mesh()
+    opt = sgd(spec["lr"])
+    params = ({k: v.detach() for k, v in model.named_parameters()} if spec.get("init") is None
+              else {k: torch.as_tensor(v).to(device) for k, v in spec["init"].items()})
+    step = sequence.make_sp_lm_train_step(model, opt, mesh)
+    batch = sequence.shard_lm_batch(spec["batch"], mesh, device=device)
+    (params, _, loss), counted = _counted(device, step, params, opt.init(params), batch)
+    return {"params": _numpy(params), "loss": float(loss), **counted}
 
 
 def run_jobs(device, jobs: list) -> list:

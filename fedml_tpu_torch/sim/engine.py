@@ -90,10 +90,31 @@ and all-gathers the trained stack, weights, step counts and losses in slot
 order; every rank then runs the server rule on the whole stack and
 evaluates the replicated model. Such rounds dispatch one at a time,
 eagerly: blocks and graphs are one rank's.
+
+Sharded client models (``mesh_shape=(C, M)`` and ``shard_rules``,
+``engine.py:150-173,420-505,1019-1072``): the mesh is ``clients x model``
+over ranks and the rule set (``parallel/rules.py``) gives every variable a
+partition spec over the ``model`` axis. The global model and the server
+state stay whole on every rank between rounds, as JAX's global arrays look
+to their callers; a round cuts this rank's block of each sharded tensor
+(``_compute_view``). Under an FSDP-style set (``gather_compute``) it
+gathers the blocks whole again (one all-gather each) and trains and
+aggregates exactly as the unsharded round: bitwise the unsharded round.
+Under a tensor-parallel set a module with a model axis
+(``TransformerLM.mp_axis``) is copied with this rank's blocks and trains
+them with its own collectives over the axis (its flash kernel on the rank's
+heads); the trained stack is gathered over the model axis and the server
+rule runs on the whole models, every rule as it is. A module without one
+(the conv zoo) computes a tensor-parallel plan's round on the gathered
+model, as an FSDP plan does.
+Packed lanes run per client shard (``engine.py:1690-1703``): each client
+rank runs its block of lanes over its block of slots, and the lanes'
+buffers are gathered in slot order before the aggregation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -125,17 +146,6 @@ from fedml_tpu_torch.sim.graphs import PassGraph, RoundGraph
 from fedml_tpu_torch.sim.prefetch import MetricsDrain, Prefetcher
 
 StateDict = dict[str, torch.Tensor]
-
-# SimConfig fields of the JAX engine that the port does not implement yet:
-# the values the port accepts (the JAX default first) and the ROADMAP item
-# that ports the rest (downlink coding, a wire-path plane, is refused in the
-# JAX sim engine's words before this table is read). The data-parallel mesh
-# (FedSim's mesh=) is ported; the model axis and its plans are not.
-_NOT_PORTED = {
-    "mesh_shape": ((None,), "§A12b"),
-    "shard_rules": ((None,), "§A12b"),
-}
-
 
 @dataclasses.dataclass
 class SimConfig:
@@ -208,16 +218,10 @@ class SimConfig:
                 "(loopback/shm/grpc/mqtt_s3), or 'none' for the "
                 "bit-identical sim path"
             )
-        for name, (accepted, item) in _NOT_PORTED.items():
-            value = getattr(self, name)
-            if value not in accepted:
-                raise NotImplementedError(
-                    f"SimConfig.{name}={value!r} is not ported to fedml_tpu_torch yet "
-                    f"(ROADMAP {item}); leave it at {accepted[0]!r}")
 
 
 def resolve_dispatch(config: SimConfig, nbytes: int, platform: str,
-                     ranks: int = 1) -> tuple[bool, bool]:
+                     ranks: int = 1, sharded: bool = False) -> tuple[bool, bool]:
     """``(on_device, block_dispatch)`` for training arrays of ``nbytes`` on a
     device of type ``platform`` (``"cuda"``, ``"cpu"``) in a mesh of
     ``ranks`` ranks: the JAX engine's rule (``fedml_tpu/sim/engine.py:681-691``).
@@ -226,14 +230,16 @@ def resolve_dispatch(config: SimConfig, nbytes: int, platform: str,
     ``config.block_dispatch`` says, by default with the dataset on the device
     and a device that is not the CPU, never with the dataset on the host,
     never under packed lanes (``pack_lanes`` > 0: a packed round dispatches
-    one pass at a time) and never over more than one rank, where each round
-    dispatches alone and eagerly, its collectives between the ranks' steps
-    (as the JAX rule turns blocks off for its sharded plans)."""
+    one pass at a time), never over more than one rank, where each round
+    dispatches alone and eagerly, its collectives between the ranks' steps,
+    and never under a sharded plan (``sharded``), as the JAX rule turns
+    blocks off for its sharded plans."""
     on_device = (config.stage_on_device if config.stage_on_device is not None
                  else nbytes <= 2 << 30)
     block = (config.block_dispatch if config.block_dispatch is not None
              else on_device and platform != "cpu")
-    return on_device, bool(block and on_device and config.pack_lanes <= 0 and ranks == 1)
+    return on_device, bool(block and on_device and config.pack_lanes <= 0 and ranks == 1
+                           and not sharded)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,7 +355,9 @@ class FedSim:
         on the rank count. A ``silo`` axis splits each batch's rows over the
         silo's ranks, which sum their gradients (and BatchNorm's moments) in
         each step. Every rank must build the same FedSim and run the same
-        rounds; each evaluates the replicated global model.
+        rounds; each evaluates the replicated global model. A ``model`` axis
+        (``config.mesh_shape`` builds a ``clients x model`` mesh over the
+        world) carries the ``config.shard_rules`` plan (module docstring).
     """
 
     def __init__(self, trainer: ClientTrainer, train_data: cohortlib.FederatedArrays,
@@ -384,6 +392,11 @@ class FedSim:
         self._per_client = bool(getattr(self.aggregator, "per_client", False))
         self._check_per_client(config)
         self._pack = self._check_pack(config, local_train_fn)
+        # the untouched trainer draws the initial variables (a tensor-parallel
+        # plan trains a copy of its module that holds this rank's blocks)
+        self._full_trainer = trainer
+        self._init_shard_plan(config)
+        trainer = self.trainer
         if local_train_fn is None:
             if config.cohort_execution == "vmap":
                 self._vmap_train = make_vmap_train(trainer, per_client=self._per_client)
@@ -404,23 +417,27 @@ class FedSim:
         if self._pack:
             # the lane length, fixed for the FedSim (engine.py:570-590): the
             # population's largest per-client step count, with capacity
-            # head room over the expected cohort load; a round that
-            # overflows every lane spills to an extra pass of the same shape
-            self._c_pad = config.client_num_per_round
+            # head room over the expected per-shard cohort load; a round that
+            # overflows every lane spills to an extra pass of the same shape.
+            # Each client rank runs its shard's lanes over its block of
+            # c_local slots, from slot row0
+            self._c_pad = self._slots(config.client_num_per_round)
+            self._c_local = self._c_pad // self._n_client_shards
+            self._row0 = self.mesh.coord(meshlib.CLIENT_AXIS) * self._c_local
             sizes = train_data.client_sizes()
             slots = self._steps * config.batch_size
             d = np.ceil(np.minimum(sizes, slots) / max(config.batch_size, 1)).astype(np.int64)
             t = trainer.epochs * d
             t_max = int(t.max()) if len(t) else 1
             mean_t = float(t.mean()) if len(t) else 1.0
-            need = config.pack_capacity_factor * mean_t * self._c_pad / config.pack_lanes
+            need = config.pack_capacity_factor * mean_t * self._c_local / config.pack_lanes
             self._s_lane = max(t_max, int(np.ceil(need)), 1)
             self._lane_step = torch.func.vmap(make_lane_step(trainer),
                                               in_dims=(0, 0, 0, None, None, 0, 0, None))
         nbytes = sum(np.asarray(a).nbytes for a in train_data.arrays.values())
         self._on_device, self._block_dispatch = resolve_dispatch(config, nbytes,
                                                                  self.device.type,
-                                                                 self.mesh.size)
+                                                                 self.mesh.size, self._spmd)
         # on-device staging: the training arrays live on the device and each
         # round (and the pooled train eval) gathers from them through an
         # index map; host staging keeps them on the host and copies each
@@ -479,20 +496,28 @@ class FedSim:
 
     def _init_mesh(self, config: SimConfig, mesh) -> None:
         """The rank mesh the rounds run over (``engine.py:317-348``), with
-        the JAX engine's conflict error and padding warning; the model axis
-        (the sharded plans) is refused."""
+        the JAX engine's conflict error and padding warning: ``mesh=``, or
+        ``config.mesh_shape``'s ``clients x model`` mesh over the world, or
+        with only ``shard_rules`` the ``1 x world`` model mesh, or the client
+        mesh over the world."""
         if config.mesh_shape is not None and mesh is not None:
             raise ValueError(
                 "SimConfig.mesh_shape and an explicit mesh= were both "
                 "given — one of them would silently win; configure the "
                 "mesh in exactly one place"
             )
-        self.mesh = mesh if mesh is not None else meshlib.client_mesh()
-        if meshlib.MODEL_AXIS in self.mesh.axis_names:
-            raise NotImplementedError(
-                f"a mesh with a '{meshlib.MODEL_AXIS}' axis (the sharded model plans) is not "
-                "ported to fedml_tpu_torch yet: ROADMAP §A12b")
-        self._shards = self.mesh.shape[meshlib.CLIENT_AXIS]
+        if mesh is not None:
+            self.mesh = mesh
+        elif config.mesh_shape is not None:
+            self.mesh = meshlib.shard_mesh(config.mesh_shape)
+        elif config.shard_rules:
+            # the flagship geometry when no shape is given: one client at
+            # a time, the whole mesh given to its model (the model that
+            # doesn't fit one chip is WHY the rules are on)
+            self.mesh = meshlib.shard_mesh((1, len(meshlib.world_ranks())))
+        else:
+            self.mesh = meshlib.client_mesh()
+        self._n_client_shards = self.mesh.shape[meshlib.CLIENT_AXIS]
         if config.robust_rule != "mean":
             # order-statistic rules run over the padded cohort stack; any
             # padding slots are zero-delta phantoms that bias the statistic
@@ -506,12 +531,12 @@ class FedSim:
                     "statistic is biased toward the current global; prefer "
                     "client_num_per_round divisible by the mesh",
                     config.robust_rule, config.client_num_per_round,
-                    c_pad - config.client_num_per_round, self._shards,
+                    c_pad - config.client_num_per_round, self._n_client_shards,
                 )
 
     def _slots(self, n: int) -> int:
         """``n`` cohort slots padded to a multiple of the client axis."""
-        return -(-n // self._shards) * self._shards
+        return -(-n // self._n_client_shards) * self._n_client_shards
 
     def _check_per_client(self, config: SimConfig) -> None:
         """The per-client mode's preconditions, with the JAX engine's
@@ -593,11 +618,6 @@ class FedSim:
                 "0 disables packing")
         if config.pack_lanes == 0:
             return False
-        if self.mesh.size > 1:
-            raise NotImplementedError(
-                f"pack_lanes={config.pack_lanes} over a mesh of {self.mesh.size} ranks: the "
-                "JAX engine bins the lanes per client shard, which is not ported to "
-                "fedml_tpu_torch yet: ROADMAP §A12b")
         if self._per_client:
             raise ValueError(
                 f"aggregator={self.aggregator.name!r} (per-client) "
@@ -627,6 +647,139 @@ class FedSim:
                 "dispatch one program per pass — leave block_dispatch "
                 "off (or unset) with pack_lanes")
         return True
+
+    # -- sharded client models (SimConfig.shard_rules) -----------------------
+
+    def _init_shard_plan(self, config: SimConfig) -> None:
+        """Resolve the rule set into a spec per variable, with the JAX
+        engine's guards and warnings (``engine.py:420-505``); under a
+        tensor-parallel set, rebind the trainer to a copy of its module that
+        holds this rank's blocks and reads the ``model`` axis."""
+        from fedml_tpu_torch.parallel import dispatch as displib
+
+        self._var_specs = None
+        self._ruleset = None
+        self._shard_gather = False
+        self._spmd = False
+        self._tp = False
+        if config.shard_rules:
+            from fedml_tpu_torch.parallel import rules as ruleslib
+
+            if meshlib.MODEL_AXIS not in self.mesh.axis_names:
+                raise ValueError(
+                    f"shard_rules={config.shard_rules!r} needs a mesh with "
+                    f"a '{meshlib.MODEL_AXIS}' axis — set SimConfig."
+                    "mesh_shape=(clients, model) or leave mesh= unset for "
+                    "the default 1 x all-devices model mesh"
+                )
+            if self._per_client:
+                raise ValueError(
+                    "shard_rules shards ONE broadcast global model over "
+                    "the mesh; per-client aggregators (decentralized/"
+                    "gossip) keep a model per client and need the "
+                    "unsharded path"
+                )
+            if config.block_dispatch:
+                raise ValueError(
+                    "block_dispatch scans whole rounds inside one program "
+                    "and cannot split the sharded round's train/aggregate "
+                    "dispatch boundary; leave block_dispatch off with "
+                    "shard_rules"
+                )
+            ruleset = ruleslib.rule_set(config.shard_rules)
+            self._ruleset = ruleset
+            self._shard_gather = ruleset.gather_compute
+            module = self.trainer.module
+            self._var_specs = ruleslib.match_partition_rules(ruleset.rules,
+                                                            module.state_dict())
+            self._spmd = displib.plan_is_sharded(self._var_specs)
+            if not self._spmd:
+                logging.warning(
+                    "shard_rules=%r matched no shardable leaf on this "
+                    "model (every rule resolved to the replicate "
+                    "default) — the round runs on the client-mapped "
+                    "shard_map path and the mesh's %d-way '%s' axis is "
+                    "pure replication",
+                    config.shard_rules,
+                    self.mesh.shape[meshlib.MODEL_AXIS], meshlib.MODEL_AXIS,
+                )
+            elif (not ruleset.gather_compute and ruleset.act_spec is not None
+                  and hasattr(module, "mp_axis")):
+                tp_module = displib.shard_module(module, self._var_specs, self.mesh,
+                                                 ruleset.groups_of)
+                tp_module.set_mp_axis(meshlib.MODEL_AXIS)
+                self.trainer = dataclasses.replace(self.trainer, module=tp_module)
+                self._tp = True
+        elif meshlib.MODEL_AXIS in self.mesh.axis_names:
+            # a model axis with no shard plan is pure replication: every
+            # model-column device computes the same round redundantly —
+            # name it loudly instead of silently delivering 1/(model-axis)
+            # of the mesh's throughput
+            logging.warning(
+                "mesh has a %d-way '%s' axis but no shard_rules — the "
+                "model axis devices replicate the same work; set "
+                "SimConfig.shard_rules to shard the client model (or drop "
+                "mesh_shape)",
+                self.mesh.shape[meshlib.MODEL_AXIS], meshlib.MODEL_AXIS,
+            )
+
+    def _compute_view(self, variables: StateDict) -> StateDict:
+        """The model layout the training and eval math runs in
+        (``engine.py:1021-1031``), from the whole model: this rank's block
+        of each sharded tensor (a copy) under a tensor-parallel plan; under
+        an FSDP-style plan and for a module without a tensor-parallel form
+        the blocks gathered whole (one all-gather per sharded tensor, a
+        concatenation: every op sees the unsharded round's tensors); the
+        variables as they are without a sharded plan."""
+        if not self._spmd:
+            return variables
+        from fedml_tpu_torch.parallel import dispatch as displib
+
+        groups = self._ruleset.groups_of
+        blocks = {}
+        for k, v in variables.items():
+            block = displib.shard(v, self._var_specs[k], self.mesh, groups(k), name=repr(k))
+            blocks[k] = v if block is v else block.clone()
+        return blocks if self._tp else displib.replicate(blocks, self._var_specs, self.mesh,
+                                                         groups)
+
+    def _model_axis(self):
+        """The ``model`` axis bound for a tensor-parallel module's
+        collectives (nothing bound otherwise)."""
+        if not self._tp:
+            return contextlib.nullcontext()
+        return collectives.bind(meshlib.MODEL_AXIS, self.mesh.group(meshlib.MODEL_AXIS))
+
+    def _whole_stack(self, stack: StateDict) -> StateDict:
+        """A trained ``[C, ...]`` stack whole for the server rule: a
+        tensor-parallel plan's blocks gathered over the model axis (the
+        other stacks are whole already)."""
+        if not self._tp:
+            return stack
+        from fedml_tpu_torch.parallel import dispatch as displib
+
+        return displib.unshard_tree(stack, self._var_specs, self.mesh,
+                                    self._ruleset.groups_of, lead=1)
+
+    def shard_summary(self) -> dict:
+        """Static sharded-model accounting (empty when no shard plan is
+        configured): the rule set, mesh geometry, the program's mode and how
+        many variable tensors actually shard, logged at run start
+        (``engine.py:1873-1895``, JAX's keys: ``mode`` is ``"pjit"`` for the
+        sharded round, ``"shard_map"`` for the client-mapped one)."""
+        if not self.config.shard_rules:
+            return {}
+        from fedml_tpu_torch.parallel import dispatch as displib
+
+        return {
+            "shard_rules": self.config.shard_rules,
+            "mesh": dict(self.mesh.shape),
+            "mode": "pjit" if self._spmd else "shard_map",
+            "gather_compute": self._shard_gather,
+            "sharded_leaves": sum(1 for s in self._var_specs.values()
+                                  if displib.spec_is_sharded(s)),
+            "total_leaves": len(self._var_specs),
+        }
 
     @property
     def pipeline_depth(self) -> int:
@@ -672,8 +825,9 @@ class FedSim:
     # -- host loop -----------------------------------------------------------
 
     def init_variables(self) -> StateDict:
-        """Fresh model variables drawn from ``config.seed``."""
-        return self.trainer.init(rnglib.generator(self.config.seed, self.device))
+        """Fresh model variables drawn from ``config.seed`` (the whole
+        model)."""
+        return self._full_trainer.init(rnglib.generator(self.config.seed, self.device))
 
     def init_round_variables(self, overrides: StateDict | None = None) -> StateDict:
         """Model state in the engine's layout (``engine.py:1418-1453``):
@@ -872,7 +1026,8 @@ class FedSim:
         dispatches alone."""
         if self.mesh.size > 1:
             raise ValueError(f"a block of rounds runs on one rank; over {self.mesh.size} ranks "
-                             "each round dispatches alone (stage_round)")
+                             "each round dispatches alone (stage_round; blocks over ranks "
+                             "are ROADMAP §A12b.5)")
         with trace.span("engine/stage", round=start_round, n_rounds=n_rounds, block=True):
             rounds = range(start_round, start_round + n_rounds)
             cohorts = [self._sample_cohort(r) for r in rounds]
@@ -900,6 +1055,16 @@ class FedSim:
         (the planner cannot know who drops mid-round; dropped clients are
         re-packed by their actual streams into overflow passes)."""
         idx, weights, num_steps = self._host_cohort_indices(cohort, round_idx)
+        predicted = None
+        if self._population is not None:
+            _, predicted = self._population_budgets(self._population_view(round_idx))
+        pad = self._slots(len(weights)) - len(weights)
+        if pad:  # zero-weight, fully masked slots, as the padded round's
+            idx = np.concatenate([idx, np.full((pad,) + idx.shape[1:], -1, np.int32)])
+            weights = np.concatenate([weights, np.zeros(pad, np.float32)])
+            num_steps = np.concatenate([num_steps, np.zeros(pad, np.int32)])
+            if predicted is not None:
+                predicted = np.concatenate([predicted, np.zeros(pad, np.int32)])
         if len(weights) != self._c_pad:
             raise ValueError(
                 f"packed execution compiled for {self._c_pad} cohort slots "
@@ -908,12 +1073,10 @@ class FedSim:
                 "need the padded path")
         B = self.config.batch_size
         data_steps = -(-(idx >= 0).reshape(len(weights), -1).sum(axis=1) // B)
-        predicted = None
-        if self._population is not None:
-            _, predicted = self._population_budgets(self._population_view(round_idx))
         plan = cohortlib.pack_cohort(
             num_steps, data_steps, self._steps, self.trainer.epochs,
-            self.config.pack_lanes, self._s_lane, 1, predicted_steps=predicted)
+            self.config.pack_lanes, self._s_lane, self._n_client_shards,
+            predicted_steps=predicted)
         return idx, weights, num_steps, plan
 
     def _plan_stats(self, n_slots: int, plan) -> dict:
@@ -960,7 +1123,12 @@ class FedSim:
         trace.counter("engine/overflow_passes", len(plan.passes) - 1, round=round_idx)
         sites = self.trainer.dropout_sites
         passes = []
+        lps = self.config.pack_lanes
+        lanes = slice(self._row0 // self._c_local * lps, (self._row0 // self._c_local + 1) * lps)
         for pp in plan.passes:
+            # this client shard's block of lanes (the whole pass on one rank)
+            pp = dataclasses.replace(pp, **{f: getattr(pp, f)[lanes]
+                                            for f in ("slot", "gidx", "sidx", "boundary")})
             pidx = cohortlib.pack_index_map(idx, pp)
             if self._on_device:
                 data = self._stage_put(pidx)
@@ -986,8 +1154,9 @@ class FedSim:
         the ``[C + L, E * S]`` per-(client, chain step) loss and weight
         buffers the round's loss is rebuilt from. Row ``C + l`` is lane
         ``l``'s scratch row, where its writes land when it runs no client
-        (the JAX scatter's ``mode="drop"``)."""
-        rows = self._c_pad + lanes
+        (the JAX scatter's ``mode="drop"``). Over client ranks, ``C`` is
+        this rank's block of slots."""
+        rows = self._c_local + lanes
         T = self.trainer.epochs * self._steps
         stack = {k: torch.zeros((rows,) + v.shape, dtype=v.dtype, device=v.device)
                  for k, v in variables.items()}
@@ -1021,7 +1190,9 @@ class FedSim:
         params = {k: lanes[k] for k in param_names}
         state = {k: v for k, v in lanes.items() if k not in params}
         opt_state = {k: v.unsqueeze(0).expand((L,) + v.shape) for k, v in opt0.items()}
-        scratch = self._c_pad + torch.arange(L, device=lp.slot.device)
+        scratch = self._c_local + torch.arange(L, device=lp.slot.device)
+        # a slot's row of this rank's block of the stack
+        rows = lp.slot if self._row0 == 0 else lp.slot - self._row0
         ones = torch.ones(L, dtype=written.dtype, device=written.device)
         lane_draws = None
         if draws is not None:
@@ -1037,6 +1208,7 @@ class FedSim:
                 batch["dropout"] = dropout.masks(t)
             slot, gidx = lp.slot[:, t], lp.gidx[:, t]
             live = slot >= 0
+            slot = rows[:, t]
             params, state, opt_state, loss, w = self._lane_step(
                 params, state, opt_state, global_variables, opt0, batch,
                 live & (gidx == 0), prox_params)
@@ -1104,7 +1276,7 @@ class FedSim:
         if self._per_client:
             # this rank's block of output rows, which a rule may compute
             # alone (engine.py:951-972)
-            n_local = len(weights) // self._shards
+            n_local = len(weights) // self._n_client_shards
             extras["shard_start"] = self.mesh.coord(meshlib.CLIENT_AXIS) * n_local
             extras["shard_size"] = n_local
         # the per-client mode's rule maps the previous stack and the trained
@@ -1142,26 +1314,38 @@ class FedSim:
 
     def _run_packed(self, staged: PackedStaged, global_variables: StateDict, server_state):
         """One packed round (``engine.py:1829-1856``): zeroed buffers, the
-        passes one after another (on the card each one replay of the
-        FedSim's CUDA graph of the pass, ``sim/graphs.py``; on the CPU
-        eagerly), then the aggregation."""
-        dropout = self._dropout(staged.round_idx, len(staged.cohort))
-        if self.device.type == "cuda":
+        passes one after another (on the card on one rank each one replay of
+        the FedSim's CUDA graph of the pass, ``sim/graphs.py``; over several
+        ranks and on the CPU eagerly), then the aggregation. Over client
+        ranks each rank's block of the buffers is gathered in slot order
+        first; under a sharded plan the passes train the compute view and
+        the server rule runs on the whole models."""
+        dropout = self._dropout(staged.round_idx, len(staged.cohort), block=False)
+        view = self._compute_view(global_variables)
+        if self.device.type == "cuda" and self.mesh.size == 1:
             self.capture_pass_graph(staged=staged, variables=global_variables)
             graph = self._pass_graphs[self._pass_graph_key(staged)]
-            bufs = graph.run_round(staged, global_variables, dropout)
+            bufs = graph.run_round(staged, view, dropout)
         else:
             L = staged.passes[0].slot.shape[0]
-            bufs = self._packed_buffers(global_variables, L)
+            bufs = self._packed_buffers(view, L)
             lane_dropout = (LaneDropout(self.trainer.dropout_sites, self._s_lane, L,
                                         self.config.batch_size, self.device)
                             if dropout is not None else None)
-            for lp in staged.passes:
-                if lane_dropout is not None:
-                    lane_dropout.fill(dropout, lp.dropout)
-                self.lane_pass(lp, global_variables, bufs, staged.draws, lane_dropout)
-        return self._packed_aggregate(global_variables, server_state, bufs, staged.weights,
-                                      staged.num_steps, self._round_noise(staged.round_idx))
+            with self._model_axis():
+                for lp in staged.passes:
+                    if lane_dropout is not None:
+                        lane_dropout.fill(dropout, lp.dropout)
+                    self.lane_pass(lp, view, bufs, staged.draws, lane_dropout)
+        if self.mesh.size > 1:
+            stack, written, lbuf, wbuf = bufs
+            c = self._c_local
+            stack, written, lbuf, wbuf = self._gather_slots(
+                {k: v[:c] for k, v in stack.items()}, written[:c], lbuf[:c], wbuf[:c])
+            bufs = (self._whole_stack(stack), written, lbuf, wbuf)
+        return self._packed_aggregate(
+            global_variables, server_state, bufs, staged.weights, staged.num_steps,
+            self._round_noise(staged.round_idx))
 
     @staticmethod
     def _pass_graph_key(staged: PackedStaged) -> tuple:
@@ -1183,13 +1367,16 @@ class FedSim:
             raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
         if not self._pack:
             raise ValueError("capture_pass_graph needs packed lanes (pack_lanes > 0)")
+        if self.mesh.size > 1:
+            raise ValueError(f"a packed round over {self.mesh.size} ranks runs its passes "
+                             "eagerly: no CUDA graph of them")
         staged = staged if staged is not None else self.stage_round(round_idx)
         key = self._pass_graph_key(staged)
         if key in self._pass_graphs:
             return 0.0
         t0 = time.perf_counter()
-        if variables is None:
-            variables = self.init_round_variables()
+        variables = self._compute_view(variables if variables is not None
+                                       else self.init_round_variables())
         self._pass_graphs[key] = PassGraph(self, staged, variables)
         return time.perf_counter() - t0
 
@@ -1202,7 +1389,8 @@ class FedSim:
         return {
             "pack_lanes": self.config.pack_lanes,
             "s_lane": self._s_lane,
-            "lane_capacity_per_pass": self.config.pack_lanes * self._s_lane,
+            "lane_capacity_per_pass":
+                self.config.pack_lanes * self._n_client_shards * self._s_lane,
             "padded_scan_steps": self._c_pad * self.trainer.epochs * self._steps,
         }
 
@@ -1213,13 +1401,18 @@ class FedSim:
             return {}
         return self._population.describe()
 
-    def _dropout(self, round_idx: int, n_clients: int) -> DropoutStream | None:
+    def _dropout(self, round_idx: int, n_clients: int,
+                 block: bool = True) -> DropoutStream | None:
+        """The round's dropout masks: over several ranks with ``block``,
+        this rank's block of slots and rows of them (the padded round);
+        the whole cohort's otherwise (the packed lanes' order picks a pass's
+        slots from it)."""
         cfg = self.config
         if not self.trainer.dropout_sites:
             return None
         stream = DropoutStream(self.trainer.dropout_sites, cfg.seed, round_idx, n_clients,
                                cfg.batch_size, self.device)
-        if self.mesh.size == 1:
+        if self.mesh.size == 1 or not block:
             return stream
         return _BlockDropout(stream, *meshlib.cohort_batch_slices(
             self.mesh, self._slots(n_clients), cfg.batch_size))
@@ -1263,13 +1456,16 @@ class FedSim:
         cfg = self.config
         if noise is None:
             noise = self._round_noise(staged.round_idx)
+        # the layout the clients train (the whole model, or a
+        # tensor-parallel plan's blocks)
+        view = self._compute_view(global_variables)
         n = staged.weights.shape[0]  # the slots this rank trains
         weights, draws, num_steps = staged.weights, staged.draws, staged.num_steps
         multirank = self.mesh.size > 1
         # the slots' own models in the per-client mode: this rank's rows
         first = self.mesh.coord(meshlib.CLIENT_AXIS) * n if multirank else 0
-        start_stack = ({k: v[first:first + n] for k, v in global_variables.items()}
-                       if self._per_client and multirank else global_variables)
+        start_stack = ({k: v[first:first + n] for k, v in view.items()}
+                       if self._per_client and multirank else view)
 
         def client_batches(c=None):
             if staged.batches is not None:
@@ -1280,7 +1476,7 @@ class FedSim:
 
         silo = collectives.bind(meshlib.SILO_AXIS, self.mesh.group(meshlib.SILO_AXIS))
         if cfg.cohort_execution == "vmap":
-            with silo:
+            with silo, self._model_axis():
                 clients, train_metrics = self._vmap_train(
                     start_stack, client_batches(), num_steps, draws, dropout)
             losses_t = train_metrics["train_loss"]
@@ -1290,7 +1486,7 @@ class FedSim:
             def trained_clients():
                 for c in range(n):
                     start = ({k: v[c] for k, v in start_stack.items()}
-                             if self._per_client else global_variables)
+                             if self._per_client else view)
                     variables, metrics = self._local_train(
                         start, client_batches(c),
                         (staged.num_steps[c] if staged.num_steps_host is None
@@ -1301,7 +1497,7 @@ class FedSim:
                     yield variables
 
             if multirank:  # the rank's block, stacked in its silo for the gather
-                with silo:
+                with silo, self._model_axis():
                     clients = _stack_as_they_come(trained_clients(), n)
                 losses_t = torch.stack(losses)
             else:  # folded into the server rule as each client finishes
@@ -1309,6 +1505,7 @@ class FedSim:
         if multirank:
             clients, weights, num_steps, losses_t = self._gather_slots(
                 clients, weights, num_steps, losses_t)
+            clients = self._whole_stack(clients)
         new_global, server_state, agg_metrics = self._aggregate(
             global_variables, clients, weights, num_steps, server_state, noise)
         if cfg.cohort_execution != "vmap" and not multirank:
@@ -1348,7 +1545,8 @@ class FedSim:
             raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
         if self.mesh.size > 1:
             raise ValueError(f"a round over {self.mesh.size} ranks runs eagerly, its "
-                             "collectives between the ranks' steps: no CUDA graph of it")
+                             "collectives between the ranks' steps: no CUDA graph of it "
+                             "(ROADMAP §A12b.5)")
         if not self._on_device:
             raise ValueError("block dispatch needs the on-device dataset (stage_on_device): "
                              "a block's rounds gather from it")
@@ -1415,15 +1613,17 @@ class FedSim:
         ``eval_batch``."""
         if not self._can_eval:
             return {}
+        variables = self._compute_view(variables)
         if self._on_device:
             train_batches = self._gather_batches(self._dataset, self._train_eval)
         else:
             train_batches = {k: self._stage_put(v) for k, v in self._train_eval.items()}
-        queued = [("Train", self._eval(variables, train_batches))]
-        if self._test_batches is not None:
-            test_batches = (self._test_batches if self._on_device else
-                            {k: self._stage_put(v) for k, v in self._test_batches.items()})
-            queued.append(("Test", self._eval(variables, test_batches)))
+        with self._model_axis():
+            queued = [("Train", self._eval(variables, train_batches))]
+            if self._test_batches is not None:
+                test_batches = (self._test_batches if self._on_device else
+                                {k: self._stage_put(v) for k, v in self._test_batches.items()})
+                queued.append(("Test", self._eval(variables, test_batches)))
         names = [f"{split}/{m}" for split, _ in queued for m in ("Acc", "Loss")]
         values = torch.stack([out[m].float() for _, out in queued for m in ("Acc", "Loss")])
         return dict(zip(names, values.tolist()))
@@ -1464,6 +1664,7 @@ class FedSim:
         if not self._can_eval:
             return {}
         cfg = self.config
+        variables = self._compute_view(variables)
         resident = data is None and self._on_device
         data = data if data is not None else self.train_data
         ids = np.asarray(client_ids if client_ids is not None else np.arange(data.num_clients))
@@ -1487,7 +1688,8 @@ class FedSim:
             else:
                 batches = {k: self._stage_put(v) for k, v in
                            cohortlib.gather_index_stack(data.arrays, idx).items()}
-            m = self._client_eval(variables, batches)
+            with self._model_axis():
+                m = self._client_eval(variables, batches)
             outs.append({k: v[:len(sel)].cpu().numpy() for k, v in m.items()})
         return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
@@ -1592,7 +1794,7 @@ class FedSim:
             # a capture may not overlap the prefetch thread's pinned copies
             self.capture_round_graph(blocks[0][0], variables=variables,
                                      server_state=server_state)
-        if self._pack and plan and self.device.type == "cuda":
+        if self._pack and plan and self.device.type == "cuda" and self.mesh.size == 1:
             self.capture_pass_graph(plan[0][0], variables=variables)
         prefetch = Prefetcher(plan, self._stage_segment, depth) if depth and plan else None
         drain = MetricsDrain(depth)

@@ -114,14 +114,23 @@ SMALL = ["--dataset", "synthetic", "--client_num_in_total", "4", "--client_num_p
 
 @pytest.mark.parametrize("argv,item", UNPORTED)
 def test_unported_flags_raise_with_their_roadmap_item(monkeypatch, tmp_path, argv, item):
-    """The multi-GPU flags (§A12) raise naming their ROADMAP item. The
+    """The model-axis flags (§A12) are ported: ``--mesh_shape`` lays its
+    mesh over the world the run is started in, so in one process a 2 x 4
+    mesh raises ``shard_mesh``'s count error, and ``--shard_rules`` alone
+    runs on the default 1 x 1 model mesh, bitwise the unsharded run. The
     downlink delta coding flags (§A11.4) are ported: each case runs on a
     small federation as the JAX CLI runs it (the same record keys and the
     same ``Comm/*`` byte counts), or, where the JAX CLI refuses it (a
     downlink codec on the sim engine), the port refuses it in its words."""
     if item != "§A11.4":
-        with pytest.raises(NotImplementedError, match=item):
-            port_cli.main(argv + ["--device", "cpu"])
+        full = SMALL + ["--data_dir", str(tmp_path / "none"), "--device", "cpu"]
+        if "--mesh_shape" in argv:
+            with pytest.raises(ValueError, match=r"requires 8 devices .* only 1 are available"):
+                port_cli.main(full + argv)
+            return
+        got, plain = port_cli.main(full + argv), port_cli.main(full)
+        assert {k: v for k, v in got.items() if k != "round_time"} == \
+            {k: v for k, v in plain.items() if k != "round_time"}
         return
     if "grpc" in argv:
         for mod in (jfd, tfd):

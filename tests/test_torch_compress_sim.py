@@ -370,7 +370,8 @@ def test_compressed_resume_is_bitwise(tmp_path):
 def test_simconfig_keeps_only_the_unported_fields():
     from fedml_tpu_torch.sim import engine
 
-    assert sorted(engine._NOT_PORTED) == ["mesh_shape", "shard_rules"]
+    # every field is ported: the model axis's fields are accepted too
+    SimConfig(mesh_shape=(2, 4), shard_rules="transformer_fsdp")
     SimConfig(compressor="topk+q4", topk_frac=0.1, quantize_bits=4, error_feedback=False)
     assert dataclasses.replace(SimConfig(), downlink_compressor="none")
     # downlink delta coding is a wire-path plane: the sim engine refuses a

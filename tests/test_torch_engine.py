@@ -238,10 +238,10 @@ def test_simconfig_rejects_unported_fields():
     SimConfig(block_dispatch=True)
     SimConfig(population="speed=const:1", pack_lanes=2, pack_capacity_factor=2.0)
     SimConfig(compressor="q8", error_feedback=False)
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        SimConfig(mesh_shape=(2, 4))
-    with pytest.raises(NotImplementedError, match="shard_rules"):
-        SimConfig(shard_rules="cnn_tp")
+    # the model axis is ported: SimConfig takes both, FedSim lays the mesh
+    # over the world (tests/test_torch_shard.py)
+    SimConfig(mesh_shape=(2, 4))
+    SimConfig(shard_rules="cnn_tp")
     with pytest.raises(ValueError, match="downlink delta coding is a wire-path plane"):
         SimConfig(downlink_compressor="q8")
     SimConfig(robust_rule="median", norm_bound=1.0, dp_stddev=0.1)

@@ -90,7 +90,10 @@ def test_every_port_module_imports_without_jax_sklearn_or_yaml():
             "fedml_tpu_torch.parallel.__init__", "fedml_tpu_torch.parallel.mesh",
             "fedml_tpu_torch.parallel.collectives", "fedml_tpu_torch.parallel.multihost",
             "fedml_tpu_torch.parallel.launch", "fedml_tpu_torch.parallel.rehearsal",
-            "fedml_tpu_torch.ops.syncbn", "fedml_tpu_torch.exp.main_multihost"} <= set(modules)
+            "fedml_tpu_torch.ops.syncbn", "fedml_tpu_torch.exp.main_multihost",
+            "fedml_tpu_torch.parallel.rules", "fedml_tpu_torch.parallel.dispatch",
+            "fedml_tpu_torch.parallel.ring_attention",
+            "fedml_tpu_torch.parallel.sequence"} <= set(modules)
     code = "import importlib\n" + "".join(
         f"importlib.import_module({m!r})\n" for m in modules if not m.endswith("__main__"))
     code += "import chip_smoke\n"

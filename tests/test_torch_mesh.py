@@ -210,13 +210,17 @@ def _two_ranks():
     return tmesh.RankMesh(np.arange(2), ("clients",), {})
 
 
-def test_fedsim_refuses_the_model_axis_and_two_mesh_sources():
-    with pytest.raises(NotImplementedError, match="ROADMAP §A12b"):
+def test_fedsim_refuses_the_model_axis_and_two_mesh_sources(caplog):
+    """A model axis without shard rules is pure replication, named in the
+    JAX engine's words; a 1 x 2 ``mesh_shape`` needs two ranks
+    (``shard_mesh``'s count error without a world); a mesh given twice is
+    refused."""
+    with caplog.at_level(logging.WARNING):
         _sim(tmesh.RankMesh(np.arange(2).reshape(1, 2), ("clients", "model"), {}))
-    with pytest.raises(NotImplementedError, match=r"mesh_shape.*§A12b"):
-        SimConfig(mesh_shape=(1, 2))
-    cfg = SimConfig(client_num_in_total=6, client_num_per_round=3)
-    object.__setattr__(cfg, "mesh_shape", (1, 1))  # past SimConfig's own refusal
+    assert "mesh has a 2-way 'model' axis but no shard_rules" in caplog.text
+    with pytest.raises(ValueError, match=r"requires 2 devices .* only 1 are available"):
+        _sim(None, mesh_shape=(1, 2))
+    cfg = SimConfig(client_num_in_total=6, client_num_per_round=3, mesh_shape=(1, 1))
     train, test = gaussian_blobs(n_clients=6, samples_per_client=16, num_classes=4, seed=1)
     with pytest.raises(ValueError, match="mesh_shape and an explicit mesh= were both given"):
         FedSim(ClientTrainer(module=create_model("lr", 4, device="cpu", input_shape=(16,))),
@@ -224,8 +228,11 @@ def test_fedsim_refuses_the_model_axis_and_two_mesh_sources():
 
 
 def test_packed_lanes_and_blocks_over_ranks_are_refused():
-    with pytest.raises(NotImplementedError, match=r"pack_lanes=2 over a mesh of 2.*§A12b"):
-        _sim(_two_ranks(), pack_lanes=2)
+    """Packed lanes run per client shard (the lanes' geometry of a client
+    mesh of two, seen without a world); blocks over ranks stay off."""
+    packed = _sim(_two_ranks(), pack_lanes=2)
+    assert packed.pack_summary()["lane_capacity_per_pass"] == 2 * 2 * packed._s_lane
+    assert (packed._c_pad, packed._c_local, packed._row0) == (4, 2, 0)
     sim = _sim(_two_ranks(), block_dispatch=True)
     assert not sim._block_dispatch  # blocks turn off over ranks, as JAX's sharded plans
     with pytest.raises(ValueError, match="each round dispatches alone"):

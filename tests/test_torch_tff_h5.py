@@ -327,7 +327,9 @@ def test_repro_stackoverflow_nwp_matches_jax(monkeypatch, tmp_path):
 
 
 def test_repro_stackoverflow_nwp_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="§A12"):
+    """``--mesh_shape`` lays its mesh over the world the run is started in:
+    a 1 x 2 mesh in one process raises ``shard_mesh``'s count error."""
+    with pytest.raises(ValueError, match=r"requires 2 devices .* only 1 are available"):
         repro_stackoverflow_nwp.main(["--client_num_in_total", "4", "--test_clients", "2",
                                       "--vocab_size", "30", "--mesh_shape", "1x2",
                                       "--data_dir", str(tmp_path), "--device", "cpu"])

@@ -136,9 +136,17 @@ def test_registry_and_unported_options():
     assert convert.from_flax(convert.to_flax(deeplab.state_dict())).keys() == \
         deeplab.state_dict().keys()
     assert "ASPP_0" in convert.to_flax(deeplab.state_dict())["params"]
+    # ring attention and the model axis are ported (tests/test_torch_longcontext.py,
+    # tests/test_torch_shard.py): with no sp or model group bound (one rank)
+    # each is the plain model
+    x = torch.randint(0, V, (2, T))
+    plain = create_model("transformer", V, device="cpu", embed_dim=D, num_heads=H, max_len=T)
     for kwargs in ({"attn_impl": "ring"}, {"mp_axis": "model"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_model("transformer", V, device="cpu", embed_dim=D, num_heads=H, **kwargs)
+        other = create_model("transformer", V, device="cpu", embed_dim=D, num_heads=H,
+                             max_len=T, **kwargs)
+        other.load_state_dict(plain.state_dict())
+        np.testing.assert_allclose(other(x).detach().numpy(), plain(x).detach().numpy(),
+                                   atol=1e-5)
 
 
 def _counted_flash(monkeypatch):
